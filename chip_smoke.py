@@ -1,24 +1,40 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — the bias-only headline problem (a 120 s
-synthetic session: 1,200 rigs, 20,000 landmarks, 394,062 Fisheye624
-observations, one inertial chain with IMU bias) through
-`pipeline.builder.build_synthetic_problem`, `problem.optimizer.Problem` and
-`problem.optimizer.optimize` — in phases, one printed line each:
+Drives the port's two main paths through the entry points a user calls:
+
+  bias-only    the 120 s headline (1,200 rigs, 20,000 landmarks, ~394k
+               Fisheye624 observations, one inertial chain with IMU bias)
+               through `pipeline.builder.build_synthetic_problem` and
+               `problem.optimizer.optimize` (kernels K1-K6);
+  full-sensor  a 600 s Aria-style session with two IMUs and a rolling-shutter
+               camera, readout and time offset estimated (6,000 rigs, 120
+               five-second calibration windows, ~60k landmarks, ~1.75M
+               observations) through `pipeline.synthetic_io.write_session_dir`
+               -> `pipeline.session_data.load_session` ->
+               `pipeline.adapter.SessionAdapter(...).build()` -> `optimize`
+               (kernels K7-K10 and K3 at rig_k = 9).
+
+Phases, one printed line each (per path):
 
   device       the card's name and power limit (nvidia-smi); TF32 off
-  build        nvcc build of csrc/*.cu into the package's _build/ directory
-  problem      host build of the headline problem, moved to the card as f32
-  kernels      each CUDA kernel against its plain PyTorch version on the card,
-               at the problem's real shapes (J from one linearization):
-               error relative to the max-abs of the plain version evaluated
-               in float64 on the same inputs; median times of the kernel and
-               of the plain version in float32
-  consistency  one LM iteration through the kernels vs the plain versions
-               from the initial state: new cost and |step| within 1e-3
-  main         5 LM iterations through optimize(); every kernel must launch
-               and the cost must fall
+  build        nvcc build of csrc/*.cu (one nvcc per source, in parallel);
+               ptxas registers and spills of the kernels
+  problem      the problem build, per stage
+  kernels      each CUDA kernel against its plain PyTorch version on the card
+               at the problem's real shapes (J from one linearization): error
+               relative to the max-abs of the plain version evaluated in
+               float64 on the same inputs; median times of the kernel and of
+               the plain version in float32; the least time the card could
+               take (bound)
+  consistency  one LM iteration through the kernels vs the plain versions,
+               from the initial state
+  phases       where one LM attempt's time goes: host time of each phase
+               (synchronized, median of 3), and the device's busy share over
+               one attempt (torch.profiler)
+  main         5 LM iterations through optimize() with the launch counts set
+               to 0 just before; every kernel of the path must launch and the
+               cost must fall
 
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -34,26 +50,44 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 PKG = "visual_inertial_bundle_adjustment_tpu_torch"
-# kernel name -> (CUDA source, the TPU Pallas kernel it replaces)
+JAXPKG = "visual_inertial_bundle_adjustment_tpu"
+# kernel wrapper name -> (K#, CUDA source, the TPU Pallas kernel it replaces, path)
 KERNELS = {
-    "visual_linearize": (f"{PKG}/csrc/visual_linearize.cu",
-                         "visual_inertial_bundle_adjustment_tpu/ops/visual_fused.py:139"),
-    "assemble_rig": (f"{PKG}/csrc/assemble_rig.cu",
-                     "visual_inertial_bundle_adjustment_tpu/ops/segments.py:840"),
-    "precond_rig": (f"{PKG}/csrc/precond_rig.cu",
-                    "visual_inertial_bundle_adjustment_tpu/ops/segments.py:1861"),
-    "schur_down": (f"{PKG}/csrc/schur.cu",
-                   "visual_inertial_bundle_adjustment_tpu/ops/segments.py:586,1318"),
-    "schur_up": (f"{PKG}/csrc/schur.cu",
-                 "visual_inertial_bundle_adjustment_tpu/ops/segments.py:725,1347"),
+    "visual_linearize": ("K1", f"{PKG}/csrc/visual_linearize.cu",
+                         f"{JAXPKG}/ops/visual_fused.py:139", "bias"),
+    "assemble_rig": ("K2", f"{PKG}/csrc/assemble_rig.cu", f"{JAXPKG}/ops/segments.py:840", "bias"),
+    "precond_rig": ("K3", f"{PKG}/csrc/precond_rig.cu", f"{JAXPKG}/ops/segments.py:1861",
+                    "bias+full"),
+    "schur_pcg": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347", "bias"),
+    "schur_up": ("K5", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:725", "bias"),
+    "schur_down": ("K6", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:586", "bias"),
+    "rs_linearize": ("K7", f"{PKG}/csrc/rs_linearize.cu", f"{JAXPKG}/ops/rs_fused.py:131",
+                     "full"),
+    "assemble_cal": ("K8", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1674",
+                     "full"),
+    "schur_pcg_cal": ("K9", f"{PKG}/csrc/cal_segments.cu",
+                      f"{JAXPKG}/ops/segments.py:1468,1519", "full"),
+    "schur_down_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1005",
+                       "full"),
+    "schur_up_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1146",
+                     "full"),
 }
 # bounds relative to the plain version's max-abs (tests/test_tpu_accuracy.py)
 TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
+TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
+# kernel vs plain LM iteration, relative (see the consistency phases)
+TOL_ITER = 1e-3
 LM_ITERATIONS = 5
 PCG_ITERATIONS = 40
+# one NVIDIA H100 SXM: HBM rate; float32 outside the tensor cores and
+# float64 (NVIDIA's data sheet) for the two linearization kernels, which
+# compute in float64 registers
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS, F64_FLOPS = 67e12, 34e12
 
 
 def phase(name, msg):
@@ -84,38 +118,227 @@ def cuda_time(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def main():
+def nbytes(*xs):
+    """Bytes of every tensor in xs (through tuples, lists, NamedTuples)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+    total = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+    return total
+
+
+def flat(out):
+    """Kernel outputs as a flat list of tensors (lists of blocks expanded)."""
+    items = out if isinstance(out, tuple) else (out,)
+    res = []
+    for x in items:
+        res.extend(x if isinstance(x, list) else [x])
+    return [x for x in res if x is not None]
+
+
+class Bench:
+    """Holds each kernel against its plain version and times both."""
+
+    def __init__(self):
+        self.results = {}
+
+    def compare(self, name, fn, args, labels_tol, read, flops, f64=False, record=True):
+        """fn(*args) -> outputs. The kernel's outputs are held against the
+        plain version evaluated in float64 on the same inputs (so the bound
+        measures the kernel's own error, not the float32 rounding of two
+        summation orders); the kernel is timed against the plain version in
+        float32, the type the main path runs. `read` lists the tensors the
+        function reads (each counted once), `flops` its arithmetic."""
+        from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+        import torch
+
+        out_k = flat(fn(*args))
+        with _kernels.plain_reference():
+            out_p = flat(fn(*_kernels.to_f64(args)))
+        torch.cuda.synchronize()
+        errs = []
+        for (label, tol), a, b in zip(labels_tol, out_k, out_p):
+            r, d = rel_err(a, b)
+            errs.append((label, r, d))
+            if not (r <= tol):
+                raise AssertionError(f"{name}.{label}: rel err {r:.3e} > {tol:g}")
+        ms = cuda_time(lambda: fn(*args))
+        with _kernels.plain_reference():  # fewer repetitions: the plain K7 takes seconds
+            plain_ms = cuda_time(lambda: fn(*args), reps=5, warmup=1)
+        byte_ms = (nbytes(read) + nbytes(out_k)) / HBM_BYTES_PER_S * 1e3
+        flop_ms = flops / (F64_FLOPS if f64 else F32_FLOPS) * 1e3
+        bound_ms = max(byte_ms, flop_ms)
+        bound_by = "bytes" if byte_ms >= flop_ms else "operations"
+        phase("kernels", f"{name}: " + ", ".join(f"{lb} rel {r:.2e}" for lb, r, _ in errs)
+              + f" | {ms:.4f} ms vs plain {plain_ms:.4f} ms | bound {bound_ms:.4f} ms "
+              f"({bound_by}) | {ms / bound_ms:.1f}x bound")
+        row = dict(max_abs_err=max(d for _, _, d in errs), ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        if record:
+            self.results[name] = row
+        return row
+
+
+def lm_iteration(problem, settings):
+    """One LM attempt (linearize -> assemble -> solve -> retract -> cost) from
+    the problem's current state: (new cost, |step|, pcg relative residual)."""
+    ks = problem._build()
+    k_lin, k_assemble, k_step = ks[0], ks[6], ks[7]
+    datas, v, masks = tuple(problem.datas), problem.variables, problem.masks
+    lg = k_lin(datas, v, masks, None)
+    asm = k_assemble(datas, lg, v, masks)
+    out = k_step(asm, datas, lg, v, masks, settings.damping, PCG_ITERATIONS, settings.pcg_tol,
+                 "gauss_seidel")
+    return float(out[9].cost), float(out[11]), float(out[3])
+
+
+def consistency(path, problem, settings, tol):
     from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+
+    cost_k, step_k, rel_k = lm_iteration(problem, settings)
+    with _kernels.plain_reference():
+        cost_p, step_p, rel_p = lm_iteration(problem, settings)
+    dc = abs(cost_k - cost_p) / abs(cost_p)
+    ds = abs(step_k - step_p) / abs(step_p)
+    phase(f"{path}:consistency",
+          f"new cost {cost_k:.8g} vs plain {cost_p:.8g} (rel {dc:.2e}); |step| {step_k:.6g} vs "
+          f"plain {step_p:.6g} (rel {ds:.2e}); pcg rel {rel_k:.2e} vs plain {rel_p:.2e}")
+    if not (dc <= tol and ds <= tol):
+        raise AssertionError(f"{path}: kernel and plain LM iterations disagree beyond {tol:g}")
+
+
+def phase_times(path, problem, settings):
+    """Host milliseconds of each phase of one LM attempt from the current
+    state (each synchronized, median of 3), per-kind linearize times, and
+    the device-busy share of one whole attempt under torch.profiler."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import engine, rcs
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import factors as fct
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.structure import (retract,
+                                                                                t_scale, t_sub)
+
+    def timed(fn):
+        out, times = None, []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+
+    ks = problem._build()
+    k_lin, k_asm, k_step = ks[0], ks[6], ks[7]
+    cfgs, datas, v, masks = problem.active_cfgs, tuple(problem.datas), problem.variables, \
+        problem.masks
+    lg, t_lin = timed(lambda: k_lin(datas, v, masks, None))
+    asm, t_asm = timed(lambda: k_asm(datas, lg, v, masks))
+    rs, t_damp = timed(lambda: rcs.with_damping(asm, v, masks, settings.damping))
+    b, t_rhs = timed(lambda: t_sub(asm.g_r, rcs.w_y(rs, v, engine._chol_solve(rs.H_ll_inv,
+                                                                                asm.g_l))))
+    (x_r, _, _), t_pcg = timed(lambda: rcs.pcg(rs, v, b, PCG_ITERATIONS, settings.pcg_tol))
+    x_l, t_back = timed(lambda: engine._chol_solve(rs.H_ll_inv,
+                                                  asm.g_l - rcs.w_transpose_x(rs, v, x_r)))
+    v_new, t_ret = timed(lambda: retract(v, t_scale(x_r, -1.0), -x_l, masks))
+    _, t_cost = timed(lambda: engine.comparable_cost(cfgs, datas, v_new, lg))
+    kinds = {}
+    for c, d in zip(cfgs, datas):
+        kinds[c.kind] = timed(lambda: fct.linearize_batch(c, d, v, masks))[1]
+    phase(f"{path}:phases", f"linearize {t_lin:.1f} ms, assemble {t_asm:.1f}, damp+precond "
+          f"{t_damp:.1f}, Schur RHS {t_rhs:.1f}, PCG x{PCG_ITERATIONS} {t_pcg:.1f}, "
+          f"back-substitution {t_back:.1f}, retract {t_ret:.1f}, comparable cost {t_cost:.1f} | "
+          "linearize by kind: " + ", ".join(f"{k} {ms:.1f}" for k, ms in kinds.items()))
+
+    def attempt():
+        lg_ = k_lin(datas, v, masks, None)
+        asm_ = k_asm(datas, lg_, v, masks)
+        return k_step(asm_, datas, lg_, v, masks, settings.damping, PCG_ITERATIONS,
+                      settings.pcg_tol, "gauss_seidel")
+
+    attempt()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        attempt()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    n_ops = sum(e.count for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    phase(f"{path}:phases", f"one attempt {wall:.1f} ms: {n_ops} device ops, {busy:.1f} ms "
+          f"device time, busy share {busy / wall:.2f} | top: " + ", ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+
+
+def run_main(path, problem, settings, kernels):
+    """5 LM iterations through optimize(), launch counts set to 0 just before
+    and read just after; returns the counts."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.optimizer import optimize
+
+    iters = []
+
+    def on_iter(d):
+        iters.append(d)
+        phase(f"{path}:main", f"iter {d['iteration']}: cost {d['prev_cost']:.6g} -> "
+              f"{d['new_cost']:.6g} {'accepted' if d['accepted'] else 'rejected'} | pcg "
+              f"{d['pcg_iters']} iters rel {d['pcg_rel_residual']:.2e} | "
+              f"{d['iter_time_sec'] * 1e3:.1f} ms")
+
+    settings.iteration_callback = on_iter
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.time()
+    summary = optimize(problem, settings)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _kernels.launch_counts()
+    costs = [d["prev_cost"] for d in iters] + [summary.final_cost]
+    phase(f"{path}:main", f"{summary.num_iterations} LM iterations in {wall:.2f} s: cost "
+          f"{summary.initial_cost:.6g} -> {summary.final_cost:.6g} | launches "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    if not all(math.isfinite(c) for c in costs):
+        raise AssertionError(f"{path}: non-finite cost in {costs}")
+    if not summary.final_cost < summary.initial_cost:
+        raise AssertionError(f"{path}: cost did not fall: {summary.initial_cost} -> "
+                             f"{summary.final_cost}")
+    missing = [k for k in kernels if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"{path}: kernels not launched on the main path: {missing}")
+    return launches
+
+
+def lm_settings():
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.optimizer import LMSettings
+
+    return LMSettings(max_iterations=LM_ITERATIONS, direct_mode=False,
+                      pcg_max_iterations=PCG_ITERATIONS, preconditioner="gauss_seidel")
+
+
+# ---------------------------------------------------------------------------
+# bias-only path (K1-K6)
+# ---------------------------------------------------------------------------
+
+
+def bias_only(dev, bench):
+    import torch
+
     from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
     from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.builder import (
         BuildOptions, build_synthetic_problem)
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic import SyntheticSession
     from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
-    from visual_inertial_bundle_adjustment_tpu_torch.problem.optimizer import (
-        LMSettings, optimize)
 
-    # --- device -------------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    dev = torch.device("cuda", 0)
-    phase("device", f"{smi} | torch {torch.__version__} cuda {torch.version.cuda} | tf32 off")
-
-    # --- build --------------------------------------------------------------
-    t0 = time.time()
-    _kernels.lib()
-    phase("build", f"{_kernels.library_path().name} in {time.time() - t0:.1f} s")
-
-    # --- problem ------------------------------------------------------------
     t0 = time.time()
     s = SyntheticSession(duration=120.0, keyframe_hz=10.0, gyro_hz=800.0, accel_hz=800.0,
                          num_points=20000, seed=17, pixel_noise=0.3, track_lifetime_sec=10.0)
@@ -125,132 +348,229 @@ def main():
                         imu_calib_options=dict(accelBias=True, gyroBias=True)),
         device=dev, dtype=torch.float32)
     ks = problem._build()
-    k_lin, k_assemble, k_step = ks[0], ks[6], ks[7]
+    k_lin, k_assemble = ks[0], ks[6]
     vi = next(i for i, c in enumerate(problem.cfgs) if c.block_info is not None)
     info, vdata = problem.cfgs[vi].block_info, problem.datas[vi]
     n_real = int((vdata["_pad"] < 0.5).sum())
-    phase("problem", f"R={s.num_rigs} L={len(s.points_w)} N={n_real} (padded {info.nt * info.ts}) "
-          f"nt={info.nt} ts={info.ts} rb={info.rb} prb2={info.prb2} nhg={info.nhg} "
-          f"built in {time.time() - t0:.1f} s")
+    phase("bias:problem", f"R={s.num_rigs} L={len(s.points_w)} N={n_real} (padded "
+          f"{info.nt * info.ts}) nt={info.nt} ts={info.ts} rb={info.rb} prb2={info.prb2} "
+          f"nhg={info.nhg} built in {time.time() - t0:.1f} s")
 
-    # --- kernels vs plain ---------------------------------------------------
     v, masks, datas = problem.variables, problem.masks, tuple(problem.datas)
     cfg = problem.active_cfgs[vi]
-    results = {}
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    def compare(name, fn, args, outputs_tol):
-        """fn(*args) -> outputs. The kernel's outputs are held against the
-        plain version evaluated in float64 on the same inputs (so the bound
-        measures the kernel's own error, not the float32 rounding of two
-        summation orders); the kernel is timed against the plain version in
-        float32, the type the main path runs."""
-        out = fn(*args)
-        out_k = out if isinstance(out, tuple) else (out,)
-        with _kernels.plain_reference():
-            out = fn(*_kernels.to_f64(args))
-        out_p = out if isinstance(out, tuple) else (out,)
-        torch.cuda.synchronize()
-        errs = []
-        for (label, tol), a, b in zip(outputs_tol, out_k, out_p):
-            r, d = rel_err(a, b)
-            errs.append((label, r, d))
-            if not (r <= tol):
-                raise AssertionError(f"{name}.{label}: rel err {r:.3e} > {tol:g}")
-        ms = cuda_time(lambda: fn(*args))
-        with _kernels.plain_reference():
-            plain_ms = cuda_time(lambda: fn(*args))
-        phase("kernels", f"{name}: " + ", ".join(f"{lb} rel {r:.2e}" for lb, r, _ in errs)
-              + f" | {ms:.4f} ms vs plain {plain_ms:.4f} ms")
-        return dict(max_abs_err=max(d for _, _, d in errs), ms=ms, plain_ms=plain_ms)
-
-    results["visual_linearize"] = compare(
-        "visual_linearize", visual_fused.visual_linearize,
-        (cfg.camera_kind, vdata, v, masks, True),
-        [("res", TOL_RES), ("valid", TOL_RES), ("J_pt", TOL_J), ("J_r", TOL_J)])
-    compare("visual_linearize(residual-only)", visual_fused.visual_linearize,
-            (cfg.camera_kind, vdata, v, None, False), [("res", TOL_RES), ("valid", TOL_RES)])
+    N = info.nt * info.ts
+    vis_read = [vdata[k] for k in ("rig", "point", "intr", "extr", "bias", "bias_on", "obs_uv",
+                                   "sqrt_h", "_pad")]
+    tables = [v.pose_q, v.pose_t, v.points, v.cam_intr, v.cam_extr_q, v.cam_extr_t, v.det_bias]
+    bench.compare("visual_linearize", visual_fused.visual_linearize,
+                  (cfg.camera_kind, vdata, v, masks, True),
+                  [("res", TOL_RES), ("valid", TOL_RES), ("J_pt", TOL_J), ("J_r", TOL_J)],
+                  vis_read + tables + [masks.rig, masks.points], 400.0 * N, f64=True)
+    bench.compare("visual_linearize(residual-only)", visual_fused.visual_linearize,
+                  (cfg.camera_kind, vdata, v, None, False), [("res", TOL_RES), ("valid", TOL_RES)],
+                  vis_read + tables, 150.0 * N, f64=True, record=False)
 
     lg = k_lin(datas, v, masks, None)
     asm = k_assemble(datas, lg, v, masks)
     (b, lin), = rcs._vis_batches(problem.active_cfgs, datas, lg)
     rs = rcs.with_damping(asm, v, masks, 1e-4)
-    x = torch.randn((s.num_rigs, 6), generator=gen, device=dev)
+    k = b.rig_k
+    x = torch.randn((s.num_rigs, k), generator=gen, device=dev)
     zl = torch.randn((len(s.points_w), 3), generator=gen, device=dev)
-    results["assemble_rig"] = compare(
-        "assemble_rig", seg.seg_assemble_rig, (b.J, b.J_pt, lin.res, b.w, b.plan),
-        [("g_r", TOL_SEG), ("diag_r", TOL_SEG), ("g_l", TOL_SEG), ("H_ll0", TOL_SEG)])
-    results["precond_rig"] = compare(
-        "precond_rig", seg.seg_precond_rig, (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan),
-        [("blocks", TOL_SEG)])
-    results["schur_down"] = compare(
-        "schur_down", seg.seg_schur_down, (b.J, b.J_pt, b.w, x, b.plan),
-        [("y", TOL_SEG), ("t", TOL_SEG), ("wu", TOL_SEG)])
-    results["schur_up"] = compare(
-        "schur_up", seg.seg_schur_up, (b.J, b.J_pt, b.w, zl, b.plan), [("y", TOL_SEG)])
-    compare("schur_pcg(K4 = down + 3x3 solve + up)", seg.seg_schur_pcg,
-            (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan), [("y", TOL_SEG)])
+    plan = list(b.plan)
+    bench.compare("assemble_rig", seg.seg_assemble_rig, (b.J, b.J_pt, lin.res, b.w, b.plan),
+                  [("g_r", TOL_SEG), ("diag_r", TOL_SEG), ("g_l", TOL_SEG), ("H_ll0", TOL_SEG)],
+                  [b.J, b.J_pt, lin.res, b.w] + plan, (8 * k + 36) * n_real)
+    bench.compare("precond_rig", seg.seg_precond_rig, (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan),
+                  [("blocks", TOL_SEG)], [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan,
+                  (30 * k + 5 * k * (k + 1)) * n_real)
+    bench.compare("schur_down", seg.seg_schur_down, (b.J, b.J_pt, b.w, x, b.plan),
+                  [("y", TOL_SEG), ("t", TOL_SEG), ("wu", TOL_SEG)],
+                  [b.J, b.J_pt, b.w, x] + plan, (8 * k + 16) * n_real)
+    bench.compare("schur_up", seg.seg_schur_up, (b.J, b.J_pt, b.w, zl, b.plan), [("y", TOL_SEG)],
+                  [b.J, b.J_pt, b.w, zl] + plan, (4 * k + 14) * n_real)
+    bench.compare("schur_pcg", seg.seg_schur_pcg, (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan),
+                  [("y", TOL_SEG)], [b.J, b.J_pt, b.w, x, rs.H_ll_inv] + plan,
+                  (8 * k + 30) * n_real)
     del lg, asm, rs, lin, b
 
-    # --- consistency --------------------------------------------------------
     # One LM iteration from the initial state, through the kernels and
-    # through the plain versions. It runs before the main path: after a few
-    # iterations the 40-iteration PCG stops far from convergence (relative
-    # residual ~0.5), and its step then follows the float32 summation order.
-    iters = []
+    # through the plain versions (before the main path: after a few
+    # iterations the 40-iteration PCG stops far from convergence and its
+    # step follows the float32 summation order). 1e-3: both are float32,
+    # summed in other orders; K1's float64 registers round J differently,
+    # and the unconverged PCG amplifies that (PERF.md §6).
+    settings = lm_settings()
+    consistency("bias", problem, settings, TOL_ITER)
+    phase_times("bias", problem, settings)
+    return run_main("bias", problem, settings,
+                    [kk for kk, spec in KERNELS.items() if "bias" in spec[3]])
 
-    def on_iter(d):
-        iters.append(d)
-        phase("main", f"iter {d['iteration']}: cost {d['prev_cost']:.6g} -> {d['new_cost']:.6g} "
-              f"{'accepted' if d['accepted'] else 'rejected'} | pcg {d['pcg_iters']} iters "
-              f"rel {d['pcg_rel_residual']:.2e} | {d['iter_time_sec'] * 1e3:.1f} ms")
 
-    settings = LMSettings(max_iterations=LM_ITERATIONS, direct_mode=False,
-                          pcg_max_iterations=PCG_ITERATIONS, preconditioner="gauss_seidel",
-                          iteration_callback=on_iter)
+# ---------------------------------------------------------------------------
+# full-sensor path (K7-K10, K3 at rig_k = 9)
+# ---------------------------------------------------------------------------
 
-    def one_iteration():
-        lg = k_lin(datas, v, masks, None)
-        asm = k_assemble(datas, lg, v, masks)
-        out = k_step(asm, datas, lg, v, masks, settings.damping, PCG_ITERATIONS,
-                     settings.pcg_tol, "gauss_seidel")
-        return float(out[9].cost), float(out[11]), float(out[3])
 
-    cost_k, step_k, rel_k = one_iteration()
-    with _kernels.plain_reference():
-        cost_p, step_p, rel_p = one_iteration()
-    dc = abs(cost_k - cost_p) / abs(cost_p)
-    ds = abs(step_k - step_p) / abs(step_p)
-    phase("consistency", f"new cost {cost_k:.8g} vs plain {cost_p:.8g} (rel {dc:.2e}); "
-          f"|step| {step_k:.6g} vs plain {step_p:.6g} (rel {ds:.2e}); "
-          f"pcg rel {rel_k:.2e} vs plain {rel_p:.2e}")
-    if not (dc <= 1e-3 and ds <= 1e-3):
-        raise AssertionError("kernel and plain LM iterations disagree beyond 1e-3")
+def full_sensor(dev, bench):
+    import torch
 
-    # --- main path ----------------------------------------------------------
-    torch.cuda.synchronize()
-    _kernels.reset_launch_counts()
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import session_data as sio
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import (
+        AdapterOptions, SessionAdapter)
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic import SyntheticSession
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic_io import (
+        write_session_dir)
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+
+    times = {}
     t0 = time.time()
-    summary = optimize(problem, settings)
+    s = SyntheticSession(duration=600.0, keyframe_hz=10.0, gyro_hz=800.0, accel_hz=800.0,
+                         num_points=60000, seed=23, pixel_noise=0.3, track_lifetime_sec=10.0)
+    s.observations()
+    times["session"] = time.time() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        write_session_dir(s, tmp, num_imus=2, readout_time_sec=0.03, seed=23)
+        times["write"] = time.time() - t0
+        t0 = time.time()
+        sd = sio.load_session(tmp)
+        times["load"] = time.time() - t0
+    del s
+    t0 = time.time()
+    adapter = SessionAdapter(sd, AdapterOptions(estimate_readout=True,
+                                                estimate_cam_time_offset=True),
+                             log=lambda *a: None, device=dev, dtype=torch.float32)
+    problem = adapter.build()
     torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = _kernels.launch_counts()
-    costs = [d["prev_cost"] for d in iters] + [summary.final_cost]
-    phase("main", f"{summary.num_iterations} LM iterations in {wall:.2f} s: cost "
-          f"{summary.initial_cost:.6g} -> {summary.final_cost:.6g} | launches {launches}")
-    if not all(math.isfinite(c) for c in costs):
-        raise AssertionError(f"non-finite cost in {costs}")
-    if not summary.final_cost < summary.initial_cost:
-        raise AssertionError(f"cost did not fall: {summary.initial_cost} -> {summary.final_cost}")
-    missing = [k for k in KERNELS if launches.get(k, 0) < 1]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    times["adapter"] = time.time() - t0
+    times.update({f"  {k}": val for k, val in adapter.timings.items()})
+    t0 = time.time()
+    problem._build()
+    times["blocking"] = time.time() - t0
+    vi = next(i for i, c in enumerate(problem.cfgs) if c.block_info is not None)
+    cfg, data = problem.active_cfgs[vi], problem.datas[vi]
+    info = cfg.block_info
+    v, masks, datas = problem.variables, problem.masks, tuple(problem.datas)
+    n_real = int((data["_pad"] < 0.5).sum())
+    N = info.nt * info.ts
+    R, L, n_c = v.pose_q.shape[0], v.points.shape[0], v.cam_intr.shape[0]
+    tab = data["rs_tables"]
+    phase("full:problem", f"R={R} L={L} N={n_real} (padded {N}) n_c={n_c} W={adapter.num_windows} "
+          f"nt={info.nt} ts={info.ts} rb={info.rb} wb={info.wb} prb2={info.prb2} "
+          f"nhg={info.nhg} K={tab.dt.shape[1]} batches={[c.kind for c in problem.cfgs]} | "
+          + " ".join(f"{k.strip()} {val:.1f} s" for k, val in times.items()))
 
-    print(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],
-             max_abs_err=results[k]["max_abs_err"], ms=results[k]["ms"],
-             plain_ms=results[k]["plain_ms"])
-        for k, (src, rep) in KERNELS.items()]}))
+    rs_read = [data[k] for k in ("rig", "rs_row", "point", "intr", "extr", "_pad", "rs_tpf",
+                                 "obs_uv", "sqrt_h")]
+    rs_tables = [v.pose_q, v.pose_t, v.vel, v.points, v.cam_intr, v.cam_extr_q, v.cam_extr_t,
+                 list(tab)]
+    rs_masks = [masks.rig, masks.points, masks.cam_intr, masks.cam_extr]
+    bench.compare("rs_linearize", rs_fused.rs_linearize,
+                  (cfg.camera_kind, data, v, masks, True, True),
+                  [("res", TOL_RS_RES), ("valid", TOL_RS_RES), ("J_pt", TOL_RS_J),
+                   ("J_r", TOL_RS_J), ("J_cal", TOL_RS_J)],
+                  rs_read + rs_tables + rs_masks, 1500.0 * N, f64=True)
+    bench.compare("rs_linearize(residual-only)", rs_fused.rs_linearize,
+                  (cfg.camera_kind, data, v, None, False, False),
+                  [("res", TOL_RS_RES), ("valid", TOL_RS_RES)], rs_read + rs_tables, 500.0 * N,
+                  f64=True, record=False)
+
+    ks = problem._build()
+    lg = ks[0](datas, v, masks, None)
+    asm = ks[6](datas, lg, v, masks)
+    (b, lin), = rcs._vis_batches(problem.active_cfgs, datas, lg)
+    rs = rcs.with_damping(asm, v, masks, 1e-4)
+    k = b.rig_k
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((R, k), generator=gen, device=dev)
+    xc = torch.randn((n_c, b.J_cal.shape[1]), generator=gen, device=dev)
+    zl = torch.randn((L, 3), generator=gen, device=dev)
+    plan, cplan = list(b.plan), list(b.cplan)
+    jread = [b.J, b.J_pt, b.J_cal, b.w]
+    seg_tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
+    bench.compare("precond_rig(k=9)", seg.seg_precond_rig,
+                  (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan), seg_tol("blocks"),
+                  [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan, (30 * k + 5 * k * (k + 1)) * n_real)
+    bench.compare("assemble_cal", seg.seg_assemble_cal,
+                  (b.J, b.J_cal, b.J_pt, lin.res, b.w, b.plan, b.cplan),
+                  seg_tol("g_r", "diag_r", "g_c", "diag_c", "blocks_extr", "blocks_intr", "g_l",
+                          "H_ll0"),
+                  jread + [lin.res] + plan + cplan, (8 * k + 36 + 962) * n_real)
+    bench.compare("schur_pcg_cal", seg.seg_schur_pcg_cal,
+                  (b.J, b.J_cal, b.J_pt, b.w, x, xc, rs.H_ll_inv, b.plan, b.cplan),
+                  seg_tol("y_r", "y_c"), jread + [x, xc, rs.H_ll_inv] + plan + cplan,
+                  (8 * k + 208) * n_real)
+    # K9 per kernel: its down (light) and up (du) launches alone; the 3x3
+    # landmark solve between them is a torch op
+    down9 = lambda: seg._launch_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w, x, xc,  # noqa: E731
+                                               b.plan, b.cplan, False)
+    _, _, t9, wu9 = down9()
+    z9 = (rs.H_ll_inv * t9[:, None, :]).sum(-1)
+    parts9 = dict(down_light_ms=cuda_time(down9), up_du_ms=cuda_time(
+        lambda: seg._launch_schur_up_cal(b.J, b.J_cal, b.J_pt, b.w, z9, b.plan, b.cplan, wu9)))
+    bench.results["schur_pcg_cal"].update(parts9)
+    phase("kernels", "schur_pcg_cal per kernel: " + ", ".join(
+        f"{key} {ms:.4f}" for key, ms in parts9.items()))
+    bench.compare("schur_down_cal", seg.seg_schur_down_cal,
+                  (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan),
+                  seg_tol("y_r", "y_c", "t", "wu"), jread + [x, xc] + plan + cplan,
+                  (8 * k + 200) * n_real)
+    bench.compare("schur_up_cal", seg.seg_schur_up_cal,
+                  (b.J, b.J_cal, b.J_pt, b.w, zl, b.plan, b.cplan), seg_tol("y_r", "y_c"),
+                  jread + [zl] + plan + cplan, (4 * k + 106) * n_real)
+    del lg, asm, rs, lin, b
+
+    # 1e-3, as for the bias-only path: float32 kernel and plain versions sum
+    # in other orders and K7 rounds res and J from float64 registers; the
+    # 40-iteration PCG does not converge, so the step carries that rounding
+    settings = lm_settings()
+    consistency("full", problem, settings, TOL_ITER)
+    phase_times("full", problem, settings)
+    return run_main("full", problem, settings,
+                    [kk for kk, spec in KERNELS.items() if "full" in spec[3]])
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("device", f"{smi} | torch {torch.__version__} cuda {torch.version.cuda} | tf32 off")
+
+    t0 = time.time()
+    _kernels.lib()
+    phase("build", f"{_kernels.library_path().name} in {time.time() - t0:.1f} s")
+    for name, regs, spill_st, spill_ld in _kernels.resource_usage():
+        phase("build", f"ptxas {name}: {regs} registers, spill stores {spill_st} B, "
+              f"loads {spill_ld} B")
+
+    bench = Bench()
+    launches = {"bias": bias_only(dev, bench)}
+    torch.cuda.empty_cache()
+    launches["full"] = full_sensor(dev, bench)
+
+    rows = []
+    for name, (kid, src, rep, path) in KERNELS.items():
+        n = sum(launches[p].get(name, 0) for p in ("bias", "full") if p in path)
+        row = dict(name=name, k=kid, route="cuda", source=src, replaces=rep, path=path,
+                   launches=n, **bench.results[name])
+        if name == "precond_rig":  # the bias path's k = 6 above; the full path's k = 9 here
+            row["k9"] = bench.results["precond_rig(k=9)"]
+        rows.append(row)
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,12 @@ is built once per process: a 6 s / 60-landmark session with IMU bias
 estimated, blocked by `rcs.finalize_blocks(pb, rb=8, prb=16, ts=64)` so the
 single-pass rig-only engine engages (as tests/test_rcs.py builds it).
 
+The tiny full-sensor problem: an 8 s / 80-landmark session with two IMUs and
+a rolling-shutter camera (readout 0.03 s), written as a session directory,
+loaded, built by the session adapter with readout and time offset estimated
+(two 5 s calibration windows), and blocked by `finalize_blocks(ts=64)` so
+the calibration-coupled single-pass engine engages.
+
 This module imports JAX only inside the functions that build the JAX side,
 so the card-only tests (tests/test_torch_kernels_cuda.py) use it on a
 machine without JAX.
@@ -17,6 +23,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import pathlib
+import tempfile
 
 import numpy as np
 import pytest
@@ -29,6 +37,11 @@ SESSION = dict(duration=6.0, keyframe_hz=5.0, gyro_hz=200.0, accel_hz=200.0,
 BUILD = dict(init_pose_noise=0.01, init_point_noise=0.05, init_vel_noise=0.05,
              estimate_imu_calib=True, imu_calib_options=dict(accelBias=True, gyroBias=True))
 BLOCKS = dict(rb=8, prb=16, ts=64)
+FULL_SESSION = dict(duration=8.0, keyframe_hz=5.0, gyro_hz=200.0, accel_hz=200.0,
+                    num_points=80, seed=5, pixel_noise=0.3, track_lifetime_sec=4.0)
+FULL_WRITE = dict(num_imus=2, readout_time_sec=0.03, seed=5)
+FULL_ADAPT = dict(estimate_readout=True, estimate_cam_time_offset=True)
+FULL_BLOCKS = dict(ts=64)
 F64 = torch.float64
 
 
@@ -87,13 +100,19 @@ def port_blocked_problem(device="cpu", dtype=F64):
     return trcs.finalize_blocks(p, **BLOCKS)
 
 
+def _leaf_numpy(a):
+    if isinstance(a, tuple):  # the RS tables: a dict of their fields
+        return {f: np.asarray(x) for f, x in zip(a._fields, a)}
+    return np.asarray(a)
+
+
 def to_numpy(p):
     """The JAX problem as the numpy handoff of interop.problem_from_numpy."""
     return dict(
         variables={k: np.asarray(a) for k, a in p.variables._asdict().items()},
         masks={k: np.asarray(a) for k, a in p.masks._asdict().items()},
         cfgs=[dataclasses.asdict(c) for c in p.cfgs],
-        datas=[{k: np.asarray(a) for k, a in d.items()} for d in p.datas],
+        datas=[{k: _leaf_numpy(a) for k, a in d.items()} for d in p.datas],
     )
 
 
@@ -113,6 +132,58 @@ def jax_active_cfgs(p):
     ga[fct.POINTS] = True
     return tuple(dataclasses.replace(c, active_groups=tuple(
         g for g, _ in fct.REGISTRY[c.kind]["tangents"] if ga[g])) for c in p.cfgs)
+
+
+@functools.lru_cache(maxsize=None)
+def full_session_dir():
+    """The tiny full-sensor session directory, written by the port (its
+    files equal the JAX package's byte for byte, test_torch_full_build.py)."""
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic import SyntheticSession
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic_io import (
+        write_session_dir)
+
+    path = pathlib.Path(tempfile.mkdtemp(prefix="viba_full_"))
+    write_session_dir(SyntheticSession(**FULL_SESSION), path, **FULL_WRITE)
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def jax_full():
+    """(problem, adapter) of the JAX package on the tiny full-sensor session,
+    blocked (cached: callers that run its optimize() restore variables)."""
+    from visual_inertial_bundle_adjustment_tpu.pipeline import session_data as jsd
+    from visual_inertial_bundle_adjustment_tpu.pipeline.adapter import (AdapterOptions,
+                                                                        SessionAdapter)
+    from visual_inertial_bundle_adjustment_tpu.problem import rcs as jrcs
+
+    adapter = SessionAdapter(jsd.load_session(full_session_dir()), AdapterOptions(**FULL_ADAPT),
+                             log=None)
+    p = adapter.build()
+    jrcs.finalize_blocks(p, **FULL_BLOCKS)
+    return p, adapter
+
+
+def port_full_from_jax(dtype=F64, device="cpu"):
+    """A fresh port Problem holding the JAX full-sensor problem's state."""
+    from visual_inertial_bundle_adjustment_tpu_torch import interop
+
+    return interop.problem_from_numpy(**to_numpy(jax_full()[0]), device=device, dtype=dtype)
+
+
+def port_full_built(device="cpu", dtype=F64, blocked=True):
+    """(problem, adapter) built by the port's own pipeline (no JAX) on the
+    tiny full-sensor session, blocked like jax_full()."""
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import session_data as tsd
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import (AdapterOptions,
+                                                                              SessionAdapter)
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs as trcs
+
+    adapter = SessionAdapter(tsd.load_session(full_session_dir()), AdapterOptions(**FULL_ADAPT),
+                             log=None, device=device, dtype=dtype)
+    p = adapter.build()
+    if blocked:
+        trcs.finalize_blocks(p, **FULL_BLOCKS)
+    return p, adapter
 
 
 @pytest.fixture

@@ -79,7 +79,7 @@ def test_chol_inv_lower_matches_jax():
 
 @pytest.fixture(scope="module")
 def port_built():
-    return tb.build_synthetic_problem(port_session(), tb.BuildOptions(**BUILD))
+    return tb.build_synthetic_problem(port_session(), tb.BuildOptions(**BUILD), device="cpu")
 
 
 def test_build_synthetic_problem_matches_jax(port_built):
@@ -100,7 +100,7 @@ def test_build_synthetic_problem_matches_jax(port_built):
 def test_finalize_blocks_slot_order_matches_jax():
     """Same slot order, pads, tile bases and point windows as the JAX
     package's finalize_blocks, so blocked arrays compare one to one."""
-    p = tb.build_synthetic_problem(port_session(), tb.BuildOptions(**BUILD))
+    p = tb.build_synthetic_problem(port_session(), tb.BuildOptions(**BUILD), device="cpu")
     trcs.finalize_blocks(p, **BLOCKS)
     pj = jax_problem()
     (bj, dj), = [(c.block_info, d) for c, d in zip(pj.cfgs, pj.datas) if c.block_info]

@@ -211,8 +211,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     visual_fused.visual_linearize(cfg.camera_kind, data, p.variables, p.masks, True)
     for name in SEGMENT_KERNELS:
         _port_segment(name, a, trcs.plan_of(data))
-    assert set(_kernels.launch_counts()) == {"visual_linearize", "assemble_rig", "precond_rig",
-                                             "schur_down", "schur_up"}
+    assert {"visual_linearize", *SEGMENT_KERNELS} <= set(_kernels.launch_counts())
     assert all(n == 0 for n in _kernels.launch_counts().values())
 
 

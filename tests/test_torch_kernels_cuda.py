@@ -6,13 +6,15 @@ conftest.py configures JAX, so leave it out there:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 
-Inputs: the port's own tiny blocked problem (the 6 s / 60-landmark session
-of tests/_torch_port_fixtures.py, blocked by rcs.finalize_blocks(rb=8,
-prb=16, ts=64)) on the card in float32, its real J blocks from one
-linearization, and rig/landmark tables from a numpy seed. Each kernel is
-held against its plain version evaluated in float64 on the same inputs,
-within the JAX package's on-chip bounds (tests/test_tpu_accuracy.py):
-K1 residual 1e-5 and J 2e-4, segment kernels 1e-5, relative to max-abs.
+Inputs: the port's own tiny blocked problems of tests/_torch_port_fixtures.py
+on the card in float32 — the bias-only 6 s / 60-landmark session (K1-K6)
+and the full-sensor 8 s / 80-landmark session built by the session adapter
+(K7-K10, K3 at rig_k = 9) — their real J blocks from one linearization, and
+rig/window/landmark tables from a numpy seed. Each kernel is held against
+its plain version evaluated in float64 on the same inputs, within the JAX
+package's on-chip bounds (tests/test_tpu_accuracy.py): K1 residual 1e-5 and
+J 2e-4, K7 residual 1e-4 and J 3e-4, segment kernels 1e-5, relative to
+max-abs.
 """
 
 import math
@@ -21,15 +23,17 @@ import numpy as np
 import pytest
 import torch
 from _torch_port_fixtures import cuda_device  # noqa: F401  (fixture)
-from _torch_port_fixtures import port_blocked_problem, rel
+from _torch_port_fixtures import port_blocked_problem, port_full_built, rel
 
 from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
 from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as tseg
 from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
 from visual_inertial_bundle_adjustment_tpu_torch.problem import optimizer as topt
 from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs as trcs
 
 SEGMENT_KERNELS = ("assemble_rig", "precond_rig", "schur_down", "schur_up", "schur_pcg")
+CAL_KERNELS = ("assemble_cal", "schur_down_cal", "schur_up_cal", "schur_pcg_cal", "precond_rig")
 
 
 def _card_problem(dev):
@@ -98,10 +102,7 @@ def test_segment_kernel_matches_plain(name, cuda_device):
         ref = _segment(name, _kernels.to_f64(a), plan)
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
-    if name == "schur_pcg":
-        assert counts["schur_down"] == counts["schur_up"] == 1
-    else:
-        assert counts[name] == 1
+    assert counts[name] == 1 and sum(counts.values()) == 1
     assert len(out) == len(ref)
     for o, r in zip(out, ref):
         if o is None:
@@ -120,7 +121,106 @@ def test_optimize_on_card_runs_every_kernel(cuda_device):
     counts = _kernels.launch_counts()
     with _kernels.plain_reference():
         s_p = topt.optimize(_card_problem(cuda_device)[0], topt.LMSettings(**settings))
-    assert all(n > 0 for n in counts.values()), counts
+    assert all(counts[k] > 0 for k in ("visual_linearize", *SEGMENT_KERNELS)), counts
+    assert math.isfinite(s_k.final_cost) and s_k.final_cost < 1e-2 * s_k.initial_cost
+    assert abs(s_k.initial_cost - s_p.initial_cost) <= 1e-5 * s_p.initial_cost
+    assert abs(s_k.final_cost - s_p.final_cost) <= 1e-3 * s_p.final_cost
+
+
+# ---------------------------------------------------------------------------
+# full-sensor path: K7-K10, K3 at rig_k = 9
+# ---------------------------------------------------------------------------
+
+
+def _full_card(dev):
+    p, _ = port_full_built(device=dev, dtype=torch.float32)
+    ks = p._build()
+    (vi,) = [i for i, c in enumerate(p.active_cfgs) if c.block_info is not None]
+    return p, ks, vi
+
+
+def _check(out, ref, tols):
+    torch.cuda.synchronize()
+    for o, r, tol in zip(out, ref, tols):
+        assert o.dtype == torch.float32 and o.device.type == "cuda"
+        assert rel(o.cpu().numpy(), r.cpu().numpy()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_jac,with_cal", [(True, True), (True, False), (False, False)])
+def test_rs_linearize_kernel_matches_plain(with_jac, with_cal, cuda_device):
+    p, _, vi = _full_card(cuda_device)
+    cfg, data = p.active_cfgs[vi], p.datas[vi]
+    masks = p.masks if with_jac else None
+    _kernels.reset_launch_counts()
+    out = rs_fused.rs_linearize(cfg.camera_kind, data, p.variables, masks, with_jac, with_cal)
+    f64 = _kernels.to_f64
+    with _kernels.plain_reference():
+        ref = rs_fused.rs_linearize(cfg.camera_kind, f64(data), f64(p.variables), f64(masks),
+                                    with_jac, with_cal)
+    assert rs_fused.rs_linearize.launches == 1
+    _check(out, ref, (1e-4, 0.0, 3e-4, 3e-4, 3e-4))
+
+
+def _cal_inputs(dev):
+    p, ks, _ = _full_card(dev)
+    datas = tuple(p.datas)
+    lg = ks[0](datas, p.variables, p.masks, None)
+    (b, lin), = trcs._vis_batches(p.active_cfgs, datas, lg)
+    R, L, n_c = p.variables.pose_q.shape[0], p.variables.points.shape[0], p.variables.cam_intr.shape[0]
+    rng = np.random.default_rng(43)
+    A = rng.normal(size=(L, 3, 3))
+
+    def f32(a):
+        return torch.from_numpy(a).to(device=dev, dtype=torch.float32)
+
+    return b, dict(J=b.J, J_cal=b.J_cal, J_pt=b.J_pt, res=lin.res, w=b.w,
+                   x=f32(rng.normal(size=(R, 9))), x_c=f32(rng.normal(size=(n_c, 23))),
+                   z=f32(rng.normal(size=(L, 3))), hinv=f32(A @ np.swapaxes(A, -1, -2) + np.eye(3)))
+
+
+def _cal_segment(name, a, b):
+    J, Jc, Jp, w = a["J"], a["J_cal"], a["J_pt"], a["w"]
+    if name == "assemble_cal":
+        g_r, d_r, g_c, d_c, blocks, g_l, H = tseg.seg_assemble_cal(J, Jc, Jp, a["res"], w, b.plan,
+                                                                   b.cplan)
+        return (g_r, d_r, g_c, d_c, *blocks, g_l, H)
+    if name == "schur_down_cal":
+        return tseg.seg_schur_down_cal(J, Jc, Jp, w, a["x"], a["x_c"], b.plan, b.cplan)
+    if name == "schur_up_cal":
+        return tseg.seg_schur_up_cal(J, Jc, Jp, w, a["z"], b.plan, b.cplan)
+    if name == "schur_pcg_cal":
+        return tseg.seg_schur_pcg_cal(J, Jc, Jp, w, a["x"], a["x_c"], a["hinv"], b.plan, b.cplan)
+    return (tseg.seg_precond_rig(J, Jp, w, a["hinv"], b.plan),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CAL_KERNELS)
+def test_cal_segment_kernel_matches_plain(name, cuda_device):
+    b, a = _cal_inputs(cuda_device)
+    assert b.rig_k == 9 and trcs._cal_fast(b)
+    _kernels.reset_launch_counts()
+    out = _cal_segment(name, a, b)
+    with _kernels.plain_reference():
+        ref = _cal_segment(name, _kernels.to_f64(a), b)
+    counts = _kernels.launch_counts()
+    assert counts[name] == 1 and sum(counts.values()) == 1
+    _check(out, ref, (1e-5,) * len(out))
+
+
+@pytest.mark.cuda
+def test_full_sensor_optimize_on_card_runs_every_kernel(cuda_device):
+    """Three LM iterations of the full-sensor problem through the kernels:
+    the cost falls, K3 and K7-K10 launched, and the costs follow those of
+    the same run through the plain versions (float32, other summation
+    orders, K7's float64 registers)."""
+    settings = dict(max_iterations=3, direct_mode=False, pcg_max_iterations=40)
+    _kernels.reset_launch_counts()
+    s_k = topt.optimize(_full_card(cuda_device)[0], topt.LMSettings(**settings))
+    counts = _kernels.launch_counts()
+    with _kernels.plain_reference():
+        s_p = topt.optimize(_full_card(cuda_device)[0], topt.LMSettings(**settings))
+    assert all(counts[k] > 0 for k in ("rs_linearize", *CAL_KERNELS)), counts
     assert math.isfinite(s_k.final_cost) and s_k.final_cost < 1e-2 * s_k.initial_cost
     assert abs(s_k.initial_cost - s_p.initial_cost) <= 1e-5 * s_p.initial_cost
     assert abs(s_k.final_cost - s_p.final_cost) <= 1e-3 * s_p.final_cost

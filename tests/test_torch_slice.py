@@ -61,7 +61,8 @@ def test_interop_round_trip():
             if k in dd:
                 np.testing.assert_array_equal(a.numpy(), dd[k])
             else:
-                assert k in ("_rig_ptr", "_rig_obs", "_pt_ptr", "_pt_obs")  # the port's plans
+                assert k in ("_rig_ptr", "_rig_obs", "_pt_ptr", "_pt_obs", "_cal_chunk_ptr",
+                             "_cal_chunk_obs", "_cal_row_chunk")  # the port's plans
         if cd["block_info"] is not None:
             for f in ("rb", "nt", "ts", "prb", "pnt", "pts", "prb2", "nhg"):
                 assert getattr(c.block_info, f) == cd["block_info"][f]
@@ -267,8 +268,9 @@ def test_small_inverses_match_jax():
 
 
 def test_unported_batches_raise():
-    """Stated limits of the slice: a two-grid (unbounded point window) batch
-    and a blocked batch with calibration columns raise NotImplementedError."""
+    """Stated limits: a two-grid (unbounded point window) batch and a
+    blocked batch with calibration columns but no calibration-window plan
+    raise NotImplementedError."""
     p, lg, _ = _port_linearized()
     cfgs = p.active_cfgs
     (vi,) = [i for i, c in enumerate(cfgs) if c.block_info is not None]

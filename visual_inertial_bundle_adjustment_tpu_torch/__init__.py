@@ -3,13 +3,17 @@
 Mirrors the layout of `visual_inertial_bundle_adjustment_tpu` (ops/,
 ops/camera/, models/, problem/, pipeline/) with the same module and
 function names. Plain tensor code is PyTorch; every TPU Pallas kernel on the
-bias-only LM path is a hand-written CUDA C++ kernel for Hopper (`csrc/`),
-built by `ops/_kernels.py` at first use and dispatched only for CUDA
-tensors. CPU tensors take each kernel's plain PyTorch version.
+ported paths is a hand-written CUDA C++ kernel for Hopper (`csrc/`), built
+by `ops/_kernels.py` at first use and dispatched only for CUDA tensors. CPU
+tensors take each kernel's plain PyTorch version.
 
-This first slice covers the bias-only Levenberg-Marquardt main path:
-synthetic session -> `pipeline.builder.build_synthetic_problem` ->
-`problem.optimizer.Problem` -> `problem.optimizer.optimize`.
+Two Levenberg-Marquardt paths are ported:
+  - bias-only: synthetic session -> `pipeline.builder.build_synthetic_problem`
+    -> `problem.optimizer.optimize` (kernels K1-K6);
+  - full sensor (rolling shutter, calibration windows, two IMUs): synthetic
+    session -> `pipeline.synthetic_io.write_session_dir` ->
+    `pipeline.session_data.load_session` ->
+    `pipeline.adapter.SessionAdapter(...).build()` -> `optimize` (K3, K7-K10).
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,6 @@
-// K2: lambda-independent assembly of a rig-only visual batch.
+// K2: lambda-independent assembly of a blocked visual batch (rig + landmark
+// side; K8 calls it for the rig and landmark rows of a calibration-coupled
+// batch).
 //
 // Replaces the Pallas kernel _assemble_rig_kernel (JAX ops/segments.py:840,
 // entry seg_assemble_rig :892). One launch, two segment families packed in
@@ -7,8 +9,9 @@
 //                        g_r = sum J_r^T w res,  diag_r = sum diag(J_r^T w J_r)
 //   blocks [R, ...):     one 16-thread group per landmark
 //                        g_l = sum J_p^T w res,  H_ll0 = sum J_p^T w J_p (upper 6)
-// Layouts: J_r (2, 6, N), J_p (2, 3, N), res (2, N), w (N) — observation axis
-// last. Bound: bytes, J read once (rig side coalesced, landmark side gathered).
+// Layouts: J_r (2, K, N) with K = rig_k in {6, 9}, J_p (2, 3, N), res (2, N),
+// w (N) — observation axis last. Bound: bytes, J read once (rig side
+// coalesced, landmark side gathered).
 #include "tile_reduce.cuh"
 
 namespace {
@@ -16,6 +19,7 @@ namespace {
 using viba::kPointGroup;
 using viba::kRowGroup;
 
+template <int K>
 __global__ void __launch_bounds__(viba::kBlock) assemble_rig(
     int R, int L, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
     const int* __restrict__ pt_ptr, const int* __restrict__ pt_obs,
@@ -23,23 +27,23 @@ __global__ void __launch_bounds__(viba::kBlock) assemble_rig(
     const float* __restrict__ res, float* __restrict__ g_r, float* __restrict__ diag_r,
     float* __restrict__ g_l, float* __restrict__ tri) {
   if (static_cast<int>(blockIdx.x) < R) {
-    viba::reduce_segments<kRowGroup, 12>(
+    viba::reduce_segments<kRowGroup, 2 * K>(
         blockIdx.x, R, rig_ptr, rig_obs,
-        [&](int s, float(&acc)[12]) {
+        [&](int s, float(&acc)[2 * K]) {
           const float ws = w[s];
           const float r0 = res[s] * ws, r1 = res[n + s] * ws;
 #pragma unroll
-          for (int c = 0; c < 6; ++c) {
-            const float j0 = J_r[c * (long)n + s], j1 = J_r[(6 + c) * (long)n + s];
+          for (int c = 0; c < K; ++c) {
+            const float j0 = J_r[c * (long)n + s], j1 = J_r[(K + c) * (long)n + s];
             acc[c] += j0 * r0 + j1 * r1;
-            acc[6 + c] += (j0 * j0 + j1 * j1) * ws;
+            acc[K + c] += (j0 * j0 + j1 * j1) * ws;
           }
         },
-        [&](int row, float(&acc)[12]) {
+        [&](int row, float(&acc)[2 * K]) {
 #pragma unroll
-          for (int c = 0; c < 6; ++c) {
-            g_r[6 * row + c] = acc[c];
-            diag_r[6 * row + c] = acc[6 + c];
+          for (int c = 0; c < K; ++c) {
+            g_r[K * (long)row + c] = acc[c];
+            diag_r[K * (long)row + c] = acc[K + c];
           }
         });
   } else {
@@ -64,22 +68,31 @@ __global__ void __launch_bounds__(viba::kBlock) assemble_rig(
         },
         [&](int row, float(&acc)[9]) {
 #pragma unroll
-          for (int c = 0; c < 3; ++c) g_l[3 * row + c] = acc[c];
+          for (int c = 0; c < 3; ++c) g_l[3 * (long)row + c] = acc[c];
 #pragma unroll
-          for (int c = 0; c < 6; ++c) tri[6 * row + c] = acc[3 + c];
+          for (int c = 0; c < 6; ++c) tri[6 * (long)row + c] = acc[3 + c];
         });
   }
 }
 
 }  // namespace
 
-extern "C" int viba_assemble_rig(int R, int L, int n, const int* rig_ptr, const int* rig_obs,
-                                 const int* pt_ptr, const int* pt_obs, const float* J_r,
-                                 const float* J_p, const float* w, const float* res, float* g_r,
-                                 float* diag_r, float* g_l, float* tri, void* stream) {
+extern "C" int viba_assemble_rig(int R, int L, int n, int k, const int* rig_ptr,
+                                 const int* rig_obs, const int* pt_ptr, const int* pt_obs,
+                                 const float* J_r, const float* J_p, const float* w,
+                                 const float* res, float* g_r, float* diag_r, float* g_l,
+                                 float* tri, void* stream) {
   const int grid = viba::segment_blocks<kRowGroup>(R) + viba::segment_blocks<kPointGroup>(L);
   if (grid == 0) return 0;
-  assemble_rig<<<grid, viba::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      R, L, n, rig_ptr, rig_obs, pt_ptr, pt_obs, J_r, J_p, w, res, g_r, diag_r, g_l, tri);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k == 6) {
+    assemble_rig<6><<<grid, viba::kBlock, 0, st>>>(R, L, n, rig_ptr, rig_obs, pt_ptr, pt_obs,
+                                                   J_r, J_p, w, res, g_r, diag_r, g_l, tri);
+  } else if (k == 9) {
+    assemble_rig<9><<<grid, viba::kBlock, 0, st>>>(R, L, n, rig_ptr, rig_obs, pt_ptr, pt_obs,
+                                                   J_r, J_p, w, res, g_r, diag_r, g_l, tri);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,337 @@
+// K8 / K9 / K10: segment kernels of a calibration-coupled visual batch.
+//
+// The batch couples, besides rigs (J_r, K = rig_k columns) and landmarks
+// (J_p, 3 columns), the calibration-window variables of each observation's
+// window row (J_c, 23 columns: cam extr 6 | cam intr 17). Replaces the
+// Pallas kernels _assemble_cal_kernel (JAX ops/segments.py:1674, entry
+// seg_assemble_cal :1741), _schur_down_cal_kernel (:1005) and
+// _schur_up_cal_kernel (:1146) (K10), and _down_light_cal_kernel (:1468) +
+// _up_du_cal_kernel (:1519) (K9, the PCG matvec: down -> 3x3 landmark solve
+// in torch -> up with the staged wu, as K4 composes it).
+//
+// Rig rows (~300 observations) and landmark rows (~30) keep K2-K6's
+// group-per-row scheme (tile_reduce.cuh). Window rows are few and long (120
+// rows of ~15k observations at the full-sensor size): one group per row would
+// leave most of the card idle, and K8's 197 outputs per row do not fit one
+// thread's registers. So each row's slot list is cut into chunks of at most
+// CHUNK slots (ops/segments.py); a 128-thread group per chunk writes one
+// partial row (K8: seven launches of 32 outputs each, J_c re-read from L2),
+// and a second pass sums each row's partials in chunk order. Deterministic,
+// no atomics. Bound: bytes — J_r, J_c, J_p read once per pass (2 x (K + 26)
+// floats per observation), the window pass re-reads J_c.
+#include <utility>
+
+#include "tile_reduce.cuh"
+
+extern "C" int viba_assemble_rig(int R, int L, int n, int k, const int* rig_ptr,
+                                 const int* rig_obs, const int* pt_ptr, const int* pt_obs,
+                                 const float* J_r, const float* J_p, const float* w,
+                                 const float* res, float* g_r, float* diag_r, float* g_l,
+                                 float* tri, void* stream);
+extern "C" int viba_schur_down_points(int L, int n, const int* pt_ptr, const int* pt_obs,
+                                      const float* J_p, const float* wu, float* t, void* stream);
+
+namespace {
+
+using viba::kRowGroup;
+
+constexpr int kCal = 23;     // window columns: extr 6 | intr 17
+constexpr int kExtr = 6;
+constexpr int kIntr = 17;
+constexpr int kCalOut = kCal + kExtr * (kExtr + 1) / 2 + kIntr * (kIntr + 1) / 2;  // 197
+constexpr int kPer = 32;     // K8 window outputs per launch
+constexpr int kParts = (kCalOut + kPer - 1) / kPer;
+
+// K8 window outputs in order: g_c[0..23), then the row-major upper triangle
+// of each split's self block
+__host__ __device__ constexpr int tri_row(int t, int dim) {
+  int a = 0;
+  while (t >= dim - a) {
+    t -= dim - a;
+    ++a;
+  }
+  return a;
+}
+__host__ __device__ constexpr int tri_col(int t, int dim) {
+  int a = 0;
+  while (t >= dim - a) {
+    t -= dim - a;
+    ++a;
+  }
+  return a + t;
+}
+constexpr int kTri0 = kCal, kTri1 = kCal + kExtr * (kExtr + 1) / 2;
+__host__ __device__ constexpr int ent_a(int e) {
+  return e < kTri0 ? e : e < kTri1 ? tri_row(e - kTri0, kExtr) : kExtr + tri_row(e - kTri1, kIntr);
+}
+__host__ __device__ constexpr int ent_b(int e) {
+  return e < kTri0 ? -1 : e < kTri1 ? tri_col(e - kTri0, kExtr) : kExtr + tri_col(e - kTri1, kIntr);
+}
+
+template <int E>
+__device__ __forceinline__ void accum_one(const float (&j0)[kCal], const float (&j1)[kCal],
+                                          float ws, float r0, float r1, float& acc) {
+  if constexpr (E < kCalOut) {
+    constexpr int a = ent_a(E);
+    constexpr int b = ent_b(E);
+    if constexpr (b < 0) {
+      acc += j0[a] * r0 + j1[a] * r1;
+    } else {
+      acc += (j0[a] * ws) * j0[b] + (j1[a] * ws) * j1[b];
+    }
+  }
+}
+
+template <int P, int... I>
+__device__ __forceinline__ void accum_part(std::integer_sequence<int, I...>,
+                                           const float (&j0)[kCal], const float (&j1)[kCal],
+                                           float ws, float r0, float r1, float (&acc)[kPer]) {
+  (accum_one<P * kPer + I>(j0, j1, ws, r0, r1, acc[I]), ...);
+}
+
+// K8 window pass: chunk partials of outputs [P*kPer, P*kPer + kPer)
+template <int P>
+__global__ void __launch_bounds__(viba::kBlock) assemble_cal_part(
+    int n_chunks, int n, const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_obs,
+    const float* __restrict__ J_c, const float* __restrict__ w, const float* __restrict__ res,
+    float* __restrict__ part) {
+  viba::reduce_segments<kRowGroup, kPer>(
+      blockIdx.x, n_chunks, chunk_ptr, chunk_obs,
+      [&](int s, float(&acc)[kPer]) {
+        float j0[kCal], j1[kCal];
+#pragma unroll
+        for (int c = 0; c < kCal; ++c) {
+          j0[c] = J_c[c * (long)n + s];
+          j1[c] = J_c[(kCal + c) * (long)n + s];
+        }
+        const float ws = w[s];
+        accum_part<P>(std::make_integer_sequence<int, kPer>{}, j0, j1, ws, res[s] * ws,
+                      res[n + s] * ws, acc);
+      },
+      [&](int ch, float(&acc)[kPer]) {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          if (P * kPer + i < kCalOut) part[kCalOut * (long)ch + P * kPer + i] = acc[i];
+        }
+      });
+}
+
+template <int P>
+cudaError_t launch_parts(int n_chunks, int n, const int* chunk_ptr, const int* chunk_obs,
+                         const float* J_c, const float* w, const float* res, float* part,
+                         cudaStream_t st) {
+  if constexpr (P < kParts) {
+    assemble_cal_part<P><<<n_chunks, viba::kBlock, 0, st>>>(n_chunks, n, chunk_ptr, chunk_obs,
+                                                           J_c, w, res, part);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_parts<P + 1>(n_chunks, n, chunk_ptr, chunk_obs, J_c, w, res, part, st);
+  }
+  return cudaSuccess;
+}
+
+// K9/K10 window pass: chunk partials of J_c^T u for a staged 2-row u
+__global__ void __launch_bounds__(viba::kBlock) cal_partials(
+    int n_chunks, int n, const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_obs,
+    const float* __restrict__ J_c, const float* __restrict__ u, float* __restrict__ part) {
+  viba::reduce_segments<kRowGroup, kCal>(
+      blockIdx.x, n_chunks, chunk_ptr, chunk_obs,
+      [&](int s, float(&acc)[kCal]) {
+        const float u0 = u[s], u1 = u[n + s];
+#pragma unroll
+        for (int c = 0; c < kCal; ++c)
+          acc[c] += J_c[c * (long)n + s] * u0 + J_c[(kCal + c) * (long)n + s] * u1;
+      },
+      [&](int ch, float(&acc)[kCal]) {
+#pragma unroll
+        for (int c = 0; c < kCal; ++c) part[kCal * (long)ch + c] = acc[c];
+      });
+}
+
+// second pass: out[row, e] = sum of the row's chunk partials, in chunk order
+__global__ void __launch_bounds__(256) cal_finish(int n_rows, int D,
+                                                  const int* __restrict__ row_chunk,
+                                                  const float* __restrict__ part,
+                                                  float* __restrict__ out) {
+  const long idx = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  if (idx >= (long)n_rows * D) return;
+  const int row = static_cast<int>(idx / D), e = static_cast<int>(idx % D);
+  float s = 0.f;
+  for (int ch = row_chunk[row]; ch < row_chunk[row + 1]; ++ch) s += part[(long)D * ch + e];
+  out[idx] = s;
+}
+
+cudaError_t launch_rows(int n_rows, int n_chunks, int n, const int* chunk_ptr,
+                        const int* chunk_obs, const int* row_chunk, const float* J_c,
+                        const float* u, float* part, float* out, cudaStream_t st) {
+  if (n_chunks > 0) {
+    cal_partials<<<n_chunks, viba::kBlock, 0, st>>>(n_chunks, n, chunk_ptr, chunk_obs, J_c, u,
+                                                    part);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (n_rows > 0) {
+    cal_finish<<<(n_rows * kCal + 255) / 256, 256, 0, st>>>(n_rows, kCal, row_chunk, part, out);
+  }
+  return cudaGetLastError();
+}
+
+// K10 down / K9 down, rig pass: wu = w (J_r x_r[rig] + J_c x_c[win]) for every
+// real slot and, if want_y, y_r = sum J_r^T wu
+template <int K>
+__global__ void __launch_bounds__(viba::kBlock) down_cal_rig(
+    int R, int n, int want_y, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
+    const int* __restrict__ win, const float* __restrict__ J_r, const float* __restrict__ J_c,
+    const float* __restrict__ w, const float* __restrict__ x_r, const float* __restrict__ x_c,
+    float* __restrict__ y_r, float* __restrict__ wu) {
+  const int row = blockIdx.x;
+  float xr[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) xr[c] = row < R ? x_r[K * (long)row + c] : 0.f;
+  viba::reduce_segments<kRowGroup, K>(
+      blockIdx.x, R, rig_ptr, rig_obs,
+      [&](int s, float(&acc)[K]) {
+        float j0[K], j1[K], u0 = 0.f, u1 = 0.f;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          j0[c] = J_r[c * (long)n + s];
+          j1[c] = J_r[(K + c) * (long)n + s];
+          u0 += j0[c] * xr[c];
+          u1 += j1[c] * xr[c];
+        }
+        const float* xc = x_c + kCal * (long)win[s];
+        float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+        for (int c = 0; c < kCal; ++c) {
+          const float xv = xc[c];
+          v0 += J_c[c * (long)n + s] * xv;
+          v1 += J_c[(kCal + c) * (long)n + s] * xv;
+        }
+        const float ws = w[s];
+        const float wu0 = (u0 + v0) * ws, wu1 = (u1 + v1) * ws;
+        wu[s] = wu0;
+        wu[n + s] = wu1;
+        if (want_y) {
+#pragma unroll
+          for (int c = 0; c < K; ++c) acc[c] += j0[c] * wu0 + j1[c] * wu1;
+        }
+      },
+      [&](int r, float(&acc)[K]) {
+        if (want_y) {
+#pragma unroll
+          for (int c = 0; c < K; ++c) y_r[K * (long)r + c] = acc[c];
+        }
+      });
+}
+
+// K10 up / K9 up, rig pass: du = wu - w J_p z[pt] (or w J_p z[pt] without a
+// staged wu), stored for the window pass, and y_r = sum J_r^T du
+template <int K>
+__global__ void __launch_bounds__(viba::kBlock) up_cal_rig(
+    int R, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
+    const int* __restrict__ point, const float* __restrict__ J_r,
+    const float* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ z,
+    const float* __restrict__ wu, float* __restrict__ du, float* __restrict__ y_r) {
+  viba::reduce_segments<kRowGroup, K>(
+      blockIdx.x, R, rig_ptr, rig_obs,
+      [&](int s, float(&acc)[K]) {
+        const float* zp = z + 3 * (long)point[s];
+        const float z0 = zp[0], z1 = zp[1], z2 = zp[2];
+        const float u0 = J_p[s] * z0 + J_p[(long)n + s] * z1 + J_p[2 * (long)n + s] * z2;
+        const float u1 =
+            J_p[3 * (long)n + s] * z0 + J_p[4 * (long)n + s] * z1 + J_p[5 * (long)n + s] * z2;
+        const float ws = w[s];
+        float d0 = u0 * ws, d1 = u1 * ws;
+        if (wu != nullptr) {
+          d0 = wu[s] - d0;
+          d1 = wu[n + s] - d1;
+        }
+        du[s] = d0;
+        du[n + s] = d1;
+#pragma unroll
+        for (int c = 0; c < K; ++c)
+          acc[c] += J_r[c * (long)n + s] * d0 + J_r[(K + c) * (long)n + s] * d1;
+      },
+      [&](int r, float(&acc)[K]) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) y_r[K * (long)r + c] = acc[c];
+      });
+}
+
+}  // namespace
+
+extern "C" int viba_assemble_cal(int R, int L, int n, int k, int n_c, int n_chunks,
+                                 const int* rig_ptr, const int* rig_obs, const int* pt_ptr,
+                                 const int* pt_obs, const int* chunk_ptr, const int* chunk_obs,
+                                 const int* row_chunk, const float* J_r, const float* J_p,
+                                 const float* w, const float* J_c, const float* res, float* g_r,
+                                 float* diag_r, float* g_l, float* tri, float* part, float* out_c,
+                                 void* stream) {
+  const int rc = viba_assemble_rig(R, L, n, k, rig_ptr, rig_obs, pt_ptr, pt_obs, J_r, J_p, w,
+                                   res, g_r, diag_r, g_l, tri, stream);
+  if (rc != 0) return rc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_chunks > 0) {
+    const cudaError_t err =
+        launch_parts<0>(n_chunks, n, chunk_ptr, chunk_obs, J_c, w, res, part, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_c > 0) {
+    cal_finish<<<(n_c * kCalOut + 255) / 256, 256, 0, st>>>(n_c, kCalOut, row_chunk, part,
+                                                            out_c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int viba_schur_down_cal(int R, int L, int n, int k, int n_c, int n_chunks, int want_y,
+                                   const int* rig_ptr, const int* rig_obs, const int* pt_ptr,
+                                   const int* pt_obs, const int* win, const int* chunk_ptr,
+                                   const int* chunk_obs, const int* row_chunk, const float* J_r,
+                                   const float* J_p, const float* w, const float* J_c,
+                                   const float* x_r, const float* x_c, float* y_r, float* y_c,
+                                   float* part, float* t, float* wu, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R > 0) {
+    const int grid = viba::segment_blocks<kRowGroup>(R);
+    if (k == 6) {
+      down_cal_rig<6><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, win, J_r,
+                                                     J_c, w, x_r, x_c, y_r, wu);
+    } else if (k == 9) {
+      down_cal_rig<9><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, win, J_r,
+                                                     J_c, w, x_r, x_c, y_r, wu);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int rc = viba_schur_down_points(L, n, pt_ptr, pt_obs, J_p, wu, t, stream);
+  if (rc != 0 || !want_y) return rc;
+  return static_cast<int>(
+      launch_rows(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk, J_c, wu, part, y_c, st));
+}
+
+extern "C" int viba_schur_up_cal(int R, int n, int k, int n_c, int n_chunks, const int* rig_ptr,
+                                 const int* rig_obs, const int* point, const int* chunk_ptr,
+                                 const int* chunk_obs, const int* row_chunk, const float* J_r,
+                                 const float* J_p, const float* w, const float* J_c,
+                                 const float* z, const float* wu, float* du, float* part,
+                                 float* y_r, float* y_c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R > 0) {
+    const int grid = viba::segment_blocks<kRowGroup>(R);
+    if (k == 6) {
+      up_cal_rig<6><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w,
+                                                   z, wu, du, y_r);
+    } else if (k == 9) {
+      up_cal_rig<9><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w,
+                                                   z, wu, du, y_r);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(
+      launch_rows(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk, J_c, du, part, y_c, st));
+}

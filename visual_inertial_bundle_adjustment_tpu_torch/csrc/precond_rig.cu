@@ -2,74 +2,86 @@
 //
 // Replaces the Pallas kernel _precond_rig_kernel (JAX ops/segments.py:1861,
 // entry seg_precond_rig :1911). One 128-thread group per rig row
-// (tile_reduce.cuh) accumulates, over the rig's observations,
-//   E = w J_r J_r^T - A H_ll^-1[pt] A^T,   A = J_r^T w J_p   (6x6, full)
+// (tile_reduce.cuh) accumulates, over the rig's observations, the upper
+// triangle of
+//   E = w J_r J_r^T - A H_ll^-1[pt] A^T,   A = J_r^T w J_p   (K x K, K = rig_k)
 // with H_ll^-1 gathered per observation from an f32 (L, 3, 3) table (the bf16
-// table of the TPU version is not carried over). The wrapper symmetrizes.
-// Bound: bytes of J and the gathered 36 B H_ll^-1 row per observation; the
-// 36-float accumulator stays in registers.
+// table of the TPU version is not carried over); the wrapper mirrors the
+// triangle into the symmetric block. K is a template parameter (6 for
+// global-shutter batches, 9 for rolling-shutter ones, where the velocity
+// couples): the K(K+1)/2-float accumulator (21 or 45) and the per-slot K x 3
+// products stay in registers. Bound: bytes of J and the gathered 36 B
+// H_ll^-1 row per observation.
 #include "tile_reduce.cuh"
 
 namespace {
 
 using viba::kRowGroup;
 
+template <int K>
 __global__ void __launch_bounds__(viba::kBlock) precond_rig(
     int R, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
     const int* __restrict__ point, const float* __restrict__ J_r,
     const float* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ hinv,
     float* __restrict__ out) {
-  viba::reduce_segments<kRowGroup, 36>(
+  constexpr int T = K * (K + 1) / 2;
+  viba::reduce_segments<kRowGroup, T>(
       blockIdx.x, R, rig_ptr, rig_obs,
-      [&](int s, float(&acc)[36]) {
+      [&](int s, float(&acc)[T]) {
         const float ws = w[s];
         const float* H = hinv + 9 * (long)point[s];
-        float Jr[2][6], Jw[2][6], Jp[2][3];
+        float Jr[2][K], Jp[2][3];
 #pragma unroll
         for (int d = 0; d < 2; ++d) {
 #pragma unroll
-          for (int a = 0; a < 6; ++a) {
-            Jr[d][a] = J_r[(6 * d + a) * (long)n + s];
-            Jw[d][a] = Jr[d][a] * ws;
-          }
+          for (int a = 0; a < K; ++a) Jr[d][a] = J_r[(K * d + a) * (long)n + s];
 #pragma unroll
           for (int c = 0; c < 3; ++c) Jp[d][c] = J_p[(3 * d + c) * (long)n + s];
         }
-        float A[6][3], C[6][3];
+        float A[K][3], C[K][3];
 #pragma unroll
-        for (int a = 0; a < 6; ++a) {
+        for (int a = 0; a < K; ++a) {
 #pragma unroll
-          for (int c = 0; c < 3; ++c) A[a][c] = Jw[0][a] * Jp[0][c] + Jw[1][a] * Jp[1][c];
+          for (int c = 0; c < 3; ++c) A[a][c] = (Jr[0][a] * ws) * Jp[0][c] + (Jr[1][a] * ws) * Jp[1][c];
         }
 #pragma unroll
-        for (int a = 0; a < 6; ++a) {
+        for (int a = 0; a < K; ++a) {
 #pragma unroll
           for (int c = 0; c < 3; ++c)
             C[a][c] = A[a][0] * H[c] + A[a][1] * H[3 + c] + A[a][2] * H[6 + c];
         }
+        int m = 0;
 #pragma unroll
-        for (int a = 0; a < 6; ++a) {
+        for (int a = 0; a < K; ++a) {
 #pragma unroll
-          for (int b = 0; b < 6; ++b) {
+          for (int b = a; b < K; ++b) {
             const float corr = C[a][0] * A[b][0] + C[a][1] * A[b][1] + C[a][2] * A[b][2];
-            acc[6 * a + b] += (Jw[0][a] * Jr[0][b] + Jw[1][a] * Jr[1][b]) - corr;
+            acc[m++] += ((Jr[0][a] * ws) * Jr[0][b] + (Jr[1][a] * ws) * Jr[1][b]) - corr;
           }
         }
       },
-      [&](int row, float(&acc)[36]) {
+      [&](int row, float(&acc)[T]) {
 #pragma unroll
-        for (int c = 0; c < 36; ++c) out[36 * (long)row + c] = acc[c];
+        for (int c = 0; c < T; ++c) out[T * (long)row + c] = acc[c];
       });
 }
 
 }  // namespace
 
-extern "C" int viba_precond_rig(int R, int n, const int* rig_ptr, const int* rig_obs,
+extern "C" int viba_precond_rig(int R, int n, int k, const int* rig_ptr, const int* rig_obs,
                                 const int* point, const float* J_r, const float* J_p,
                                 const float* w, const float* hinv, float* out, void* stream) {
   if (R <= 0) return 0;
-  precond_rig<<<viba::segment_blocks<kRowGroup>(R), viba::kBlock, 0,
-                static_cast<cudaStream_t>(stream)>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w,
-                                                     hinv, out);
+  const int grid = viba::segment_blocks<kRowGroup>(R);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k == 6) {
+    precond_rig<6><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w,
+                                                  hinv, out);
+  } else if (k == 9) {
+    precond_rig<9><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w,
+                                                  hinv, out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

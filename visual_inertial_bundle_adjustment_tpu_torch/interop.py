@@ -2,9 +2,10 @@
 
 The tests hold the port against the JAX package on the same state: they take
 the JAX package's problem apart into numpy (`np.asarray` on every leaf of its
-variables, masks and datas, `dataclasses.asdict` on every cfg) and rebuild it
-here. Nothing of JAX is imported; a blocked batch keeps its slot order and
-gets the port's reduction plans.
+variables, masks and datas, `dataclasses.asdict` on every cfg, a dict of
+fields for the RS tables) and rebuild it here. Nothing of JAX is imported; a
+blocked batch keeps its slot order and calibration-window plan and gets the
+port's reduction plans.
 """
 
 from __future__ import annotations
@@ -14,16 +15,18 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops import rolling_shutter as rs
+from .ops import segments as seg
 from .problem import factors as fct
 from .problem import rcs
 from .problem.optimizer import Problem
 from .problem.structure import Masks, VariableTables
 
 # keys of the JAX package's blocked layout that the port does not use: the
-# lane-major copies, the two-grid point permutations, the calibration-window
-# plan and the ELL plans of blocked batches
+# lane-major copies, the two-grid point permutations and the ELL plans of
+# blocked batches
 _DROPPED = ("_uvT", "_sh4", "_rb_rows", "_pt_perm", "_pt_w", "_pt_local", "_pt_inv",
-            "_pt_rows", "_pt_base", "_cb_local", "_cb_base")
+            "_pt_rows", "_pt_base")
 
 
 def _tensor(a, device, dtype):
@@ -54,14 +57,21 @@ def problem_from_numpy(variables: dict, masks: dict, cfgs: list, datas: list, de
         if info is not None:
             info = rcs.BlockInfo(**{k: int(val) for k, val in dict(info).items()
                                     if k in bi_fields})
-            info = dataclasses.replace(info, wb=0)  # calibration plans: not ported
         cfg = fct.BatchCfg(**cfg_d, block_info=info)
         d = {k: _tensor(a, device, dtype) for k, a in data.items()
-             if k not in _DROPPED and not k.startswith("_ell")}
+             if k not in _DROPPED and not k.startswith("_ell") and k != "rs_tables"}
+        if "rs_tables" in data:
+            d["rs_tables"] = rs.tables_to(rs.RSTables(**{
+                f: torch.from_numpy(np.array(data["rs_tables"][f])) for f in rs.RSTables._fields}),
+                device, dtype)
         if info is not None:
-            plan = rcs.segment_plan(np.asarray(data["rig"]), np.asarray(data["point"]),
-                                    np.asarray(data["_pad"]), v.pose_q.shape[0],
-                                    v.points.shape[0])
+            pad = np.asarray(data["_pad"])
+            plan = rcs.segment_plan(np.asarray(data["rig"]), np.asarray(data["point"]), pad,
+                                    v.pose_q.shape[0], v.points.shape[0])
+            if info.wb > 0 and "_cb_local" in data:
+                win = (np.repeat(np.asarray(data["_cb_base"]), info.ts)
+                       + np.asarray(data["_cb_local"]))
+                plan.update(seg.cal_plan_arrays(win, pad, v.cam_intr.shape[0]))
             d.update({k: torch.from_numpy(a).to(device) for k, a in plan.items()})
         problem.add_batch(cfg, d)
     return problem

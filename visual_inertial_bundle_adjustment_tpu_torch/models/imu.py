@@ -225,16 +225,67 @@ def compensate_with_jac(calib, gyro_raw, accel_raw):
 # Noise model (defaults fit Aria glasses — ImuNoiseModelParameters.h:14-112)
 # ---------------------------------------------------------------------------
 
+_PI_REF = 3.14159  # the reference's truncated pi, kept for numeric parity
+
+
 class ImuNoiseModel(NamedTuple):
-    """Per-sample variances of the raw IMU streams (the slice's inertial
-    factors need only these two fields of the reference model)."""
+    """Turn-on std-devs, random-walk variance rates, and sample variances."""
 
     accel_sample_var: torch.Tensor  # (3,) m^2/s^4 per sample
     gyro_sample_var: torch.Tensor  # (3,) rad^2/s^2 per sample
+    turnon_std: torch.Tensor  # (23,) per calib tangent slot
+    rw_var_per_sec: torch.Tensor  # (23,) per calib tangent slot
+    # imu-imu extrinsics (secondary IMUs)
+    extr_turnon_pos_std: torch.Tensor  # (3,) m
+    extr_turnon_rot_std: torch.Tensor  # (3,) rad
+    extr_rw_pos_var_per_sec: torch.Tensor  # (3,)
+    extr_rw_rot_var_per_sec: torch.Tensor  # (3,)
 
 
 def default_noise_model(dtype=torch.float64, device=None) -> ImuNoiseModel:
+    turnon = torch.zeros(CALIB_DIM, dtype=torch.float64)
+    turnon[GYRO_BIAS] = 0.5 * _PI_REF / 180
+    turnon[ACCEL_BIAS] = 0.03
+    turnon[GYRO_SCALE] = 1e-3
+    turnon[ACCEL_SCALE] = 1e-3
+    turnon[GYRO_NONORTH] = 0.2 * _PI_REF / 180
+    turnon[ACCEL_NONORTH] = 0.2 * _PI_REF / 180
+    turnon[REF_TIME_OFFSET] = 0.001
+    turnon[GYRO_ACCEL_TIME_OFFSET] = 0.001
+    rw = torch.zeros(CALIB_DIM, dtype=torch.float64)
+    rw[GYRO_BIAS] = 1e-10
+    rw[ACCEL_BIAS] = 1e-8
+    rw[GYRO_SCALE] = 1e-10
+    rw[ACCEL_SCALE] = 1e-10
+    rw[GYRO_NONORTH] = 1e-12
+    rw[ACCEL_NONORTH] = 1e-12
+    rw[REF_TIME_OFFSET] = 1e-10
+    rw[GYRO_ACCEL_TIME_OFFSET] = 1e-10
+    kw = dict(dtype=dtype, device=device)
     return ImuNoiseModel(
-        accel_sample_var=torch.full((3,), 6.6297049e-3, dtype=dtype, device=device),
-        gyro_sample_var=torch.full((3,), 2.7415568e-05, dtype=dtype, device=device),
+        accel_sample_var=torch.full((3,), 6.6297049e-3, **kw),
+        gyro_sample_var=torch.full((3,), 2.7415568e-05, **kw),
+        turnon_std=turnon.to(**kw),
+        rw_var_per_sec=rw.to(**kw),
+        extr_turnon_pos_std=torch.full((3,), 0.001, **kw),
+        extr_turnon_rot_std=torch.full((3,), 0.2 * _PI_REF / 180, **kw),
+        extr_rw_pos_var_per_sec=torch.full((3,), 1e-10, **kw),
+        extr_rw_rot_var_per_sec=torch.full((3,), 1e-10 * _PI_REF / 180, **kw),
     )
+
+
+# Per-label accel sample variances of the Aria device (reference
+# interfaces/ark/session_data/SessionData.cpp:210-224); unknown labels keep
+# the default model.
+_ACCEL_SAMPLE_VAR_BY_LABEL = {
+    "imu-left": 7.7951241e-3,
+    "imu-right": 6.6297049e-3,
+}
+
+
+def noise_model_for_label(label: str, dtype=torch.float64, device=None) -> ImuNoiseModel:
+    m = default_noise_model(dtype, device)
+    var = _ACCEL_SAMPLE_VAR_BY_LABEL.get(label)
+    if var is None:
+        return m
+    return m._replace(accel_sample_var=torch.full((3,), var, dtype=dtype, device=device))

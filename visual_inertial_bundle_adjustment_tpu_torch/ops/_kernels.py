@@ -1,12 +1,15 @@
 """Build, load and dispatch the port's CUDA kernels.
 
 The CUDA C++ sources in `csrc/` are compiled with `nvcc` for Hopper
-(`-gencode arch=compute_90a,code=sm_90a`) into one shared library with a
-plain C interface under `_build/` (listed in .gitignore), at first use; the
-library name carries a hash of the sources, so an edit rebuilds. A failed
-build raises. Nothing but the repository's sources and the CUDA toolkit is
-used. The library is loaded with ctypes; every C entry point returns the
-`cudaError_t` of its launch, and a nonzero code raises.
+(`-gencode arch=compute_90a,code=sm_90a`), one `nvcc` per source, all
+started together, and linked into one shared library with a plain C
+interface under `_build/` (listed in .gitignore), at first use; the library
+name carries a hash of the sources, so an edit rebuilds. A failed build
+raises. ptxas's per-kernel resource report (registers, spills) is kept next
+to the library (`resource_usage()`). Nothing but the repository's sources
+and the CUDA toolkit is used. The library is loaded with ctypes; every C
+entry point returns the `cudaError_t` of its launch, and a nonzero code
+raises.
 
 Dispatch rule shared by every kernel wrapper: a CPU tensor takes the plain
 PyTorch version; a CUDA tensor launches the kernel (or raises). The only
@@ -23,6 +26,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,16 +43,20 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "viba_visual_linearize": [_I, _I, _I] + [_P] * 22 + [_P],
-    "viba_assemble_rig": [_I, _I, _I] + [_P] * 12 + [_P],
-    "viba_precond_rig": [_I, _I] + [_P] * 8 + [_P],
-    "viba_schur_down": [_I, _I, _I, _I] + [_P] * 11 + [_P],
-    "viba_schur_up": [_I, _I] + [_P] * 9 + [_P],
+    "viba_visual_linearize": [_I] * 3 + [_P] * 22 + [_P],
+    "viba_assemble_rig": [_I] * 4 + [_P] * 12 + [_P],
+    "viba_precond_rig": [_I] * 3 + [_P] * 8 + [_P],
+    "viba_schur_down": [_I] * 5 + [_P] * 11 + [_P],
+    "viba_schur_up": [_I] * 3 + [_P] * 9 + [_P],
+    "viba_rs_linearize": [_I] * 6 + [_P] * 34 + [_P],
+    "viba_assemble_cal": [_I] * 6 + [_P] * 18 + [_P],
+    "viba_schur_down_cal": [_I] * 7 + [_P] * 19 + [_P],
+    "viba_schur_up_cal": [_I] * 5 + [_P] * 16 + [_P],
 }
 
 _state = threading.local()
@@ -138,20 +146,57 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it is up to date."""
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link the
+    shared library, unless it is up to date."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    nvcc = _nvcc()
+    procs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = work / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for src, _, proc in procs:
+        stdout, stderr = proc.communicate()
+        log.append(f"== {src.name}\n{stdout}{stderr}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{stderr}")
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = work / "lib.so"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    out.with_suffix(".log").write_text("\n".join(log))
     os.replace(tmp, out)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def resource_usage():
+    """[(kernel, registers, spill store bytes, spill load bytes)] from the
+    ptxas report of the current build."""
+    text = library_path().with_suffix(".log").read_text()
+    out, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), *spill))
+            name, spill = None, (0, 0)
     return out
 
 

@@ -32,6 +32,15 @@ def project(kind: int, params, point):
     raise ValueError(f"unknown camera kind {kind}")
 
 
+def unproject(kind: int, params, uv):
+    """Unit-norm ray (..., 3) of pixel uv (..., 2)."""
+    if kind == KIND_LINEAR:
+        return pinhole.unproject(params[..., : pinhole.NUM_PARAMS], uv)
+    if kind == KIND_FISHEYE624:
+        return fisheye624.unproject(params[..., : fisheye624.NUM_PARAMS], uv)
+    raise ValueError(f"unknown camera kind {kind}")
+
+
 def pad_params(model_params, readout=0.0, time_offset=0.0):
     """Pack model params + readout + time offset into a MAX_PARAMS vector."""
     model_params = torch.as_tensor(model_params)

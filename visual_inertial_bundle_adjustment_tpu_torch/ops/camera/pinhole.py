@@ -17,3 +17,10 @@ def project(params, point):
     u = params[..., 0] * x / z_safe + params[..., 2]
     v = params[..., 1] * y / z_safe + params[..., 3]
     return torch.stack([u, v], dim=-1), z >= MIN_Z
+
+
+def unproject(params, uv):
+    x = (uv[..., 0] - params[..., 2]) / params[..., 0]
+    y = (uv[..., 1] - params[..., 3]) / params[..., 1]
+    ray = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    return ray / torch.linalg.vector_norm(ray, dim=-1, keepdim=True)

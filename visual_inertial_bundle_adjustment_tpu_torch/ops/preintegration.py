@@ -190,3 +190,72 @@ def preintegrate_batch(calibs, iv: PreintInterval, noise: imu_model.ImuNoiseMode
                    s["J"][:, :, imu_model.REF_TIME_OFFSET + 1:]], -1)
     return Preintegration(rvp=rvp, J=J, cov=cov, omega_at_end=s["prev_cg"],
                           calib_eval=calibs, valid=valid)
+
+
+def integrate_measurements(calibs, iv: PreintInterval, num_steps: int):
+    """RVP-only integration of B intervals (reference PreIntegration.cpp:
+    278-311), plus the per-step prefix RVPs and boundary flags that the
+    rolling-shutter tables need (forEachIntegratedMeasurement,
+    PreIntegration.cpp:313-349).
+
+    Returns (final_rvp, prefix_rvps, at_gyro_boundary, at_accel_boundary,
+    step_active); prefix arrays are (B, num_steps, ...), and prefix k is the
+    integral BEFORE step k (the first flagged entry is the identity at the
+    interval start)."""
+    dtype, device = calibs.dtype, calibs.device
+    Bn = calibs.shape[0]
+    dt_gyro = calibs[:, imu_model.DT_REF_GYRO]
+    dt_accel = calibs[:, imu_model.DT_REF_ACCEL]
+    t_len = iv.t_len
+    ag_all = (iv.gyro_t - dt_gyro[:, None]).contiguous()
+    aa_all = (iv.accel_t - dt_accel[:, None]).contiguous()
+    margin = torch.full((Bn, 1), _MARGIN, dtype=dtype, device=device)
+    gi = torch.clamp(torch.searchsorted(ag_all, margin, right=True)[:, 0], min=1)
+    ai = torch.clamp(torch.searchsorted(aa_all, margin, right=True)[:, 0], min=1)
+    S_g, S_a = iv.gyro_t.shape[1], iv.accel_t.shape[1]
+    false = torch.zeros(Bn, dtype=torch.bool, device=device)
+    t_prev = torch.zeros(Bn, dtype=dtype, device=device)
+    q = lie.quat_identity((Bn,), dtype, device)
+    dV = torch.zeros((Bn, 3), dtype=dtype, device=device)
+    dP = torch.zeros_like(dV)
+    dt_tot = torch.zeros_like(t_prev)
+    trans_g, trans_a, done = false, false, false
+    pre_q, pre_dV, pre_dP, pre_dt, at_g, at_a, acts = [], [], [], [], [], [], []
+    for step in range(num_steps):
+        gic = torch.clamp(gi, 0, S_g - 1)
+        aic = torch.clamp(ai, 0, S_a - 1)
+        ag = _row(iv.gyro_t, gic) - dt_gyro
+        aa = _row(iv.accel_t, aic) - dt_accel
+        last = (ag > t_len - _MARGIN) & (aa > t_len - _MARGIN)
+        t_end = torch.where(last, t_len, torch.minimum(ag, aa))
+        active = ~done
+        cg, ca = imu_model.compensate(calibs, _row(iv.gyro_v, gic), _row(iv.accel_v, aic))
+        st = rvp_integrate(cg, ca, t_end - t_prev)
+        # emit the PRE-step prefix with this step's boundary flags
+        first = step == 0
+        pre_q.append(q)
+        pre_dV.append(dV)
+        pre_dP.append(dP)
+        pre_dt.append(dt_tot)
+        at_g.append((trans_g | first) & active)
+        at_a.append((trans_a | first) & active)
+        acts.append(active)
+        bump_g = ag <= aa
+        bump_a = aa <= ag
+        a1, a3 = active[:, None], active
+        new_q = lie.quat_mul(q, st.q)
+        new_dV = dV + lie.quat_rotate(q, st.dV)
+        new_dP = dP + dV * st.dt[:, None] + lie.quat_rotate(q, st.dP)
+        q = torch.where(a1, new_q, q)
+        dV, dP = torch.where(a1, new_dV, dV), torch.where(a1, new_dP, dP)
+        dt_tot = torch.where(a3, dt_tot + st.dt, dt_tot)
+        gi = torch.where(a3, gi + bump_g.to(gi.dtype), gi)
+        ai = torch.where(a3, ai + bump_a.to(ai.dtype), ai)
+        t_prev = torch.where(a3, t_end, t_prev)
+        trans_g = torch.where(a3, bump_g & ~last, trans_g)
+        trans_a = torch.where(a3, bump_a & ~last, trans_a)
+        done = done | (last & active)
+    prefix = RotVelPos(torch.stack(pre_q, 1), torch.stack(pre_dV, 1), torch.stack(pre_dP, 1),
+                       torch.stack(pre_dt, 1))
+    return (RotVelPos(q, dV, dP, dt_tot), prefix, torch.stack(at_g, 1), torch.stack(at_a, 1),
+            torch.stack(acts, 1))

@@ -1,52 +1,64 @@
-"""Segment kernels of the blocked reduced-camera-system solver (K2-K6).
+"""Segment kernels of the blocked reduced-camera-system solver (K2-K6, K8-K10).
 
 Port of the single-pass rig-grid entries of
 `visual_inertial_bundle_adjustment_tpu/ops/segments.py`. Every entry
-reduces per-observation products of a rig-only visual batch into rig rows
-and/or landmark rows:
+reduces per-observation products of a blocked visual batch into rig rows,
+landmark rows and, for calibration-coupled batches, calibration-window rows:
 
-  seg_assemble_rig  g_r, diag(J_r^T w J_r) per rig; g_l, H_ll0 per landmark (K2)
-  seg_precond_rig   per-rig blocks sum w J_r J_r^T - A H_ll^-1[pt] A^T,
-                    A = J_r^T w J_p, symmetrized (K3)
-  seg_schur_down    y = sum_rig J_r^T w J_r x and t = W^T x (K6, and the
-                    down half of K4; stages wu = w J_r x[rig])
-  seg_schur_up      W z = sum_rig J_r^T w J_p z[pt] (K5), or with the staged
-                    wu: sum_rig J_r^T (wu - w J_p z[pt]) (the up half of K4)
-  seg_schur_pcg     K4: down -> z = H_ll^-1 t (torch) -> up, the PCG matvec
-                    y = J_r^T w J_r x - W H_ll^-1 W^T x
+  seg_assemble_rig    g_r, diag(J_r^T w J_r) per rig; g_l, H_ll0 per landmark (K2)
+  seg_precond_rig     per-rig blocks sum w J_r J_r^T - A H_ll^-1[pt] A^T,
+                      A = J_r^T w J_p (K3)
+  seg_schur_down      y = sum_rig J_r^T w J_r x and t = W^T x (K6)
+  seg_schur_up        W z = sum_rig J_r^T w J_p z[pt] (K5)
+  seg_schur_pcg       the PCG matvec y = J_r^T w J_r x - W H_ll^-1 W^T x (K4):
+                      down (stages wu = w J_r x) -> z = H_ll^-1 t -> up
+  seg_assemble_cal    K2 plus, per window row, g_c, diag_c and the full
+                      self-blocks of each calibration split (K8)
+  seg_schur_down_cal  K6 with u = J_r x_r[rig] + J_c x_c[win]: y_r, y_c, t (K10)
+  seg_schur_up_cal    K5 into rig and window rows (K10)
+  seg_schur_pcg_cal   K4 over rig and window columns (K9)
 
-Kernels: csrc/assemble_rig.cu, csrc/precond_rig.cu, csrc/schur.cu, built on
-the group-per-segment skeleton of csrc/tile_reduce.cuh. They replace the
-Pallas kernels _assemble_rig_kernel (JAX ops/segments.py:840),
-_precond_rig_kernel (:1861), _schur_down_kernel (:586), _schur_up_kernel
-(:725), _down_light_kernel (:1318) and _up_du_kernel (:1347).
+The rig Jacobian carries rig_k = 6 (pose) or 9 (pose + velocity, rolling
+shutter) columns; the window Jacobian J_c the kc = 23 calibration columns
+[extr 6 | intr 17].
+
+Kernels: csrc/assemble_rig.cu, csrc/precond_rig.cu, csrc/schur.cu,
+csrc/cal_segments.cu, on the group-per-segment skeleton of
+csrc/tile_reduce.cuh, templated on rig_k. They replace the Pallas kernels
+_assemble_rig_kernel (JAX ops/segments.py:840), _precond_rig_kernel (:1861),
+_schur_down_kernel (:586), _schur_up_kernel (:725), _down_light_kernel
+(:1318), _up_du_kernel (:1347), _assemble_cal_kernel (:1674),
+_schur_down_cal_kernel (:1005), _schur_up_cal_kernel (:1146),
+_down_light_cal_kernel (:1468) and _up_du_cal_kernel (:1519).
 
 Design on the card. The TPU grid ran tiles in order and accumulated into
 VMEM-resident tables through one-hot MXU dots; on Hopper blocks run in
 parallel, so each output row is instead owned by one thread group that walks
 that row's observations through a CSR list and reduces in a fixed order —
-deterministic, with no atomics and no cross-block combine. The rig CSR lists
-a rig's real slots in slot order (rig-sorted ragged tiles, so reads are
-contiguous); the landmark CSR lists each point's slots (the point-sorted
-order finalize_blocks derives, gathered reads). What bounds them: bytes of J
-read per pass — per observation 48 B of J_r (2 x 6 columns) + 24 B of J_p +
-12 B of res/w/wu, ~33 MB per pass over the bias-only headline's 394k
-observations (~10 us at the H100's 3.35 TB/s); the point-side gathers read
-whole 32 B sectors, so the landmark pass moves ~4x its payload. K4 reads J
-twice per PCG iteration (down + up).
+deterministic, with no atomics. Rig rows (~300 observations each at the
+full-sensor size) and landmark rows (~30) are single segments. Window rows
+are few and long (120 rows of ~15k observations), so their lists are cut
+into chunks of CHUNK slots: one group per chunk writes a partial row, and a
+second pass sums each row's partials in chunk order. What bounds them:
+bytes of J read per pass — 2 x (rig_k + 3 (+ 23)) floats per observation.
 
 The plain PyTorch versions below compute the same functions with
-`index_add_` over the global rig/point index of each slot; CPU tensors take
-them.
+`index_add_` over the global rig/point/window index of each slot; CPU
+tensors take them.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _kernels
+
+CHUNK = 1024  # window-row slots per partial sum (cal kernels)
+CAL_SPLITS = (6, 17)  # calibration column splits of J_c: extr | intr
+RIG_KS = (6, 9)  # rig Jacobian widths the kernels are built for
 
 
 class SegPlan(NamedTuple):
@@ -68,6 +80,44 @@ class SegPlan(NamedTuple):
         return self.pt_ptr.shape[0] - 1
 
 
+class CalPlan(NamedTuple):
+    """Window-row reduction plan of a calibration-coupled batch: each row's
+    real slots (slot order) cut into chunks of at most CHUNK slots."""
+
+    win: torch.Tensor  # (N,) int32 global window row of each slot (pads: tile base)
+    chunk_ptr: torch.Tensor  # (n_chunks+1,) int32 CSR offsets into chunk_obs
+    chunk_obs: torch.Tensor  # (n_real,) int32 real slots, window-sorted
+    row_chunk: torch.Tensor  # (n_c+1,) int32 offsets of each row's chunks
+
+    @property
+    def n_rows(self):
+        return self.row_chunk.shape[0] - 1
+
+    @property
+    def n_chunks(self):
+        return self.chunk_ptr.shape[0] - 1
+
+
+def cal_plan_arrays(win, pad, n_rows, chunk=CHUNK):
+    """Host numpy arrays of a CalPlan (keys `_cal_*`) for window rows `win`
+    (N,) of a blocked batch with pad flags `pad`."""
+    real = np.nonzero(pad < 0.5)[0]
+    w = win[real].astype(np.int64)
+    order = np.argsort(w, kind="stable")
+    obs = real[order]
+    counts = np.bincount(w, minlength=n_rows)
+    n_ch = -(-counts // chunk)
+    row_chunk = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(n_ch, out=row_chunk[1:])
+    row_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    starts = np.concatenate([row_start[r] + chunk * np.arange(n_ch[r]) for r in range(n_rows)]
+                            + [np.zeros(0, np.int64)])
+    chunk_ptr = np.concatenate([starts, [len(obs)]]).astype(np.int64)
+    i32 = np.int32
+    return {"_cal_chunk_ptr": chunk_ptr.astype(i32), "_cal_chunk_obs": obs.astype(i32),
+            "_cal_row_chunk": row_chunk.astype(i32)}
+
+
 def _rows_sum(contrib, idx, n_rows):
     """contrib (D, N) summed into (n_rows, D) rows by idx (N,)."""
     out = torch.zeros((n_rows, contrib.shape[0]), dtype=contrib.dtype,
@@ -75,12 +125,13 @@ def _rows_sum(contrib, idx, n_rows):
     return out.index_add_(0, idx, contrib.T)
 
 
-def _tri_to_full(tri):
-    """(n, 6) upper triangle [00,01,02,11,12,22] -> (n, 3, 3) symmetric."""
-    a00, a01, a02, a11, a12, a22 = tri.unbind(-1)
-    return torch.stack([torch.stack([a00, a01, a02], -1),
-                        torch.stack([a01, a11, a12], -1),
-                        torch.stack([a02, a12, a22], -1)], -2)
+def _tri_to_full(tri, k=3):
+    """(n, k(k+1)/2) row-major upper triangle -> (n, k, k) symmetric."""
+    iu = torch.triu_indices(k, k)
+    full = tri.new_zeros((tri.shape[0], k, k))
+    full[:, iu[0], iu[1]] = tri
+    full[:, iu[1], iu[0]] = tri
+    return full
 
 
 def _plan_ptrs(plan):
@@ -89,14 +140,31 @@ def _plan_ptrs(plan):
             ck(plan.pt_ptr, "pt_ptr", torch.int32), ck(plan.pt_obs, "pt_obs", torch.int32))
 
 
+def _cal_ptrs(cplan, n):
+    ck = _kernels.check
+    return (ck(cplan.win, "win", torch.int32, (n,)),
+            ck(cplan.chunk_ptr, "chunk_ptr", torch.int32),
+            ck(cplan.chunk_obs, "chunk_obs", torch.int32),
+            ck(cplan.row_chunk, "row_chunk", torch.int32))
+
+
 def _jac_args(J_r, J_p, w):
     d, k, n = J_r.shape
-    if d != 2 or k != 6:
-        raise ValueError(f"kernels take rig J blocks of shape (2, 6, N), got {tuple(J_r.shape)}")
+    if d != 2 or k not in RIG_KS:
+        raise ValueError(f"kernels take rig J blocks of shape (2, k in {RIG_KS}, N), "
+                         f"got {tuple(J_r.shape)}")
     ck = _kernels.check
-    return n, (ck(J_r, "J_r", torch.float32, (2, 6, n)),
-               ck(J_p, "J_p", torch.float32, (2, 3, n)),
-               ck(w, "w", torch.float32, (n,)))
+    return n, k, (ck(J_r, "J_r", torch.float32, (2, k, n)),
+                  ck(J_p, "J_p", torch.float32, (2, 3, n)),
+                  ck(w, "w", torch.float32, (n,)))
+
+
+def _jc_arg(J_c, n):
+    return _kernels.check(J_c, "J_c", torch.float32, (2, sum(CAL_SPLITS), n))
+
+
+def _empty(shape, like):
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
 # ---------------------------------------------------------------------------
@@ -116,21 +184,25 @@ def _assemble_rig_plain(J_r, J_p, res, w, plan):
     return g_r, diag_r, pt[:, :3].contiguous(), _tri_to_full(pt[:, 3:])
 
 
-@_kernels.register("assemble_rig")
-def seg_assemble_rig(J_r, J_p, res, w, plan: SegPlan):
-    """g_r (R, 6), diag_r (R, 6), g_l (L, 3), H_ll0 (L, 3, 3) of one batch."""
-    if not _kernels.on_card(w):
-        return _assemble_rig_plain(J_r, J_p, res, w, plan)
-    n, jargs = _jac_args(J_r, J_p, w)
+def _launch_assemble_rig(J_r, J_p, res, w, plan):
+    n, k, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
-    kw = dict(dtype=torch.float32, device=w.device)
-    g_r, diag_r = torch.empty((R, 6), **kw), torch.empty((R, 6), **kw)
-    g_l, tri = torch.empty((L, 3), **kw), torch.empty((L, 6), **kw)
-    _kernels.launch("viba_assemble_rig", R, L, n, *_plan_ptrs(plan), *jargs,
+    g_r, diag_r = _empty((R, k), w), _empty((R, k), w)
+    g_l, tri = _empty((L, 3), w), _empty((L, 6), w)
+    _kernels.launch("viba_assemble_rig", R, L, n, k, *_plan_ptrs(plan), *jargs,
                     _kernels.check(res, "res", torch.float32, (2, n)),
                     g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), tri.data_ptr())
-    seg_assemble_rig.launches += 1
     return g_r, diag_r, g_l, _tri_to_full(tri)
+
+
+@_kernels.register("assemble_rig")
+def seg_assemble_rig(J_r, J_p, res, w, plan: SegPlan):
+    """g_r (R, k), diag_r (R, k), g_l (L, 3), H_ll0 (L, 3, 3) of one batch."""
+    if not _kernels.on_card(w):
+        return _assemble_rig_plain(J_r, J_p, res, w, plan)
+    out = _launch_assemble_rig(J_r, J_p, res, w, plan)
+    seg_assemble_rig.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -152,21 +224,22 @@ def _precond_rig_plain(J_r, J_p, w, hinv, plan):
 
 @_kernels.register("precond_rig")
 def seg_precond_rig(J_r, J_p, w, hinv, plan: SegPlan):
-    """(R, 6, 6) rig blocks sum w J J^T - (J^T w J_p) H_ll^-1 (J^T w J_p)^T,
-    symmetrized (CG needs a symmetric preconditioner)."""
+    """(R, k, k) rig blocks sum w J J^T - (J^T w J_p) H_ll^-1 (J^T w J_p)^T,
+    symmetric (CG needs a symmetric preconditioner; the kernel accumulates
+    the upper triangle)."""
     if not _kernels.on_card(w):
         return _precond_rig_plain(J_r, J_p, w, hinv, plan)
-    n, jargs = _jac_args(J_r, J_p, w)
+    n, k, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
-    M = torch.empty((R, 6, 6), dtype=torch.float32, device=w.device)
+    tri = _empty((R, k * (k + 1) // 2), w)
     ck = _kernels.check
-    _kernels.launch("viba_precond_rig", R, n,
+    _kernels.launch("viba_precond_rig", R, n, k,
                     ck(plan.rig_ptr, "rig_ptr", torch.int32),
                     ck(plan.rig_obs, "rig_obs", torch.int32),
                     ck(plan.point, "point", torch.int32, (n,)), *jargs,
-                    ck(hinv, "hinv", torch.float32, (L, 3, 3)), M.data_ptr())
+                    ck(hinv, "hinv", torch.float32, (L, 3, 3)), tri.data_ptr())
     seg_precond_rig.launches += 1
-    return 0.5 * (M + M.transpose(-1, -2))
+    return _tri_to_full(tri, k)
 
 
 # ---------------------------------------------------------------------------
@@ -182,23 +255,27 @@ def _schur_down_plain(J_r, J_p, w, x_table, plan, want_y):
     return y, t, wu
 
 
+def _launch_schur_down(J_r, J_p, w, x_table, plan, want_y):
+    n, k, jargs = _jac_args(J_r, J_p, w)
+    R, L = plan.n_rows, plan.n_pts
+    y = _empty((R, k), w) if want_y else None
+    t = _empty((L, 3), w)
+    wu = torch.zeros((2, n), dtype=torch.float32, device=w.device)
+    _kernels.launch("viba_schur_down", R, L, n, k, int(bool(want_y)), *_plan_ptrs(plan),
+                    *jargs, _kernels.check(x_table, "x_table", torch.float32, (R, k)),
+                    y.data_ptr() if want_y else None, t.data_ptr(), wu.data_ptr())
+    return y, t, wu
+
+
 @_kernels.register("schur_down")
 def seg_schur_down(J_r, J_p, w, x_table, plan: SegPlan, want_y=True):
-    """One pass over the batch: (y (R, 6) = seg-sum_rig J_r^T w J_r x or
+    """One pass over the batch: (y (R, k) = seg-sum_rig J_r^T w J_r x or
     None, t (L, 3) = seg-sum_pt J_p^T w J_r x = W^T x, wu (2, N) = w J_r x)."""
     if not _kernels.on_card(w):
         return _schur_down_plain(J_r, J_p, w, x_table, plan, want_y)
-    n, jargs = _jac_args(J_r, J_p, w)
-    R, L = plan.n_rows, plan.n_pts
-    kw = dict(dtype=torch.float32, device=w.device)
-    y = torch.empty((R, 6), **kw) if want_y else None
-    t = torch.empty((L, 3), **kw)
-    wu = torch.zeros((2, n), **kw)
-    _kernels.launch("viba_schur_down", R, L, n, int(bool(want_y)), *_plan_ptrs(plan),
-                    *jargs, _kernels.check(x_table, "x_table", torch.float32, (R, 6)),
-                    y.data_ptr() if want_y else None, t.data_ptr(), wu.data_ptr())
+    out = _launch_schur_down(J_r, J_p, w, x_table, plan, want_y)
     seg_schur_down.launches += 1
-    return y, t, wu
+    return out
 
 
 def _schur_up_plain(J_r, J_p, w, z, plan, wu):
@@ -208,30 +285,213 @@ def _schur_up_plain(J_r, J_p, w, z, plan, wu):
     return _rows_sum((J_r * du[:, None, :]).sum(0), plan.rig, plan.n_rows)
 
 
-@_kernels.register("schur_up")
-def seg_schur_up(J_r, J_p, w, z, plan: SegPlan, wu=None):
-    """y (R, 6) = seg-sum_rig J_r^T w J_p z[pt] (= W z); with the staged
-    wu = w J_r x of seg_schur_down: seg-sum_rig J_r^T (wu - w J_p z[pt])."""
-    if not _kernels.on_card(w):
-        return _schur_up_plain(J_r, J_p, w, z, plan, wu)
-    n, jargs = _jac_args(J_r, J_p, w)
+def _launch_schur_up(J_r, J_p, w, z, plan, wu):
+    n, k, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
-    y = torch.empty((R, 6), dtype=torch.float32, device=w.device)
+    y = _empty((R, k), w)
     ck = _kernels.check
-    _kernels.launch("viba_schur_up", R, n,
+    _kernels.launch("viba_schur_up", R, n, k,
                     ck(plan.rig_ptr, "rig_ptr", torch.int32),
                     ck(plan.rig_obs, "rig_obs", torch.int32),
                     ck(plan.point, "point", torch.int32, (n,)), *jargs,
                     ck(z, "z", torch.float32, (L, 3)),
                     ck(wu, "wu", torch.float32, (2, n)) if wu is not None else None,
                     y.data_ptr())
+    return y
+
+
+@_kernels.register("schur_up")
+def seg_schur_up(J_r, J_p, w, z, plan: SegPlan, wu=None):
+    """y (R, k) = seg-sum_rig J_r^T w J_p z[pt] (= W z); with the staged
+    wu = w J_r x of seg_schur_down: seg-sum_rig J_r^T (wu - w J_p z[pt])."""
+    if not _kernels.on_card(w):
+        return _schur_up_plain(J_r, J_p, w, z, plan, wu)
+    y = _launch_schur_up(J_r, J_p, w, z, plan, wu)
     seg_schur_up.launches += 1
     return y
 
 
+@_kernels.register("schur_pcg")
 def seg_schur_pcg(J_r, J_p, w, x_table, hinv, plan: SegPlan):
     """K4, the PCG Schur matvec y = seg-sum_rig J_r^T w J_r x - W H_ll^-1 W^T x
     of one rig-only batch: down (t, staged wu) -> z = H_ll^-1 t -> up."""
-    _, t, wu = seg_schur_down(J_r, J_p, w, x_table, plan, want_y=False)
-    z = (hinv * t[:, None, :]).sum(-1)
-    return seg_schur_up(J_r, J_p, w, z, plan, wu=wu)
+    if not _kernels.on_card(w):
+        _, t, wu = _schur_down_plain(J_r, J_p, w, x_table, plan, False)
+        return _schur_up_plain(J_r, J_p, w, (hinv * t[:, None, :]).sum(-1), plan, wu)
+    _, t, wu = _launch_schur_down(J_r, J_p, w, x_table, plan, False)
+    y = _launch_schur_up(J_r, J_p, w, (hinv * t[:, None, :]).sum(-1), plan, wu)
+    seg_schur_pcg.launches += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K8: lambda-independent assembly of a calibration-coupled batch
+# ---------------------------------------------------------------------------
+
+
+def _cal_entries():
+    """Window-row outputs of the assembly kernel, in kernel order: (a, -1)
+    is g_c[a]; (a, b) with a <= b inside one split is the self-block entry."""
+    ents = [(a, -1) for a in range(sum(CAL_SPLITS))]
+    off = 0
+    for dim in CAL_SPLITS:
+        ents += [(off + a, off + b) for a in range(dim) for b in range(a, dim)]
+        off += dim
+    return ents
+
+
+N_CAL_OUT = len(_cal_entries())  # 23 + 21 + 153 = 197
+
+
+def _unpack_cal(out, kc):
+    """(n_c, N_CAL_OUT) kernel rows -> g_c, diag_c (n_c, kc), [blocks]."""
+    g_c = out[:, :kc]
+    blocks, pos = [], kc
+    for dim in CAL_SPLITS:
+        m = dim * (dim + 1) // 2
+        blocks.append(_tri_to_full(out[:, pos:pos + m], dim))
+        pos += m
+    diag_c = torch.cat([torch.diagonal(b, dim1=-2, dim2=-1) for b in blocks], dim=1)
+    return g_c.contiguous(), diag_c.contiguous(), blocks
+
+
+def _assemble_cal_plain(J_r, J_c, J_p, res, w, plan, cplan):
+    g_r, diag_r, g_l, H = _assemble_rig_plain(J_r, J_p, res, w, plan)
+    n_c = cplan.n_rows
+    wres = res * w[None, :]
+    g_c = _rows_sum((J_c * wres[:, None, :]).sum(0), cplan.win, n_c)
+    diag_c = _rows_sum((J_c * J_c * w[None, None, :]).sum(0), cplan.win, n_c)
+    blocks, off = [], 0
+    for dim in CAL_SPLITS:
+        Js = J_c[:, off:off + dim]
+        B = ((Js * w[None, None, :])[:, :, None, :] * Js[:, None, :, :]).sum(0)
+        blocks.append(_rows_sum(B.reshape(dim * dim, -1), cplan.win, n_c).reshape(-1, dim, dim))
+        off += dim
+    return g_r, diag_r, g_c, diag_c, blocks, g_l, H
+
+
+@_kernels.register("assemble_cal")
+def seg_assemble_cal(J_r, J_c, J_p, res, w, plan: SegPlan, cplan: CalPlan):
+    """All lambda-independent assembly of a calibration-coupled batch:
+    g_r, diag_r (R, k); g_c, diag_c (n_c, 23); blocks_c [(n_c, 6, 6),
+    (n_c, 17, 17)] (the window variables' block-Jacobi blocks, no Schur
+    correction); g_l (L, 3); H_ll0 (L, 3, 3)."""
+    if not _kernels.on_card(w):
+        return _assemble_cal_plain(J_r, J_c, J_p, res, w, plan, cplan)
+    n, k, jargs = _jac_args(J_r, J_p, w)
+    R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
+    g_r, diag_r = _empty((R, k), w), _empty((R, k), w)
+    g_l, tri = _empty((L, 3), w), _empty((L, 6), w)
+    part = _empty((max(cplan.n_chunks, 1), N_CAL_OUT), w)
+    out_c = _empty((n_c, N_CAL_OUT), w)
+    _kernels.launch("viba_assemble_cal", R, L, n, k, n_c, cplan.n_chunks, *_plan_ptrs(plan),
+                    *_cal_ptrs(cplan, n)[1:], *jargs, _jc_arg(J_c, n),
+                    _kernels.check(res, "res", torch.float32, (2, n)),
+                    g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), tri.data_ptr(),
+                    part.data_ptr(), out_c.data_ptr())
+    seg_assemble_cal.launches += 1
+    g_c, diag_c, blocks = _unpack_cal(out_c, J_c.shape[1])
+    return g_r, diag_r, g_c, diag_c, blocks, g_l, _tri_to_full(tri)
+
+
+# ---------------------------------------------------------------------------
+# K10 / K9: Schur matvec halves over rig and window columns
+# ---------------------------------------------------------------------------
+
+
+def _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
+    xg_r = x_r.index_select(0, plan.rig)
+    xg_c = x_c.index_select(0, cplan.win)
+    wu = ((J_r * xg_r.T[None]).sum(1) + (J_c * xg_c.T[None]).sum(1)) * w[None, :]
+    t = _rows_sum((J_p * wu[:, None, :]).sum(0), plan.point, plan.n_pts)
+    if not want_y:
+        return None, None, t, wu
+    y_r = _rows_sum((J_r * wu[:, None, :]).sum(0), plan.rig, plan.n_rows)
+    y_c = _rows_sum((J_c * wu[:, None, :]).sum(0), cplan.win, cplan.n_rows)
+    return y_r, y_c, t, wu
+
+
+def _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
+    n, k, jargs = _jac_args(J_r, J_p, w)
+    R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
+    kc = J_c.shape[1]
+    y_r = _empty((R, k), w) if want_y else None
+    y_c = _empty((n_c, kc), w) if want_y else None
+    part = _empty((max(cplan.n_chunks, 1), kc), w) if want_y else None
+    t = _empty((L, 3), w)
+    wu = torch.zeros((2, n), dtype=torch.float32, device=w.device)
+    ck = _kernels.check
+    _kernels.launch("viba_schur_down_cal", R, L, n, k, n_c, cplan.n_chunks, int(bool(want_y)),
+                    *_plan_ptrs(plan), *_cal_ptrs(cplan, n), *jargs, _jc_arg(J_c, n),
+                    ck(x_r, "x_r", torch.float32, (R, k)),
+                    ck(x_c, "x_c", torch.float32, (n_c, kc)),
+                    *(a.data_ptr() if a is not None else None for a in (y_r, y_c, part)),
+                    t.data_ptr(), wu.data_ptr())
+    return y_r, y_c, t, wu
+
+
+@_kernels.register("schur_down_cal")
+def seg_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan: SegPlan, cplan: CalPlan,
+                       want_y=True):
+    """One pass over a calibration-coupled batch with u = J_r x_r[rig] +
+    J_c x_c[win]: (y_r (R, k) = seg-sum_rig J_r^T w u, y_c (n_c, 23) =
+    seg-sum_win J_c^T w u (both None unless want_y), t (L, 3) = W^T x,
+    wu (2, N) = w u)."""
+    if not _kernels.on_card(w):
+        return _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y)
+    out = _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y)
+    seg_schur_down_cal.launches += 1
+    return out
+
+
+def _schur_up_cal_plain(J_r, J_c, J_p, w, z, plan, cplan, wu):
+    zg = z.index_select(0, plan.point)
+    wu2 = (J_p * zg.T[None]).sum(1) * w[None, :]
+    du = wu2 if wu is None else wu - wu2
+    return (_rows_sum((J_r * du[:, None, :]).sum(0), plan.rig, plan.n_rows),
+            _rows_sum((J_c * du[:, None, :]).sum(0), cplan.win, cplan.n_rows))
+
+
+def _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan, wu):
+    n, k, jargs = _jac_args(J_r, J_p, w)
+    R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
+    kc = J_c.shape[1]
+    y_r, y_c = _empty((R, k), w), _empty((n_c, kc), w)
+    part = _empty((max(cplan.n_chunks, 1), kc), w)
+    du = torch.zeros((2, n), dtype=torch.float32, device=w.device)
+    ck = _kernels.check
+    _kernels.launch("viba_schur_up_cal", R, n, k, n_c, cplan.n_chunks,
+                    ck(plan.rig_ptr, "rig_ptr", torch.int32),
+                    ck(plan.rig_obs, "rig_obs", torch.int32),
+                    ck(plan.point, "point", torch.int32, (n,)), *_cal_ptrs(cplan, n)[1:],
+                    *jargs, _jc_arg(J_c, n), ck(z, "z", torch.float32, (L, 3)),
+                    ck(wu, "wu", torch.float32, (2, n)) if wu is not None else None,
+                    du.data_ptr(), part.data_ptr(), y_r.data_ptr(), y_c.data_ptr())
+    return y_r, y_c
+
+
+@_kernels.register("schur_up_cal")
+def seg_schur_up_cal(J_r, J_c, J_p, w, z, plan: SegPlan, cplan: CalPlan, wu=None):
+    """(y_r (R, k), y_c (n_c, 23)) = segment sums of (J_r, J_c)^T w J_p z[pt]
+    (= W z over rig and window columns); with the staged wu of
+    seg_schur_down_cal: the sums of (J_r, J_c)^T (wu - w J_p z[pt])."""
+    if not _kernels.on_card(w):
+        return _schur_up_cal_plain(J_r, J_c, J_p, w, z, plan, cplan, wu)
+    out = _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan, wu)
+    seg_schur_up_cal.launches += 1
+    return out
+
+
+@_kernels.register("schur_pcg_cal")
+def seg_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cplan: CalPlan):
+    """K9, the PCG Schur matvec (y_r, y_c) = H_batch x - W H_ll^-1 W^T x of
+    one calibration-coupled batch: down (t, staged wu) -> z = H_ll^-1 t -> up."""
+    if not _kernels.on_card(w):
+        _, _, t, wu = _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, False)
+        return _schur_up_cal_plain(J_r, J_c, J_p, w, (hinv * t[:, None, :]).sum(-1), plan,
+                                   cplan, wu)
+    _, _, t, wu = _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, False)
+    out = _launch_schur_up_cal(J_r, J_c, J_p, w, (hinv * t[:, None, :]).sum(-1), plan, cplan,
+                               wu)
+    seg_schur_pcg_cal.launches += 1
+    return out

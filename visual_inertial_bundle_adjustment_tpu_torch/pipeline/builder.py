@@ -4,7 +4,8 @@ Port of `visual_inertial_bundle_adjustment_tpu/pipeline/builder.py`
 (reference SingleSessionAdapter.cpp:67-128): variable tables, preintegration
 per consecutive rig pair, and the visual + inertial factor batches. The
 problem is built on the host in float64 and then moved to `device` as
-`dtype` — host preprocessing, like rcs.finalize_blocks.
+`dtype` — host preprocessing, like rcs.finalize_blocks. The device is the
+first CUDA card unless the caller asks for another.
 """
 
 from __future__ import annotations
@@ -53,9 +54,16 @@ class BuildOptions:
     seed: int = 0
 
 
+def default_device() -> torch.device:
+    """The device a pipeline entry point builds on when the caller names
+    none: the first CUDA card (there is no silent CPU fallback)."""
+    return torch.device("cuda", 0)
+
+
 def build_synthetic_problem(s: SyntheticSession, opts: BuildOptions = None, *,
-                            device="cpu", dtype=torch.float64) -> Problem:
+                            device=None, dtype=torch.float64) -> Problem:
     opts = opts or BuildOptions()
+    device = torch.device(device) if device is not None else default_device()
     f64 = torch.float64
     rng = np.random.default_rng(opts.seed + 1000)
     R = s.num_rigs

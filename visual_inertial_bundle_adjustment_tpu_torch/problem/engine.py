@@ -1,7 +1,7 @@
 """Gauss-Newton engine pieces: cost, gradient, small-block inverses.
 
 Port of the parts of `visual_inertial_bundle_adjustment_tpu/problem/engine.py`
-that the blocked bias-only path uses: the per-iteration linearization state,
+that the blocked paths use: the per-iteration linearization state,
 comparable costs (reference Factor.h:391-417), gradient accumulation, the
 closed-form 3x3 landmark inverses, the block-Jacobi preconditioner inverses
 with the LowerPrecSolvePrecond definiteness safeguard

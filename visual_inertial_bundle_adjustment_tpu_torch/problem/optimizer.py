@@ -13,10 +13,11 @@ Port of `visual_inertial_bundle_adjustment_tpu/problem/optimizer.py`
   - troubled-sequence accounting and the tolerance-held-for-N-iterations stop
     (Optimizer.cpp:1032-1096)
 
-One iteration: linearize (K1 + inertial AD) -> assemble (K2) -> damp and
-precondition (K3) -> Schur RHS (K5) -> packed PCG (K4) -> back-substitute
-(K6) -> retract -> comparable cost (K1 residual-only). PyTorch runs
-eagerly: `Problem._build` returns plain callables in place of jits.
+One iteration: linearize (K1 or K7 + AD of the small batches) -> assemble
+(K2 or K8) -> damp and precondition (K3) -> Schur RHS (K5 or K10 up) ->
+packed PCG (K4 or K9) -> back-substitute (K6 or K10 down) -> retract ->
+comparable cost (K1 or K7 residual-only). PyTorch runs eagerly:
+`Problem._build` returns plain callables in place of jits.
 
 Divergences from the JAX package, fixing its queue-C faults (ROADMAP §C):
 the linearization + assembly survive damping retries and are recomputed
@@ -113,12 +114,17 @@ class Problem:
         self._kernels = None
 
     def to(self, device=None, dtype=None):
-        """Move every table and batch to `device`, floats to `dtype`."""
+        """Move every table and batch to `device`, floats to `dtype` (a
+        batch's NamedTuple payloads, such as the RS tables, field by field)."""
+
+        def move(a):
+            if isinstance(a, tuple):
+                return type(a)(*(move(x) for x in a))
+            return a.to(device=device, dtype=dtype) if a.is_floating_point() else a.to(device)
+
         self.variables = tables_to(self.variables, device, dtype)
         self.masks = tables_to(self.masks, device, dtype)
-        self.datas = [{k: (a.to(device=device, dtype=dtype) if a.is_floating_point()
-                           else a.to(device=device)) for k, a in d.items()}
-                      for d in self.datas]
+        self.datas = [{k: move(a) for k, a in d.items()} for d in self.datas]
         self._kernels = None
         return self
 
