@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two main paths through the entry points a user calls:
+Drives the port's four main paths through the entry points a user calls:
 
   bias-only    the 120 s headline (1,200 rigs, 20,000 landmarks, ~394k
                Fisheye624 observations, one inertial chain with IMU bias)
@@ -13,7 +13,16 @@ Drives the port's two main paths through the entry points a user calls:
                observations) through `pipeline.synthetic_io.write_session_dir`
                -> `pipeline.session_data.load_session` ->
                `pipeline.adapter.SessionAdapter(...).build()` -> `optimize`
-               (kernels K7-K10 and K3 at rig_k = 9).
+               (kernels K7-K10 and K3 at rig_k = 9);
+  gs_cal       the same session recorded by a global-shutter camera (written
+               with `readout_time_sec=None`), built with the adapter's default
+               options, which estimate the camera intrinsics and extrinsics:
+               K11 linearizes, K1 gives the cost, K8-K10 and K3 run at
+               rig_k = 6;
+  two_grid     the bias-only build on a 120 s session whose 6,000 landmarks are
+               re-observed over the whole session (`track_lifetime_sec=None`,
+               ~3.1M observations): no per-tile landmark window fits, so the
+               solver takes its general path (K1, K12, K13a-c).
 
 Phases, one printed line each (per path):
 
@@ -28,7 +37,8 @@ Phases, one printed line each (per path):
                the plain version in float32; the least time the card could
                take (bound)
   consistency  one LM iteration through the kernels vs the plain versions,
-               from the initial state
+               from the initial state: new cost, reduced step and the step of
+               the well-conditioned landmarks
   phases       where one LM attempt's time goes: host time of each phase
                (synchronized, median of 3), and the device's busy share over
                one attempt (torch.profiler)
@@ -58,29 +68,42 @@ JAXPKG = "visual_inertial_bundle_adjustment_tpu"
 # kernel wrapper name -> (K#, CUDA source, the TPU Pallas kernel it replaces, path)
 KERNELS = {
     "visual_linearize": ("K1", f"{PKG}/csrc/visual_linearize.cu",
-                         f"{JAXPKG}/ops/visual_fused.py:139", "bias"),
+                         f"{JAXPKG}/ops/visual_fused.py:139", "bias+gs_cal+two_grid"),
     "assemble_rig": ("K2", f"{PKG}/csrc/assemble_rig.cu", f"{JAXPKG}/ops/segments.py:840", "bias"),
     "precond_rig": ("K3", f"{PKG}/csrc/precond_rig.cu", f"{JAXPKG}/ops/segments.py:1861",
-                    "bias+full"),
+                    "bias+full+gs_cal"),
     "schur_pcg": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347", "bias"),
     "schur_up": ("K5", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:725", "bias"),
     "schur_down": ("K6", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:586", "bias"),
     "rs_linearize": ("K7", f"{PKG}/csrc/rs_linearize.cu", f"{JAXPKG}/ops/rs_fused.py:131",
                      "full"),
     "assemble_cal": ("K8", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1674",
-                     "full"),
+                     "full+gs_cal"),
     "schur_pcg_cal": ("K9", f"{PKG}/csrc/cal_segments.cu",
-                      f"{JAXPKG}/ops/segments.py:1468,1519", "full"),
+                      f"{JAXPKG}/ops/segments.py:1468,1519", "full+gs_cal"),
     "schur_down_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1005",
-                       "full"),
+                       "full+gs_cal"),
     "schur_up_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1146",
-                     "full"),
+                     "full+gs_cal"),
+    "visual_cal_linearize": ("K11", f"{PKG}/csrc/visual_cal_linearize.cu",
+                             f"{JAXPKG}/ops/visual_fused.py:347", "gs_cal"),
+    "mv_fused_table": ("K12", f"{PKG}/csrc/table_segments.cu", f"{JAXPKG}/ops/segments.py:304",
+                       "two_grid"),
+    "mv_scatter_table": ("K13a", f"{PKG}/csrc/table_segments.cu",
+                         f"{JAXPKG}/ops/segments.py:366", "two_grid"),
+    "mv_gather_table": ("K13b", f"{PKG}/csrc/table_segments.cu",
+                        f"{JAXPKG}/ops/segments.py:406", "two_grid"),
+    "reduce_table": ("K13c", f"{PKG}/csrc/table_segments.cu", f"{JAXPKG}/ops/segments.py:441",
+                     "two_grid"),
 }
+PATHS = ("bias", "full", "gs_cal", "two_grid")
 # bounds relative to the plain version's max-abs (tests/test_tpu_accuracy.py)
 TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
+TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
 # kernel vs plain LM iteration, relative (see the consistency phases)
 TOL_ITER = 1e-3
+COND_MAX = 1e4  # landmarks whose step float32 resolves (see consistency)
 LM_ITERATIONS = 5
 PCG_ITERATIONS = 40
 # one NVIDIA H100 SXM: HBM rate; float32 outside the tensor cores and
@@ -88,6 +111,11 @@ PCG_ITERATIONS = 40
 # compute in float64 registers
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS, F64_FLOPS = 67e12, 34e12
+
+
+def path_kernels(path):
+    """The kernels a path must launch."""
+    return [name for name, spec in KERNELS.items() if path in spec[3].split("+")]
 
 
 def phase(name, msg):
@@ -146,13 +174,15 @@ class Bench:
     def __init__(self):
         self.results = {}
 
-    def compare(self, name, fn, args, labels_tol, read, flops, f64=False, record=True):
+    def compare(self, name, fn, args, labels_tol, read, flops, f64=False, record=True,
+                library=None):
         """fn(*args) -> outputs. The kernel's outputs are held against the
         plain version evaluated in float64 on the same inputs (so the bound
         measures the kernel's own error, not the float32 rounding of two
         summation orders); the kernel is timed against the plain version in
         float32, the type the main path runs. `read` lists the tensors the
-        function reads (each counted once), `flops` its arithmetic."""
+        function reads (each counted once), `flops` its arithmetic, `library`
+        one PyTorch call computing the same function (timed, used nowhere)."""
         from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
         import torch
 
@@ -169,15 +199,17 @@ class Bench:
         ms = cuda_time(lambda: fn(*args))
         with _kernels.plain_reference():  # fewer repetitions: the plain K7 takes seconds
             plain_ms = cuda_time(lambda: fn(*args), reps=5, warmup=1)
+        library_ms = cuda_time(library, reps=5, warmup=1) if library is not None else None
         byte_ms = (nbytes(read) + nbytes(out_k)) / HBM_BYTES_PER_S * 1e3
         flop_ms = flops / (F64_FLOPS if f64 else F32_FLOPS) * 1e3
         bound_ms = max(byte_ms, flop_ms)
         bound_by = "bytes" if byte_ms >= flop_ms else "operations"
         phase("kernels", f"{name}: " + ", ".join(f"{lb} rel {r:.2e}" for lb, r, _ in errs)
               + f" | {ms:.4f} ms vs plain {plain_ms:.4f} ms | bound {bound_ms:.4f} ms "
-              f"({bound_by}) | {ms / bound_ms:.1f}x bound")
+              f"({bound_by}) | {ms / bound_ms:.1f}x bound"
+              + (f" | library {library_ms:.4f} ms" if library is not None else ""))
         row = dict(max_abs_err=max(d for _, _, d in errs), ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         if record:
             self.results[name] = row
         return row
@@ -185,7 +217,8 @@ class Bench:
 
 def lm_iteration(problem, settings):
     """One LM attempt (linearize -> assemble -> solve -> retract -> cost) from
-    the problem's current state: (new cost, |step|, pcg relative residual)."""
+    the problem's current state: (new cost, |step|, pcg relative residual,
+    reduced step x_r, landmark step x_l, damped landmark inverses)."""
     ks = problem._build()
     k_lin, k_assemble, k_step = ks[0], ks[6], ks[7]
     datas, v, masks = tuple(problem.datas), problem.variables, problem.masks
@@ -193,21 +226,47 @@ def lm_iteration(problem, settings):
     asm = k_assemble(datas, lg, v, masks)
     out = k_step(asm, datas, lg, v, masks, settings.damping, PCG_ITERATIONS, settings.pcg_tol,
                  "gauss_seidel")
-    return float(out[9].cost), float(out[11]), float(out[3])
+    return float(out[9].cost), float(out[11]), float(out[3]), out[0], out[1], out[5].H_ll_inv
 
 
 def consistency(path, problem, settings, tol):
-    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+    """One LM iteration through the kernels against the same iteration
+    through the plain versions: the new cost, the reduced step |x_r| and the
+    landmark step |x_l| within `tol`, relative. The landmark step is taken
+    over the landmarks whose damped 3x3 block has a condition number below
+    COND_MAX: float32 resolves the inverse of those to better than 1e-3
+    (6e-8 x 1e4). Every session holds some near-degenerate landmarks; one
+    triangulated from its own observations holds a few (condition 1e5-5e5,
+    steps of metres) whose float32 steps move by percents with the summation
+    order alone, between two calls of the plain path too, and they carry
+    most of |step|. |step| over all landmarks, the number left out and the
+    share of the landmark difference that the ten worst carry are printed
+    beside."""
+    import torch
 
-    cost_k, step_k, rel_k = lm_iteration(problem, settings)
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.structure import t_dot
+
+    cost_k, step_k, rel_k, xr_k, xl_k, hinv = lm_iteration(problem, settings)
     with _kernels.plain_reference():
-        cost_p, step_p, rel_p = lm_iteration(problem, settings)
-    dc = abs(cost_k - cost_p) / abs(cost_p)
-    ds = abs(step_k - step_p) / abs(step_p)
+        cost_p, step_p, rel_p, xr_p, xl_p, _ = lm_iteration(problem, settings)
+    cond = torch.linalg.cond(hinv.double())
+    well = cond < COND_MAX
+    d2 = (xl_k.double() - xl_p.double()).pow(2).sum(-1)
+    top = torch.topk(d2, min(10, d2.shape[0])).indices
+    top_share = float(d2[top].sum() / d2.sum().clamp_min(1e-300))
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    dc, ds = rel(cost_k, cost_p), rel(step_k, step_p)
+    dr = rel(float(t_dot(xr_k, xr_k)) ** 0.5, float(t_dot(xr_p, xr_p)) ** 0.5)
+    dl = rel(float(xl_k[well].double().norm()), float(xl_p[well].double().norm()))
     phase(f"{path}:consistency",
-          f"new cost {cost_k:.8g} vs plain {cost_p:.8g} (rel {dc:.2e}); |step| {step_k:.6g} vs "
-          f"plain {step_p:.6g} (rel {ds:.2e}); pcg rel {rel_k:.2e} vs plain {rel_p:.2e}")
-    if not (dc <= tol and ds <= tol):
+          f"new cost {cost_k:.8g} vs plain {cost_p:.8g} (rel {dc:.2e}); |x_r| rel {dr:.2e}; "
+          f"|x_l| over {int(well.sum())} landmarks of condition < {COND_MAX:g} rel {dl:.2e} "
+          f"({int((~well).sum())} left out); |step| over all {step_k:.6g} vs plain {step_p:.6g} "
+          f"(rel {ds:.2e}); the 10 landmarks that differ most carry {top_share:.3f} of "
+          f"|x_l - plain x_l|^2, their condition {float(cond[top].min()):.3g}-"
+          f"{float(cond[top].max()):.3g}; pcg rel {rel_k:.2e} vs plain {rel_p:.2e}")
+    if not (dc <= tol and dr <= tol and dl <= tol):
         raise AssertionError(f"{path}: kernel and plain LM iterations disagree beyond {tol:g}")
 
 
@@ -405,7 +464,7 @@ def bias_only(dev, bench):
     consistency("bias", problem, settings, TOL_ITER)
     phase_times("bias", problem, settings)
     return run_main("bias", problem, settings,
-                    [kk for kk, spec in KERNELS.items() if "bias" in spec[3]])
+                    path_kernels("bias"))
 
 
 # ---------------------------------------------------------------------------
@@ -413,37 +472,38 @@ def bias_only(dev, bench):
 # ---------------------------------------------------------------------------
 
 
-def full_sensor(dev, bench):
-    import torch
-
-    from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
-    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
-    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import session_data as sio
-    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import (
-        AdapterOptions, SessionAdapter)
+def session_600():
+    """The 600 s Aria-style session both adapter paths record (built once)."""
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic import SyntheticSession
-    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic_io import (
-        write_session_dir)
-    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
 
-    times = {}
     t0 = time.time()
     s = SyntheticSession(duration=600.0, keyframe_hz=10.0, gyro_hz=800.0, accel_hz=800.0,
                          num_points=60000, seed=23, pixel_noise=0.3, track_lifetime_sec=10.0)
     s.observations()
-    times["session"] = time.time() - t0
+    return s, time.time() - t0
+
+
+def adapter_problem(path, dev, session, session_sec, readout_time_sec, options):
+    """write_session_dir -> load_session -> SessionAdapter.build -> blocking;
+    prints the path's problem line and returns (problem, adapter, index of the
+    blocked visual batch)."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import session_data as sio
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import SessionAdapter
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic_io import (
+        write_session_dir)
+
+    times = {"session": session_sec}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
-        write_session_dir(s, tmp, num_imus=2, readout_time_sec=0.03, seed=23)
+        write_session_dir(session, tmp, num_imus=2, readout_time_sec=readout_time_sec, seed=23)
         times["write"] = time.time() - t0
         t0 = time.time()
         sd = sio.load_session(tmp)
         times["load"] = time.time() - t0
-    del s
     t0 = time.time()
-    adapter = SessionAdapter(sd, AdapterOptions(estimate_readout=True,
-                                                estimate_cam_time_offset=True),
-                             log=lambda *a: None, device=dev, dtype=torch.float32)
+    adapter = SessionAdapter(sd, options, log=lambda *a: None, device=dev, dtype=torch.float32)
     problem = adapter.build()
     torch.cuda.synchronize()
     times["adapter"] = time.time() - t0
@@ -452,17 +512,87 @@ def full_sensor(dev, bench):
     problem._build()
     times["blocking"] = time.time() - t0
     vi = next(i for i, c in enumerate(problem.cfgs) if c.block_info is not None)
+    info, data, v = problem.cfgs[vi].block_info, problem.datas[vi], problem.variables
+    phase(f"{path}:problem", f"R={v.pose_q.shape[0]} L={v.points.shape[0]} "
+          f"N={int((data['_pad'] < 0.5).sum())} (padded {info.nt * info.ts}) "
+          f"n_c={v.cam_intr.shape[0]} W={adapter.num_windows} nt={info.nt} ts={info.ts} "
+          f"rb={info.rb} wb={info.wb} prb2={info.prb2} nhg={info.nhg} "
+          f"batches={[c.kind for c in problem.cfgs]} | "
+          + " ".join(f"{k.strip()} {val:.1f} s" for k, val in times.items()))
+    return problem, adapter, vi
+
+
+def cal_segment_kernels(bench, problem, dev, suffix=""):
+    """K3 and K8-K10 against their plain versions on the problem's blocked
+    calibration-coupled batch, at its rig_k (results named `<kernel><suffix>`)."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+
+    v, masks, datas = problem.variables, problem.masks, tuple(problem.datas)
+    ks = problem._build()
+    lg = ks[0](datas, v, masks, None)
+    asm = ks[6](datas, lg, v, masks)
+    (b, lin), = rcs._vis_batches(problem.active_cfgs, datas, lg)
+    if not rcs._cal_fast(b):
+        raise AssertionError("the blocked batch is not calibration-coupled single-pass")
+    rs = rcs.with_damping(asm, v, masks, 1e-4)
+    k = b.rig_k
+    R, L, n_c = v.pose_q.shape[0], v.points.shape[0], v.cam_intr.shape[0]
+    n_real = int(b.plan.rig_obs.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((R, k), generator=gen, device=dev)
+    xc = torch.randn((n_c, b.J_cal.shape[1]), generator=gen, device=dev)
+    zl = torch.randn((L, 3), generator=gen, device=dev)
+    plan, cplan = list(b.plan), list(b.cplan)
+    jread = [b.J, b.J_pt, b.J_cal, b.w]
+    seg_tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
+    bench.compare(f"precond_rig{suffix or f'(k={k})'}", seg.seg_precond_rig,
+                  (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan), seg_tol("blocks"),
+                  [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan, (30 * k + 5 * k * (k + 1)) * n_real)
+    bench.compare(f"assemble_cal{suffix}", seg.seg_assemble_cal,
+                  (b.J, b.J_cal, b.J_pt, lin.res, b.w, b.plan, b.cplan),
+                  seg_tol("g_r", "diag_r", "g_c", "diag_c", "blocks_extr", "blocks_intr", "g_l",
+                          "H_ll0"),
+                  jread + [lin.res] + plan + cplan, (8 * k + 36 + 962) * n_real)
+    bench.compare(f"schur_pcg_cal{suffix}", seg.seg_schur_pcg_cal,
+                  (b.J, b.J_cal, b.J_pt, b.w, x, xc, rs.H_ll_inv, b.plan, b.cplan),
+                  seg_tol("y_r", "y_c"), jread + [x, xc, rs.H_ll_inv] + plan + cplan,
+                  (8 * k + 208) * n_real)
+    # K9 per kernel: its down (light) and up (du) launches alone; the 3x3
+    # landmark solve between them is a torch op
+    down9 = lambda: seg._launch_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w, x, xc,  # noqa: E731
+                                               b.plan, b.cplan, False)
+    _, _, t9, wu9 = down9()
+    z9 = (rs.H_ll_inv * t9[:, None, :]).sum(-1)
+    parts9 = dict(down_light_ms=cuda_time(down9), up_du_ms=cuda_time(
+        lambda: seg._launch_schur_up_cal(b.J, b.J_cal, b.J_pt, b.w, z9, b.plan, b.cplan, wu9)))
+    bench.results[f"schur_pcg_cal{suffix}"].update(parts9)
+    phase("kernels", f"schur_pcg_cal{suffix} per kernel: " + ", ".join(
+        f"{key} {ms:.4f}" for key, ms in parts9.items()))
+    bench.compare(f"schur_down_cal{suffix}", seg.seg_schur_down_cal,
+                  (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan),
+                  seg_tol("y_r", "y_c", "t", "wu"), jread + [x, xc] + plan + cplan,
+                  (8 * k + 200) * n_real)
+    bench.compare(f"schur_up_cal{suffix}", seg.seg_schur_up_cal,
+                  (b.J, b.J_cal, b.J_pt, b.w, zl, b.plan, b.cplan), seg_tol("y_r", "y_c"),
+                  jread + [zl] + plan + cplan, (4 * k + 106) * n_real)
+
+
+def full_sensor(dev, bench, session, session_sec):
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import AdapterOptions
+
+    problem, adapter, vi = adapter_problem(
+        "full", dev, session, session_sec, 0.03,
+        AdapterOptions(estimate_readout=True, estimate_cam_time_offset=True))
     cfg, data = problem.active_cfgs[vi], problem.datas[vi]
     info = cfg.block_info
-    v, masks, datas = problem.variables, problem.masks, tuple(problem.datas)
-    n_real = int((data["_pad"] < 0.5).sum())
+    v, masks = problem.variables, problem.masks
     N = info.nt * info.ts
-    R, L, n_c = v.pose_q.shape[0], v.points.shape[0], v.cam_intr.shape[0]
     tab = data["rs_tables"]
-    phase("full:problem", f"R={R} L={L} N={n_real} (padded {N}) n_c={n_c} W={adapter.num_windows} "
-          f"nt={info.nt} ts={info.ts} rb={info.rb} wb={info.wb} prb2={info.prb2} "
-          f"nhg={info.nhg} K={tab.dt.shape[1]} batches={[c.kind for c in problem.cfgs]} | "
-          + " ".join(f"{k.strip()} {val:.1f} s" for k, val in times.items()))
+    phase("full:problem", f"K={tab.dt.shape[1]} samples per RS table")
 
     rs_read = [data[k] for k in ("rig", "rs_row", "point", "intr", "extr", "_pad", "rs_tpf",
                                  "obs_uv", "sqrt_h")]
@@ -479,50 +609,7 @@ def full_sensor(dev, bench):
                   [("res", TOL_RS_RES), ("valid", TOL_RS_RES)], rs_read + rs_tables, 500.0 * N,
                   f64=True, record=False)
 
-    ks = problem._build()
-    lg = ks[0](datas, v, masks, None)
-    asm = ks[6](datas, lg, v, masks)
-    (b, lin), = rcs._vis_batches(problem.active_cfgs, datas, lg)
-    rs = rcs.with_damping(asm, v, masks, 1e-4)
-    k = b.rig_k
-    gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn((R, k), generator=gen, device=dev)
-    xc = torch.randn((n_c, b.J_cal.shape[1]), generator=gen, device=dev)
-    zl = torch.randn((L, 3), generator=gen, device=dev)
-    plan, cplan = list(b.plan), list(b.cplan)
-    jread = [b.J, b.J_pt, b.J_cal, b.w]
-    seg_tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
-    bench.compare("precond_rig(k=9)", seg.seg_precond_rig,
-                  (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan), seg_tol("blocks"),
-                  [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan, (30 * k + 5 * k * (k + 1)) * n_real)
-    bench.compare("assemble_cal", seg.seg_assemble_cal,
-                  (b.J, b.J_cal, b.J_pt, lin.res, b.w, b.plan, b.cplan),
-                  seg_tol("g_r", "diag_r", "g_c", "diag_c", "blocks_extr", "blocks_intr", "g_l",
-                          "H_ll0"),
-                  jread + [lin.res] + plan + cplan, (8 * k + 36 + 962) * n_real)
-    bench.compare("schur_pcg_cal", seg.seg_schur_pcg_cal,
-                  (b.J, b.J_cal, b.J_pt, b.w, x, xc, rs.H_ll_inv, b.plan, b.cplan),
-                  seg_tol("y_r", "y_c"), jread + [x, xc, rs.H_ll_inv] + plan + cplan,
-                  (8 * k + 208) * n_real)
-    # K9 per kernel: its down (light) and up (du) launches alone; the 3x3
-    # landmark solve between them is a torch op
-    down9 = lambda: seg._launch_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w, x, xc,  # noqa: E731
-                                               b.plan, b.cplan, False)
-    _, _, t9, wu9 = down9()
-    z9 = (rs.H_ll_inv * t9[:, None, :]).sum(-1)
-    parts9 = dict(down_light_ms=cuda_time(down9), up_du_ms=cuda_time(
-        lambda: seg._launch_schur_up_cal(b.J, b.J_cal, b.J_pt, b.w, z9, b.plan, b.cplan, wu9)))
-    bench.results["schur_pcg_cal"].update(parts9)
-    phase("kernels", "schur_pcg_cal per kernel: " + ", ".join(
-        f"{key} {ms:.4f}" for key, ms in parts9.items()))
-    bench.compare("schur_down_cal", seg.seg_schur_down_cal,
-                  (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan),
-                  seg_tol("y_r", "y_c", "t", "wu"), jread + [x, xc] + plan + cplan,
-                  (8 * k + 200) * n_real)
-    bench.compare("schur_up_cal", seg.seg_schur_up_cal,
-                  (b.J, b.J_cal, b.J_pt, b.w, zl, b.plan, b.cplan), seg_tol("y_r", "y_c"),
-                  jread + [zl] + plan + cplan, (4 * k + 106) * n_real)
-    del lg, asm, rs, lin, b
+    cal_segment_kernels(bench, problem, dev)
 
     # 1e-3, as for the bias-only path: float32 kernel and plain versions sum
     # in other orders and K7 rounds res and J from float64 registers; the
@@ -531,7 +618,154 @@ def full_sensor(dev, bench):
     consistency("full", problem, settings, TOL_ITER)
     phase_times("full", problem, settings)
     return run_main("full", problem, settings,
-                    [kk for kk, spec in KERNELS.items() if "full" in spec[3]])
+                    path_kernels("full"))
+
+
+# ---------------------------------------------------------------------------
+# global-shutter calibration path (K11; K1 residual-only; K8-K10, K3 at rig_k = 6)
+# ---------------------------------------------------------------------------
+
+
+def gs_cal(dev, bench, session, session_sec):
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import AdapterOptions
+
+    problem, adapter, vi = adapter_problem("gs_cal", dev, session, session_sec, None,
+                                           AdapterOptions())
+    kinds = [c.kind for c in problem.cfgs]
+    if "rs_visual" in kinds or any("rs_tables" in d for d in problem.datas):
+        raise AssertionError(f"gs_cal: rolling-shutter batch or tables in {kinds}")
+    cfg, data = problem.active_cfgs[vi], problem.datas[vi]
+    if cfg.kind != "visual" or set(cfg.active_groups) != {"points", "rig", "cam_extr", "cam_intr"}:
+        raise AssertionError(f"gs_cal: blocked batch {cfg.kind} with groups {cfg.active_groups}")
+    info = cfg.block_info
+    v, masks = problem.variables, problem.masks
+    N = info.nt * info.ts
+    vis_read = [data[k] for k in ("rig", "point", "intr", "extr", "bias", "bias_on", "obs_uv",
+                                  "sqrt_h", "_pad")]
+    tables = [v.pose_q, v.pose_t, v.points, v.cam_intr, v.cam_extr_q, v.cam_extr_t, v.det_bias]
+    bench.compare("visual_cal_linearize", visual_fused.visual_cal_linearize,
+                  (cfg.camera_kind, data, v, masks),
+                  [("res", TOL_RES), ("valid", TOL_RES), ("J_pt", TOL_CAL_J), ("J_r", TOL_CAL_J),
+                   ("J_cal", TOL_CAL_J)],
+                  vis_read + tables + [masks.rig, masks.points, masks.cam_intr, masks.cam_extr],
+                  700.0 * N, f64=True)
+    bench.compare("visual_linearize(gs_cal,residual-only)", visual_fused.visual_linearize,
+                  (cfg.camera_kind, data, v, None, False), [("res", TOL_RES), ("valid", TOL_RES)],
+                  vis_read + tables, 150.0 * N, f64=True)
+    cal_segment_kernels(bench, problem, dev, suffix="(gs_cal,k=6)")
+
+    # 1e-3, as for the other paths: float32 kernel and plain versions sum in
+    # other orders, K11 rounds res and J from float64 registers, and the
+    # 40-iteration PCG does not converge
+    settings = lm_settings()
+    consistency("gs_cal", problem, settings, TOL_ITER)
+    phase_times("gs_cal", problem, settings)
+    return run_main("gs_cal", problem, settings,
+                    path_kernels("gs_cal"))
+
+
+# ---------------------------------------------------------------------------
+# general two-grid path (K1, K12, K13a-c)
+# ---------------------------------------------------------------------------
+
+
+def two_grid(dev, bench):
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.builder import (
+        BuildOptions, build_synthetic_problem)
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic import SyntheticSession
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import engine, rcs
+
+    t0 = time.time()
+    s = SyntheticSession(duration=120.0, keyframe_hz=10.0, gyro_hz=800.0, accel_hz=800.0,
+                         num_points=6000, seed=17, pixel_noise=0.3, track_lifetime_sec=None)
+    problem = build_synthetic_problem(
+        s, BuildOptions(init_pose_noise=0.005, init_point_noise=0.03, init_vel_noise=0.03,
+                        estimate_imu_calib=True,
+                        imu_calib_options=dict(accelBias=True, gyroBias=True)),
+        device=dev, dtype=torch.float32)
+    ks = problem._build()
+    vi = next(i for i, c in enumerate(problem.cfgs) if c.block_info is not None)
+    info, vdata = problem.cfgs[vi].block_info, problem.datas[vi]
+    v, masks, datas = problem.variables, problem.masks, tuple(problem.datas)
+    R, L = v.pose_q.shape[0], v.points.shape[0]
+    N = info.nt * info.ts
+    n_real = int((vdata["_pad"] < 0.5).sum())
+    phase("two_grid:problem", f"R={R} L={L} N={n_real} (padded {N}) nt={info.nt} ts={info.ts} "
+          f"rb={info.rb} prb2={info.prb2} nhg={info.nhg} built in {time.time() - t0:.1f} s")
+    if info.prb2 != 0 or info.nhg != 0:
+        raise AssertionError("two_grid: the batch has a landmark window (single-pass)")
+
+    lg = ks[0](datas, v, masks, None)
+    asm = ks[6](datas, lg, v, masks)
+    (b, lin), = rcs._vis_batches(problem.active_cfgs, datas, lg)
+    if rcs._single_pass(b) or b.groups != ("rig",):
+        raise AssertionError(f"two_grid: batch groups {b.groups} on a single-pass route")
+    rs = rcs.with_damping(asm, v, masks, 1e-4)
+    k = b.rig_k
+    rig, pts = seg.rig_rows(b.plan), seg.point_rows(b.plan)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    real = (1.0 - vdata["_pad"])[None]
+    x = torch.randn((R, k), generator=gen, device=dev)
+    zl = torch.randn((L, 3), generator=gen, device=dev)
+    u = torch.randn((2, N), generator=gen, device=dev) * real
+    seg_tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
+
+    def library_sum(contrib, rows):
+        out = torch.zeros((rows.n_rows, contrib.shape[0]), dtype=contrib.dtype, device=dev)
+        return lambda: out.zero_().index_add_(0, rows.row.long(), contrib.T)
+
+    # per PCG matvec: K12 on the rig rows, K13a on the landmark rows, the 3x3
+    # solve, K13b on the landmark rows, K13a on the rig rows
+    bench.compare("mv_fused_table", seg.seg_mv_fused_table, (b.J, b.w, x, rig),
+                  seg_tol("wu", "y"), [b.J, b.w, x] + list(rig), (8 * k + 2) * n_real)
+    bench.compare("mv_scatter_table", seg.seg_mv_scatter_table, (b.J_pt, u, pts), seg_tol("y"),
+                  [b.J_pt, u, pts.ptr, pts.obs], 12 * n_real)
+    bench.compare("mv_scatter_table(rig rows)", seg.seg_mv_scatter_table, (b.J, u, rig),
+                  seg_tol("y"), [b.J, u, rig.ptr, rig.obs], 4 * k * n_real)
+    bench.compare("mv_gather_table", seg.seg_mv_gather_table, (b.J_pt, zl, pts), seg_tol("u"),
+                  [b.J_pt, zl, pts.row], 12 * N)
+    bench.compare("mv_gather_table(rig rows)", seg.seg_mv_gather_table, (b.J, x, rig),
+                  seg_tol("u"), [b.J, x, rig.row], 4 * k * N)
+    # K13c at the widths of the assembly and of the preconditioner: the rig
+    # blocks (k^2 wide, the widest), the landmark blocks (9) and gradient (3)
+    for name, D, rows in (("reduce_table", k * k, rig), ("reduce_table(landmark rows,D=9)", 9, pts),
+                          ("reduce_table(landmark rows,D=3)", 3, pts)):
+        contrib = torch.randn((D, N), generator=gen, device=dev) * real
+        bench.compare(name, seg.seg_reduce_table, (contrib, rows), seg_tol("y"),
+                      [contrib, rows.ptr, rows.obs], D * n_real,
+                      library=library_sum(contrib, rows))
+        del contrib
+
+    # K4 (the single-pass rig-only matvec, which walks the same CSR lists)
+    # on this batch beside the general path's composition of K12 and K13
+    def general_matvec():
+        wu, y = seg.seg_mv_fused_table(b.J, b.w, x, rig)
+        z = engine._chol_solve(rs.H_ll_inv, rcs._pt_reduce(b, wu))
+        return y - seg.seg_mv_scatter_table(b.J, rcs._pt_expand(b, z), rig)
+
+    y_k4 = seg.seg_schur_pcg(b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan)
+    r, _ = rel_err(general_matvec(), y_k4)
+    if not (r <= 1e-4):  # float32 sums in other orders, cancellation in y - W z
+        raise AssertionError(f"two_grid: K12/K13 matvec vs K4 on the same batch: {r:.3e}")
+    k4 = dict(k4_ms=cuda_time(lambda: seg.seg_schur_pcg(b.J, b.J_pt, b.w, x, rs.H_ll_inv,
+                                                        b.plan)),
+              general_ms=cuda_time(general_matvec), rel_diff=r)
+    bench.results["mv_fused_table"]["matvec_vs_k4"] = k4
+    phase("kernels", f"visual Schur matvec on the two-grid batch: K4 {k4['k4_ms']:.4f} ms vs "
+          f"K12 + 2 x K13a + K13b + 3x3 solve {k4['general_ms']:.4f} ms (rel diff {r:.2e})")
+    del lg, asm, rs, lin, b, u
+
+    # 1e-3, as for the other paths (float32, other summation orders, K1's
+    # float64 registers, an unconverged 40-iteration PCG)
+    settings = lm_settings()
+    consistency("two_grid", problem, settings, TOL_ITER)
+    phase_times("two_grid", problem, settings)
+    return run_main("two_grid", problem, settings,
+                    path_kernels("two_grid"))
 
 
 def main():
@@ -560,15 +794,24 @@ def main():
     bench = Bench()
     launches = {"bias": bias_only(dev, bench)}
     torch.cuda.empty_cache()
-    launches["full"] = full_sensor(dev, bench)
+    launches["two_grid"] = two_grid(dev, bench)
+    torch.cuda.empty_cache()
+    session, session_sec = session_600()
+    launches["full"] = full_sensor(dev, bench, session, session_sec)
+    torch.cuda.empty_cache()
+    launches["gs_cal"] = gs_cal(dev, bench, session, session_sec)
 
     rows = []
     for name, (kid, src, rep, path) in KERNELS.items():
-        n = sum(launches[p].get(name, 0) for p in ("bias", "full") if p in path)
+        per_path = {p: launches[p].get(name, 0) for p in PATHS if p in path.split("+")}
+        if not all(per_path.values()):
+            raise AssertionError(f"{name}: not launched on every path of {per_path}")
         row = dict(name=name, k=kid, route="cuda", source=src, replaces=rep, path=path,
-                   launches=n, **bench.results[name])
-        if name == "precond_rig":  # the bias path's k = 6 above; the full path's k = 9 here
-            row["k9"] = bench.results["precond_rig(k=9)"]
+                   launches=sum(per_path.values()), launches_by_path=per_path,
+                   **bench.results[name])
+        # the same kernel at another path's shapes (rig_k, row family, width)
+        row["also"] = {key: res for key, res in bench.results.items()
+                       if key.startswith(name + "(")}
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(smi)

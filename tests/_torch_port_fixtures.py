@@ -14,6 +14,14 @@ loaded, built by the session adapter with readout and time offset estimated
 (two 5 s calibration windows), and blocked by `finalize_blocks(ts=64)` so
 the calibration-coupled single-pass engine engages.
 
+The two-grid problem is the tiny blocked problem with
+`finalize_blocks(rb=8, prb=16, ts=64, prb2_cap=0)`: no per-tile landmark
+window fits, so both packages solve it on their general (two-grid) path.
+The global-shutter session is the full-sensor one written with
+`readout_time_sec=None`; with the adapter's default options its visual batch
+is calibration-coupled single-pass (K11 linearizes it), and with
+`use_detector_bias=True` it carries a fourth group and takes the general path.
+
 This module imports JAX only inside the functions that build the JAX side,
 so the card-only tests (tests/test_torch_kernels_cuda.py) use it on a
 machine without JAX.
@@ -42,6 +50,8 @@ FULL_SESSION = dict(duration=8.0, keyframe_hz=5.0, gyro_hz=200.0, accel_hz=200.0
 FULL_WRITE = dict(num_imus=2, readout_time_sec=0.03, seed=5)
 FULL_ADAPT = dict(estimate_readout=True, estimate_cam_time_offset=True)
 FULL_BLOCKS = dict(ts=64)
+TWO_GRID_BLOCKS = dict(BLOCKS, prb2_cap=0)
+GS_WRITE = dict(num_imus=2, readout_time_sec=None, seed=5)
 F64 = torch.float64
 
 
@@ -89,15 +99,38 @@ def jax_problem():
     return p
 
 
-def port_blocked_problem(device="cpu", dtype=F64):
+def port_blocked_problem(device="cpu", dtype=F64, blocks=None):
     """The same tiny problem built by the port's own builder (no JAX) and
-    blocked like jax_problem(), on `device` as `dtype`."""
+    blocked like jax_problem() (or with `blocks`, e.g. TWO_GRID_BLOCKS), on
+    `device` as `dtype`."""
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline import builder as tb
     from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs as trcs
 
     p = tb.build_synthetic_problem(port_session(), tb.BuildOptions(**BUILD), device=device,
                                    dtype=dtype)
-    return trcs.finalize_blocks(p, **BLOCKS)
+    return trcs.finalize_blocks(p, **(BLOCKS if blocks is None else blocks))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_two_grid_problem():
+    """The tiny JAX problem blocked with no landmark window (two-grid path);
+    cached: callers that run its optimize() restore `problem.variables`."""
+    from visual_inertial_bundle_adjustment_tpu.pipeline import builder as jb
+    from visual_inertial_bundle_adjustment_tpu.problem import rcs as jrcs
+
+    p = jb.build_synthetic_problem(jax_session(), jb.BuildOptions(**BUILD))
+    jrcs.finalize_blocks(p, **TWO_GRID_BLOCKS)
+    (info,) = [c.block_info for c in p.cfgs if getattr(c, "block_info", None)]
+    assert info.prb2 == 0 and info.nhg == 0
+    return p
+
+
+def port_two_grid_problem(dtype=F64, device="cpu"):
+    """A fresh port Problem holding the JAX two-grid problem's state."""
+    from visual_inertial_bundle_adjustment_tpu_torch import interop
+
+    return interop.problem_from_numpy(**to_numpy(jax_two_grid_problem()), device=device,
+                                      dtype=dtype)
 
 
 def _leaf_numpy(a):
@@ -183,6 +216,63 @@ def port_full_built(device="cpu", dtype=F64, blocked=True):
     p = adapter.build()
     if blocked:
         trcs.finalize_blocks(p, **FULL_BLOCKS)
+    return p, adapter
+
+
+@functools.lru_cache(maxsize=None)
+def gs_session_dir():
+    """The tiny global-shutter session directory (no ReadoutTimeSec)."""
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic import SyntheticSession
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic_io import (
+        write_session_dir)
+
+    path = pathlib.Path(tempfile.mkdtemp(prefix="viba_gs_"))
+    write_session_dir(SyntheticSession(**FULL_SESSION), path, **GS_WRITE)
+    return path
+
+
+def jax_gs(use_detector_bias=False):
+    """(problem, adapter) of the JAX package on the global-shutter session
+    with the adapter's default options (intrinsics and extrinsics estimated),
+    blocked; cached: callers that run its optimize() restore variables."""
+    return _jax_gs(bool(use_detector_bias))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gs(use_detector_bias):
+    from visual_inertial_bundle_adjustment_tpu.pipeline import session_data as jsd
+    from visual_inertial_bundle_adjustment_tpu.pipeline.adapter import (AdapterOptions,
+                                                                        SessionAdapter)
+    from visual_inertial_bundle_adjustment_tpu.problem import rcs as jrcs
+
+    adapter = SessionAdapter(jsd.load_session(gs_session_dir()),
+                             AdapterOptions(use_detector_bias=use_detector_bias), log=None)
+    p = adapter.build()
+    jrcs.finalize_blocks(p, **FULL_BLOCKS)
+    return p, adapter
+
+
+def port_gs_from_jax(use_detector_bias=False, dtype=F64, device="cpu"):
+    """A fresh port Problem holding the JAX global-shutter problem's state."""
+    from visual_inertial_bundle_adjustment_tpu_torch import interop
+
+    return interop.problem_from_numpy(**to_numpy(jax_gs(use_detector_bias)[0]), device=device,
+                                      dtype=dtype)
+
+
+def port_gs_built(use_detector_bias=False, device="cpu", dtype=F64):
+    """(problem, adapter) built by the port's own pipeline (no JAX) on the
+    global-shutter session, blocked like jax_gs()."""
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import session_data as tsd
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import (AdapterOptions,
+                                                                              SessionAdapter)
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs as trcs
+
+    adapter = SessionAdapter(tsd.load_session(gs_session_dir()),
+                             AdapterOptions(use_detector_bias=use_detector_bias), log=None,
+                             device=device, dtype=dtype)
+    p = adapter.build()
+    trcs.finalize_blocks(p, **FULL_BLOCKS)
     return p, adapter
 
 

@@ -7,13 +7,17 @@ conftest.py configures JAX, so leave it out there:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 
 Inputs: the port's own tiny blocked problems of tests/_torch_port_fixtures.py
-on the card in float32 — the bias-only 6 s / 60-landmark session (K1-K6)
-and the full-sensor 8 s / 80-landmark session built by the session adapter
-(K7-K10, K3 at rig_k = 9) — their real J blocks from one linearization, and
-rig/window/landmark tables from a numpy seed. Each kernel is held against
-its plain version evaluated in float64 on the same inputs, within the JAX
-package's on-chip bounds (tests/test_tpu_accuracy.py): K1 residual 1e-5 and
-J 2e-4, K7 residual 1e-4 and J 3e-4, segment kernels 1e-5, relative to
+on the card in float32 — the bias-only 6 s / 60-landmark session (K1-K6; the
+same one blocked without landmark windows for the table kernels K12, K13 of
+the general path), the full-sensor 8 s / 80-landmark session built by the
+session adapter (K7-K10, K3 at rig_k = 9) and the same session with a
+global-shutter camera (K11; K8-K10 at rig_k = 6; with the detector bias
+estimated, the general path's chunked few-row groups) — their real J blocks
+from one linearization, and rig/window/landmark tables from a numpy seed.
+Each kernel is held against its plain version evaluated in float64 on the
+same inputs, within the JAX package's on-chip bounds
+(tests/test_tpu_accuracy.py): K1 residual 1e-5 and J 2e-4, K7 residual 1e-4
+and J 3e-4, K11 residual 1e-5 and J 3e-4, segment kernels 1e-5, relative to
 max-abs.
 """
 
@@ -23,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 from _torch_port_fixtures import cuda_device  # noqa: F401  (fixture)
-from _torch_port_fixtures import port_blocked_problem, port_full_built, rel
+from _torch_port_fixtures import (TWO_GRID_BLOCKS, port_blocked_problem, port_full_built,
+                                  port_gs_built, rel)
 
 from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
 from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
@@ -31,9 +36,11 @@ from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as tseg
 from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
 from visual_inertial_bundle_adjustment_tpu_torch.problem import optimizer as topt
 from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs as trcs
+from visual_inertial_bundle_adjustment_tpu_torch.problem import structure as tst
 
 SEGMENT_KERNELS = ("assemble_rig", "precond_rig", "schur_down", "schur_up", "schur_pcg")
 CAL_KERNELS = ("assemble_cal", "schur_down_cal", "schur_up_cal", "schur_pcg_cal", "precond_rig")
+TABLE_KERNELS = ("mv_fused_table", "mv_scatter_table", "mv_gather_table", "reduce_table")
 
 
 def _card_problem(dev):
@@ -224,3 +231,182 @@ def test_full_sensor_optimize_on_card_runs_every_kernel(cuda_device):
     assert math.isfinite(s_k.final_cost) and s_k.final_cost < 1e-2 * s_k.initial_cost
     assert abs(s_k.initial_cost - s_p.initial_cost) <= 1e-5 * s_p.initial_cost
     assert abs(s_k.final_cost - s_p.final_cost) <= 1e-3 * s_p.final_cost
+
+
+# ---------------------------------------------------------------------------
+# global-shutter calibration path: K11, K8-K10 and K3 at rig_k = 6
+# ---------------------------------------------------------------------------
+
+
+def _gs_card(dev, use_detector_bias=False):
+    p, _ = port_gs_built(use_detector_bias, device=dev, dtype=torch.float32)
+    ks = p._build()
+    (vi,) = [i for i, c in enumerate(p.active_cfgs) if c.block_info is not None]
+    return p, ks, vi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+def test_visual_cal_linearize_kernel_matches_plain(masked, cuda_device):
+    p, _, vi = _gs_card(cuda_device)
+    cfg, data = p.active_cfgs[vi], p.datas[vi]
+    assert cfg.kind == "visual"
+    masks = p.masks if masked else None
+    _kernels.reset_launch_counts()
+    out = visual_fused.visual_cal_linearize(cfg.camera_kind, data, p.variables, masks)
+    f64 = _kernels.to_f64
+    with _kernels.plain_reference():
+        ref = visual_fused.visual_cal_linearize(cfg.camera_kind, f64(data), f64(p.variables),
+                                                f64(masks))
+    counts = _kernels.launch_counts()
+    assert counts["visual_cal_linearize"] == 1 and sum(counts.values()) == 1
+    assert out[4].shape[1] == 23 and float(out[3][:, 6:].abs().max()) == 0.0
+    _check(out, ref, (1e-5, 0.0, 3e-4, 3e-4, 3e-4))
+
+
+@pytest.mark.cuda
+def test_gs_cal_optimize_on_card_runs_every_kernel(cuda_device):
+    """Three LM iterations of the global-shutter calibration problem through
+    the kernels (K11 linearizes, K1 gives the cost, K8-K10 and K3 run at
+    rig_k = 6): the cost falls and follows the plain versions' run."""
+    settings = dict(max_iterations=3, direct_mode=False, pcg_max_iterations=40)
+    _kernels.reset_launch_counts()
+    s_k = topt.optimize(_gs_card(cuda_device)[0], topt.LMSettings(**settings))
+    counts = _kernels.launch_counts()
+    with _kernels.plain_reference():
+        s_p = topt.optimize(_gs_card(cuda_device)[0], topt.LMSettings(**settings))
+    assert all(counts[k] > 0 for k in ("visual_cal_linearize", "visual_linearize",
+                                       *CAL_KERNELS)), counts
+    assert counts["rs_linearize"] == 0
+    assert math.isfinite(s_k.final_cost) and s_k.final_cost < 1e-2 * s_k.initial_cost
+    assert abs(s_k.initial_cost - s_p.initial_cost) <= 1e-5 * s_p.initial_cost
+    assert abs(s_k.final_cost - s_p.final_cost) <= 1e-3 * s_p.final_cost
+
+
+# ---------------------------------------------------------------------------
+# general (two-grid) path: K12, K13
+# ---------------------------------------------------------------------------
+
+
+def _two_grid_card(dev):
+    p = port_blocked_problem(device=dev, dtype=torch.float32, blocks=TWO_GRID_BLOCKS)
+    ks = p._build()
+    (vi,) = [i for i, c in enumerate(p.active_cfgs) if c.block_info is not None]
+    return p, ks, vi
+
+
+def _table_inputs(dev):
+    p, ks, vi = _two_grid_card(dev)
+    datas = tuple(p.datas)
+    lg = ks[0](datas, p.variables, p.masks, None)
+    (b, _), = trcs._vis_batches(p.active_cfgs, datas, lg)
+    assert not trcs._single_pass(b) and b.groups == ("rig",)
+    R, L = p.variables.pose_q.shape[0], p.variables.points.shape[0]
+    N = b.w.shape[0]
+    rng = np.random.default_rng(47)
+    real = (1.0 - p.datas[vi]["_pad"])[None]
+
+    def f32(a):
+        return torch.from_numpy(a).to(device=dev, dtype=torch.float32)
+
+    # a family of three long rows cut into 16-slot chunks, as the camera and
+    # detector-bias rows of the general path are
+    row = rng.integers(0, 3, size=N)
+    pad = p.datas[vi]["_pad"].cpu().numpy()
+    chunked = tseg.chunked_rows(
+        torch.from_numpy(row.astype(np.int32)).to(dev),
+        {k: torch.from_numpy(a).to(dev) for k, a in
+         tseg.cal_plan_arrays(row, pad, 3, chunk=16).items()})
+    rows = dict(rig=tseg.rig_rows(b.plan), point=tseg.point_rows(b.plan), chunked=chunked)
+    return rows, dict(
+        J=dict(rig=b.J, point=b.J_pt, chunked=b.J), w=b.w,
+        x=dict(rig=f32(rng.normal(size=(R, 6))), point=f32(rng.normal(size=(L, 3))),
+               chunked=f32(rng.normal(size=(3, 6)))),
+        u=f32(rng.normal(size=(2, N))) * real,
+        contrib={D: f32(rng.normal(size=(D, N))) * real for D in (3, 6, 9, 36)})
+
+
+def _table(name, family, a, rows, D):
+    J, r = a["J"][family], rows[family]
+    if name == "mv_fused_table":
+        return tseg.seg_mv_fused_table(J, a["w"], a["x"][family], r)
+    if name == "mv_scatter_table":
+        return (tseg.seg_mv_scatter_table(J, a["u"], r),)
+    if name == "mv_gather_table":
+        return (tseg.seg_mv_gather_table(J, a["x"][family], r),)
+    return (tseg.seg_reduce_table(a["contrib"][D], r),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,family,D", [
+    ("mv_fused_table", "rig", 0), ("mv_fused_table", "chunked", 0),
+    ("mv_scatter_table", "rig", 0), ("mv_scatter_table", "point", 0),
+    ("mv_scatter_table", "chunked", 0), ("mv_gather_table", "rig", 0),
+    ("mv_gather_table", "point", 0), ("reduce_table", "rig", 6), ("reduce_table", "rig", 36),
+    ("reduce_table", "point", 3), ("reduce_table", "point", 9), ("reduce_table", "chunked", 36)])
+def test_table_kernel_matches_plain(name, family, D, cuda_device):
+    rows, a = _table_inputs(cuda_device)
+    _kernels.reset_launch_counts()
+    out = _table(name, family, a, rows, D)
+    again = _table(name, family, a, rows, D)
+    with _kernels.plain_reference():
+        ref = _table(name, family, _kernels.to_f64(a), rows, D)
+    counts = _kernels.launch_counts()
+    assert counts[name] == 2 and sum(counts.values()) == 2
+    _check(out, ref, (1e-5,) * len(out))
+    for o, o2 in zip(out, again):  # row-owned ordered sums: the same bits every call
+        assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+def test_two_grid_optimize_on_card_runs_every_kernel(cuda_device):
+    """Three LM iterations of the two-grid problem through the kernels: the
+    cost falls, K1, K12 and K13a-c launched and none of the single-pass
+    segment kernels, and the costs follow the plain versions' run."""
+    settings = dict(max_iterations=3, direct_mode=False, pcg_max_iterations=40)
+    _kernels.reset_launch_counts()
+    s_k = topt.optimize(_two_grid_card(cuda_device)[0], topt.LMSettings(**settings))
+    counts = _kernels.launch_counts()
+    with _kernels.plain_reference():
+        s_p = topt.optimize(_two_grid_card(cuda_device)[0], topt.LMSettings(**settings))
+    assert all(counts[k] > 0 for k in ("visual_linearize", *TABLE_KERNELS)), counts
+    assert all(counts[k] == 0 for k in SEGMENT_KERNELS), counts
+    assert math.isfinite(s_k.final_cost) and s_k.final_cost < 1e-2 * s_k.initial_cost
+    assert abs(s_k.initial_cost - s_p.initial_cost) <= 1e-5 * s_p.initial_cost
+    assert abs(s_k.final_cost - s_p.final_cost) <= 1e-3 * s_p.final_cost
+
+
+@pytest.mark.cuda
+def test_general_groups_on_card_are_repeatable(cuda_device):
+    """With the detector bias estimated the batch carries rig, cam_extr,
+    cam_intr and det_bias and takes the general path: the camera and bias
+    rows reduce through chunked plans (K13c), so the damped matvec gives the
+    same bits on every call and agrees with the plain versions."""
+    p, ks, _ = _gs_card(cuda_device, use_detector_bias=True)
+    datas = tuple(p.datas)
+    lg = ks[0](datas, p.variables, p.masks, None)
+    asm = ks[6](datas, lg, p.variables, p.masks)
+    (b,) = asm.vis
+    assert not trcs._single_pass(b)
+    assert b.groups == ("rig", "cam_extr", "cam_intr", "det_bias")
+    assert all(r.row_chunk is not None for r in b.rows[1:])
+    rs = trcs.with_damping(asm, p.variables, p.masks, 1e-4)
+    rng = np.random.default_rng(53)
+    zt = tst.zero_tangent(p.variables)
+    x = tst.Tangent(**{f: torch.from_numpy(rng.normal(size=tuple(getattr(zt, f).shape))).to(
+        device=cuda_device, dtype=torch.float32) for f in zt._fields})
+    _kernels.reset_launch_counts()
+    y1 = trcs.matvec(rs, p.variables, x)
+    y2 = trcs.matvec(rs, p.variables, x)
+    counts = _kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("mv_scatter_table", "mv_gather_table", "reduce_table"))
+    f64 = _kernels.to_f64
+    with _kernels.plain_reference():
+        asm64 = ks[6](f64(datas), f64(lg), f64(p.variables), f64(p.masks))
+        rs64 = trcs.with_damping(asm64, f64(p.variables), f64(p.masks), 1e-4)
+        ref = trcs.matvec(rs64, f64(p.variables), f64(x))
+    torch.cuda.synchronize()
+    for f in y1._fields:
+        assert torch.equal(getattr(y1, f), getattr(y2, f)), f
+        # float32 sums of up to a few thousand terms against float64
+        assert rel(getattr(y1, f).cpu().numpy(), getattr(ref, f).cpu().numpy()) <= 1e-4, f

@@ -60,9 +60,10 @@ def test_interop_round_trip():
         for k, a in d.items():
             if k in dd:
                 np.testing.assert_array_equal(a.numpy(), dd[k])
-            else:
-                assert k in ("_rig_ptr", "_rig_obs", "_pt_ptr", "_pt_obs", "_cal_chunk_ptr",
-                             "_cal_chunk_obs", "_cal_row_chunk")  # the port's plans
+            else:  # the port's plans
+                assert k.startswith("_gp_") or k in (
+                    "_rig_ptr", "_rig_obs", "_pt_ptr", "_pt_obs", "_cal_chunk_ptr",
+                    "_cal_chunk_obs", "_cal_row_chunk")
         if cd["block_info"] is not None:
             for f in ("rb", "nt", "ts", "prb", "pnt", "pts", "prb2", "nhg"):
                 assert getattr(c.block_info, f) == cd["block_info"][f]
@@ -268,23 +269,65 @@ def test_small_inverses_match_jax():
 
 
 def test_unported_batches_raise():
-    """Stated limits: a two-grid (unbounded point window) batch and a
-    blocked batch with calibration columns but no calibration-window plan
-    raise NotImplementedError."""
+    """Stated limit: a point-coupled batch that is not blocked (a visual
+    batch below the blocking threshold) would need the generic Schur cross
+    terms and raises NotImplementedError."""
     p, lg, _ = _port_linearized()
     cfgs = p.active_cfgs
     (vi,) = [i for i, c in enumerate(cfgs) if c.block_info is not None]
-    two_grid = list(cfgs)
-    two_grid[vi] = dataclasses.replace(cfgs[vi], block_info=dataclasses.replace(
-        cfgs[vi].block_info, prb2=0, nhg=0))
+    unblocked = list(cfgs)
+    unblocked[vi] = dataclasses.replace(cfgs[vi], block_info=None)
     with pytest.raises(NotImplementedError):
-        trcs._vis_batches(two_grid, tuple(p.datas), lg)
+        trcs._split(unblocked, lg)
+    with pytest.raises(NotImplementedError):
+        trcs.assemble(unblocked, tuple(p.datas), lg, p.variables, p.masks)
+
+
+def _batch_variant(kind):
+    """(cfgs, lg) of the tiny problem with its blocked batch made two-grid
+    (no landmark window recorded) or given a zero cam_intr Jacobian block."""
+    p, lg, _ = _port_linearized()
+    cfgs = list(p.active_cfgs)
+    (vi,) = [i for i, c in enumerate(cfgs) if c.block_info is not None]
+    if kind == "two_grid":
+        cfgs[vi] = dataclasses.replace(cfgs[vi], block_info=dataclasses.replace(
+            cfgs[vi].block_info, prb2=0, nhg=0))
+        return p, cfgs, lg
     lin = lg.lins[vi]
-    cal = lg._replace(lins=tuple(
-        lin._replace(groups=lin.groups + ("cam_intr",)) if i == vi else l_
-        for i, l_ in enumerate(lg.lins)))
-    with pytest.raises(NotImplementedError):
-        trcs._vis_batches(cfgs, tuple(p.datas), cal)
+    n = lin.res.shape[1]
+    lin = lin._replace(groups=lin.groups + ("cam_intr",), idx=lin.idx + (p.datas[vi]["intr"],),
+                       jac=lin.jac + (torch.zeros((2, 17, n), dtype=lin.res.dtype),),
+                       ell=lin.ell + (None,))
+    return p, cfgs, lg._replace(lins=tuple(lin if i == vi else l_
+                                           for i, l_ in enumerate(lg.lins)))
+
+
+@pytest.mark.parametrize("kind", ["two_grid", "general_groups"])
+def test_formerly_unported_batches_match_the_single_pass_route(kind):
+    """A two-grid batch and a batch with a further group (here cam_intr with
+    a zero Jacobian, so the system is unchanged) take the general route and
+    give the single-pass route's assembly, matvec and solve."""
+    p, lg0, asm0 = _port_linearized()
+    _, cfgs, lg = _batch_variant(kind)
+    asm = trcs.assemble(cfgs, tuple(p.datas), lg, p.variables, p.masks)
+    (b,) = asm.vis
+    assert not trcs._single_pass(b)
+    assert b.groups == (("rig",) if kind == "two_grid" else ("rig", "cam_intr"))
+    tt = lambda x: tst.Tangent(*(a.numpy() for a in x))  # noqa: E731
+    assert rel(asm.H_ll0.numpy(), asm0.H_ll0.numpy()) < 1e-12
+    assert rel(asm.g_l.numpy(), asm0.g_l.numpy()) < 1e-12
+    _fields(asm.g_r, tt(asm0.g_r), 1e-12, "g_r")
+    _fields(asm.diag_r, tt(asm0.diag_r), 1e-12, "diag_r")
+    rs, rs0 = (trcs.with_damping(a, p.variables, p.masks, LAM) for a in (asm, asm0))
+    _fields(rs.precond_inv, tt(rs0.precond_inv), 1e-9, "precond_inv")
+    rng = np.random.default_rng(34)
+    zt = tst.zero_tangent(p.variables)
+    x = tst.Tangent(**{f: t(rng.normal(size=tuple(getattr(zt, f).shape))) for f in zt._fields})
+    _fields(trcs.matvec(rs, p.variables, x), tt(trcs.matvec(rs0, p.variables, x)), 1e-12, "matvec")
+    out, out0 = (trcs.solve_assembled(a, p.variables, p.masks, LAM, PCG_ITERS, 1e-10)
+                 for a in (asm, asm0))
+    _fields(out[0], tt(out0[0]), 1e-8, "x_r")
+    assert rel(out[1].numpy(), out0[1].numpy()) < 1e-8
 
 
 def test_jax_package_untouched_by_port_import():

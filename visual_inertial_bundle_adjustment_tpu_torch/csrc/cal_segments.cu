@@ -16,9 +16,10 @@
 // thread's registers. So each row's slot list is cut into chunks of at most
 // CHUNK slots (ops/segments.py); a 128-thread group per chunk writes one
 // partial row (K8: seven launches of 32 outputs each, J_c re-read from L2),
-// and a second pass sums each row's partials in chunk order. Deterministic,
-// no atomics. Bound: bytes — J_r, J_c, J_p read once per pass (2 x (K + 26)
-// floats per observation), the window pass re-reads J_c.
+// and a second pass (tile_reduce.cuh sum_partials) sums each row's partials in
+// chunk order. Deterministic, no atomics. Bound: bytes — J_r, J_c, J_p read
+// once per pass (2 x (K + 26) floats per observation), the window pass
+// re-reads J_c.
 #include <utility>
 
 #include "tile_reduce.cuh"
@@ -148,19 +149,6 @@ __global__ void __launch_bounds__(viba::kBlock) cal_partials(
       });
 }
 
-// second pass: out[row, e] = sum of the row's chunk partials, in chunk order
-__global__ void __launch_bounds__(256) cal_finish(int n_rows, int D,
-                                                  const int* __restrict__ row_chunk,
-                                                  const float* __restrict__ part,
-                                                  float* __restrict__ out) {
-  const long idx = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (idx >= (long)n_rows * D) return;
-  const int row = static_cast<int>(idx / D), e = static_cast<int>(idx % D);
-  float s = 0.f;
-  for (int ch = row_chunk[row]; ch < row_chunk[row + 1]; ++ch) s += part[(long)D * ch + e];
-  out[idx] = s;
-}
-
 cudaError_t launch_rows(int n_rows, int n_chunks, int n, const int* chunk_ptr,
                         const int* chunk_obs, const int* row_chunk, const float* J_c,
                         const float* u, float* part, float* out, cudaStream_t st) {
@@ -170,10 +158,7 @@ cudaError_t launch_rows(int n_rows, int n_chunks, int n, const int* chunk_ptr,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (n_rows > 0) {
-    cal_finish<<<(n_rows * kCal + 255) / 256, 256, 0, st>>>(n_rows, kCal, row_chunk, part, out);
-  }
-  return cudaGetLastError();
+  return viba::launch_sum_partials(n_rows, kCal, row_chunk, part, out, st);
 }
 
 // K10 down / K9 down, rig pass: wu = w (J_r x_r[rig] + J_c x_c[win]) for every
@@ -276,11 +261,7 @@ extern "C" int viba_assemble_cal(int R, int L, int n, int k, int n_c, int n_chun
         launch_parts<0>(n_chunks, n, chunk_ptr, chunk_obs, J_c, w, res, part, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (n_c > 0) {
-    cal_finish<<<(n_c * kCalOut + 255) / 256, 256, 0, st>>>(n_c, kCalOut, row_chunk, part,
-                                                            out_c);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(viba::launch_sum_partials(n_c, kCalOut, row_chunk, part, out_c, st));
 }
 
 extern "C" int viba_schur_down_cal(int R, int L, int n, int k, int n_c, int n_chunks, int want_y,

@@ -83,58 +83,6 @@ __device__ __forceinline__ void int_coeffs(real theta2, real& c1, real& c2, real
   }
 }
 
-// d(u, v) / d(model params 0..14) at p_cam (primal), ops/camera models
-__device__ void param_jac(int camera_kind, const float* K, real x, real y, real z, real (&du)[15],
-                          real (&dv)[15]) {
-#pragma unroll
-  for (int j = 0; j < 15; ++j) du[j] = dv[j] = 0.0;
-  const real zs = fabs(z) < kMinZ ? kMinZ : z;
-  if (camera_kind != 1) {  // pinhole [fx, fy, cx, cy]
-    du[0] = x / zs;
-    dv[1] = y / zs;
-    du[2] = 1.0;
-    dv[3] = 1.0;
-    return;
-  }
-  const real r = sqrt(x * x + y * y + 1e-30);
-  const real theta = atan2(r, z);
-  const real th2 = theta * theta;
-  real pw[6], m = 1.0, acc = 1.0;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    acc *= th2;
-    pw[i] = acc;
-    m += real(K[3 + i]) * acc;
-  }
-  const bool near = r < 1e-12;
-  const real scale = near ? 1.0 / zs : theta * m / r;
-  const real a = x * scale, b = y * scale;
-  const real rho2 = a * a + b * b;
-  const real f = K[0], p0 = K[9], p1 = K[10], s0 = K[11], s1 = K[12], s2 = K[13], s3 = K[14];
-  const real ua = f * (1.0 + 6.0 * p0 * a + 2.0 * p1 * b + 2.0 * a * (s0 + 2.0 * s1 * rho2));
-  const real ub = f * (2.0 * p0 * b + 2.0 * p1 * a + 2.0 * b * (s0 + 2.0 * s1 * rho2));
-  const real va = f * (2.0 * p1 * a + 2.0 * p0 * b + 2.0 * a * (s2 + 2.0 * s3 * rho2));
-  const real vb = f * (1.0 + 6.0 * p1 * b + 2.0 * p0 * a + 2.0 * b * (s2 + 2.0 * s3 * rho2));
-  du[0] = a + p0 * (rho2 + 2.0 * a * a) + 2.0 * p1 * a * b + s0 * rho2 + s1 * rho2 * rho2;
-  dv[0] = b + p1 * (rho2 + 2.0 * b * b) + 2.0 * p0 * a * b + s2 * rho2 + s3 * rho2 * rho2;
-  du[1] = 1.0;
-  dv[2] = 1.0;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    const real ds = near ? 0.0 : theta * pw[i] / r;
-    du[3 + i] = ua * x * ds + ub * y * ds;
-    dv[3 + i] = va * x * ds + vb * y * ds;
-  }
-  du[9] = f * (rho2 + 2.0 * a * a);
-  dv[9] = f * 2.0 * a * b;
-  du[10] = f * 2.0 * a * b;
-  dv[10] = f * (rho2 + 2.0 * b * b);
-  du[11] = f * rho2;
-  du[12] = f * rho2 * rho2;
-  dv[13] = f * rho2;
-  dv[14] = f * rho2 * rho2;
-}
-
 __device__ __forceinline__ void load3(const float* p, real* o) {
   o[0] = p[0];
   o[1] = p[1];

@@ -1,0 +1,243 @@
+// K12 / K13: the table segment kernels of the general (two-grid) solver path.
+//
+// A blocked visual batch that is not single-pass (per-tile landmark windows
+// wider than the cap: landmarks re-observed over the whole session) or that
+// couples other groups than rig (+ the shared calibration-window row) is
+// solved by composing four primitives over an index family (rig rows, landmark
+// rows, or the rows of another variable group):
+//   mv_fused    wu = w (J x[row]) per slot and y[row] = sum J^T wu, J read once
+//               replaces _mv_fused_tbl_kernel   (JAX ops/segments.py:304)  K12
+//   mv_scatter  y[row] = sum J^T u
+//               replaces _mv_scatter_tbl_kernel (:366)                     K13a
+//   mv_gather   u = J x[row] per slot
+//               replaces _mv_gather_tbl_kernel  (:406)                     K13b
+//   reduce      y[row] = sum contrib[:, slot]
+//               replaces _reduce_tbl_kernel     (:441)                     K13c
+// The TPU kernels walked the tiles of a grid in order and accumulated one-hot
+// products into a VMEM-resident table; the landmark grid was a second,
+// point-sorted copy of J_p reached through permutations. Here every output
+// row is owned by one thread group that walks the row's slots through a CSR
+// list (tile_reduce.cuh) in a fixed order: deterministic, no atomics, and the
+// landmark family is just another list over the rig-ordered J_p, so no
+// second copy and no permutes exist. A family with few long rows (a camera's
+// intrinsics row touched by every observation) is cut into chunks, one
+// segment each, whose partials a second pass sums in chunk order.
+//
+// Threads per segment: G = 128 (one segment per block) for long rows, G = 16
+// for short ones; the wrapper picks by the mean segment length. K (Jacobian
+// columns) is a template parameter in {3, 6, 9}; reduce handles any width D
+// in column tiles of DT. Bound: bytes — mv_fused and mv_scatter read J (8K B)
+// and a 2-row payload per slot, mv_gather the same plus a gathered table row,
+// reduce 4D B per slot.
+#include "tile_reduce.cuh"
+
+namespace {
+
+using viba::kBlock;
+
+template <int G, int K>
+__global__ void __launch_bounds__(kBlock) mv_fused(
+    int n_seg, int n, const int* __restrict__ ptr, const int* __restrict__ obs,
+    const int* __restrict__ row, const float* __restrict__ J, const float* __restrict__ w,
+    const float* __restrict__ x, float* __restrict__ wu, float* __restrict__ out) {
+  // the segment's table row, loaded once (every slot of a segment has one row)
+  const int seg = blockIdx.x * (kBlock / G) + threadIdx.x / G;
+  const bool has = seg < n_seg && ptr[seg] < ptr[seg + 1];
+  const long r = has ? row[obs[ptr[seg]]] : 0;
+  float xr[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) xr[c] = has ? x[K * r + c] : 0.f;
+  viba::reduce_segments<G, K>(
+      blockIdx.x, n_seg, ptr, obs,
+      [&](int s, float(&acc)[K]) {
+        float j0[K], j1[K], u0 = 0.f, u1 = 0.f;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          j0[c] = J[c * (long)n + s];
+          j1[c] = J[(K + c) * (long)n + s];
+          u0 += j0[c] * xr[c];
+          u1 += j1[c] * xr[c];
+        }
+        const float ws = w[s];
+        const float wu0 = u0 * ws, wu1 = u1 * ws;
+        wu[s] = wu0;
+        wu[n + s] = wu1;
+#pragma unroll
+        for (int c = 0; c < K; ++c) acc[c] += j0[c] * wu0 + j1[c] * wu1;
+      },
+      [&](int sg, float(&acc)[K]) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) out[K * (long)sg + c] = acc[c];
+      });
+}
+
+template <int G, int K>
+__global__ void __launch_bounds__(kBlock) mv_scatter(
+    int n_seg, int n, const int* __restrict__ ptr, const int* __restrict__ obs,
+    const float* __restrict__ J, const float* __restrict__ u, float* __restrict__ out) {
+  viba::reduce_segments<G, K>(
+      blockIdx.x, n_seg, ptr, obs,
+      [&](int s, float(&acc)[K]) {
+        const float u0 = u[s], u1 = u[n + s];
+#pragma unroll
+        for (int c = 0; c < K; ++c)
+          acc[c] += J[c * (long)n + s] * u0 + J[(K + c) * (long)n + s] * u1;
+      },
+      [&](int sg, float(&acc)[K]) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) out[K * (long)sg + c] = acc[c];
+      });
+}
+
+template <int K>
+__global__ void __launch_bounds__(256) mv_gather(int n, const int* __restrict__ row,
+                                                 const float* __restrict__ J,
+                                                 const float* __restrict__ x,
+                                                 float* __restrict__ u) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  const float* xr = x + K * (long)row[s];
+  float u0 = 0.f, u1 = 0.f;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const float xv = xr[c];
+    u0 += J[c * (long)n + s] * xv;
+    u1 += J[(K + c) * (long)n + s] * xv;
+  }
+  u[s] = u0;
+  u[n + s] = u1;
+}
+
+// columns [blockIdx.y * DT, blockIdx.y * DT + DT) of the D-wide rows
+template <int G, int DT>
+__global__ void __launch_bounds__(kBlock) reduce_cols(
+    int n_seg, int n, int D, const int* __restrict__ ptr, const int* __restrict__ obs,
+    const float* __restrict__ contrib, float* __restrict__ out) {
+  const int col0 = blockIdx.y * DT;
+  viba::reduce_segments<G, DT>(
+      blockIdx.x, n_seg, ptr, obs,
+      [&](int s, float(&acc)[DT]) {
+#pragma unroll
+        for (int i = 0; i < DT; ++i) {
+          if (col0 + i < D) acc[i] += contrib[(col0 + i) * (long)n + s];
+        }
+      },
+      [&](int sg, float(&acc)[DT]) {
+#pragma unroll
+        for (int i = 0; i < DT; ++i) {
+          if (col0 + i < D) out[D * (long)sg + col0 + i] = acc[i];
+        }
+      });
+}
+
+// a chunked family reduces into `part` and is finished by sum_partials
+inline float* first_pass_out(const int* row_chunk, float* part, float* out) {
+  return row_chunk != nullptr ? part : out;
+}
+
+inline int finish(cudaError_t err, int n_rows, int D, const int* row_chunk, const float* part,
+                  float* out, cudaStream_t st) {
+  if (err != cudaSuccess || row_chunk == nullptr) return static_cast<int>(err);
+  return static_cast<int>(viba::launch_sum_partials(n_rows, D, row_chunk, part, out, st));
+}
+
+template <int G, int K>
+cudaError_t launch_fused(int n_seg, int n, const int* ptr, const int* obs, const int* row,
+                         const float* J, const float* w, const float* x, float* wu, float* y,
+                         cudaStream_t st) {
+  mv_fused<G, K><<<viba::segment_blocks<G>(n_seg), kBlock, 0, st>>>(n_seg, n, ptr, obs, row, J, w,
+                                                                   x, wu, y);
+  return cudaGetLastError();
+}
+
+template <int G, int K>
+cudaError_t launch_scatter(int n_seg, int n, const int* ptr, const int* obs, const float* J,
+                           const float* u, float* y, cudaStream_t st) {
+  mv_scatter<G, K><<<viba::segment_blocks<G>(n_seg), kBlock, 0, st>>>(n_seg, n, ptr, obs, J, u,
+                                                                     y);
+  return cudaGetLastError();
+}
+
+template <int G, int DT>
+cudaError_t launch_reduce(int n_seg, int n, int D, const int* ptr, const int* obs,
+                          const float* contrib, float* y, cudaStream_t st) {
+  const dim3 grid(viba::segment_blocks<G>(n_seg), (D + DT - 1) / DT);
+  reduce_cols<G, DT><<<grid, kBlock, 0, st>>>(n_seg, n, D, ptr, obs, contrib, y);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dispatch on the threads per segment (16 or 128) and a compile-time width
+#define VIBA_DISPATCH_GK(CALL, G, K, ARGS)                        \
+  ((G) == 128 ? ((K) == 3   ? CALL<128, 3> ARGS                   \
+                 : (K) == 6 ? CALL<128, 6> ARGS                   \
+                 : (K) == 9 ? CALL<128, 9> ARGS                   \
+                            : cudaErrorInvalidValue)              \
+   : (G) == 16 ? ((K) == 3   ? CALL<16, 3> ARGS                   \
+                  : (K) == 6 ? CALL<16, 6> ARGS                   \
+                  : (K) == 9 ? CALL<16, 9> ARGS                   \
+                             : cudaErrorInvalidValue)             \
+               : cudaErrorInvalidValue)
+
+extern "C" int viba_seg_mv_fused(int n_seg, int n_rows, int n, int k, int G, const int* ptr,
+                                 const int* obs, const int* row, const int* row_chunk,
+                                 const float* J, const float* w, const float* x, float* wu,
+                                 float* part, float* y, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_seg <= 0) return 0;
+  float* dst = first_pass_out(row_chunk, part, y);
+  const cudaError_t err =
+      VIBA_DISPATCH_GK(launch_fused, G, k, (n_seg, n, ptr, obs, row, J, w, x, wu, dst, st));
+  return finish(err, n_rows, k, row_chunk, part, y, st);
+}
+
+extern "C" int viba_seg_mv_scatter(int n_seg, int n_rows, int n, int k, int G, const int* ptr,
+                                   const int* obs, const int* row_chunk, const float* J,
+                                   const float* u, float* part, float* y, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_seg <= 0) return 0;
+  float* dst = first_pass_out(row_chunk, part, y);
+  const cudaError_t err =
+      VIBA_DISPATCH_GK(launch_scatter, G, k, (n_seg, n, ptr, obs, J, u, dst, st));
+  return finish(err, n_rows, k, row_chunk, part, y, st);
+}
+
+extern "C" int viba_seg_mv_gather(int n, int k, const int* row, const float* J, const float* x,
+                                  float* u, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return 0;
+  const int grid = (n + 255) / 256;
+  if (k == 3) {
+    mv_gather<3><<<grid, 256, 0, st>>>(n, row, J, x, u);
+  } else if (k == 6) {
+    mv_gather<6><<<grid, 256, 0, st>>>(n, row, J, x, u);
+  } else if (k == 9) {
+    mv_gather<9><<<grid, 256, 0, st>>>(n, row, J, x, u);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int viba_seg_reduce(int n_seg, int n_rows, int n, int D, int G, const int* ptr,
+                               const int* obs, const int* row_chunk, const float* contrib,
+                               float* part, float* y, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_seg <= 0 || D <= 0) return 0;
+  float* dst = first_pass_out(row_chunk, part, y);
+  // column tile: 3 for landmark gradients, 9 for the 3x3, 6x6 and 9x9 block
+  // widths (9, 36, 81) and 9-column rows, 8 otherwise
+  const int DT = D == 3 ? 3 : D % 9 == 0 ? 9 : 8;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (G == 128) {
+    err = DT == 3   ? launch_reduce<128, 3>(n_seg, n, D, ptr, obs, contrib, dst, st)
+          : DT == 9 ? launch_reduce<128, 9>(n_seg, n, D, ptr, obs, contrib, dst, st)
+                    : launch_reduce<128, 8>(n_seg, n, D, ptr, obs, contrib, dst, st);
+  } else if (G == 16) {
+    err = DT == 3   ? launch_reduce<16, 3>(n_seg, n, D, ptr, obs, contrib, dst, st)
+          : DT == 9 ? launch_reduce<16, 9>(n_seg, n, D, ptr, obs, contrib, dst, st)
+                    : launch_reduce<16, 8>(n_seg, n, D, ptr, obs, contrib, dst, st);
+  }
+  return finish(err, n_rows, D, row_chunk, part, y, st);
+}

@@ -1,5 +1,6 @@
 // Group-per-segment reduction skeleton shared by the segment kernels
-// (assemble_rig.cu, precond_rig.cu, schur.cu).
+// (assemble_rig.cu, precond_rig.cu, schur.cu, cal_segments.cu,
+// table_segments.cu).
 //
 // The blocked solver lays a visual batch out in rig-sorted ragged tiles
 // (rcs.finalize_blocks). Every segment kernel reduces small per-observation
@@ -74,6 +75,31 @@ __device__ __forceinline__ void reduce_segments(int block, int n_seg, const int*
   for (int j = beg + lane; j < end; j += G) body(obs[j], acc);
   group_sum<G, D>(acc, smem);
   if (live && lane == 0) write(seg, acc);
+}
+
+// Second pass of a chunked reduction (rows too long for one group are cut
+// into chunks, one segment each): out[row, e] = the sum of the row's chunk
+// partials part[chunk, e], in chunk order. One thread per output entry.
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads) sum_partials(int n_rows, int D,
+                                                         const int* __restrict__ row_chunk,
+                                                         const float* __restrict__ part,
+                                                         float* __restrict__ out) {
+  const long idx = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  if (idx >= (long)n_rows * D) return;
+  const int row = static_cast<int>(idx / D), e = static_cast<int>(idx % D);
+  float s = 0.f;
+  for (int ch = row_chunk[row]; ch < row_chunk[row + 1]; ++ch) s += part[(long)D * ch + e];
+  out[idx] = s;
+}
+
+inline cudaError_t launch_sum_partials(int n_rows, int D, const int* row_chunk,
+                                       const float* part, float* out, cudaStream_t st) {
+  if (n_rows > 0 && D > 0) {
+    sum_partials<256><<<static_cast<int>(((long)n_rows * D + 255) / 256), 256, 0, st>>>(
+        n_rows, D, row_chunk, part, out);
+  }
+  return cudaGetLastError();
 }
 
 // Blocks needed for n_seg segments at G threads per segment.

@@ -5,7 +5,9 @@ the JAX package's problem apart into numpy (`np.asarray` on every leaf of its
 variables, masks and datas, `dataclasses.asdict` on every cfg, a dict of
 fields for the RS tables) and rebuild it here. Nothing of JAX is imported; a
 blocked batch keeps its slot order and calibration-window plan and gets the
-port's reduction plans.
+port's reduction plans: the rig and landmark lists, the chunked window rows
+and, for the general (two-grid) path, the chunked camera and detector-bias
+rows in place of the JAX package's point-sorted second grid.
 """
 
 from __future__ import annotations
@@ -68,10 +70,12 @@ def problem_from_numpy(variables: dict, masks: dict, cfgs: list, datas: list, de
             pad = np.asarray(data["_pad"])
             plan = rcs.segment_plan(np.asarray(data["rig"]), np.asarray(data["point"]), pad,
                                     v.pose_q.shape[0], v.points.shape[0])
-            if info.wb > 0 and "_cb_local" in data:
+            has_cal = info.wb > 0 and "_cb_local" in data
+            if has_cal:
                 win = (np.repeat(np.asarray(data["_cb_base"]), info.ts)
                        + np.asarray(data["_cb_local"]))
                 plan.update(seg.cal_plan_arrays(win, pad, v.cam_intr.shape[0]))
+            plan.update(rcs.group_plan_arrays(data, pad, v, has_cal))
             d.update({k: torch.from_numpy(a).to(device) for k, a in plan.items()})
         problem.add_batch(cfg, d)
     return problem

@@ -1,6 +1,8 @@
-"""Segment kernels of the blocked reduced-camera-system solver (K2-K6, K8-K10).
+"""Segment kernels of the blocked reduced-camera-system solver (K2-K6, K8-K10,
+K12, K13).
 
-Port of the single-pass rig-grid entries of
+Port of the single-pass rig-grid entries and of the table entries of the
+general (two-grid) path of
 `visual_inertial_bundle_adjustment_tpu/ops/segments.py`. Every entry
 reduces per-observation products of a blocked visual batch into rig rows,
 landmark rows and, for calibration-coupled batches, calibration-window rows:
@@ -17,19 +19,31 @@ landmark rows and, for calibration-coupled batches, calibration-window rows:
   seg_schur_down_cal  K6 with u = J_r x_r[rig] + J_c x_c[win]: y_r, y_c, t (K10)
   seg_schur_up_cal    K5 into rig and window rows (K10)
   seg_schur_pcg_cal   K4 over rig and window columns (K9)
+  seg_mv_fused_table    wu = w (J x[row]), y[row] = sum J^T wu, J read once (K12)
+  seg_mv_scatter_table  y[row] = sum J^T u (K13a)
+  seg_mv_gather_table   u = J x[row] (K13b)
+  seg_reduce_table      y[row] = sum contrib[:, slot] (K13c)
+
+The last four take a RowPlan: one index family of the batch (rig rows,
+landmark rows, or the rows of another variable group) with the CSR list of
+each row's real slots. The JAX entries take per-tile local indices and bases
+of a rig grid or of a second, point-sorted grid; here the landmark family is
+a list over the rig-ordered arrays, so no point-sorted copy exists.
 
 The rig Jacobian carries rig_k = 6 (pose) or 9 (pose + velocity, rolling
 shutter) columns; the window Jacobian J_c the kc = 23 calibration columns
 [extr 6 | intr 17].
 
 Kernels: csrc/assemble_rig.cu, csrc/precond_rig.cu, csrc/schur.cu,
-csrc/cal_segments.cu, on the group-per-segment skeleton of
+csrc/cal_segments.cu, csrc/table_segments.cu, on the group-per-segment skeleton of
 csrc/tile_reduce.cuh, templated on rig_k. They replace the Pallas kernels
 _assemble_rig_kernel (JAX ops/segments.py:840), _precond_rig_kernel (:1861),
 _schur_down_kernel (:586), _schur_up_kernel (:725), _down_light_kernel
 (:1318), _up_du_kernel (:1347), _assemble_cal_kernel (:1674),
 _schur_down_cal_kernel (:1005), _schur_up_cal_kernel (:1146),
-_down_light_cal_kernel (:1468) and _up_du_cal_kernel (:1519).
+_down_light_cal_kernel (:1468), _up_du_cal_kernel (:1519),
+_mv_fused_tbl_kernel (:304), _mv_scatter_tbl_kernel (:366),
+_mv_gather_tbl_kernel (:406) and _reduce_tbl_kernel (:441).
 
 Design on the card. The TPU grid ran tiles in order and accumulated into
 VMEM-resident tables through one-hot MXU dots; on Hopper blocks run in
@@ -96,6 +110,43 @@ class CalPlan(NamedTuple):
     @property
     def n_chunks(self):
         return self.chunk_ptr.shape[0] - 1
+
+
+class RowPlan(NamedTuple):
+    """One index family of a blocked batch for the table kernels (K12, K13):
+    the row of every slot and the CSR list of each segment's real slots. A
+    segment is a whole row, or, for a family of few long rows (row_chunk
+    given), a chunk of at most CHUNK slots whose partial sums a second pass
+    adds in chunk order."""
+
+    row: torch.Tensor  # (N,) int32 row of each slot (pads: any valid row)
+    ptr: torch.Tensor  # (n_seg+1,) int32 CSR offsets into obs
+    obs: torch.Tensor  # (n_real,) int32 real slots, row-sorted
+    row_chunk: torch.Tensor | None = None  # (n_rows+1,) int32 chunk offsets per row
+
+    @property
+    def n_seg(self):
+        return self.ptr.shape[0] - 1
+
+    @property
+    def n_rows(self):
+        return (self.ptr if self.row_chunk is None else self.row_chunk).shape[0] - 1
+
+
+def rig_rows(plan: SegPlan) -> RowPlan:
+    """The rig family of a batch (slot order: contiguous runs per rig)."""
+    return RowPlan(plan.rig, plan.rig_ptr, plan.rig_obs)
+
+
+def point_rows(plan: SegPlan) -> RowPlan:
+    """The landmark family of a batch, over the rig-ordered arrays."""
+    return RowPlan(plan.point, plan.pt_ptr, plan.pt_obs)
+
+
+def chunked_rows(row, arrays, prefix="_cal_") -> RowPlan:
+    """A chunked family from cal_plan_arrays' tensors (keys `<prefix>*`)."""
+    return RowPlan(row, arrays[prefix + "chunk_ptr"], arrays[prefix + "chunk_obs"],
+                   arrays[prefix + "row_chunk"])
 
 
 def cal_plan_arrays(win, pad, n_rows, chunk=CHUNK):
@@ -495,3 +546,121 @@ def seg_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cplan: Ca
                                wu)
     seg_schur_pcg_cal.launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K12 / K13: table kernels of the general (two-grid) path
+# ---------------------------------------------------------------------------
+
+TABLE_KS = (3, 6, 9)  # Jacobian widths the table kernels are built for
+
+
+def _group_threads(rows: RowPlan):
+    """Threads per segment: a block for long segments, 16 for short ones."""
+    return 128 if rows.obs.shape[0] > 64 * max(rows.n_seg, 1) else 16
+
+
+def _table_jac(J, what):
+    d, k, n = J.shape
+    if d != 2 or k not in TABLE_KS:
+        raise ValueError(f"{what}: kernels take J blocks of shape (2, k in {TABLE_KS}, N), "
+                         f"got {tuple(J.shape)}")
+    return n, k, _kernels.check(J, "J", torch.float32, (2, k, n))
+
+
+def _rows_args(rows: RowPlan, n):
+    """(n_seg, n_rows, G, ptr, obs, row_chunk or None) of a launch."""
+    ck = _kernels.check
+    ck(rows.row, "row", torch.int32, (n,))
+    return (rows.n_seg, rows.n_rows, _group_threads(rows), ck(rows.ptr, "ptr", torch.int32),
+            ck(rows.obs, "obs", torch.int32),
+            ck(rows.row_chunk, "row_chunk", torch.int32) if rows.row_chunk is not None else None)
+
+
+def _rows_out(rows: RowPlan, width, like):
+    """(partials or None, output table) of a reduction into rows."""
+    part = _empty((max(rows.n_seg, 1), width), like) if rows.row_chunk is not None else None
+    # a family without a segment launches nothing: its rows are zero
+    alloc = torch.empty if rows.n_seg > 0 else torch.zeros
+    return part, alloc((rows.n_rows, width), dtype=torch.float32, device=like.device)
+
+
+def _mv_fused_plain(J, w, x_table, rows):
+    xg = x_table.index_select(0, rows.row)  # (N, k)
+    wu = (J * xg.T[None]).sum(1) * w[None, :]
+    return wu, _rows_sum((J * wu[:, None, :]).sum(0), rows.row, rows.n_rows)
+
+
+@_kernels.register("mv_fused_table")
+def seg_mv_fused_table(J, w, x_table, rows: RowPlan):
+    """K12: (wu (2, N) = w (J x[row]), y (n_rows, k) = seg-sum J^T wu), the
+    rig side of the general-path matvec with J read once."""
+    if not _kernels.on_card(w):
+        return _mv_fused_plain(J, w, x_table, rows)
+    n, k, jp = _table_jac(J, "seg_mv_fused_table")
+    n_seg, n_rows, G, ptr, obs, row_chunk = _rows_args(rows, n)
+    wu = torch.zeros((2, n), dtype=torch.float32, device=w.device)
+    part, y = _rows_out(rows, k, w)
+    _kernels.launch("viba_seg_mv_fused", n_seg, n_rows, n, k, G, ptr, obs, rows.row.data_ptr(),
+                    row_chunk, jp, _kernels.check(w, "w", torch.float32, (n,)),
+                    _kernels.check(x_table, "x_table", torch.float32, (n_rows, k)),
+                    wu.data_ptr(), part.data_ptr() if part is not None else None, y.data_ptr())
+    seg_mv_fused_table.launches += 1
+    return wu, y
+
+
+def _mv_scatter_plain(J, u, rows):
+    return _rows_sum((J * u[:, None, :]).sum(0), rows.row, rows.n_rows)
+
+
+@_kernels.register("mv_scatter_table")
+def seg_mv_scatter_table(J, u, rows: RowPlan):
+    """K13a: y (n_rows, k) = seg-sum over each row's slots of J^T u."""
+    if not _kernels.on_card(u):
+        return _mv_scatter_plain(J, u, rows)
+    n, k, jp = _table_jac(J, "seg_mv_scatter_table")
+    n_seg, n_rows, G, ptr, obs, row_chunk = _rows_args(rows, n)
+    part, y = _rows_out(rows, k, u)
+    _kernels.launch("viba_seg_mv_scatter", n_seg, n_rows, n, k, G, ptr, obs, row_chunk, jp,
+                    _kernels.check(u, "u", torch.float32, (2, n)),
+                    part.data_ptr() if part is not None else None, y.data_ptr())
+    seg_mv_scatter_table.launches += 1
+    return y
+
+
+def _mv_gather_plain(J, x_table, rows):
+    return (J * x_table.index_select(0, rows.row).T[None]).sum(1)
+
+
+@_kernels.register("mv_gather_table")
+def seg_mv_gather_table(J, x_table, rows: RowPlan):
+    """K13b: u (2, N) = J x[row] per slot."""
+    if not _kernels.on_card(x_table):
+        return _mv_gather_plain(J, x_table, rows)
+    n, k, jp = _table_jac(J, "seg_mv_gather_table")
+    ck = _kernels.check
+    u = _empty((2, n), x_table)
+    _kernels.launch("viba_seg_mv_gather", n, k, ck(rows.row, "row", torch.int32, (n,)), jp,
+                    ck(x_table, "x_table", torch.float32, (rows.n_rows, k)), u.data_ptr())
+    seg_mv_gather_table.launches += 1
+    return u
+
+
+def _reduce_plain(contrib, rows):
+    return _rows_sum(contrib, rows.row, rows.n_rows)
+
+
+@_kernels.register("reduce_table")
+def seg_reduce_table(contrib, rows: RowPlan):
+    """K13c: segment-sum contrib (D, N) into (n_rows, D). Slots outside the
+    family's lists (the padded ones) must carry zeros."""
+    if not _kernels.on_card(contrib):
+        return _reduce_plain(contrib, rows)
+    D, n = contrib.shape
+    n_seg, n_rows, G, ptr, obs, row_chunk = _rows_args(rows, n)
+    part, y = _rows_out(rows, D, contrib)
+    _kernels.launch("viba_seg_reduce", n_seg, n_rows, n, D, G, ptr, obs, row_chunk,
+                    _kernels.check(contrib, "contrib", torch.float32, (D, n)),
+                    part.data_ptr() if part is not None else None, y.data_ptr())
+    seg_reduce_table.launches += 1
+    return y

@@ -17,8 +17,9 @@ touches, evaluated at the current linearization point; the generic
 linearizer differentiates it with `torch.func.vmap(jacrev/jacfwd)`. Blocked
 visual batches (rcs.finalize_blocks) go through fused linearizers instead:
 plain visual with only pose + point active through ops/visual_fused.py (CUDA
-kernel K1), rolling-shutter visual through ops/rs_fused.py (K7); on the CPU
-each takes its plain PyTorch version.
+kernel K1), plain visual with the camera calibration active too through the
+same module's K11, rolling-shutter visual through ops/rs_fused.py (K7); on
+the CPU each takes its plain PyTorch version.
 
 Validity (reference std::optional returns) is a mask; every local function is
 total and finite so AD never sees NaNs.
@@ -688,6 +689,16 @@ def linearize_batch(cfg: BatchCfg, data, v: VariableTables, masks: Masks) -> Lin
         return Lin(res=res, valid=valid, groups=(POINTS, RIG),
                    idx=(data["point"], data["rig"]), jac=(J_pt, J_r),
                    ell=(None, None))
+    if (_fused_visual(cfg, data) and cfg.active_groups is not None
+            and set(cfg.active_groups) == {POINTS, RIG, CAM_EXTR, CAM_INTR}):
+        from ..ops import visual_fused
+
+        res, valid, J_pt, J_r, J_cal = visual_fused.linearize_visual_cal_fused(
+            cfg.camera_kind, data, v, masks, cfg.block_info)
+        return Lin(res=res, valid=valid, groups=(POINTS, RIG, CAM_EXTR, CAM_INTR),
+                   idx=(data["point"], data["rig"], data["extr"], data["intr"]),
+                   jac=(J_pt, J_r, J_cal[:, 0:6], J_cal[:, 6:23]),
+                   ell=(None, None, None, None))
     if _fused_rs(cfg, data):
         from ..ops import rs_fused
 
