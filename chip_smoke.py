@@ -22,7 +22,13 @@ Drives the port's four main paths through the entry points a user calls:
   two_grid     the bias-only build on a 120 s session whose 6,000 landmarks are
                re-observed over the whole session (`track_lifetime_sec=None`,
                ~3.1M observations): no per-tile landmark window fits, so the
-               solver takes its general path (K1, K12, K13a-c).
+               solver takes its general path (K1, K12, K13a-c);
+  profile      on the two_grid problem, the general-path Schur matvec composed
+               from the tile-partials kernels K14a-e on the rig-sorted grid
+               and the point-sorted second grid
+               (`profile_matvec.setup` / `check` / `profile`), held against
+               rcs.matvec and timed component by component against the
+               K12/K13 route.
 
 Phases, one printed line each (per path):
 
@@ -38,7 +44,10 @@ Phases, one printed line each (per path):
                take (bound)
   consistency  one LM iteration through the kernels vs the plain versions,
                from the initial state: new cost, reduced step and the step of
-               the well-conditioned landmarks
+               the well-conditioned landmarks; and the kernel-path attempt run
+               twice, bit-equal (no float atomics anywhere on the path). On
+               gs_cal a second time with the extrinsics held constant, so the
+               batch folds cam_intr alone (K8-K10 at kc = 17)
   phases       where one LM attempt's time goes: host time of each phase
                (synchronized, median of 3), and the device's busy share over
                one attempt (torch.profiler)
@@ -94,15 +103,27 @@ KERNELS = {
     "mv_gather_table": ("K13b", f"{PKG}/csrc/table_segments.cu",
                         f"{JAXPKG}/ops/segments.py:406", "two_grid"),
     "reduce_table": ("K13c", f"{PKG}/csrc/table_segments.cu", f"{JAXPKG}/ops/segments.py:441",
-                     "two_grid"),
+                     "two_grid+profile"),
+    "reduce_partials": ("K14a", f"{PKG}/csrc/tile_segments.cu", f"{JAXPKG}/ops/segments.py:97",
+                        "profile"),
+    "gather_from_tiles": ("K14b", f"{PKG}/csrc/tile_segments.cu",
+                          f"{JAXPKG}/ops/segments.py:135", "profile"),
+    "mv_fused": ("K14c", f"{PKG}/csrc/tile_segments.cu", f"{JAXPKG}/ops/segments.py:170",
+                 "profile"),
+    "mv_gather": ("K14d", f"{PKG}/csrc/tile_segments.cu", f"{JAXPKG}/ops/segments.py:221",
+                  "profile"),
+    "mv_scatter": ("K14e", f"{PKG}/csrc/tile_segments.cu", f"{JAXPKG}/ops/segments.py:249",
+                   "profile"),
 }
-PATHS = ("bias", "full", "gs_cal", "two_grid")
+PATHS = ("bias", "full", "gs_cal", "two_grid", "profile")
 # bounds relative to the plain version's max-abs (tests/test_tpu_accuracy.py)
 TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
 # kernel vs plain LM iteration, relative (see the consistency phases)
 TOL_ITER = 1e-3
+# the K14-composed Schur matvec vs rcs.matvec (K12/K13) on the same x, relative
+TOL_PROFILE = 1e-5
 COND_MAX = 1e4  # landmarks whose step float32 resolves (see consistency)
 LM_ITERATIONS = 5
 PCG_ITERATIONS = 40
@@ -118,8 +139,11 @@ def path_kernels(path):
     return [name for name, spec in KERNELS.items() if path in spec[3].split("+")]
 
 
+T0 = time.time()
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    print(f"[{name} +{time.time() - T0:.0f}s] {msg}", flush=True)
 
 
 def rel_err(a, b):
@@ -230,8 +254,9 @@ def lm_iteration(problem, settings):
 
 
 def consistency(path, problem, settings, tol):
-    """One LM iteration through the kernels against the same iteration
-    through the plain versions: the new cost, the reduced step |x_r| and the
+    """One LM iteration through the kernels, twice (bit-equal: every sum on
+    the path runs in a fixed order), against the same iteration through the
+    plain versions: the new cost, the reduced step |x_r| and the
     landmark step |x_l| within `tol`, relative. The landmark step is taken
     over the landmarks whose damped 3x3 block has a condition number below
     COND_MAX: float32 resolves the inverse of those to better than 1e-3
@@ -248,6 +273,13 @@ def consistency(path, problem, settings, tol):
     from visual_inertial_bundle_adjustment_tpu_torch.problem.structure import t_dot
 
     cost_k, step_k, rel_k, xr_k, xl_k, hinv = lm_iteration(problem, settings)
+    cost_2, step_2, _, xr_2, xl_2, _ = lm_iteration(problem, settings)
+    same = (cost_2 == cost_k and step_2 == step_k and torch.equal(xl_2, xl_k)
+            and all(torch.equal(a, b) for a, b in zip(xr_2, xr_k)))
+    phase(f"{path}:consistency", f"kernel path twice: new cost {cost_k!r} / {cost_2!r}, |step| "
+          f"{step_k!r} / {step_2!r}: {'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError(f"{path}: two kernel-path LM attempts from one state differ")
     with _kernels.plain_reference():
         cost_p, step_p, rel_p, xr_p, xl_p, _ = lm_iteration(problem, settings)
     cond = torch.linalg.cond(hinv.double())
@@ -524,7 +556,8 @@ def adapter_problem(path, dev, session, session_sec, readout_time_sec, options):
 
 def cal_segment_kernels(bench, problem, dev, suffix=""):
     """K3 and K8-K10 against their plain versions on the problem's blocked
-    calibration-coupled batch, at its rig_k (results named `<kernel><suffix>`)."""
+    calibration-coupled batch, at its rig_k and window width kc (results
+    named `<kernel><suffix>`)."""
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
@@ -547,19 +580,24 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
     zl = torch.randn((L, 3), generator=gen, device=dev)
     plan, cplan = list(b.plan), list(b.cplan)
     jread = [b.J, b.J_pt, b.J_cal, b.w]
+    kc = b.J_cal.shape[1]
+    n_out = seg.n_cal_out(seg.CAL_SPLITS[kc])
     seg_tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
-    bench.compare(f"precond_rig{suffix or f'(k={k})'}", seg.seg_precond_rig,
-                  (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan), seg_tol("blocks"),
-                  [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan, (30 * k + 5 * k * (k + 1)) * n_real)
+    if kc == 23:  # K3 does not depend on the window columns
+        bench.compare(f"precond_rig{suffix or f'(k={k})'}", seg.seg_precond_rig,
+                      (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan), seg_tol("blocks"),
+                      [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan,
+                      (30 * k + 5 * k * (k + 1)) * n_real)
     bench.compare(f"assemble_cal{suffix}", seg.seg_assemble_cal,
                   (b.J, b.J_cal, b.J_pt, lin.res, b.w, b.plan, b.cplan),
-                  seg_tol("g_r", "diag_r", "g_c", "diag_c", "blocks_extr", "blocks_intr", "g_l",
-                          "H_ll0"),
-                  jread + [lin.res] + plan + cplan, (8 * k + 36 + 962) * n_real)
+                  seg_tol("g_r", "diag_r", "g_c", "diag_c",
+                          *(f"blocks_{g}" for g, _ in b.cal_groups), "g_l", "H_ll0"),
+                  jread + [lin.res] + plan + cplan,
+                  (8 * k + 36 + 4 * kc + 5 * (n_out - kc)) * n_real)
     bench.compare(f"schur_pcg_cal{suffix}", seg.seg_schur_pcg_cal,
                   (b.J, b.J_cal, b.J_pt, b.w, x, xc, rs.H_ll_inv, b.plan, b.cplan),
                   seg_tol("y_r", "y_c"), jread + [x, xc, rs.H_ll_inv] + plan + cplan,
-                  (8 * k + 208) * n_real)
+                  (8 * k + 8 * kc + 24) * n_real)
     # K9 per kernel: its down (light) and up (du) launches alone; the 3x3
     # landmark solve between them is a torch op
     down9 = lambda: seg._launch_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w, x, xc,  # noqa: E731
@@ -574,10 +612,10 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
     bench.compare(f"schur_down_cal{suffix}", seg.seg_schur_down_cal,
                   (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan),
                   seg_tol("y_r", "y_c", "t", "wu"), jread + [x, xc] + plan + cplan,
-                  (8 * k + 200) * n_real)
+                  (8 * k + 8 * kc + 16) * n_real)
     bench.compare(f"schur_up_cal{suffix}", seg.seg_schur_up_cal,
                   (b.J, b.J_cal, b.J_pt, b.w, zl, b.plan, b.cplan), seg_tol("y_r", "y_c"),
-                  jread + [zl] + plan + cplan, (4 * k + 106) * n_real)
+                  jread + [zl] + plan + cplan, (4 * k + 4 * kc + 14) * n_real)
 
 
 def full_sensor(dev, bench, session, session_sec):
@@ -627,6 +665,8 @@ def full_sensor(dev, bench, session, session_sec):
 
 
 def gs_cal(dev, bench, session, session_sec):
+    import torch
+
     from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import AdapterOptions
 
@@ -660,6 +700,17 @@ def gs_cal(dev, bench, session, session_sec):
     # 40-iteration PCG does not converge
     settings = lm_settings()
     consistency("gs_cal", problem, settings, TOL_ITER)
+
+    # the extrinsics held constant: the batch folds cam_intr alone into the
+    # window kernels (K8-K10 at kc = 17; the generic AD linearizer, as in the
+    # JAX package, since K11 takes both groups)
+    masks0 = problem.masks
+    problem.masks = masks0._replace(cam_extr=torch.zeros_like(masks0.cam_extr))
+    problem._kernels = None
+    cal_segment_kernels(bench, problem, dev, suffix="(gs_cal,kc=17)")
+    consistency("gs_cal(kc=17)", problem, settings, TOL_ITER)
+    problem.masks = masks0
+    problem._kernels = None
     phase_times("gs_cal", problem, settings)
     return run_main("gs_cal", problem, settings,
                     path_kernels("gs_cal"))
@@ -674,19 +725,11 @@ def two_grid(dev, bench):
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
-    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.builder import (
-        BuildOptions, build_synthetic_problem)
-    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic import SyntheticSession
     from visual_inertial_bundle_adjustment_tpu_torch.problem import engine, rcs
+    from visual_inertial_bundle_adjustment_tpu_torch.profile_matvec import build_two_grid_problem
 
     t0 = time.time()
-    s = SyntheticSession(duration=120.0, keyframe_hz=10.0, gyro_hz=800.0, accel_hz=800.0,
-                         num_points=6000, seed=17, pixel_noise=0.3, track_lifetime_sec=None)
-    problem = build_synthetic_problem(
-        s, BuildOptions(init_pose_noise=0.005, init_point_noise=0.03, init_vel_noise=0.03,
-                        estimate_imu_calib=True,
-                        imu_calib_options=dict(accelBias=True, gyroBias=True)),
-        device=dev, dtype=torch.float32)
+    problem = build_two_grid_problem(dev, torch.float32)
     ks = problem._build()
     vi = next(i for i, c in enumerate(problem.cfgs) if c.block_info is not None)
     info, vdata = problem.cfgs[vi].block_info, problem.datas[vi]
@@ -758,14 +801,103 @@ def two_grid(dev, bench):
     phase("kernels", f"visual Schur matvec on the two-grid batch: K4 {k4['k4_ms']:.4f} ms vs "
           f"K12 + 2 x K13a + K13b + 3x3 solve {k4['general_ms']:.4f} ms (rel diff {r:.2e})")
     del lg, asm, rs, lin, b, u
+    profile_launches = tile_profile(dev, bench, problem)
 
     # 1e-3, as for the other paths (float32, other summation orders, K1's
     # float64 registers, an unconverged 40-iteration PCG)
     settings = lm_settings()
     consistency("two_grid", problem, settings, TOL_ITER)
     phase_times("two_grid", problem, settings)
-    return run_main("two_grid", problem, settings,
-                    path_kernels("two_grid"))
+    return {"two_grid": run_main("two_grid", problem, settings, path_kernels("two_grid")),
+            "profile": profile_launches}
+
+
+# ---------------------------------------------------------------------------
+# profile: the general-path matvec on the two grids of tiles (K14a-e)
+# ---------------------------------------------------------------------------
+
+
+def tile_profile(dev, bench, problem):
+    """K14a-e against their plain versions at the two_grid problem's shapes
+    (the rig grid at k 6, the point-sorted grid at k 3), then the profile
+    path: the launch counts set to 0, the Schur matvec composed from the
+    tile kernels held against rcs.matvec (and K14a's landmark blocks against
+    K13c's, K14b's slot steps against an index_select), the counts read;
+    then each component timed. Returns the profile path's launch counts."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+
+    t0 = time.time()
+    ctx = pm.setup(problem)
+    (tb,) = ctx.batches
+    b, g, p = tb.b, tb.rig, tb.pt
+    L, k = ctx.v.points.shape[0], b.rig_k
+    n_rig, n_pt = g.nt * g.ts, p.nt * p.ts
+    phase("profile", f"rig grid nt={g.nt} ts={g.ts} rb={g.rb} ({g.plan.run_len.shape[0]} runs), "
+          f"point grid pnt={p.nt} ts={p.ts} prb={p.rb} ({p.plan.run_len.shape[0]} runs), set up "
+          f"in {time.time() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = pm.random_tangent(ctx.v, 4)
+    x_l = torch.randn((L, 3), generator=gen, device=dev)
+    xt = g.gather(x.rig[:, :k].contiguous())
+    zt = p.gather(torch.randn((L, 3), generator=gen, device=dev))
+    u_pt = torch.randn((2, n_pt), generator=gen, device=dev)
+    u_rig = torch.randn((2, n_rig), generator=gen, device=dev)
+    A = rcs._outer(tb.J_pt_po * tb.w_po[None, None, :], tb.J_pt_po).reshape(9, -1).contiguous()
+    key = (torch.arange(n_pt, device=dev) // p.ts) * p.rb + p.local.long()
+    part_lib = torch.zeros((p.nt * p.rb, 9), device=dev)
+    seg_tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
+    runs_g, runs_p = list(g.plan), list(p.plan)
+    bench.compare("mv_fused", seg.seg_mv_fused, (b.J, b.w, xt, g.local, g.nt, g.ts, g.rb, g.plan),
+                  seg_tol("wu", "part"), [b.J, b.w, xt] + runs_g, (8 * k + 2) * n_rig)
+    bench.compare("mv_scatter", seg.seg_mv_scatter,
+                  (tb.J_pt_po, u_pt, p.local, p.nt, p.ts, p.rb, p.plan), seg_tol("part"),
+                  [tb.J_pt_po, u_pt] + runs_p, 12 * n_pt)
+    bench.compare("mv_scatter(rig grid)", seg.seg_mv_scatter,
+                  (b.J, u_rig, g.local, g.nt, g.ts, g.rb, g.plan), seg_tol("part"),
+                  [b.J, u_rig] + runs_g, 4 * k * n_rig)
+    bench.compare("mv_gather", seg.seg_mv_gather, (tb.J_pt_po, zt, p.local, p.nt, p.ts, p.rb),
+                  seg_tol("u"), [tb.J_pt_po, zt, p.local], 12 * n_pt)
+    bench.compare("mv_gather(rig grid)", seg.seg_mv_gather, (b.J, xt, g.local, g.nt, g.ts, g.rb),
+                  seg_tol("u"), [b.J, xt, g.local], 4 * k * n_rig)
+    bench.compare("reduce_partials", seg.seg_reduce_partials,
+                  (A, p.local, p.nt, p.ts, p.rb, p.plan), seg_tol("part"), [A] + runs_p, 9 * n_pt,
+                  library=lambda: part_lib.zero_().index_add_(0, key, A.T))
+    bench.compare("gather_from_tiles", seg.seg_gather_from_tiles,
+                  (zt, p.local, p.nt, p.ts, p.rb), seg_tol("rows"), [zt, p.local], 0,
+                  library=lambda: zt.reshape(-1, 3).index_select(0, key))
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    errs = pm.check(ctx, x, x_l)
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts()
+    phase("profile", f"tile-composed matvec vs rcs.matvec: rel {errs['matvec']:.3e}; K14a "
+          f"landmark blocks vs K13c: rel {errs['point_blocks']:.3e}; K14b slot steps vs "
+          f"index_select: rel {errs['slot_steps']:.3e} | launches "
+          f"{ {n: c for n, c in launches.items() if c} }")
+    if not (errs["matvec"] <= TOL_PROFILE and errs["point_blocks"] <= TOL_SEG
+            and errs["slot_steps"] <= TOL_SEG):
+        raise AssertionError(f"profile: tile route disagrees with the solver route: {errs}")
+    missing = [n for n in path_kernels("profile") if launches.get(n, 0) < 1]
+    if missing:
+        raise AssertionError(f"profile: kernels not launched on the profile path: {missing}")
+    ms = pm.profile(ctx, x)
+    for name, t in ms.items():
+        phase("profile", f"{name}: {t:.4f} ms")
+    dev_ms = pm.visual_device_ms(ctx, x)
+    for route, kernels in dev_ms.items():
+        phase("profile", f"device time of the visual matvec, {route} route: "
+              f"{sum(kernels.values()):.4f} ms: " + ", ".join(
+                  f"{k[:60]} {t:.4f}" for k, t in sorted(kernels.items(), key=lambda kv: -kv[1])))
+    bench.results["mv_fused"]["profile_ms"] = ms
+    bench.results["mv_fused"]["profile_device_ms"] = dev_ms
+    bench.results["mv_fused"]["profile_errors"] = errs
+    return launches
 
 
 def main():
@@ -794,7 +926,7 @@ def main():
     bench = Bench()
     launches = {"bias": bias_only(dev, bench)}
     torch.cuda.empty_cache()
-    launches["two_grid"] = two_grid(dev, bench)
+    launches.update(two_grid(dev, bench))
     torch.cuda.empty_cache()
     session, session_sec = session_600()
     launches["full"] = full_sensor(dev, bench, session, session_sec)

@@ -18,17 +18,25 @@ Each kernel is held against its plain version evaluated in float64 on the
 same inputs, within the JAX package's on-chip bounds
 (tests/test_tpu_accuracy.py): K1 residual 1e-5 and J 2e-4, K7 residual 1e-4
 and J 3e-4, K11 residual 1e-5 and J 3e-4, segment kernels 1e-5, relative to
-max-abs.
+max-abs. The tile kernels K14a-e run on the two-grid problem's rig-sorted
+and point-sorted grids and on a grid of random, unsorted local indices (rows
+no slot addresses, locals outside the window); K8-K10 also at the window
+widths kc = 17 and 6 (the extrinsics or the intrinsics held constant). An
+LM attempt of the full-sensor problem and of an unblocked problem calls no
+scattering operator that sums with float atomics (index_add_ and kin, seen
+through a TorchFunctionMode) and repeats bit for bit.
 """
 
+import functools
 import math
 
 import numpy as np
 import pytest
 import torch
 from _torch_port_fixtures import cuda_device  # noqa: F401  (fixture)
-from _torch_port_fixtures import (TWO_GRID_BLOCKS, port_blocked_problem, port_full_built,
-                                  port_gs_built, rel)
+from _torch_port_fixtures import (BUILD, TWO_GRID_BLOCKS, port_blocked_problem, port_full_built,
+                                  port_gs_built, port_session, rel)
+from torch.overrides import TorchFunctionMode
 
 from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
 from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
@@ -174,7 +182,8 @@ def _cal_inputs(dev):
     datas = tuple(p.datas)
     lg = ks[0](datas, p.variables, p.masks, None)
     (b, lin), = trcs._vis_batches(p.active_cfgs, datas, lg)
-    R, L, n_c = p.variables.pose_q.shape[0], p.variables.points.shape[0], p.variables.cam_intr.shape[0]
+    v = p.variables
+    R, L, n_c = v.pose_q.shape[0], v.points.shape[0], v.cam_intr.shape[0]
     rng = np.random.default_rng(43)
     A = rng.normal(size=(L, 3, 3))
 
@@ -410,3 +419,156 @@ def test_general_groups_on_card_are_repeatable(cuda_device):
         assert torch.equal(getattr(y1, f), getattr(y2, f)), f
         # float32 sums of up to a few thousand terms against float64
         assert rel(getattr(y1, f).cpu().numpy(), getattr(ref, f).cpu().numpy()) <= 1e-4, f
+
+
+# ---------------------------------------------------------------------------
+# tile-partials kernels K14a-e
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_grids(dev):
+    """(local, nt, ts, rb) of the two-grid problem's rig and point grids and
+    of a random grid: unsorted locals in [-1, 40] of a 64-row window (rows
+    41-63 empty, -1 addresses nothing)."""
+    p, _, vi = _two_grid_card(dev)
+    d, info = p.datas[vi], p.cfgs[vi].block_info
+    rng = np.random.default_rng(59)
+    rand = torch.from_numpy(rng.integers(-1, 41, size=5 * 300).astype(np.int32)).to(dev)
+    return {"rig": (d["_rb_local"], info.nt, info.ts, info.rb),
+            "point": (d["_pt_local"], info.pnt, info.pts, info.prb),
+            "random": (rand, 5, 300, 64)}
+
+
+def _tile(name, a, local, nt, ts, rb):
+    if name == "reduce_partials":
+        return (tseg.seg_reduce_partials(a["contrib"], local, nt, ts, rb),)
+    if name == "gather_from_tiles":
+        return (tseg.seg_gather_from_tiles(a["xt"], local, nt, ts, rb),)
+    if name == "mv_fused":
+        return tseg.seg_mv_fused(a["J"], a["w"], a["xt"], local, nt, ts, rb)
+    if name == "mv_gather":
+        return (tseg.seg_mv_gather(a["J"], a["xt"], local, nt, ts, rb),)
+    return (tseg.seg_mv_scatter(a["J"], a["u"], local, nt, ts, rb),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["rig", "point", "random"])
+@pytest.mark.parametrize("name,k", [
+    ("reduce_partials", 9), ("reduce_partials", 3), ("gather_from_tiles", 3),
+    ("mv_fused", 6), ("mv_fused", 3), ("mv_gather", 3), ("mv_gather", 6), ("mv_scatter", 3),
+    ("mv_scatter", 6)])
+def test_tile_kernel_matches_plain(name, k, grid, cuda_device):
+    local, nt, ts, rb = _tile_grids(cuda_device)[grid]
+    n = nt * ts
+    rng = np.random.default_rng(61)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.normal(size=shape)).to(device=cuda_device,
+                                                           dtype=torch.float32)
+
+    a = dict(contrib=f32(k, n), J=f32(2, k, n), w=f32(n), u=f32(2, n), xt=f32(nt, rb, k))
+    _kernels.reset_launch_counts()
+    out = _tile(name, a, local, nt, ts, rb)
+    again = _tile(name, a, local, nt, ts, rb)
+    with _kernels.plain_reference():
+        ref = _tile(name, _kernels.to_f64(a), local, nt, ts, rb)
+    counts = _kernels.launch_counts()
+    assert counts[name] == 2 and sum(counts.values()) == 2
+    _check(out, ref, (1e-5,) * len(out))
+    for o, o2 in zip(out, again):  # ordered sums: the same bits every call
+        assert torch.equal(o, o2)
+
+
+# ---------------------------------------------------------------------------
+# K8-K10 at the other window widths
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("constant,kc", [("cam_extr", 17), ("cam_intr", 6)])
+@pytest.mark.parametrize("name", CAL_KERNELS[:4])
+def test_cal_segment_kernel_any_column_split(name, constant, kc, cuda_device):
+    p, _ = port_gs_built(device=cuda_device, dtype=torch.float32)
+    p.masks = p.masks._replace(**{constant: torch.zeros_like(getattr(p.masks, constant))})
+    ks = p._build()
+    datas = tuple(p.datas)
+    lg = ks[0](datas, p.variables, p.masks, None)
+    (b, lin), = trcs._vis_batches(p.active_cfgs, datas, lg)
+    assert trcs._cal_fast(b) and b.J_cal.shape[1] == kc
+    v = p.variables
+    R, L, n_c = v.pose_q.shape[0], v.points.shape[0], v.cam_intr.shape[0]
+    rng = np.random.default_rng(67)
+    A = rng.normal(size=(L, 3, 3))
+
+    def f32(a):
+        return torch.from_numpy(a).to(device=cuda_device, dtype=torch.float32)
+
+    a = dict(J=b.J, J_cal=b.J_cal, J_pt=b.J_pt, res=lin.res, w=b.w,
+             x=f32(rng.normal(size=(R, b.rig_k))), x_c=f32(rng.normal(size=(n_c, kc))),
+             z=f32(rng.normal(size=(L, 3))), hinv=f32(A @ np.swapaxes(A, -1, -2) + np.eye(3)))
+    _kernels.reset_launch_counts()
+    out = _cal_segment(name, a, b)
+    with _kernels.plain_reference():
+        ref = _cal_segment(name, _kernels.to_f64(a), b)
+    counts = _kernels.launch_counts()
+    assert counts[name] == 1 and sum(counts.values()) == 1
+    _check(out, ref, (1e-5,) * len(out))
+
+
+# ---------------------------------------------------------------------------
+# no float atomics on the card path; attempts repeat bit for bit
+# ---------------------------------------------------------------------------
+
+
+class _AtomicScatters(TorchFunctionMode):
+    """Records every call of a PyTorch operator that sums into rows with
+    float atomics on the card."""
+
+    NAMES = {"index_add", "index_add_", "scatter_add", "scatter_add_", "scatter_reduce",
+             "scatter_reduce_", "index_reduce", "index_reduce_"}
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", "")
+        accumulate = kwargs.get("accumulate", len(args) > 3 and bool(args[3]))
+        if name in self.NAMES or (name in ("index_put", "index_put_", "put", "put_")
+                                  and accumulate):
+            self.calls.append(name)
+        return func(*args, **kwargs)
+
+
+def _attempt(p):
+    ks = p._build()
+    datas = tuple(p.datas)
+    lg = ks[0](datas, p.variables, p.masks, None)
+    asm = ks[6](datas, lg, p.variables, p.masks)
+    out = ks[7](asm, datas, lg, p.variables, p.masks, 1e-4, 40, 1e-10)
+    return out[9].cost, out[0], out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem", ["full_sensor", "unblocked"])
+def test_lm_attempt_uses_no_float_atomics_and_repeats(problem, cuda_device):
+    if problem == "full_sensor":
+        p = _full_card(cuda_device)[0]
+    else:  # the tiny session's visual batch below the blocking threshold: the generic engine
+        from visual_inertial_bundle_adjustment_tpu_torch.pipeline import builder as tb
+
+        p = tb.build_synthetic_problem(port_session(), tb.BuildOptions(**BUILD),
+                                       device=cuda_device, dtype=torch.float32)
+        p._build()
+        assert not any(c.block_info is not None for c in p.cfgs)
+    guard = _AtomicScatters()
+    with guard:
+        cost, x_r, x_l = _attempt(p)
+    torch.cuda.synchronize()
+    assert not guard.calls, guard.calls
+    cost2, x_r2, x_l2 = _attempt(p)
+    assert torch.equal(cost, cost2) and torch.equal(x_l, x_l2)
+    for a, b in zip(x_r, x_r2):
+        assert torch.equal(a, b)

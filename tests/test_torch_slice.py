@@ -268,24 +268,11 @@ def test_small_inverses_match_jax():
     assert rel(teng._precond_inv(t(B6)).numpy(), jeng._precond_inv(jnp.asarray(B6))) < 1e-10
 
 
-def test_unported_batches_raise():
-    """Stated limit: a point-coupled batch that is not blocked (a visual
-    batch below the blocking threshold) would need the generic Schur cross
-    terms and raises NotImplementedError."""
-    p, lg, _ = _port_linearized()
-    cfgs = p.active_cfgs
-    (vi,) = [i for i, c in enumerate(cfgs) if c.block_info is not None]
-    unblocked = list(cfgs)
-    unblocked[vi] = dataclasses.replace(cfgs[vi], block_info=None)
-    with pytest.raises(NotImplementedError):
-        trcs._split(unblocked, lg)
-    with pytest.raises(NotImplementedError):
-        trcs.assemble(unblocked, tuple(p.datas), lg, p.variables, p.masks)
-
-
 def _batch_variant(kind):
     """(cfgs, lg) of the tiny problem with its blocked batch made two-grid
-    (no landmark window recorded) or given a zero cam_intr Jacobian block."""
+    (no landmark window recorded) or given a zero Jacobian block of a further
+    group: det_bias (no window kernel takes it) or cam_intr (folded into the
+    window kernels at kc = 17)."""
     p, lg, _ = _port_linearized()
     cfgs = list(p.active_cfgs)
     (vi,) = [i for i, c in enumerate(cfgs) if c.block_info is not None]
@@ -295,24 +282,29 @@ def _batch_variant(kind):
         return p, cfgs, lg
     lin = lg.lins[vi]
     n = lin.res.shape[1]
-    lin = lin._replace(groups=lin.groups + ("cam_intr",), idx=lin.idx + (p.datas[vi]["intr"],),
-                       jac=lin.jac + (torch.zeros((2, 17, n), dtype=lin.res.dtype),),
+    group, field, dim = ("cam_intr", "intr", 17) if kind == "cal_intr" else ("det_bias", "bias", 2)
+    lin = lin._replace(groups=lin.groups + (group,), idx=lin.idx + (p.datas[vi][field],),
+                       jac=lin.jac + (torch.zeros((2, dim, n), dtype=lin.res.dtype),),
                        ell=lin.ell + (None,))
     return p, cfgs, lg._replace(lins=tuple(lin if i == vi else l_
                                            for i, l_ in enumerate(lg.lins)))
 
 
-@pytest.mark.parametrize("kind", ["two_grid", "general_groups"])
+@pytest.mark.parametrize("kind", ["two_grid", "general_groups", "cal_intr"])
 def test_formerly_unported_batches_match_the_single_pass_route(kind):
-    """A two-grid batch and a batch with a further group (here cam_intr with
-    a zero Jacobian, so the system is unchanged) take the general route and
-    give the single-pass route's assembly, matvec and solve."""
+    """A two-grid batch and a batch with a further group (det_bias with a
+    zero Jacobian, so the system is unchanged) take the general route, and a
+    batch with a zero cam_intr block the calibration route at kc = 17; all
+    give the rig-only single-pass route's assembly, matvec and solve."""
     p, lg0, asm0 = _port_linearized()
     _, cfgs, lg = _batch_variant(kind)
     asm = trcs.assemble(cfgs, tuple(p.datas), lg, p.variables, p.masks)
     (b,) = asm.vis
-    assert not trcs._single_pass(b)
-    assert b.groups == (("rig",) if kind == "two_grid" else ("rig", "cam_intr"))
+    if kind == "cal_intr":
+        assert trcs._cal_fast(b) and b.cal_groups == (("cam_intr", 17),)
+    else:
+        assert not trcs._single_pass(b)
+        assert b.groups == (("rig",) if kind == "two_grid" else ("rig", "det_bias"))
     tt = lambda x: tst.Tangent(*(a.numpy() for a in x))  # noqa: E731
     assert rel(asm.H_ll0.numpy(), asm0.H_ll0.numpy()) < 1e-12
     assert rel(asm.g_l.numpy(), asm0.g_l.numpy()) < 1e-12

@@ -2,7 +2,9 @@
 //
 // The batch couples, besides rigs (J_r, K = rig_k columns) and landmarks
 // (J_p, 3 columns), the calibration-window variables of each observation's
-// window row (J_c, 23 columns: cam extr 6 | cam intr 17). Replaces the
+// window row (J_c, kc columns in the batch's cal_groups order: cam extr 6 |
+// cam intr 17, or one of the two alone, kc = 23, 6 or 17 — a template
+// parameter of the window kernels, dispatched on the runtime kc). Replaces the
 // Pallas kernels _assemble_cal_kernel (JAX ops/segments.py:1674, entry
 // seg_assemble_cal :1741), _schur_down_cal_kernel (:1005) and
 // _schur_up_cal_kernel (:1146) (K10), and _down_light_cal_kernel (:1468) +
@@ -12,13 +14,15 @@
 // Rig rows (~300 observations) and landmark rows (~30) keep K2-K6's
 // group-per-row scheme (tile_reduce.cuh). Window rows are few and long (120
 // rows of ~15k observations at the full-sensor size): one group per row would
-// leave most of the card idle, and K8's 197 outputs per row do not fit one
+// leave most of the card idle, and K8's outputs per row (197 at kc = 23, 170
+// at kc = 17, 27 at kc = 6) do not fit one
 // thread's registers. So each row's slot list is cut into chunks of at most
 // CHUNK slots (ops/segments.py); a 128-thread group per chunk writes one
-// partial row (K8: seven launches of 32 outputs each, J_c re-read from L2),
+// partial row (K8: launches of 32 outputs each, seven at kc = 23, J_c re-read
+// from L2),
 // and a second pass (tile_reduce.cuh sum_partials) sums each row's partials in
 // chunk order. Deterministic, no atomics. Bound: bytes — J_r, J_c, J_p read
-// once per pass (2 x (K + 26) floats per observation), the window pass
+// once per pass (2 x (K + 3 + kc) floats per observation), the window pass
 // re-reads J_c.
 #include <utility>
 
@@ -36,15 +40,10 @@ namespace {
 
 using viba::kRowGroup;
 
-constexpr int kCal = 23;     // window columns: extr 6 | intr 17
-constexpr int kExtr = 6;
-constexpr int kIntr = 17;
-constexpr int kCalOut = kCal + kExtr * (kExtr + 1) / 2 + kIntr * (kIntr + 1) / 2;  // 197
-constexpr int kPer = 32;     // K8 window outputs per launch
-constexpr int kParts = (kCalOut + kPer - 1) / kPer;
+constexpr int kPer = 32;  // K8 window outputs per launch
 
-// K8 window outputs in order: g_c[0..23), then the row-major upper triangle
-// of each split's self block
+// the window columns of a batch: cam extr (KE = 6 or 0) then cam intr
+// (KI = 17 or 0), as the batch's cal_groups fold them (kc = 6, 17 or 23)
 __host__ __device__ constexpr int tri_row(int t, int dim) {
   int a = 0;
   while (t >= dim - a) {
@@ -61,20 +60,29 @@ __host__ __device__ constexpr int tri_col(int t, int dim) {
   }
   return a + t;
 }
-constexpr int kTri0 = kCal, kTri1 = kCal + kExtr * (kExtr + 1) / 2;
-__host__ __device__ constexpr int ent_a(int e) {
-  return e < kTri0 ? e : e < kTri1 ? tri_row(e - kTri0, kExtr) : kExtr + tri_row(e - kTri1, kIntr);
-}
-__host__ __device__ constexpr int ent_b(int e) {
-  return e < kTri0 ? -1 : e < kTri1 ? tri_col(e - kTri0, kExtr) : kExtr + tri_col(e - kTri1, kIntr);
-}
 
-template <int E>
-__device__ __forceinline__ void accum_one(const float (&j0)[kCal], const float (&j1)[kCal],
+template <int KE, int KI>
+struct Cal {
+  static constexpr int kc = KE + KI;
+  static constexpr int tri0 = kc, tri1 = kc + KE * (KE + 1) / 2;
+  // K8 window outputs in order: g_c[0..kc), then the row-major upper
+  // triangle of each split's self block
+  static constexpr int out = tri1 + KI * (KI + 1) / 2;
+  static constexpr int parts = (out + kPer - 1) / kPer;
+  __host__ __device__ static constexpr int ent_a(int e) {
+    return e < tri0 ? e : e < tri1 ? tri_row(e - tri0, KE) : KE + tri_row(e - tri1, KI);
+  }
+  __host__ __device__ static constexpr int ent_b(int e) {
+    return e < tri0 ? -1 : e < tri1 ? tri_col(e - tri0, KE) : KE + tri_col(e - tri1, KI);
+  }
+};
+
+template <class C, int E>
+__device__ __forceinline__ void accum_one(const float (&j0)[C::kc], const float (&j1)[C::kc],
                                           float ws, float r0, float r1, float& acc) {
-  if constexpr (E < kCalOut) {
-    constexpr int a = ent_a(E);
-    constexpr int b = ent_b(E);
+  if constexpr (E < C::out) {
+    constexpr int a = C::ent_a(E);
+    constexpr int b = C::ent_b(E);
     if constexpr (b < 0) {
       acc += j0[a] * r0 + j1[a] * r1;
     } else {
@@ -83,87 +91,90 @@ __device__ __forceinline__ void accum_one(const float (&j0)[kCal], const float (
   }
 }
 
-template <int P, int... I>
+template <class C, int P, int... I>
 __device__ __forceinline__ void accum_part(std::integer_sequence<int, I...>,
-                                           const float (&j0)[kCal], const float (&j1)[kCal],
+                                           const float (&j0)[C::kc], const float (&j1)[C::kc],
                                            float ws, float r0, float r1, float (&acc)[kPer]) {
-  (accum_one<P * kPer + I>(j0, j1, ws, r0, r1, acc[I]), ...);
+  (accum_one<C, P * kPer + I>(j0, j1, ws, r0, r1, acc[I]), ...);
 }
 
 // K8 window pass: chunk partials of outputs [P*kPer, P*kPer + kPer)
-template <int P>
+template <class C, int P>
 __global__ void __launch_bounds__(viba::kBlock) assemble_cal_part(
     int n_chunks, int n, const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_obs,
     const float* __restrict__ J_c, const float* __restrict__ w, const float* __restrict__ res,
     float* __restrict__ part) {
+  constexpr int kc = C::kc;
   viba::reduce_segments<kRowGroup, kPer>(
       blockIdx.x, n_chunks, chunk_ptr, chunk_obs,
       [&](int s, float(&acc)[kPer]) {
-        float j0[kCal], j1[kCal];
+        float j0[kc], j1[kc];
 #pragma unroll
-        for (int c = 0; c < kCal; ++c) {
+        for (int c = 0; c < kc; ++c) {
           j0[c] = J_c[c * (long)n + s];
-          j1[c] = J_c[(kCal + c) * (long)n + s];
+          j1[c] = J_c[(kc + c) * (long)n + s];
         }
         const float ws = w[s];
-        accum_part<P>(std::make_integer_sequence<int, kPer>{}, j0, j1, ws, res[s] * ws,
-                      res[n + s] * ws, acc);
+        accum_part<C, P>(std::make_integer_sequence<int, kPer>{}, j0, j1, ws, res[s] * ws,
+                         res[n + s] * ws, acc);
       },
       [&](int ch, float(&acc)[kPer]) {
 #pragma unroll
         for (int i = 0; i < kPer; ++i) {
-          if (P * kPer + i < kCalOut) part[kCalOut * (long)ch + P * kPer + i] = acc[i];
+          if (P * kPer + i < C::out) part[C::out * (long)ch + P * kPer + i] = acc[i];
         }
       });
 }
 
-template <int P>
+template <class C, int P>
 cudaError_t launch_parts(int n_chunks, int n, const int* chunk_ptr, const int* chunk_obs,
                          const float* J_c, const float* w, const float* res, float* part,
                          cudaStream_t st) {
-  if constexpr (P < kParts) {
-    assemble_cal_part<P><<<n_chunks, viba::kBlock, 0, st>>>(n_chunks, n, chunk_ptr, chunk_obs,
-                                                           J_c, w, res, part);
+  if constexpr (P < C::parts) {
+    assemble_cal_part<C, P><<<n_chunks, viba::kBlock, 0, st>>>(n_chunks, n, chunk_ptr,
+                                                              chunk_obs, J_c, w, res, part);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    return launch_parts<P + 1>(n_chunks, n, chunk_ptr, chunk_obs, J_c, w, res, part, st);
+    return launch_parts<C, P + 1>(n_chunks, n, chunk_ptr, chunk_obs, J_c, w, res, part, st);
   }
   return cudaSuccess;
 }
 
 // K9/K10 window pass: chunk partials of J_c^T u for a staged 2-row u
+template <int KC>
 __global__ void __launch_bounds__(viba::kBlock) cal_partials(
     int n_chunks, int n, const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_obs,
     const float* __restrict__ J_c, const float* __restrict__ u, float* __restrict__ part) {
-  viba::reduce_segments<kRowGroup, kCal>(
+  viba::reduce_segments<kRowGroup, KC>(
       blockIdx.x, n_chunks, chunk_ptr, chunk_obs,
-      [&](int s, float(&acc)[kCal]) {
+      [&](int s, float(&acc)[KC]) {
         const float u0 = u[s], u1 = u[n + s];
 #pragma unroll
-        for (int c = 0; c < kCal; ++c)
-          acc[c] += J_c[c * (long)n + s] * u0 + J_c[(kCal + c) * (long)n + s] * u1;
+        for (int c = 0; c < KC; ++c)
+          acc[c] += J_c[c * (long)n + s] * u0 + J_c[(KC + c) * (long)n + s] * u1;
       },
-      [&](int ch, float(&acc)[kCal]) {
+      [&](int ch, float(&acc)[KC]) {
 #pragma unroll
-        for (int c = 0; c < kCal; ++c) part[kCal * (long)ch + c] = acc[c];
+        for (int c = 0; c < KC; ++c) part[KC * (long)ch + c] = acc[c];
       });
 }
 
+template <int KC>
 cudaError_t launch_rows(int n_rows, int n_chunks, int n, const int* chunk_ptr,
                         const int* chunk_obs, const int* row_chunk, const float* J_c,
                         const float* u, float* part, float* out, cudaStream_t st) {
   if (n_chunks > 0) {
-    cal_partials<<<n_chunks, viba::kBlock, 0, st>>>(n_chunks, n, chunk_ptr, chunk_obs, J_c, u,
-                                                    part);
+    cal_partials<KC><<<n_chunks, viba::kBlock, 0, st>>>(n_chunks, n, chunk_ptr, chunk_obs, J_c,
+                                                        u, part);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return viba::launch_sum_partials(n_rows, kCal, row_chunk, part, out, st);
+  return viba::launch_sum_partials(n_rows, KC, row_chunk, part, out, st);
 }
 
 // K10 down / K9 down, rig pass: wu = w (J_r x_r[rig] + J_c x_c[win]) for every
 // real slot and, if want_y, y_r = sum J_r^T wu
-template <int K>
+template <int K, int KC>
 __global__ void __launch_bounds__(viba::kBlock) down_cal_rig(
     int R, int n, int want_y, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
     const int* __restrict__ win, const float* __restrict__ J_r, const float* __restrict__ J_c,
@@ -184,13 +195,13 @@ __global__ void __launch_bounds__(viba::kBlock) down_cal_rig(
           u0 += j0[c] * xr[c];
           u1 += j1[c] * xr[c];
         }
-        const float* xc = x_c + kCal * (long)win[s];
+        const float* xc = x_c + KC * (long)win[s];
         float v0 = 0.f, v1 = 0.f;
 #pragma unroll
-        for (int c = 0; c < kCal; ++c) {
+        for (int c = 0; c < KC; ++c) {
           const float xv = xc[c];
           v0 += J_c[c * (long)n + s] * xv;
-          v1 += J_c[(kCal + c) * (long)n + s] * xv;
+          v1 += J_c[(KC + c) * (long)n + s] * xv;
         }
         const float ws = w[s];
         const float wu0 = (u0 + v0) * ws, wu1 = (u1 + v1) * ws;
@@ -243,9 +254,54 @@ __global__ void __launch_bounds__(viba::kBlock) up_cal_rig(
       });
 }
 
+template <class C>
+int assemble_cal(int n_c, int n_chunks, int n, const int* chunk_ptr, const int* chunk_obs,
+                 const int* row_chunk, const float* J_c, const float* w, const float* res,
+                 float* part, float* out_c, cudaStream_t st) {
+  if (n_chunks > 0) {
+    const cudaError_t err =
+        launch_parts<C, 0>(n_chunks, n, chunk_ptr, chunk_obs, J_c, w, res, part, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(viba::launch_sum_partials(n_c, C::out, row_chunk, part, out_c, st));
+}
+
+template <int KC>
+int down_cal(int R, int L, int n, int k, int n_c, int n_chunks, int want_y, const int* rig_ptr,
+             const int* rig_obs, const int* pt_ptr, const int* pt_obs, const int* win,
+             const int* chunk_ptr, const int* chunk_obs, const int* row_chunk, const float* J_r,
+             const float* J_p, const float* w, const float* J_c, const float* x_r,
+             const float* x_c, float* y_r, float* y_c, float* part, float* t, float* wu,
+             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R > 0) {
+    const int grid = viba::segment_blocks<kRowGroup>(R);
+    if (k == 6) {
+      down_cal_rig<6, KC><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, win,
+                                                         J_r, J_c, w, x_r, x_c, y_r, wu);
+    } else if (k == 9) {
+      down_cal_rig<9, KC><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, win,
+                                                         J_r, J_c, w, x_r, x_c, y_r, wu);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int rc = viba_schur_down_points(L, n, pt_ptr, pt_obs, J_p, wu, t, stream);
+  if (rc != 0 || !want_y) return rc;
+  return static_cast<int>(launch_rows<KC>(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk,
+                                          J_c, wu, part, y_c, st));
+}
+
 }  // namespace
 
-extern "C" int viba_assemble_cal(int R, int L, int n, int k, int n_c, int n_chunks,
+// dispatch on the window column count kc: cam extr (6), cam intr (17) or both (23)
+#define VIBA_DISPATCH_KC(kc, CALL6, CALL17, CALL23) \
+  ((kc) == 6 ? (CALL6) : (kc) == 17 ? (CALL17) : (kc) == 23 ? (CALL23) \
+                                                         : static_cast<int>(cudaErrorInvalidValue))
+
+extern "C" int viba_assemble_cal(int R, int L, int n, int k, int kc, int n_c, int n_chunks,
                                  const int* rig_ptr, const int* rig_obs, const int* pt_ptr,
                                  const int* pt_obs, const int* chunk_ptr, const int* chunk_obs,
                                  const int* row_chunk, const float* J_r, const float* J_p,
@@ -256,48 +312,36 @@ extern "C" int viba_assemble_cal(int R, int L, int n, int k, int n_c, int n_chun
                                    res, g_r, diag_r, g_l, tri, stream);
   if (rc != 0) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_chunks > 0) {
-    const cudaError_t err =
-        launch_parts<0>(n_chunks, n, chunk_ptr, chunk_obs, J_c, w, res, part, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(viba::launch_sum_partials(n_c, kCalOut, row_chunk, part, out_c, st));
+#define VIBA_ASM(KE, KI)                                                                   \
+  assemble_cal<Cal<KE, KI>>(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk, J_c, w, res, \
+                            part, out_c, st)
+  return VIBA_DISPATCH_KC(kc, VIBA_ASM(6, 0), VIBA_ASM(0, 17), VIBA_ASM(6, 17));
+#undef VIBA_ASM
 }
 
-extern "C" int viba_schur_down_cal(int R, int L, int n, int k, int n_c, int n_chunks, int want_y,
-                                   const int* rig_ptr, const int* rig_obs, const int* pt_ptr,
-                                   const int* pt_obs, const int* win, const int* chunk_ptr,
-                                   const int* chunk_obs, const int* row_chunk, const float* J_r,
-                                   const float* J_p, const float* w, const float* J_c,
-                                   const float* x_r, const float* x_c, float* y_r, float* y_c,
-                                   float* part, float* t, float* wu, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R > 0) {
-    const int grid = viba::segment_blocks<kRowGroup>(R);
-    if (k == 6) {
-      down_cal_rig<6><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, win, J_r,
-                                                     J_c, w, x_r, x_c, y_r, wu);
-    } else if (k == 9) {
-      down_cal_rig<9><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, win, J_r,
-                                                     J_c, w, x_r, x_c, y_r, wu);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int rc = viba_schur_down_points(L, n, pt_ptr, pt_obs, J_p, wu, t, stream);
-  if (rc != 0 || !want_y) return rc;
-  return static_cast<int>(
-      launch_rows(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk, J_c, wu, part, y_c, st));
+extern "C" int viba_schur_down_cal(int R, int L, int n, int k, int kc, int n_c, int n_chunks,
+                                   int want_y, const int* rig_ptr, const int* rig_obs,
+                                   const int* pt_ptr, const int* pt_obs, const int* win,
+                                   const int* chunk_ptr, const int* chunk_obs,
+                                   const int* row_chunk, const float* J_r, const float* J_p,
+                                   const float* w, const float* J_c, const float* x_r,
+                                   const float* x_c, float* y_r, float* y_c, float* part,
+                                   float* t, float* wu, void* stream) {
+#define VIBA_DOWN(KC)                                                                       \
+  down_cal<KC>(R, L, n, k, n_c, n_chunks, want_y, rig_ptr, rig_obs, pt_ptr, pt_obs, win,     \
+               chunk_ptr, chunk_obs, row_chunk, J_r, J_p, w, J_c, x_r, x_c, y_r, y_c, part, t, \
+               wu, stream)
+  return VIBA_DISPATCH_KC(kc, VIBA_DOWN(6), VIBA_DOWN(17), VIBA_DOWN(23));
+#undef VIBA_DOWN
 }
 
-extern "C" int viba_schur_up_cal(int R, int n, int k, int n_c, int n_chunks, const int* rig_ptr,
-                                 const int* rig_obs, const int* point, const int* chunk_ptr,
-                                 const int* chunk_obs, const int* row_chunk, const float* J_r,
-                                 const float* J_p, const float* w, const float* J_c,
-                                 const float* z, const float* wu, float* du, float* part,
-                                 float* y_r, float* y_c, void* stream) {
+extern "C" int viba_schur_up_cal(int R, int n, int k, int kc, int n_c, int n_chunks,
+                                 const int* rig_ptr, const int* rig_obs, const int* point,
+                                 const int* chunk_ptr, const int* chunk_obs, const int* row_chunk,
+                                 const float* J_r, const float* J_p, const float* w,
+                                 const float* J_c, const float* z, const float* wu, float* du,
+                                 float* part, float* y_r, float* y_c, void* stream) {
+  if (kc != 6 && kc != 17 && kc != 23) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R > 0) {
     const int grid = viba::segment_blocks<kRowGroup>(R);
@@ -313,6 +357,9 @@ extern "C" int viba_schur_up_cal(int R, int n, int k, int n_c, int n_chunks, con
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(
-      launch_rows(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk, J_c, du, part, y_c, st));
+#define VIBA_UP(KC)                                                                       \
+  static_cast<int>(launch_rows<KC>(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk, J_c, du, \
+                                   part, y_c, st))
+  return VIBA_DISPATCH_KC(kc, VIBA_UP(6), VIBA_UP(17), VIBA_UP(23));
+#undef VIBA_UP
 }

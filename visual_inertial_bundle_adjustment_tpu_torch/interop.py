@@ -4,10 +4,10 @@ The tests hold the port against the JAX package on the same state: they take
 the JAX package's problem apart into numpy (`np.asarray` on every leaf of its
 variables, masks and datas, `dataclasses.asdict` on every cfg, a dict of
 fields for the RS tables) and rebuild it here. Nothing of JAX is imported; a
-blocked batch keeps its slot order and calibration-window plan and gets the
-port's reduction plans: the rig and landmark lists, the chunked window rows
-and, for the general (two-grid) path, the chunked camera and detector-bias
-rows in place of the JAX package's point-sorted second grid.
+blocked batch keeps its slot order, calibration-window plan and point-sorted
+second grid, and gets the port's reduction plans: the rig and landmark
+lists, the chunked window rows and, for the general (two-grid) path, the
+chunked camera and detector-bias rows.
 """
 
 from __future__ import annotations
@@ -25,10 +25,9 @@ from .problem.optimizer import Problem
 from .problem.structure import Masks, VariableTables
 
 # keys of the JAX package's blocked layout that the port does not use: the
-# lane-major copies, the two-grid point permutations and the ELL plans of
-# blocked batches
-_DROPPED = ("_uvT", "_sh4", "_rb_rows", "_pt_perm", "_pt_w", "_pt_local", "_pt_inv",
-            "_pt_rows", "_pt_base")
+# lane-major copies and the per-tile rig rows (the port derives them from
+# `_rb_base`); the ELL plans are dropped too
+_DROPPED = ("_uvT", "_sh4", "_rb_rows")
 
 
 def _tensor(a, device, dtype):

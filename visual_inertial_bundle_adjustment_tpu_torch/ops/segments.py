@@ -1,5 +1,5 @@
 """Segment kernels of the blocked reduced-camera-system solver (K2-K6, K8-K10,
-K12, K13).
+K12-K14).
 
 Port of the single-pass rig-grid entries and of the table entries of the
 general (two-grid) path of
@@ -23,27 +23,39 @@ landmark rows and, for calibration-coupled batches, calibration-window rows:
   seg_mv_scatter_table  y[row] = sum J^T u (K13a)
   seg_mv_gather_table   u = J x[row] (K13b)
   seg_reduce_table      y[row] = sum contrib[:, slot] (K13c)
+  seg_reduce_partials   tile partials (nt, rb, D) of contrib (K14a)
+  seg_gather_from_tiles per-slot rows of gathered tile rows (K14b)
+  seg_mv_fused          wu = w (J x_g), tile partials of J^T wu (K14c)
+  seg_mv_gather         u = J x_g (K14d)
+  seg_mv_scatter        tile partials of J^T u (K14e)
 
-The last four take a RowPlan: one index family of the batch (rig rows,
+K12 and K13 take a RowPlan: one index family of the batch (rig rows,
 landmark rows, or the rows of another variable group) with the CSR list of
-each row's real slots. The JAX entries take per-tile local indices and bases
-of a rig grid or of a second, point-sorted grid; here the landmark family is
-a list over the rig-ordered arrays, so no point-sorted copy exists.
+each row's real slots; the solver's general path runs on them (the landmark
+family is a list over the rig-ordered arrays). The JAX entries take per-tile
+local indices and bases of a rig grid or of a second, point-sorted grid;
+K14a-e keep that layout (the grid's local indices, a TilePlan of runs for
+the reduce side, gather_tiles / scatter_partials around them), and
+profile_matvec.py composes the general-path matvec from them.
 
 The rig Jacobian carries rig_k = 6 (pose) or 9 (pose + velocity, rolling
-shutter) columns; the window Jacobian J_c the kc = 23 calibration columns
-[extr 6 | intr 17].
+shutter) columns; the window Jacobian J_c the calibration columns of the
+batch's folded groups, in cal_groups order: [extr 6 | intr 17] (kc = 23),
+or extr or intr alone (kc = 6, 17).
 
 Kernels: csrc/assemble_rig.cu, csrc/precond_rig.cu, csrc/schur.cu,
-csrc/cal_segments.cu, csrc/table_segments.cu, on the group-per-segment skeleton of
-csrc/tile_reduce.cuh, templated on rig_k. They replace the Pallas kernels
+csrc/cal_segments.cu, csrc/table_segments.cu, csrc/tile_segments.cu, on the
+group-per-segment skeleton of csrc/tile_reduce.cuh, templated on rig_k (and
+on kc for the window kernels). They replace the Pallas kernels
 _assemble_rig_kernel (JAX ops/segments.py:840), _precond_rig_kernel (:1861),
 _schur_down_kernel (:586), _schur_up_kernel (:725), _down_light_kernel
 (:1318), _up_du_kernel (:1347), _assemble_cal_kernel (:1674),
 _schur_down_cal_kernel (:1005), _schur_up_cal_kernel (:1146),
 _down_light_cal_kernel (:1468), _up_du_cal_kernel (:1519),
 _mv_fused_tbl_kernel (:304), _mv_scatter_tbl_kernel (:366),
-_mv_gather_tbl_kernel (:406) and _reduce_tbl_kernel (:441).
+_mv_gather_tbl_kernel (:406), _reduce_tbl_kernel (:441), _seg_reduce_kernel
+(:97), _seg_gather_kernel (:135), _mv_fused_kernel (:170), _mv_gather_kernel
+(:221) and _mv_scatter_kernel (:249).
 
 Design on the card. The TPU grid ran tiles in order and accumulated into
 VMEM-resident tables through one-hot MXU dots; on Hopper blocks run in
@@ -57,8 +69,9 @@ second pass sums each row's partials in chunk order. What bounds them:
 bytes of J read per pass — 2 x (rig_k + 3 (+ 23)) floats per observation.
 
 The plain PyTorch versions below compute the same functions with
-`index_add_` over the global rig/point/window index of each slot; CPU
-tensors take them.
+`index_add_` over the global rig/point/window index (or tile row) of each
+slot; CPU tensors take them. Nothing that a CUDA tensor reaches sums with
+`index_add_` or any other float atomics.
 """
 
 from __future__ import annotations
@@ -71,7 +84,9 @@ import torch
 from . import _kernels
 
 CHUNK = 1024  # window-row slots per partial sum (cal kernels)
-CAL_SPLITS = (6, 17)  # calibration column splits of J_c: extr | intr
+# calibration column splits of J_c by its width kc, in cal_groups order:
+# cam extr and cam intr (6 | 17), or one of them alone
+CAL_SPLITS = {23: (6, 17), 6: (6,), 17: (17,)}
 RIG_KS = (6, 9)  # rig Jacobian widths the kernels are built for
 
 
@@ -210,8 +225,15 @@ def _jac_args(J_r, J_p, w):
                   ck(w, "w", torch.float32, (n,)))
 
 
+def _cal_splits(J_c):
+    kc = J_c.shape[1]
+    if kc not in CAL_SPLITS:
+        raise ValueError(f"J_c: window Jacobians of {tuple(CAL_SPLITS)} columns, got {kc}")
+    return CAL_SPLITS[kc]
+
+
 def _jc_arg(J_c, n):
-    return _kernels.check(J_c, "J_c", torch.float32, (2, sum(CAL_SPLITS), n))
+    return _kernels.check(J_c, "J_c", torch.float32, (2, sum(_cal_splits(J_c)), n))
 
 
 def _empty(shape, like):
@@ -380,25 +402,28 @@ def seg_schur_pcg(J_r, J_p, w, x_table, hinv, plan: SegPlan):
 # ---------------------------------------------------------------------------
 
 
-def _cal_entries():
+def _cal_entries(splits):
     """Window-row outputs of the assembly kernel, in kernel order: (a, -1)
     is g_c[a]; (a, b) with a <= b inside one split is the self-block entry."""
-    ents = [(a, -1) for a in range(sum(CAL_SPLITS))]
+    ents = [(a, -1) for a in range(sum(splits))]
     off = 0
-    for dim in CAL_SPLITS:
+    for dim in splits:
         ents += [(off + a, off + b) for a in range(dim) for b in range(a, dim)]
         off += dim
     return ents
 
 
-N_CAL_OUT = len(_cal_entries())  # 23 + 21 + 153 = 197
+def n_cal_out(splits):
+    """Assembly outputs per window row: 23 + 21 + 153 = 197 at (6, 17)."""
+    return len(_cal_entries(splits))
 
 
-def _unpack_cal(out, kc):
-    """(n_c, N_CAL_OUT) kernel rows -> g_c, diag_c (n_c, kc), [blocks]."""
+def _unpack_cal(out, splits):
+    """(n_c, n_cal_out) kernel rows -> g_c, diag_c (n_c, kc), [blocks]."""
+    kc = sum(splits)
     g_c = out[:, :kc]
     blocks, pos = [], kc
-    for dim in CAL_SPLITS:
+    for dim in splits:
         m = dim * (dim + 1) // 2
         blocks.append(_tri_to_full(out[:, pos:pos + m], dim))
         pos += m
@@ -413,7 +438,7 @@ def _assemble_cal_plain(J_r, J_c, J_p, res, w, plan, cplan):
     g_c = _rows_sum((J_c * wres[:, None, :]).sum(0), cplan.win, n_c)
     diag_c = _rows_sum((J_c * J_c * w[None, None, :]).sum(0), cplan.win, n_c)
     blocks, off = [], 0
-    for dim in CAL_SPLITS:
+    for dim in _cal_splits(J_c):
         Js = J_c[:, off:off + dim]
         B = ((Js * w[None, None, :])[:, :, None, :] * Js[:, None, :, :]).sum(0)
         blocks.append(_rows_sum(B.reshape(dim * dim, -1), cplan.win, n_c).reshape(-1, dim, dim))
@@ -424,24 +449,26 @@ def _assemble_cal_plain(J_r, J_c, J_p, res, w, plan, cplan):
 @_kernels.register("assemble_cal")
 def seg_assemble_cal(J_r, J_c, J_p, res, w, plan: SegPlan, cplan: CalPlan):
     """All lambda-independent assembly of a calibration-coupled batch:
-    g_r, diag_r (R, k); g_c, diag_c (n_c, 23); blocks_c [(n_c, 6, 6),
-    (n_c, 17, 17)] (the window variables' block-Jacobi blocks, no Schur
-    correction); g_l (L, 3); H_ll0 (L, 3, 3)."""
+    g_r, diag_r (R, k); g_c, diag_c (n_c, kc); blocks_c, the window
+    variables' block-Jacobi blocks per split of J_c ([(n_c, 6, 6), (n_c, 17,
+    17)] at kc = 23; no Schur correction); g_l (L, 3); H_ll0 (L, 3, 3)."""
     if not _kernels.on_card(w):
         return _assemble_cal_plain(J_r, J_c, J_p, res, w, plan, cplan)
     n, k, jargs = _jac_args(J_r, J_p, w)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
+    splits = _cal_splits(J_c)
     g_r, diag_r = _empty((R, k), w), _empty((R, k), w)
     g_l, tri = _empty((L, 3), w), _empty((L, 6), w)
-    part = _empty((max(cplan.n_chunks, 1), N_CAL_OUT), w)
-    out_c = _empty((n_c, N_CAL_OUT), w)
-    _kernels.launch("viba_assemble_cal", R, L, n, k, n_c, cplan.n_chunks, *_plan_ptrs(plan),
+    part = _empty((max(cplan.n_chunks, 1), n_cal_out(splits)), w)
+    out_c = _empty((n_c, n_cal_out(splits)), w)
+    _kernels.launch("viba_assemble_cal", R, L, n, k, sum(splits), n_c, cplan.n_chunks,
+                    *_plan_ptrs(plan),
                     *_cal_ptrs(cplan, n)[1:], *jargs, _jc_arg(J_c, n),
                     _kernels.check(res, "res", torch.float32, (2, n)),
                     g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), tri.data_ptr(),
                     part.data_ptr(), out_c.data_ptr())
     seg_assemble_cal.launches += 1
-    g_c, diag_c, blocks = _unpack_cal(out_c, J_c.shape[1])
+    g_c, diag_c, blocks = _unpack_cal(out_c, splits)
     return g_r, diag_r, g_c, diag_c, blocks, g_l, _tri_to_full(tri)
 
 
@@ -472,7 +499,8 @@ def _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
     t = _empty((L, 3), w)
     wu = torch.zeros((2, n), dtype=torch.float32, device=w.device)
     ck = _kernels.check
-    _kernels.launch("viba_schur_down_cal", R, L, n, k, n_c, cplan.n_chunks, int(bool(want_y)),
+    _kernels.launch("viba_schur_down_cal", R, L, n, k, kc, n_c, cplan.n_chunks,
+                    int(bool(want_y)),
                     *_plan_ptrs(plan), *_cal_ptrs(cplan, n), *jargs, _jc_arg(J_c, n),
                     ck(x_r, "x_r", torch.float32, (R, k)),
                     ck(x_c, "x_c", torch.float32, (n_c, kc)),
@@ -485,7 +513,7 @@ def _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
 def seg_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan: SegPlan, cplan: CalPlan,
                        want_y=True):
     """One pass over a calibration-coupled batch with u = J_r x_r[rig] +
-    J_c x_c[win]: (y_r (R, k) = seg-sum_rig J_r^T w u, y_c (n_c, 23) =
+    J_c x_c[win]: (y_r (R, k) = seg-sum_rig J_r^T w u, y_c (n_c, kc) =
     seg-sum_win J_c^T w u (both None unless want_y), t (L, 3) = W^T x,
     wu (2, N) = w u)."""
     if not _kernels.on_card(w):
@@ -511,7 +539,7 @@ def _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan, wu):
     part = _empty((max(cplan.n_chunks, 1), kc), w)
     du = torch.zeros((2, n), dtype=torch.float32, device=w.device)
     ck = _kernels.check
-    _kernels.launch("viba_schur_up_cal", R, n, k, n_c, cplan.n_chunks,
+    _kernels.launch("viba_schur_up_cal", R, n, k, kc, n_c, cplan.n_chunks,
                     ck(plan.rig_ptr, "rig_ptr", torch.int32),
                     ck(plan.rig_obs, "rig_obs", torch.int32),
                     ck(plan.point, "point", torch.int32, (n,)), *_cal_ptrs(cplan, n)[1:],
@@ -523,7 +551,7 @@ def _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan, wu):
 
 @_kernels.register("schur_up_cal")
 def seg_schur_up_cal(J_r, J_c, J_p, w, z, plan: SegPlan, cplan: CalPlan, wu=None):
-    """(y_r (R, k), y_c (n_c, 23)) = segment sums of (J_r, J_c)^T w J_p z[pt]
+    """(y_r (R, k), y_c (n_c, kc)) = segment sums of (J_r, J_c)^T w J_p z[pt]
     (= W z over rig and window columns); with the staged wu of
     seg_schur_down_cal: the sums of (J_r, J_c)^T (wu - w J_p z[pt])."""
     if not _kernels.on_card(w):
@@ -664,3 +692,221 @@ def seg_reduce_table(contrib, rows: RowPlan):
                     part.data_ptr() if part is not None else None, y.data_ptr())
     seg_reduce_table.launches += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# K14: tile-partials kernels (one grid of ragged tiles, rig- or point-sorted)
+# ---------------------------------------------------------------------------
+#
+# A grid of nt tiles of ts slots; slot s of tile t addresses row local[s] of
+# the tile's rb-row window [base_t, base_t + rb). The reduce-side entries
+# return per-tile partials (nt, rb, D), which scatter_partials adds into the
+# global rows; the gather side takes per-tile rows (nt, rb, D) that
+# gather_tiles cuts out of a table. Pad slots address a row like any other
+# (their local index, usually 0) and their contributions count: K14a sums
+# whatever contrib holds. Locals outside [0, rb) address nothing.
+
+TILE_KS = (3, 6, 9)  # Jacobian widths of the tile mat-vec kernels
+TILE_MAX_D = 64  # widest row of a gathered tile (its rb x D floats are staged in shared memory)
+
+
+class TilePlan(NamedTuple):
+    """Runs of a tile grid, for the reduce-side kernels: the slots of each
+    (tile, row) as maximal runs of consecutive slots, in slot order. Built
+    on the device from the local indices (tile_plan)."""
+
+    run_ptr: torch.Tensor  # (nt*rb + 1,) int32 offsets of each (tile, row)'s runs
+    run_start: torch.Tensor  # (n_runs,) int32 first slot of each run
+    run_len: torch.Tensor  # (n_runs,) int32 slots in each run
+
+
+def tile_plan(local, nt, ts, rb) -> TilePlan:
+    """The TilePlan of a grid's local indices (N = nt*ts,), built on their
+    device with a stable sort (deterministic)."""
+    n = nt * ts
+    loc = local.to(torch.int64)
+    slot = torch.arange(n, device=local.device)
+    key = torch.where((loc >= 0) & (loc < rb), (slot // ts) * rb + loc,
+                      torch.full_like(loc, nt * rb))
+    order = torch.argsort(key, stable=True)
+    k = key[order]
+    new = torch.ones(n, dtype=torch.bool, device=local.device)
+    new[1:] = (k[1:] != k[:-1]) | (order[1:] != order[:-1] + 1)
+    first = torch.nonzero(new).reshape(-1)
+    length = torch.diff(torch.cat([first, first.new_full((1,), n)]))
+    keep = k[first] < nt * rb
+    run_key, first, length = k[first][keep], first[keep], length[keep]
+    run_ptr = torch.zeros(nt * rb + 1, dtype=torch.int64, device=local.device)
+    run_ptr[1:] = torch.cumsum(torch.bincount(run_key, minlength=nt * rb), 0)
+    i32 = torch.int32
+    return TilePlan(run_ptr.to(i32), order[first].to(i32), length.to(i32))
+
+
+def _rows_from_bases(bases, nt, rb):
+    """Expand (nt,) tile bases to the rows each tile addresses (nt*rb,)."""
+    return (bases[:, None].to(torch.int32)
+            + torch.arange(rb, dtype=torch.int32, device=bases.device)[None, :]).reshape(-1)
+
+
+def gather_tiles(table, rows, nt, rb):
+    """(n_rows, D) table + addressed rows (nt*rb,) -> (nt, rb, D) tile rows
+    (rows past the table read zeros)."""
+    D = table.shape[-1]
+    text = torch.cat([table, table.new_zeros((rb, D))], dim=0)
+    return text.index_select(0, rows.to(torch.int64)).reshape(nt, rb, D)
+
+
+def partials_plan(rows, n_rows) -> RowPlan:
+    """The RowPlan that scatter_partials reduces through: entry e of the
+    flattened (nt*rb) partials adds into rows[e]; each row lists its entries
+    in tile order; entries addressing rows >= n_rows (a tile window past the
+    table) are left out, as the reference drops them."""
+    r = rows.to(torch.int64)
+    keep = r < n_rows
+    order = torch.argsort(torch.where(keep, r, torch.full_like(r, n_rows)), stable=True)
+    order = order[:int(keep.sum())]
+    ptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=rows.device)
+    ptr[1:] = torch.cumsum(torch.bincount(r[keep], minlength=n_rows), 0)
+    return RowPlan(torch.where(keep, r, torch.zeros_like(r)).to(torch.int32),
+                   ptr.to(torch.int32), order.to(torch.int32))
+
+
+def scatter_partials(part, rows, n_rows, rb, plan: RowPlan | None = None):
+    """(nt, rb, D) tile partials + addressed rows (nt*rb,) -> (n_rows, D):
+    each row's partials summed in tile order. On the card through K13c over
+    `plan` (partials_plan(rows, n_rows), built here if not given): no
+    atomics."""
+    D = part.shape[-1]
+    flat = part.reshape(-1, D)
+    if not _kernels.on_card(part):
+        out = torch.zeros((n_rows + rb, D), dtype=part.dtype, device=part.device)
+        return out.index_add_(0, rows.to(torch.int64), flat)[:n_rows]
+    plan = partials_plan(rows, n_rows) if plan is None else plan
+    return seg_reduce_table(flat.T.contiguous(), plan)
+
+
+def _tile_key(local, nt, ts, rb):
+    """Flat (tile, row) index of each slot and whether it addresses a row."""
+    loc = local.to(torch.int64)
+    ok = (loc >= 0) & (loc < rb)
+    tile = torch.arange(nt * ts, device=local.device) // ts
+    return torch.where(ok, tile * rb + loc, torch.zeros_like(loc)), ok
+
+
+def _reduce_partials_plain(contrib, local, nt, ts, rb):
+    key, ok = _tile_key(local, nt, ts, rb)
+    out = contrib.new_zeros((nt * rb, contrib.shape[0]))
+    out.index_add_(0, key, (contrib * ok.to(contrib.dtype)[None]).T)
+    return out.reshape(nt, rb, -1)
+
+
+def _gather_tiles_plain(xt, local, nt, ts, rb):
+    key, ok = _tile_key(local, nt, ts, rb)
+    return xt.reshape(nt * rb, -1).index_select(0, key) * ok.to(xt.dtype)[:, None]
+
+
+def _tile_jac(J, nt, ts):
+    d, k, n = J.shape
+    if d != 2 or k not in TILE_KS or n != nt * ts:
+        raise ValueError(f"tile kernels take J of shape (2, k in {TILE_KS}, {nt * ts}), "
+                         f"got {tuple(J.shape)}")
+    return k, _kernels.check(J, "J", torch.float32, (2, k, n))
+
+
+def _plan_args(plan: TilePlan, local, nt, ts, rb):
+    plan = tile_plan(local, nt, ts, rb) if plan is None else plan
+    ck = _kernels.check
+    return (ck(plan.run_ptr, "run_ptr", torch.int32, (nt * rb + 1,)),
+            ck(plan.run_start, "run_start", torch.int32),
+            ck(plan.run_len, "run_len", torch.int32))
+
+
+def _local_arg(local, nt, ts):
+    return _kernels.check(local, "local", torch.int32, (nt * ts,))
+
+
+def _xt_arg(xt, nt, rb):
+    D = xt.shape[-1]
+    if D > TILE_MAX_D:
+        raise ValueError(f"gathered tile rows wider than {TILE_MAX_D}: {D}")
+    return D, _kernels.check(xt, "xt", torch.float32, (nt, rb, D))
+
+
+@_kernels.register("reduce_partials")
+def seg_reduce_partials(contrib, local, nt, ts, rb, plan: TilePlan | None = None):
+    """K14a: contrib (D, nt*ts), local (nt*ts,) -> tile partials (nt, rb, D),
+    each row's slots summed in slot order."""
+    if not _kernels.on_card(contrib):
+        return _reduce_partials_plain(contrib, local, nt, ts, rb)
+    D, n = contrib.shape
+    part = _empty((nt, rb, D), contrib)
+    _kernels.launch("viba_tile_reduce", nt, rb, n, D, *_plan_args(plan, local, nt, ts, rb),
+                    _kernels.check(contrib, "contrib", torch.float32, (D, nt * ts)),
+                    part.data_ptr())
+    seg_reduce_partials.launches += 1
+    return part
+
+
+@_kernels.register("gather_from_tiles")
+def seg_gather_from_tiles(xt, local, nt, ts, rb):
+    """K14b: xt (nt, rb, D) addressed tile rows -> per-slot rows (nt*ts, D)."""
+    if not _kernels.on_card(xt):
+        return _gather_tiles_plain(xt, local, nt, ts, rb)
+    D, xp = _xt_arg(xt, nt, rb)
+    out = _empty((nt * ts, D), xt)
+    _kernels.launch("viba_tile_gather", nt, ts, rb, D, _local_arg(local, nt, ts), xp,
+                    out.data_ptr())
+    seg_gather_from_tiles.launches += 1
+    return out
+
+
+def _mv_fused_tiles_plain(J, w, xt, local, nt, ts, rb):
+    xg = _gather_tiles_plain(xt, local, nt, ts, rb)  # (N, k)
+    wu = (J * xg.T[None]).sum(1) * w[None, :]
+    return wu, _reduce_partials_plain((J * wu[:, None, :]).sum(0), local, nt, ts, rb)
+
+
+@_kernels.register("mv_fused")
+def seg_mv_fused(J, w, xt, local, nt, ts, rb, plan: TilePlan | None = None):
+    """K14c, the rig-side matvec tile pass: J (2, k, nt*ts), w (nt*ts,), xt
+    (nt, rb, k) gathered tile rows -> (wu (2, nt*ts) = w (J x_g), tile
+    partials (nt, rb, k) of J^T wu), J read once."""
+    if not _kernels.on_card(J):
+        return _mv_fused_tiles_plain(J, w, xt, local, nt, ts, rb)
+    k, jp = _tile_jac(J, nt, ts)
+    wu = torch.zeros((2, nt * ts), dtype=torch.float32, device=J.device)
+    part = _empty((nt, rb, k), J)
+    _kernels.launch("viba_tile_mv_fused", nt, rb, nt * ts, k,
+                    *_plan_args(plan, local, nt, ts, rb), jp,
+                    _kernels.check(w, "w", torch.float32, (nt * ts,)),
+                    _kernels.check(xt, "xt", torch.float32, (nt, rb, k)), wu.data_ptr(),
+                    part.data_ptr())
+    seg_mv_fused.launches += 1
+    return wu, part
+
+
+@_kernels.register("mv_gather")
+def seg_mv_gather(J, xt, local, nt, ts, rb):
+    """K14d: u (2, nt*ts) = J @ gathered tile rows (xt (nt, rb, k))."""
+    if not _kernels.on_card(J):
+        return (J * _gather_tiles_plain(xt, local, nt, ts, rb).T[None]).sum(1)
+    k, jp = _tile_jac(J, nt, ts)
+    u = _empty((2, nt * ts), J)
+    _kernels.launch("viba_tile_mv_gather", nt, ts, rb, k, _local_arg(local, nt, ts), jp,
+                    _kernels.check(xt, "xt", torch.float32, (nt, rb, k)), u.data_ptr())
+    seg_mv_gather.launches += 1
+    return u
+
+
+@_kernels.register("mv_scatter")
+def seg_mv_scatter(J, u, local, nt, ts, rb, plan: TilePlan | None = None):
+    """K14e: tile partials (nt, rb, k) of the segment sums of J^T u."""
+    if not _kernels.on_card(J):
+        return _reduce_partials_plain((J * u[:, None, :]).sum(0), local, nt, ts, rb)
+    k, jp = _tile_jac(J, nt, ts)
+    part = _empty((nt, rb, k), J)
+    _kernels.launch("viba_tile_mv_scatter", nt, rb, nt * ts, k,
+                    *_plan_args(plan, local, nt, ts, rb), jp,
+                    _kernels.check(u, "u", torch.float32, (2, nt * ts)), part.data_ptr())
+    seg_mv_scatter.launches += 1
+    return part

@@ -86,33 +86,75 @@ class Lin(NamedTuple):
 
     The factor axis N is LAST everywhere (res (d, N), jac blocks
     (d, dim, N)), as in the JAX package, so kernels read each Jacobian
-    column contiguously. `ell` entries are optional transpose plans
-    (rows, K) int64 whose row r lists the factors touching variable row r
-    (sentinel N for padding): a deterministic gather-sum scatter."""
+    column contiguously. `ell` entries are the transpose plans of
+    build_transpose_plans (a padded (rows, K) int64 ELL plan whose row r lists
+    the factors touching variable row r, sentinel N, or a TwoLevelPlan), or
+    None: scatter_rows sums through them in a fixed order."""
 
     res: torch.Tensor  # (d, N)
     valid: torch.Tensor  # (N,) 0/1
     groups: tuple  # tuple of group names
     idx: tuple  # tuple of (N,) index tensors
     jac: tuple  # tuple of (d, dim, N) blocks
-    ell: tuple = ()  # tuple of (rows, K) plans or None per entry
+    ell: tuple = ()  # tuple of transpose plans (ELL or TwoLevelPlan) or None per entry
+
+
+# row entries summed per chunk of the two-level transpose plan: a one-level
+# plan pads every row to the busiest one (the gravity row is touched by every
+# inertial factor: 12,000 at the full-sensor size, ~80M padded entries)
+ELL_WIDTH = 64
+
+
+class TwoLevelPlan(NamedTuple):
+    """Deterministic transpose plan of an index array for rows too unevenly
+    touched for a padded one-level plan (see two_level_plan)."""
+
+    ell: torch.Tensor  # (n_chunks, width) int64 entries of each chunk (sentinel N)
+    ell2: torch.Tensor  # (n_rows, max chunks per row) int64 chunks of each row (sentinel n_chunks)
+
+
+def two_level_plan(rows_flat, n_rows, width=ELL_WIDTH):
+    """Transpose plan of an index array, built on its device: the entries of
+    each row (in index order) cut into chunks of at most `width`; ell
+    (n_chunks, width) lists each chunk's entries (sentinel len(rows_flat)),
+    ell2 (n_rows, max chunks per row) each row's chunks (sentinel n_chunks).
+    Sums over ell then ell2 run in a fixed order (deterministic)."""
+    n = rows_flat.shape[0]
+    device = rows_flat.device
+    order = torch.argsort(rows_flat, stable=True)
+    srt = rows_flat[order]
+    counts = torch.bincount(rows_flat, minlength=n_rows)
+    pos = torch.arange(n, device=device) - (torch.cumsum(counts, 0) - counts)[srt]
+    n_ch = (counts + width - 1) // width
+    ch_start = torch.cumsum(n_ch, 0) - n_ch
+    n_chunks, max_ch = int(n_ch.sum()), max(int(n_ch.max()), 1) if n_rows else 1
+    ell = torch.full((n_chunks, width), n, dtype=torch.int64, device=device)
+    ell[ch_start[srt] + pos // width, pos % width] = order
+    j = torch.arange(max_ch, device=device)
+    ell2 = torch.where(j[None, :] < n_ch[:, None], ch_start[:, None] + j[None, :],
+                       torch.full((), n_chunks, device=device))
+    return TwoLevelPlan(ell, ell2)
 
 
 def scatter_rows(ell, idx, contrib, num_rows):
-    """Sum per-factor columns into variable rows.
+    """Sum per-factor columns into variable rows, in a fixed order.
 
     contrib: (dim..., N) with the factor axis LAST; returns (num_rows, dim...).
-    ELL gather-sum (deterministic) when a plan exists, index_add_ otherwise."""
+    A gather-sum over the batch's transpose plan: a padded one-level ELL plan
+    (rows, K), a TwoLevelPlan, or, for a batch given none, a two-level plan
+    built here from idx. No float atomics on any device."""
     lead = contrib.shape[:-1]
     flat = contrib.reshape(-1, contrib.shape[-1])  # (D, N)
     if ell is None:
-        out = torch.zeros((num_rows, flat.shape[0]), dtype=contrib.dtype,
-                          device=contrib.device)
-        out.index_add_(0, idx, flat.T)
-        return out.reshape((num_rows,) + lead)
+        ell = two_level_plan(idx.to(torch.int64), num_rows)
     ext = torch.cat([flat, flat.new_zeros((flat.shape[0], 1))], dim=1)
-    out = ext[:, ell].sum(-1)  # (D, rows)
-    return out.T.reshape((ell.shape[0],) + lead)
+    if isinstance(ell, TwoLevelPlan):
+        chunks = ext[:, ell.ell].sum(-1)  # (D, n_chunks)
+        chunks = torch.cat([chunks, chunks.new_zeros((chunks.shape[0], 1))], dim=1)
+        out = chunks[:, ell.ell2].sum(-1)  # (D, rows)
+    else:
+        out = ext[:, ell].sum(-1)  # (D, rows)
+    return out.T.reshape((num_rows,) + lead)
 
 
 def ell_plan(idx: np.ndarray, rows: int):
@@ -129,12 +171,13 @@ def ell_plan(idx: np.ndarray, rows: int):
 
 
 def build_transpose_plans(cfgs, datas, num_rows_by_group, max_expand=4.0):
-    """Host-side: add per-(batch, tangent) ELL plans into the data dicts.
+    """Add per-(batch, tangent) transpose plans into the data dicts.
 
-    Stored under data["_ell{i}"] for tangent position i. Skipped (scatter
-    fallback) when the padded plan would exceed max_expand x the factor
-    count, and for blocked batches (their reductions run in the segment
-    kernels)."""
+    Stored under data["_ell{i}"] for tangent position i: a padded ELL plan
+    (host numpy), or a TwoLevelPlan (built on the batch's device) where the
+    padded plan would exceed max_expand x the factor count (a few rows
+    touched by most factors). Blocked batches get none: their reductions run
+    in the segment kernels."""
     for cfg, data in zip(cfgs, datas):
         if cfg.block_info is not None:
             continue
@@ -150,6 +193,7 @@ def build_transpose_plans(cfgs, datas, num_rows_by_group, max_expand=4.0):
                 continue
             K = int(np.bincount(idx, minlength=rows).max())
             if K * rows > max_expand * n + 1024:
+                data[key] = two_level_plan(data[field].to(torch.int64), rows)
                 continue
             data[key] = torch.from_numpy(ell_plan(idx, rows)).to(data[field].device)
 
@@ -728,6 +772,9 @@ def linearize_generic(cfg: BatchCfg, data, v: VariableTables, masks: Masks) -> L
         active = [i for i, (g, _) in enumerate(tangents) if g in cfg.active_groups]
     else:
         active = list(range(len(tangents)))
+    if not active:  # every group constant: the batch only adds its cost
+        res, valid = residual_generic(cfg, data, v)
+        return Lin(res=res.T.contiguous(), valid=valid, groups=(), idx=(), jac=(), ell=())
     zeros_full = tuple(torch.zeros(GROUP_DIMS[g], dtype=dtype, device=device)
                        for g, _ in tangents)
     zeros_active = tuple(zeros_full[i] for i in active)

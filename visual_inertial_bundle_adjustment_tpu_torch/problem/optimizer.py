@@ -130,15 +130,16 @@ class Problem:
 
     def _build(self):
         """Block the visual batches (host, once), resolve the static active
-        groups from the masks, build the rest graph's transpose plans, and
-        return the iteration callables (k_linearize, k_solve, k_resolve,
+        groups from the masks, build the small batches' transpose plans, and
+        return the iteration callables (the blocked solver's, or the generic
+        engine's when no batch is blocked) (k_linearize, k_solve, k_resolve,
         k_cost, k_grad, k_retract, k_assemble, k_step)."""
         if self._kernels is not None:
             return self._kernels
         rcs.finalize_blocks(self)
-        if not any(c.block_info is not None for c in self.cfgs):
-            raise NotImplementedError(
-                "no blocked visual batch: the generic engine path is not ported")
+        # no blocked batch: the generic Schur-reduced engine solves the
+        # problem (the JAX package's choice, its optimizer.py:182-212)
+        blocked = any(c.block_info is not None for c in self.cfgs)
         active = {g: bool(getattr(self.masks, g).any()) for g in fct.GROUP_DIMS}
         v = self.variables
         rows = {
@@ -158,14 +159,18 @@ class Problem:
             return engine.linearize(cfgs, datas, v, masks, alive)
 
         def k_assemble(datas, lg, v, masks):
-            return rcs.assemble(cfgs, datas, lg, v, masks)
+            # the generic engine assembles inside its solve
+            return rcs.assemble(cfgs, datas, lg, v, masks) if blocked else None
 
         def k_solve(asm, datas, lg, v, masks, lam, max_iters, rel_tol,
                     precond="gauss_seidel"):
-            return rcs.solve_assembled(asm, v, masks, lam, max_iters, rel_tol, precond)
+            if blocked:
+                return rcs.solve_assembled(asm, v, masks, lam, max_iters, rel_tol, precond)
+            return engine.solve_step(cfgs, datas, lg, v, masks, lam, max_iters, rel_tol, precond)
 
         def k_resolve(lg, v, rs, g_r, g_l, max_iters, rel_tol):
-            return rcs.solve_with_system(lg, v, rs, g_r, g_l, max_iters, rel_tol)
+            resolve = rcs.solve_with_system if blocked else engine.solve_with_system
+            return resolve(lg, v, rs, g_r, g_l, max_iters, rel_tol)
 
         def k_cost(datas, v, lg):
             return engine.comparable_cost(cfgs, datas, v, lg)
@@ -180,7 +185,7 @@ class Problem:
         def k_step(asm, datas, lg, v, masks, lam, max_iters, rel_tol,
                    precond="gauss_seidel"):
             """Solve + retract + comparable cost + norms of one LM attempt."""
-            out = rcs.solve_assembled(asm, v, masks, lam, max_iters, rel_tol, precond)
+            out = k_solve(asm, datas, lg, v, masks, lam, max_iters, rel_tol, precond)
             x_r, x_l, model_red, pcg_rel, pcg_it, rs, (g_r, g_l) = out
             step_r, step_l = t_scale(x_r, -1.0), -x_l
             v_new = retract(v, step_r, step_l, masks)
