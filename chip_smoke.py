@@ -41,7 +41,13 @@ Phases, one printed line each (per path):
                relative to the max-abs of the plain version evaluated in
                float64 on the same inputs; median times of the kernel and of
                the plain version in float32; the least time the card could
-               take (bound)
+               take (bound). K9 (full, gs_cal, gs_cal at kc = 17) also against
+               the composition it replaced (K10's down, the 3x3 solve in torch,
+               K10's up), by CUDA events and by device time and device
+               operations per call (torch.profiler, in turns), beside its
+               two-pass floor; K13c on the two-grid landmark rows (D 9, D 3)
+               by device time against the walk on the same rows and against
+               index_add_, in turns
   consistency  one LM iteration through the kernels vs the plain versions,
                from the initial state: new cost, reduced step and the step of
                the well-conditioned landmarks; and the kernel-path attempt run
@@ -118,6 +124,9 @@ KERNELS = {
 PATHS = ("bias", "full", "gs_cal", "two_grid", "profile")
 # bounds relative to the plain version's max-abs (tests/test_tpu_accuracy.py)
 TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
+# kernels whose ptxas report must show no register spill (the redesigned K9
+# and K13c's slot-major route), by the names ptxas gives them
+NO_SPILL = ("pcg_cal_down", "pcg_cal_points", "pcg_cal_up", "to_slot_major", "reduce_gather")
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
 # kernel vs plain LM iteration, relative (see the consistency phases)
@@ -168,6 +177,30 @@ def cuda_time(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def in_turns(fns):
+    """Device time of each fn, its sessions run in turns a, b, ..., b, a and
+    read as profile_matvec.device_ms reads them (torch.profiler, CUDA
+    activity: the card's own time in each kernel and memset, without the
+    host's enqueue time): (device ms per call, device operations per call,
+    {kernel: ms per call}) of each."""
+    from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
+
+    sessions = [[] for _ in fns]
+    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+        sessions[i].append(pm.device_rows(fns[i]))
+    out = []
+    for rows in sessions:
+        per = pm.per_call(rows, pm.DEVICE_REPS)
+        out.append((sum(ms for _, ms in per.values()), sum(n for n, _ in per.values()),
+                    {key: ms for key, (_, ms) in per.items()}))
+    return out
+
+
+def walk_plan(plan):
+    """The arrays of a SegPlan that the walking segment kernels read."""
+    return [plan.rig, plan.point, plan.rig_ptr, plan.rig_obs, plan.pt_ptr, plan.pt_obs]
 
 
 def nbytes(*xs):
@@ -308,6 +341,7 @@ def phase_times(path, problem, settings):
     the device-busy share of one whole attempt under torch.profiler."""
     import torch
 
+    from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
     from visual_inertial_bundle_adjustment_tpu_torch.problem import engine, rcs
     from visual_inertial_bundle_adjustment_tpu_torch.problem import factors as fct
     from visual_inertial_bundle_adjustment_tpu_torch.problem.structure import (retract,
@@ -359,13 +393,15 @@ def phase_times(path, problem, settings):
         attempt()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows) / 1e3
-    n_ops = sum(e.count for e in rows)
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    rows = pm.device_kernels(prof.key_averages())
+    if not rows:
+        raise AssertionError(f"{path}: the profiler recorded no device time in an LM attempt")
+    busy = sum(us for _, _, us in rows) / 1e3
+    n_ops = sum(n for _, n, _ in rows)
+    top = sorted(rows, key=lambda r: -r[2])[:6]
     phase(f"{path}:phases", f"one attempt {wall:.1f} ms: {n_ops} device ops, {busy:.1f} ms "
           f"device time, busy share {busy / wall:.2f} | top: " + ", ".join(
-              f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+              f"{key[:40]} {us / 1e3:.2f} ms x{n}" for key, n, us in top))
 
 
 def run_main(path, problem, settings, kernels):
@@ -469,7 +505,7 @@ def bias_only(dev, bench):
     k = b.rig_k
     x = torch.randn((s.num_rigs, k), generator=gen, device=dev)
     zl = torch.randn((len(s.points_w), 3), generator=gen, device=dev)
-    plan = list(b.plan)
+    plan = walk_plan(b.plan)
     bench.compare("assemble_rig", seg.seg_assemble_rig, (b.J, b.J_pt, lin.res, b.w, b.plan),
                   [("g_r", TOL_SEG), ("diag_r", TOL_SEG), ("g_l", TOL_SEG), ("H_ll0", TOL_SEG)],
                   [b.J, b.J_pt, lin.res, b.w] + plan, (8 * k + 36) * n_real)
@@ -578,7 +614,7 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
     x = torch.randn((R, k), generator=gen, device=dev)
     xc = torch.randn((n_c, b.J_cal.shape[1]), generator=gen, device=dev)
     zl = torch.randn((L, 3), generator=gen, device=dev)
-    plan, cplan = list(b.plan), list(b.cplan)
+    plan, cplan = walk_plan(b.plan), list(b.cplan)[:4]  # K8, K10: the window chunk lists
     jread = [b.J, b.J_pt, b.J_cal, b.w]
     kc = b.J_cal.shape[1]
     n_out = seg.n_cal_out(seg.CAL_SPLITS[kc])
@@ -594,21 +630,43 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
                           *(f"blocks_{g}" for g, _ in b.cal_groups), "g_l", "H_ll0"),
                   jread + [lin.res] + plan + cplan,
                   (8 * k + 36 + 4 * kc + 5 * (n_out - kc)) * n_real)
-    bench.compare(f"schur_pcg_cal{suffix}", seg.seg_schur_pcg_cal,
-                  (b.J, b.J_cal, b.J_pt, b.w, x, xc, rs.H_ll_inv, b.plan, b.cplan),
-                  seg_tol("y_r", "y_c"), jread + [x, xc, rs.H_ll_inv] + plan + cplan,
-                  (8 * k + 8 * kc + 24) * n_real)
-    # K9 per kernel: its down (light) and up (du) launches alone; the 3x3
-    # landmark solve between them is a torch op
-    down9 = lambda: seg._launch_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w, x, xc,  # noqa: E731
-                                               b.plan, b.cplan, False)
-    _, _, t9, wu9 = down9()
-    z9 = (rs.H_ll_inv * t9[:, None, :]).sum(-1)
-    parts9 = dict(down_light_ms=cuda_time(down9), up_du_ms=cuda_time(
-        lambda: seg._launch_schur_up_cal(b.J, b.J_cal, b.J_pt, b.w, z9, b.plan, b.cplan, wu9)))
-    bench.results[f"schur_pcg_cal{suffix}"].update(parts9)
-    phase("kernels", f"schur_pcg_cal{suffix} per kernel: " + ", ".join(
-        f"{key} {ms:.4f}" for key, ms in parts9.items()))
+    cp = b.cplan
+    index9 = [b.plan.rig, cp.win, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, cp.rig_pair,
+              cp.pair_ptr, cp.pair_obs, cp.pair_part, cp.win_pair]
+    args9 = (b.J, b.J_cal, b.J_pt, b.w, x, xc, rs.H_ll_inv, b.plan, b.cplan)
+    row9 = bench.compare(f"schur_pcg_cal{suffix}", seg.seg_schur_pcg_cal, args9,
+                         seg_tol("y_r", "y_c"), jread + [x, xc, rs.H_ll_inv] + index9,
+                         (8 * k + 8 * kc + 24) * n_real)
+    # K9 against the composition it replaced, which K10's wrappers still
+    # hold: down (want_y off) -> the 3x3 solve in torch -> up with the staged wu
+    def old9():
+        _, _, t9, wu9 = seg._launch_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan,
+                                                   b.cplan, False)
+        return seg._launch_schur_up_cal(b.J, b.J_cal, b.J_pt, b.w,
+                                        (rs.H_ll_inv * t9[:, None, :]).sum(-1), b.plan, b.cplan,
+                                        wu9)
+
+    r_old, _ = rel_err(old9()[0], seg.seg_schur_pcg_cal(*args9)[0])
+    (dev_new, ops_new, k_new), (dev_old, ops_old, k_old) = in_turns(
+        [lambda: seg.seg_schur_pcg_cal(*args9), old9])
+    # the least bytes of any design with the landmark solve between two
+    # passes: J_r, J_c, J_p and w read twice, p (16 B a slot) written and
+    # read once, each index array read once, the outputs written once
+    floor_bytes = 2 * nbytes(jread) + 2 * 16 * n_real + nbytes(index9) + 4 * (R * k + n_c * kc)
+    extra = dict(device_ms=dev_new, device_ops=ops_new, device_kernels=k_new,
+                 two_pass_floor_ms=floor_bytes / HBM_BYTES_PER_S * 1e3,
+                 old_composition=dict(ms=cuda_time(old9), device_ms=dev_old, device_ops=ops_old,
+                                      device_kernels=k_old, rel_diff_y_r=r_old))
+    row9.update(extra)
+    phase("kernels", f"schur_pcg_cal{suffix}: device {dev_new:.4f} ms in {ops_new:g} ops vs the "
+          f"old composition {dev_old:.4f} ms in {ops_old:g} ops (events "
+          f"{row9['ms']:.4f} vs {extra['old_composition']['ms']:.4f} ms; y_r rel diff "
+          f"{r_old:.1e}) | two-pass floor {extra['two_pass_floor_ms']:.4f} ms | kernels: "
+          + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in k_new.items()))
+    if ops_new > 4:
+        raise AssertionError(f"schur_pcg_cal{suffix}: {ops_new} device operations per call")
+    if not r_old <= TOL_SEG:
+        raise AssertionError(f"schur_pcg_cal{suffix}: the old composition differs by {r_old:.1e}")
     bench.compare(f"schur_down_cal{suffix}", seg.seg_schur_down_cal,
                   (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan),
                   seg_tol("y_r", "y_c", "t", "wu"), jread + [x, xc] + plan + cplan,
@@ -759,7 +817,8 @@ def two_grid(dev, bench):
 
     def library_sum(contrib, rows):
         out = torch.zeros((rows.n_rows, contrib.shape[0]), dtype=contrib.dtype, device=dev)
-        return lambda: out.zero_().index_add_(0, rows.row.long(), contrib.T)
+        idx = rows.row.long()
+        return lambda: out.zero_().index_add_(0, idx, contrib.T)
 
     # per PCG matvec: K12 on the rig rows, K13a on the landmark rows, the 3x3
     # solve, K13b on the landmark rows, K13a on the rig rows
@@ -774,13 +833,34 @@ def two_grid(dev, bench):
     bench.compare("mv_gather_table(rig rows)", seg.seg_mv_gather_table, (b.J, x, rig),
                   seg_tol("u"), [b.J, x, rig.row], 4 * k * N)
     # K13c at the widths of the assembly and of the preconditioner: the rig
-    # blocks (k^2 wide, the widest), the landmark blocks (9) and gradient (3)
+    # blocks (k^2 wide, the widest; they walk the rig lists), the landmark
+    # blocks (9) and gradient (3), a scattered family (slot-major copy and
+    # gather); on those, device times of the walk on the same rows (the
+    # RowPlan not marked scattered) and of index_add_, in turns
     for name, D, rows in (("reduce_table", k * k, rig), ("reduce_table(landmark rows,D=9)", 9, pts),
                           ("reduce_table(landmark rows,D=3)", 3, pts)):
         contrib = torch.randn((D, N), generator=gen, device=dev) * real
-        bench.compare(name, seg.seg_reduce_table, (contrib, rows), seg_tol("y"),
-                      [contrib, rows.ptr, rows.obs], D * n_real,
-                      library=library_sum(contrib, rows))
+        lib = library_sum(contrib, rows)
+        row = bench.compare(name, seg.seg_reduce_table, (contrib, rows), seg_tol("y"),
+                            [contrib, rows.ptr, rows.obs], D * n_real, library=lib)
+        if rows.scattered:
+            walk = rows._replace(scattered=False)
+            r_walk, _ = rel_err(seg.seg_reduce_table(contrib, walk),
+                                seg.seg_reduce_table(contrib, rows))
+            (d_new, o_new, k_new), (d_walk, _, _), (d_lib, _, k_lib) = in_turns(
+                [lambda: seg.seg_reduce_table(contrib, rows),
+                 lambda: seg.seg_reduce_table(contrib, walk), lib])
+            row.update(device_ms=d_new, device_ops=o_new, device_kernels=k_new, walk_ms=cuda_time(
+                lambda: seg.seg_reduce_table(contrib, walk)), walk_device_ms=d_walk,
+                library_device_ms=d_lib, library_device_kernels=k_lib, rel_diff_walk=r_walk)
+            phase("kernels", f"{name}: device {d_new:.4f} ms in {o_new:g} ops ("
+                  + ", ".join(f"{key[:30]} {ms:.4f}" for key, ms in k_new.items())
+                  + f") vs the walk "
+                  f"{d_walk:.4f} ms (events {row['walk_ms']:.4f}; rel diff {r_walk:.1e}) vs "
+                  f"index_add_ {d_lib:.4f} ms (" + ", ".join(
+                      f"{key[:30]} {ms:.4f}" for key, ms in k_lib.items()) + ")")
+            if not r_walk <= TOL_SEG:
+                raise AssertionError(f"{name}: the walk differs by {r_walk:.1e}")
         del contrib
 
     # K4 (the single-pass rig-only matvec, which walks the same CSR lists)
@@ -919,9 +999,19 @@ def main():
     t0 = time.time()
     _kernels.lib()
     phase("build", f"{_kernels.library_path().name} in {time.time() - t0:.1f} s")
-    for name, regs, spill_st, spill_ld in _kernels.resource_usage():
+    usage = _kernels.resource_usage()
+    for name, regs, spill_st, spill_ld in usage:
         phase("build", f"ptxas {name}: {regs} registers, spill stores {spill_st} B, "
               f"loads {spill_ld} B")
+    # the kernels redesigned for this card (K9, K13c's slot-major route) must
+    # not spill: each instantiation is named, and each reports 0 bytes
+    redesigned = [u for u in usage if any(k in u[0] for k in NO_SPILL)]
+    spilled = [u[0] for u in redesigned if u[2] or u[3]]
+    missing = [k for k in NO_SPILL if not any(k in u[0] for u in redesigned)]
+    if spilled or missing:
+        raise AssertionError(f"ptxas: spills in {spilled}; no report for {missing}")
+    phase("build", f"no spill in the {len(redesigned)} instantiations of "
+          + ", ".join(NO_SPILL))
 
     bench = Bench()
     launches = {"bias": bias_only(dev, bench)}

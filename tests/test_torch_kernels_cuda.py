@@ -24,7 +24,12 @@ no slot addresses, locals outside the window); K8-K10 also at the window
 widths kc = 17 and 6 (the extrinsics or the intrinsics held constant). An
 LM attempt of the full-sensor problem and of an unblocked problem calls no
 scattering operator that sums with float atomics (index_add_ and kin, seen
-through a TorchFunctionMode) and repeats bit for bit.
+through a TorchFunctionMode) and repeats bit for bit. K9 also runs at every
+rig and window width on the full-sensor plans and on a made-up plan with an
+empty rig, rigs on three window rows, a landmark of one slot and one of
+none; K13c on landmark rows of 0, 1 and 2,000 slots, through the slot-major
+copy and, on a family not marked scattered, the walk. Each repeats bit for
+bit.
 """
 
 import functools
@@ -572,3 +577,136 @@ def test_lm_attempt_uses_no_float_atomics_and_repeats(problem, cuda_device):
     assert torch.equal(cost, cost2) and torch.equal(x_l, x_l2)
     for a, b in zip(x_r, x_r2):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the point-sorted routes: K9 in four launches, K13c on landmark rows
+# ---------------------------------------------------------------------------
+
+
+def _recording_launches(monkeypatch):
+    """The names of the C entry points launched, in order."""
+    names, launch = [], _kernels.launch
+
+    def record(name, *args):
+        names.append(name)
+        return launch(name, *args)
+
+    monkeypatch.setattr(_kernels, "launch", record)
+    return names
+
+
+def _pcg_cal_args(w, plan, cplan, k, kc, dev, seed):
+    """K9's inputs: weights w, random J blocks of rig width k and window
+    width kc, tables and SPD landmark-block inverses over the plans."""
+    n = w.shape[0]
+    rng = np.random.default_rng(seed)
+    L, R, n_c = plan.n_pts, plan.n_rows, cplan.n_rows
+    A = rng.normal(size=(L, 3, 3))
+
+    def f32(a):
+        return torch.from_numpy(a).to(device=dev, dtype=torch.float32)
+
+    return (f32(rng.normal(size=(2, k, n))), f32(rng.normal(size=(2, kc, n))),
+            f32(rng.normal(size=(2, 3, n))), w, f32(rng.normal(size=(R, k))),
+            f32(rng.normal(size=(n_c, kc))), f32(A @ np.swapaxes(A, -1, -2) + np.eye(3)))
+
+
+def _pcg_cal_twice_vs_plain(args, plan, cplan, monkeypatch):
+    names = _recording_launches(monkeypatch)
+    _kernels.reset_launch_counts()
+    out = tseg.seg_schur_pcg_cal(*args, plan, cplan)
+    again = tseg.seg_schur_pcg_cal(*args, plan, cplan)
+    with _kernels.plain_reference():
+        ref = tseg.seg_schur_pcg_cal(*_kernels.to_f64(args), plan, cplan)
+    counts = _kernels.launch_counts()
+    assert counts["schur_pcg_cal"] == 2 and sum(counts.values()) == 2
+    assert names == ["viba_schur_pcg_cal"] * 2
+    _check(out, ref, (1e-5, 1e-5))
+    for o, o2 in zip(out, again):  # ordered sums: the same bits every call
+        assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc", [6, 17, 23])
+@pytest.mark.parametrize("k", [6, 9])
+def test_pcg_cal_kernel_every_width(k, kc, cuda_device, monkeypatch):
+    """K9 on the full-sensor batch's plans at every rig and window width."""
+    b, _ = _cal_inputs(cuda_device)
+    args = _pcg_cal_args(b.w, b.plan, b.cplan, k, kc, cuda_device, 83 + k + kc)
+    _pcg_cal_twice_vs_plain(args, b.plan, b.cplan, monkeypatch)
+
+
+def _edge_plans(dev):
+    """Plans of a made-up batch of 2,000 slots in four 500-slot tiles whose
+    last 40 slots are pads: rig 2 has no slot, every rig's slots fall on
+    three window rows, landmark 6 has one slot and landmark 7 none."""
+    rng = np.random.default_rng(89)
+    R, L, n_c, n = 6, 8, 3, 2000
+    pad = np.zeros(n)
+    pad.reshape(4, 500)[:, 460:] = 1.0
+    real = np.nonzero(pad < 0.5)[0]
+    rig = np.zeros(n, np.int64)
+    rig[real] = np.sort(rng.choice([0, 1, 3, 4, 5], size=len(real)))
+    rig[pad > 0.5] = np.maximum.accumulate(rig)[pad > 0.5]
+    point = rng.integers(0, 6, size=n)
+    point[real[777]] = 6
+    win = rng.integers(0, n_c, size=n)
+    arrays = trcs.segment_plan(rig, point, pad, R, L)
+    cal = {**tseg.cal_plan_arrays(win, pad, n_c), **tseg.pair_plan_arrays(rig, win, pad, R, n_c)}
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
+
+    plan = tseg.SegPlan(i32(rig), i32(point), *(i32(arrays[k]) for k in (
+        "_rig_ptr", "_rig_obs", "_pt_ptr", "_pt_obs", "_pt_pos")))
+    cplan = tseg.CalPlan(i32(win), *(i32(cal["_cal_" + f]) for f in tseg.CalPlan._fields[1:]))
+    assert np.diff(arrays["_pt_ptr"])[6:].tolist() == [1, 0]
+    assert np.diff(arrays["_rig_ptr"])[2] == 0 and np.diff(cal["_cal_rig_pair"]).max() > 1
+    return plan, cplan, pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,kc", [(6, 17), (9, 23)])
+def test_pcg_cal_kernel_edge_plan(k, kc, cuda_device, monkeypatch):
+    plan, cplan, pad = _edge_plans(cuda_device)
+    rng = np.random.default_rng(97)
+    w = torch.from_numpy(rng.random(pad.shape[0]) * (1.0 - pad)).to(cuda_device, torch.float32)
+    args = _pcg_cal_args(w, plan, cplan, k, kc, cuda_device, 101)
+    _pcg_cal_twice_vs_plain(args, plan, cplan, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 9])
+@pytest.mark.parametrize("scattered", [True, False])
+def test_landmark_reduce_rows_of_every_length(D, scattered, cuda_device, monkeypatch):
+    """K13c on a landmark family with rows of 0, 1 and 2,000 slots: through
+    the slot-major copy when the RowPlan is marked scattered, else the walk."""
+    rng = np.random.default_rng(103)
+    n, R, L = 6000, 4, 40
+    pad = (rng.random(n) < 0.1).astype(np.float64)
+    real = np.nonzero(pad < 0.5)[0]
+    point = rng.integers(3, L, size=n)
+    point[real[:2000]] = 2
+    point[real[2000]] = 1
+    rig = np.sort(rng.integers(0, R, size=n))
+    arrays = trcs.segment_plan(rig, point, pad, R, L)
+    assert np.diff(arrays["_pt_ptr"])[:3].tolist() == [0, 1, 2000]
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(cuda_device)
+
+    rows = tseg.RowPlan(i32(point), i32(arrays["_pt_ptr"]), i32(arrays["_pt_obs"]),
+                        scattered=scattered)
+    contrib = torch.from_numpy(rng.normal(size=(D, n)) * (1.0 - pad)[None]).to(
+        cuda_device, torch.float32)
+    names = _recording_launches(monkeypatch)
+    _kernels.reset_launch_counts()
+    out = tseg.seg_reduce_table(contrib, rows)
+    again = tseg.seg_reduce_table(contrib, rows)
+    with _kernels.plain_reference():
+        ref = tseg.seg_reduce_table(contrib.double(), rows)
+    assert _kernels.launch_counts()["reduce_table"] == 2
+    assert names == ["viba_seg_reduce_slot_major" if scattered else "viba_seg_reduce"] * 2
+    _check((out,), (ref,), (1e-5,))
+    assert torch.equal(out, again) and float(out[0].abs().max()) == 0.0

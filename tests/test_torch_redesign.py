@@ -1,0 +1,279 @@
+"""The plans and the data flow of the redesigned K9 and K13c, on the CPU.
+
+K9 (the calibration PCG matvec) goes on the card through each slot's
+point-sorted position `_pt_pos` (rcs.segment_plan) and, in its up pass, the
+(rig, window row) pairs of segments.pair_plan_arrays; K13c on landmark rows
+(a scattered family) through a slot-major copy of its input. The CUDA
+kernels run only on the card (tests/test_torch_kernels_cuda.py holds them
+against their plain versions); here:
+
+  * `_pt_pos` inverts `_pt_obs` with -1 on the pads, as the port's own
+    finalize_blocks builds it (the tiny bias-only problem, the tiny
+    full-sensor one) and as interop.problem_from_numpy rebuilds it;
+  * the pair plan lists every real slot once, in rig order, a pair's slots
+    of one rig and one window row, each window row's partials in rig order
+    (also where a rig spans two window rows);
+  * the kernels' data flow, written below as torch ops (K9: p written at
+    the point-sorted positions, contiguous segment sums, the 3x3 solve
+    applied to the landmark sums, wu recomputed in the up pass, one window
+    partial per pair summed in pair order; K13c: the slot-major copy, each
+    row's slots gathered in list order), equals the JAX entries on their XLA
+    branches in float64 within 1e-9 relative to max-abs:
+    seg_reduce_table over the landmark rows of the two-grid problem at D 3
+    and 9, and seg_schur_pcg_cal on the full-sensor batch at window widths
+    kc 6, 17 and 23, with random J, weights and tables from a numpy seed and
+    a third of the slots moved to the other window row, so that rigs span
+    two;
+  * profile_matvec.per_call, which turns the profiler's records into device
+    time per call, counts a launch the profiler missed.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_port_fixtures import (jax_full, jax_two_grid_problem, port_blocked_problem,
+                                  port_full_built, port_full_from_jax, port_two_grid_problem,
+                                  rel, t)
+
+from visual_inertial_bundle_adjustment_tpu.ops import segments as jseg
+from visual_inertial_bundle_adjustment_tpu.problem import rcs as jrcs
+from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as tseg
+from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs as trcs
+
+TOL = 1e-9
+
+
+def _blocked(p):
+    (i,) = [i for i, c in enumerate(p.cfgs) if c.block_info is not None]
+    return p.datas[i], p.cfgs[i].block_info
+
+
+def _check_positions(data):
+    pos, obs = data["_pt_pos"].numpy(), data["_pt_obs"].numpy()
+    pad = data["_pad"].numpy() > 0.5
+    assert pos.dtype == np.int32 and pos.shape == pad.shape
+    np.testing.assert_array_equal(pos[obs], np.arange(len(obs)))
+    assert np.all(pos[pad] == -1) and np.all(pos[~pad] >= 0)
+
+
+@pytest.mark.parametrize("problem", ["bias", "full_sensor"])
+def test_pt_pos_inverts_pt_obs(problem):
+    p = port_blocked_problem() if problem == "bias" else port_full_built()[0]
+    data, _ = _blocked(p)
+    _check_positions(data)
+    plan = trcs.plan_of(data)
+    assert plan.pt_pos is data["_pt_pos"]
+    assert tseg.point_rows(plan).scattered and not tseg.rig_rows(plan).scattered
+
+
+@functools.lru_cache(maxsize=None)
+def _full_pair():
+    return port_full_from_jax(), port_full_built()[0]
+
+
+def test_interop_carries_pt_pos_and_pairs():
+    """The handoff of the JAX package's blocked layout gets the same
+    positions and pairs as the port's own blocking of the same session."""
+    (d_i, info_i), (d_b, info_b) = (_blocked(p) for p in _full_pair())
+    assert info_i.wb > 0
+    np.testing.assert_array_equal(d_i["rig"].numpy(), d_b["rig"].numpy())
+    _check_positions(d_i)
+    for key in ["_pt_pos"] + [k for k in d_b if k.startswith("_cal_")]:
+        np.testing.assert_array_equal(d_i[key].numpy(), d_b[key].numpy(), err_msg=key)
+    cplan = trcs.cal_plan_of(d_i, info_i)
+    assert cplan.n_pairs == len(d_i["_cal_pair_part"])
+
+
+def _check_pairs(rig, win, pad, arrays, n_rig, n_win):
+    rig_pair, ptr, obs = arrays["_cal_rig_pair"], arrays["_cal_pair_ptr"], arrays["_cal_pair_obs"]
+    part, win_pair = arrays["_cal_pair_part"], arrays["_cal_win_pair"]
+    real = np.nonzero(pad < 0.5)[0]
+    np.testing.assert_array_equal(np.sort(obs), real)  # every real slot once
+    assert np.all(np.diff(rig[obs]) >= 0)  # in rig order
+    n_pairs = len(ptr) - 1
+    assert rig_pair[0] == 0 and rig_pair[-1] == n_pairs and len(rig_pair) == n_rig + 1
+    assert np.all(np.diff(ptr) > 0)
+    pair_rig, pair_win = np.empty(n_pairs, int), np.empty(n_pairs, int)
+    for q in range(n_pairs):
+        s = obs[ptr[q]:ptr[q + 1]]
+        assert len(set(rig[s])) == 1 and len(set(win[s])) == 1
+        assert np.all(np.diff(s) > 0)  # slot order inside a pair
+        pair_rig[q], pair_win[q] = rig[s[0]], win[s[0]]
+    for r in range(n_rig):
+        np.testing.assert_array_equal(pair_rig[rig_pair[r]:rig_pair[r + 1]], r)
+    np.testing.assert_array_equal(np.sort(part), np.arange(n_pairs))
+    assert len(win_pair) == n_win + 1 and win_pair[-1] == n_pairs
+    inv = np.argsort(part)  # the pair whose partial is at each row of the table
+    for c in range(n_win):
+        mine = inv[win_pair[c]:win_pair[c + 1]]
+        np.testing.assert_array_equal(pair_win[mine], c)
+        assert np.all(np.diff(mine) > 0)  # each window row's partials in rig order
+    return pair_rig
+
+
+def test_pair_plan_covers_every_real_slot_in_rig_order():
+    p, _ = port_full_built()
+    data, info = _blocked(p)
+    n_rig, n_win = p.variables.pose_q.shape[0], p.variables.cam_intr.shape[0]
+    cplan = trcs.cal_plan_of(data, info)
+    arrays = {"_cal_" + f: getattr(cplan, f).numpy() for f in tseg.CalPlan._fields[4:]}
+    rig, win, pad = data["rig"].numpy(), cplan.win.numpy(), data["_pad"].numpy()
+    _check_pairs(rig, win, pad, arrays, n_rig, n_win)
+    # the same batch with a third of its slots moved to the other window row,
+    # and a random unsorted case: rigs that span two or more window rows
+    rng = np.random.default_rng(71)
+    win2 = win.copy()
+    win2[::3] = 1 - win2[::3]
+    pair_rig = _check_pairs(rig, win2, pad, tseg.pair_plan_arrays(rig, win2, pad, n_rig, n_win),
+                            n_rig, n_win)
+    assert np.any(np.bincount(pair_rig) > 1)
+    rig3 = np.sort(rng.integers(0, 9, size=300))
+    win3 = rng.integers(0, 4, size=300)
+    pad3 = (rng.random(300) < 0.2).astype(np.float64)
+    pair_rig = _check_pairs(rig3, win3, pad3, tseg.pair_plan_arrays(rig3, win3, pad3, 10, 5),
+                            10, 5)
+    assert np.any(np.bincount(pair_rig) > 1)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' data flow, as torch ops, vs the JAX entries
+# ---------------------------------------------------------------------------
+
+
+def _segment_sums(vals, ptr):
+    """(rows, D): the sum of each row's contiguous range of vals (n_real, D)."""
+    return torch.stack([vals[a:b].sum(0) for a, b in zip(ptr[:-1].tolist(), ptr[1:].tolist())])
+
+
+def _to_sorted(vals, plan):
+    """K9's down pass: vals (D, N) written slot-major at each real slot's
+    point-sorted position."""
+    real = plan.pt_obs.long()
+    out = vals.new_zeros((real.shape[0], vals.shape[0]))
+    out[plan.pt_pos.long()[real]] = vals[:, real].T
+    return out
+
+
+def _reduce_flow(contrib, rows):
+    """K13c on a scattered family: the slot-major copy, then each row's
+    slots gathered from it in list order and summed."""
+    slot_major = contrib.T.contiguous()
+    return _segment_sums(slot_major[rows.obs.long()], rows.ptr)
+
+
+@pytest.mark.parametrize("D", [3, 9])
+def test_landmark_row_reduce_flow_matches_jax(D):
+    pj = jax_two_grid_problem()
+    (vi,) = [i for i, c in enumerate(pj.cfgs) if getattr(c, "block_info", None)]
+    dj, info = pj.datas[vi], pj.cfgs[vi].block_info
+    L = pj.variables.points.shape[0]
+    pad = np.asarray(dj["_pad"])
+    c = np.random.default_rng(73).normal(size=(D, pad.shape[0])) * (1.0 - pad)[None]
+    want = jseg.seg_reduce_table(
+        jrcs.permute_cols(jnp.asarray(c), dj["_pt_perm"]) * dj["_pt_w"][None], dj["_pt_local"],
+        dj["_pt_base"], info.pnt, info.pts, info.prb, L)
+    data, _ = _blocked(port_two_grid_problem())
+    rows = tseg.point_rows(trcs.plan_of(data))
+    assert rows.scattered and np.abs(np.asarray(want)).max() > 0
+    assert rel(_reduce_flow(t(c), rows).numpy(), want) < TOL
+    assert rel(tseg.seg_reduce_table(t(c), rows).numpy(), want) < TOL  # the plain version
+
+
+def _pcg_cal_flow(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
+    """K9's four launches as torch ops."""
+    def wu_of():  # down and up: w (J_r x_r[rig] + J_c x_c[win]) per slot
+        u = (J_r * x_r[plan.rig.long()].T[None]).sum(1)
+        return (u + (J_c * x_c[cplan.win.long()].T[None]).sum(1)) * w[None]
+
+    p = _to_sorted((J_p * wu_of()[:, None]).sum(0), plan)  # J_p^T wu, point-sorted
+    t_l = _segment_sums(p, plan.pt_ptr)  # landmark sums
+    z = (hinv * t_l[:, None, :]).sum(-1)
+    du = wu_of() - (J_p * z[plan.point.long()].T[None]).sum(1) * w[None]
+    R, kc = x_r.shape[0], J_c.shape[1]
+    y_r = x_r.new_zeros(x_r.shape)
+    part = x_c.new_zeros((cplan.n_pairs, kc))
+    rp, ptr = cplan.rig_pair.tolist(), cplan.pair_ptr.tolist()
+    for r in range(R):
+        for q in range(rp[r], rp[r + 1]):
+            s = cplan.pair_obs[ptr[q]:ptr[q + 1]].long()
+            y_r[r] += (J_r[:, :, s] * du[:, None, s]).sum((0, 2))
+            part[cplan.pair_part[q]] = (J_c[:, :, s] * du[:, None, s]).sum((0, 2))
+    return y_r, _segment_sums(part, cplan.win_pair)
+
+
+@pytest.mark.parametrize("kc", [6, 17, 23])
+def test_pcg_cal_flow_matches_jax(kc):
+    pj, _ = jax_full()
+    (vi,) = [i for i, c in enumerate(pj.cfgs) if c.kind == "rs_visual"]
+    dj, info = pj.datas[vi], pj.cfgs[vi].block_info
+    v = pj.variables
+    R, L, n_c = v.pose_q.shape[0], v.points.shape[0], v.cam_intr.shape[0]
+    pad = np.asarray(dj["_pad"])
+    N = pad.shape[0]
+    cal_local = np.asarray(dj["_cb_local"]).copy()
+    assert n_c == 2 and not np.asarray(dj["_cb_base"]).any()
+    cal_local[::3] = 1 - cal_local[::3]  # rigs spanning both window rows
+    rng = np.random.default_rng(79)
+    A = rng.normal(size=(L, 3, 3))
+    a = dict(J_r=rng.normal(size=(2, 9, N)), J_c=rng.normal(size=(2, kc, N)),
+             J_p=rng.normal(size=(2, 3, N)), w=rng.random(N) * (1.0 - pad),
+             x_r=rng.normal(size=(R, 9)), x_c=rng.normal(size=(n_c, kc)),
+             hinv=A @ np.swapaxes(A, -1, -2) + np.eye(3))
+    J = {k: jnp.asarray(x) for k, x in a.items()}
+    want = jseg.seg_schur_pcg_cal(
+        J["J_r"], J["J_c"], J["J_p"], J["w"], dj["_rb_local"], jnp.asarray(cal_local),
+        dj["_rg_pt_local"], dj["_rg_hib"], J["x_r"], J["x_c"], J["hinv"], dj["_rb_base"],
+        dj["_cb_base"], L, info.nt, info.ts, info.rb, info.wb, info.prb2 // 128, info.nhg)
+    p, _ = _full_pair()
+    data, _ = _blocked(p)
+    plan = trcs.plan_of(data)
+    win = cal_local.astype(np.int64)
+    arrays = {**tseg.cal_plan_arrays(win, pad, n_c),
+              **tseg.pair_plan_arrays(np.asarray(dj["rig"]), win, pad, R, n_c)}
+    cplan = tseg.CalPlan(torch.from_numpy(win.astype(np.int32)),
+                         *(torch.from_numpy(arrays["_cal_" + f]) for f in tseg.CalPlan._fields[1:]))
+    assert np.any(np.diff(cplan.rig_pair.numpy()) > 1)
+    args = {k: t(x) for k, x in a.items()}
+    got = _pcg_cal_flow(*args.values(), plan, cplan)
+    plain = tseg.seg_schur_pcg_cal(*args.values(), plan, cplan)
+    for g, pl, wj in zip(got, plain, want):
+        assert np.abs(np.asarray(wj)).max() > 0
+        assert rel(g.numpy(), wj) < TOL
+        assert rel(pl.numpy(), wj) < TOL
+
+
+def test_per_call_counts_missed_launches():
+    """Two sessions of 20 calls: kernel a recorded 19 and 20 times (one
+    launch a call), b twice a call, c once in all; the second session lost
+    every launch of d."""
+    from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
+
+    got = pm.per_call([[("a", 19, 1900.0), ("b", 40, 800.0), ("c", 1, 5.0), ("d", 20, 400.0)],
+                       [("a", 20, 2100.0), ("b", 40, 800.0)]], 20)
+    assert got == {"a": (1, 4000.0 / 39 / 1e3), "b": (2, 0.04), "c": (0.05, 0.005 * 0.05),
+                   "d": (1, 0.02)}
+
+
+def test_device_kernels_leave_out_the_operators_rows():
+    """A PyTorch operator's profiler row carries the device time of the
+    kernel it launched, which the kernel's own row counts: only the
+    device-side rows are summed (on an H100, aten::index 12.80 ms beside
+    its index_elementwise_kernel 12.74 ms doubled the attempt's device time
+    of that work)."""
+    from types import SimpleNamespace as Row
+
+    from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    rows = [Row(key="aten::index", device_type=cpu, count=684, self_device_time_total=12800.0),
+            Row(key="index_elementwise_kernel", device_type=cuda, count=669,
+                self_device_time_total=12740.0),
+            Row(key="aten::empty", device_type=cpu, count=9, self_device_time_total=0.0),
+            Row(key="Memset (Device)", device_type=cuda, count=2, self_device_time_total=3.0)]
+    assert pm.device_kernels(rows) == [("index_elementwise_kernel", 669, 12740.0),
+                                       ("Memset (Device)", 2, 3.0)]
+    with pytest.raises(RuntimeError):
+        pm.per_call([[], []], 20)

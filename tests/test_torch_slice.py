@@ -62,8 +62,9 @@ def test_interop_round_trip():
                 np.testing.assert_array_equal(a.numpy(), dd[k])
             else:  # the port's plans
                 assert k.startswith("_gp_") or k in (
-                    "_rig_ptr", "_rig_obs", "_pt_ptr", "_pt_obs", "_cal_chunk_ptr",
-                    "_cal_chunk_obs", "_cal_row_chunk")
+                    "_rig_ptr", "_rig_obs", "_pt_ptr", "_pt_obs", "_pt_pos", "_cal_chunk_ptr",
+                    "_cal_chunk_obs", "_cal_row_chunk", "_cal_rig_pair", "_cal_pair_ptr",
+                    "_cal_pair_obs", "_cal_pair_part", "_cal_win_pair")
         if cd["block_info"] is not None:
             for f in ("rb", "nt", "ts", "prb", "pnt", "pts", "prb2", "nhg"):
                 assert getattr(c.block_info, f) == cd["block_info"][f]

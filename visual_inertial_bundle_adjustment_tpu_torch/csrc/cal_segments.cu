@@ -8,8 +8,8 @@
 // Pallas kernels _assemble_cal_kernel (JAX ops/segments.py:1674, entry
 // seg_assemble_cal :1741), _schur_down_cal_kernel (:1005) and
 // _schur_up_cal_kernel (:1146) (K10), and _down_light_cal_kernel (:1468) +
-// _up_du_cal_kernel (:1519) (K9, the PCG matvec: down -> 3x3 landmark solve
-// in torch -> up with the staged wu, as K4 composes it).
+// _up_du_cal_kernel (:1519) (K9, the PCG matvec, entry viba_schur_pcg_cal
+// below).
 //
 // Rig rows (~300 observations) and landmark rows (~30) keep K2-K6's
 // group-per-row scheme (tile_reduce.cuh). Window rows are few and long (120
@@ -24,6 +24,24 @@
 // chunk order. Deterministic, no atomics. Bound: bytes — J_r, J_c, J_p read
 // once per pass (2 x (K + 3 + kc) floats per observation), the window pass
 // re-reads J_c.
+//
+// K9, y = H x - W H_ll^-1 W^T x over rig and window columns, is one entry of
+// four launches built around each slot's point-sorted position (pt_pos):
+//   down     one thread per slot: wu = w (J_r x_r[rig] + J_c x_c[win]) and
+//            p = J_p^T wu, stored at p[pt_pos[s]] (16 B, slot-major); wu is
+//            not stored. Coalesced: every slot array is read in slot order.
+//   points   a 16-thread group per landmark: t = the sum of p over the
+//            landmark's contiguous range, z = H_ll^-1[l] t in registers.
+//   up       a warp per rig row, over the rig's (rig, window row) pairs
+//            (ops/segments.py pair_plan_arrays): wu recomputed from J_r, J_c
+//            and x (this pass reads them anyway), du = wu - w J_p z[point],
+//            y_r = sum J_r^T du, and one partial row of sum J_c^T du per pair.
+//   window   each window row's pair partials summed in rig order.
+// The landmark solve is a global barrier between the passes, so J_r, J_c
+// and J_p are read twice (coalesced): ~600 B per slot at k 9, kc 23, no
+// staged wu and no window chunk lists. K10's passes below stay separate
+// (down_cal_rig stages wu, schur_down_points gathers it through the landmark
+// lists, the window rows reduce through chunks).
 #include <utility>
 
 #include "tile_reduce.cuh"
@@ -254,6 +272,175 @@ __global__ void __launch_bounds__(viba::kBlock) up_cal_rig(
       });
 }
 
+// K9 down: p[pt_pos[s]] = J_p^T w (J_r x_r[rig] + J_c x_c[win]) per real slot
+template <int K, int KC>
+__global__ void __launch_bounds__(256) pcg_cal_down(
+    int n, const int* __restrict__ rig, const int* __restrict__ win,
+    const int* __restrict__ pt_pos, const float* __restrict__ J_r, const float* __restrict__ J_c,
+    const float* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ x_r,
+    const float* __restrict__ x_c, float4* __restrict__ p) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  const int pos = pt_pos[s];
+  if (pos < 0) return;
+  const float* xr = x_r + K * (long)rig[s];
+  const float* xc = x_c + KC * (long)win[s];
+  float u0 = 0.f, u1 = 0.f, v0 = 0.f, v1 = 0.f;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const float xv = xr[c];
+    u0 += J_r[c * (long)n + s] * xv;
+    u1 += J_r[(K + c) * (long)n + s] * xv;
+  }
+  // eight columns of J_c in flight: fully unrolled at kc 23, ptxas kept 32
+  // registers and spilled
+#pragma unroll 8
+  for (int c = 0; c < KC; ++c) {
+    const float xv = xc[c];
+    v0 += J_c[c * (long)n + s] * xv;
+    v1 += J_c[(KC + c) * (long)n + s] * xv;
+  }
+  const float ws = w[s];
+  const float wu0 = (u0 + v0) * ws, wu1 = (u1 + v1) * ws;
+  float q[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    q[c] = J_p[c * (long)n + s] * wu0 + J_p[(3 + c) * (long)n + s] * wu1;
+  p[pos] = make_float4(q[0], q[1], q[2], 0.f);
+}
+
+// K9 points: z[l] = H_ll^-1[l] (sum of p over the landmark's range)
+__global__ void __launch_bounds__(viba::kBlock) pcg_cal_points(
+    int L, const int* __restrict__ pt_ptr, const float4* __restrict__ p,
+    const float* __restrict__ hinv, float* __restrict__ z) {
+  constexpr int G = viba::kPointGroup;
+  const int l = blockIdx.x * (viba::kBlock / G) + threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+  const bool live = l < L;
+  const int beg = live ? pt_ptr[l] : 0, end = live ? pt_ptr[l + 1] : 0;
+  float t[3] = {0.f, 0.f, 0.f};
+  for (int j = beg + lane; j < end; j += G) {
+    const float4 q = p[j];
+    t[0] += q.x;
+    t[1] += q.y;
+    t[2] += q.z;
+  }
+  viba::group_sum<G, 3>(t, nullptr);
+  if (live && lane == 0) {
+    const float* h = hinv + 9 * (long)l;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      z[3 * (long)l + i] = h[3 * i] * t[0] + h[3 * i + 1] * t[1] + h[3 * i + 2] * t[2];
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void warp_sum(float (&acc)[D]) {
+  viba::group_sum<32, D>(acc, nullptr);
+}
+
+// K9 up: per rig row, du = w (J_r x_r + J_c x_c[win]) - w J_p z[point] per slot,
+// y_r = sum J_r^T du, and per (rig, window row) pair one partial sum J_c^T du
+template <int K, int KC>
+__global__ void __launch_bounds__(viba::kBlock) pcg_cal_up(
+    int R, int n, const int* __restrict__ rig_pair, const int* __restrict__ pair_ptr,
+    const int* __restrict__ pair_obs, const int* __restrict__ pair_part,
+    const int* __restrict__ win, const int* __restrict__ point, const float* __restrict__ J_r,
+    const float* __restrict__ J_c, const float* __restrict__ J_p, const float* __restrict__ w,
+    const float* __restrict__ x_r, const float* __restrict__ x_c, const float* __restrict__ z,
+    float* __restrict__ part, float* __restrict__ y_r) {
+  const int r = blockIdx.x * (viba::kBlock / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= R) return;  // the whole warp
+  float xr[K], acc_r[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    xr[c] = x_r[K * (long)r + c];
+    acc_r[c] = 0.f;
+  }
+  for (int q = rig_pair[r]; q < rig_pair[r + 1]; ++q) {
+    const int beg = pair_ptr[q], end = pair_ptr[q + 1];
+    const float* xcp = x_c + KC * (long)win[pair_obs[beg]];
+    float xc[KC], acc_c[KC];
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      xc[c] = xcp[c];
+      acc_c[c] = 0.f;
+    }
+    for (int j = beg + lane; j < end; j += 32) {
+      const int s = pair_obs[j];
+      float jr0[K], jr1[K], jc0[KC], jc1[KC];
+      float u0 = 0.f, u1 = 0.f, v0 = 0.f, v1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        jr0[c] = J_r[c * (long)n + s];
+        jr1[c] = J_r[(K + c) * (long)n + s];
+        u0 += jr0[c] * xr[c];
+        u1 += jr1[c] * xr[c];
+      }
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        jc0[c] = J_c[c * (long)n + s];
+        jc1[c] = J_c[(KC + c) * (long)n + s];
+        v0 += jc0[c] * xc[c];
+        v1 += jc1[c] * xc[c];
+      }
+      const float ws = w[s];
+      const float* zp = z + 3 * (long)point[s];
+      const float z0 = zp[0], z1 = zp[1], z2 = zp[2];
+      const float a0 = J_p[s] * z0 + J_p[(long)n + s] * z1 + J_p[2 * (long)n + s] * z2;
+      const float a1 =
+          J_p[3 * (long)n + s] * z0 + J_p[4 * (long)n + s] * z1 + J_p[5 * (long)n + s] * z2;
+      const float d0 = (u0 + v0) * ws - a0 * ws;
+      const float d1 = (u1 + v1) * ws - a1 * ws;
+#pragma unroll
+      for (int c = 0; c < K; ++c) acc_r[c] += jr0[c] * d0 + jr1[c] * d1;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) acc_c[c] += jc0[c] * d0 + jc1[c] * d1;
+    }
+    warp_sum<KC>(acc_c);
+    float* dst = part + KC * (long)pair_part[q];
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      if (lane == c) dst[c] = acc_c[c];
+    }
+  }
+  warp_sum<K>(acc_r);
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    if (lane == c) y_r[K * (long)r + c] = acc_r[c];
+  }
+}
+
+template <int K, int KC>
+cudaError_t pcg_cal(int R, int L, int n, int n_real, int n_c, const int* rig, const int* win,
+                    const int* point, const int* pt_pos, const int* pt_ptr, const int* rig_pair,
+                    const int* pair_ptr, const int* pair_obs, const int* pair_part,
+                    const int* win_pair, const float* J_r, const float* J_c, const float* J_p,
+                    const float* w, const float* x_r, const float* x_c, const float* hinv,
+                    float4* p, float* z, float* part, float* y_r, float* y_c, cudaStream_t st) {
+  if (n_real > 0) {
+    pcg_cal_down<K, KC><<<(n + 255) / 256, 256, 0, st>>>(n, rig, win, pt_pos, J_r, J_c, J_p, w,
+                                                         x_r, x_c, p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (L > 0) {
+    pcg_cal_points<<<viba::segment_blocks<viba::kPointGroup>(L), viba::kBlock, 0, st>>>(
+        L, pt_ptr, p, hinv, z);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (R > 0) {
+    pcg_cal_up<K, KC><<<viba::segment_blocks<32>(R), viba::kBlock, 0, st>>>(
+        R, n, rig_pair, pair_ptr, pair_obs, pair_part, win, point, J_r, J_c, J_p, w, x_r, x_c, z,
+        part, y_r);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return viba::launch_sum_partials(n_c, KC, win_pair, part, y_c, st);
+}
+
 template <class C>
 int assemble_cal(int n_c, int n_chunks, int n, const int* chunk_ptr, const int* chunk_obs,
                  const int* row_chunk, const float* J_c, const float* w, const float* res,
@@ -362,4 +549,24 @@ extern "C" int viba_schur_up_cal(int R, int n, int k, int kc, int n_c, int n_chu
                                    part, y_c, st))
   return VIBA_DISPATCH_KC(kc, VIBA_UP(6), VIBA_UP(17), VIBA_UP(23));
 #undef VIBA_UP
+}
+
+extern "C" int viba_schur_pcg_cal(int R, int L, int n, int n_real, int k, int kc, int n_c,
+                                  const int* rig, const int* win, const int* point,
+                                  const int* pt_pos, const int* pt_ptr, const int* rig_pair,
+                                  const int* pair_ptr, const int* pair_obs, const int* pair_part,
+                                  const int* win_pair, const float* J_r, const float* J_c,
+                                  const float* J_p, const float* w, const float* x_r,
+                                  const float* x_c, const float* hinv, float* p, float* z,
+                                  float* part, float* y_r, float* y_c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float4* p4 = reinterpret_cast<float4*>(p);
+#define VIBA_PCG(K, KC)                                                                        \
+  static_cast<int>(pcg_cal<K, KC>(R, L, n, n_real, n_c, rig, win, point, pt_pos, pt_ptr,       \
+                                  rig_pair, pair_ptr, pair_obs, pair_part, win_pair, J_r, J_c, \
+                                  J_p, w, x_r, x_c, hinv, p4, z, part, y_r, y_c, st))
+  if (k == 6) return VIBA_DISPATCH_KC(kc, VIBA_PCG(6, 6), VIBA_PCG(6, 17), VIBA_PCG(6, 23));
+  if (k == 9) return VIBA_DISPATCH_KC(kc, VIBA_PCG(9, 6), VIBA_PCG(9, 17), VIBA_PCG(9, 23));
+  return static_cast<int>(cudaErrorInvalidValue);
+#undef VIBA_PCG
 }

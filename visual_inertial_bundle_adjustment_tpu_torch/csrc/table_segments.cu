@@ -29,6 +29,24 @@
 // in column tiles of DT. Bound: bytes — mv_fused and mv_scatter read J (8K B)
 // and a 2-row payload per slot, mv_gather the same plus a gathered table row,
 // reduce 4D B per slot.
+//
+// reduce on a scattered family (the landmark rows: a landmark's slots lie
+// far apart in the rig-ordered arrays). The walk reads contrib (D, N) at D
+// scattered addresses per slot: D 32-byte sectors for 4D useful bytes, so it
+// runs at the L2's sector rate (~0.23 ms at D 9 on a 3.1M-slot batch, as
+// long as index_add_). This route runs in two launches instead:
+//   to_slot_major  128 slots a block: their D values read as whole rows of
+//                  contrib (coalesced), staged in shared memory, written
+//                  slot-major as 128 x D contiguous floats (coalesced);
+//   reduce_gather  one warp per row: each lane sums a fixed stride of the
+//                  row's slots, a slot's D values one or two sectors of the
+//                  slot-major copy, a fixed butterfly at the end; a row
+//                  without slots is written as 0.
+// About 8D bytes per slot streamed plus one or two gathered sectors, against
+// the walk's D sectors. (Writing each slot's values at its point-sorted
+// position instead, so that the sum reads one contiguous range, measured
+// 2.5x slower than the walk on the H100: scattered partial-sector stores.)
+// Families that are not scattered (rig rows, chunked rows) keep the walk.
 #include "tile_reduce.cuh"
 
 namespace {
@@ -130,6 +148,74 @@ __global__ void __launch_bounds__(kBlock) reduce_cols(
       });
 }
 
+// the D values of each of the block's 128 slots, read as whole rows of
+// contrib, staged in shared memory and written slot-major: 128 x D
+// contiguous floats
+__global__ void __launch_bounds__(kBlock) to_slot_major(int n, int D,
+                                                        const float* __restrict__ contrib,
+                                                        float* __restrict__ sm) {
+  extern __shared__ float tile[];  // kBlock x D
+  const long s0 = (long)blockIdx.x * kBlock;
+  const int cnt = static_cast<int>(n - s0 < kBlock ? n - s0 : kBlock);
+  if (threadIdx.x < cnt) {
+    for (int c = 0; c < D; ++c)
+      tile[threadIdx.x * D + c] = contrib[c * (long)n + s0 + threadIdx.x];
+  }
+  __syncthreads();
+  float* dst = sm + s0 * D;
+  for (int e = threadIdx.x; e < cnt * D; e += kBlock) dst[e] = tile[e];
+}
+
+// one warp per row: the sum of the slot-major rows of the row's slots,
+// columns [blockIdx.y * DT, blockIdx.y * DT + DT)
+template <int DT>
+__global__ void __launch_bounds__(kBlock) reduce_gather(int n_rows, int D,
+                                                        const int* __restrict__ ptr,
+                                                        const int* __restrict__ obs,
+                                                        const float* __restrict__ sm,
+                                                        float* __restrict__ out) {
+  const int r = blockIdx.x * (kBlock / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int col0 = blockIdx.y * DT;
+  const bool live = r < n_rows;
+  const int beg = live ? ptr[r] : 0, end = live ? ptr[r + 1] : 0;
+  float acc[DT];
+#pragma unroll
+  for (int i = 0; i < DT; ++i) acc[i] = 0.f;
+  for (int j = beg + lane; j < end; j += 32) {
+    const float* src = sm + (long)D * obs[j] + col0;
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      if (col0 + i < D) acc[i] += src[i];
+    }
+  }
+  viba::group_sum<32, DT>(acc, nullptr);
+  if (live && lane == 0) {
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      if (col0 + i < D) out[D * (long)r + col0 + i] = acc[i];
+    }
+  }
+}
+
+template <int DT>
+cudaError_t launch_slot_major(int n_rows, int n, int D, const int* ptr, const int* obs,
+                              const float* contrib, float* sm, float* y, cudaStream_t st) {
+  if (n > 0) {
+    to_slot_major<<<(n + kBlock - 1) / kBlock, kBlock, kBlock * D * sizeof(float), st>>>(
+        n, D, contrib, sm);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(viba::segment_blocks<32>(n_rows), (D + DT - 1) / DT);
+  reduce_gather<DT><<<grid, kBlock, 0, st>>>(n_rows, D, ptr, obs, sm, y);
+  return cudaGetLastError();
+}
+
+// column tile: 3 for landmark gradients, 9 for the 3x3, 6x6 and 9x9 block
+// widths (9, 36, 81) and 9-column rows, 8 otherwise
+inline int column_tile(int D) { return D == 3 ? 3 : D % 9 == 0 ? 9 : 8; }
+
 // a chunked family reduces into `part` and is finished by sum_partials
 inline float* first_pass_out(const int* row_chunk, float* part, float* out) {
   return row_chunk != nullptr ? part : out;
@@ -226,9 +312,7 @@ extern "C" int viba_seg_reduce(int n_seg, int n_rows, int n, int D, int G, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_seg <= 0 || D <= 0) return 0;
   float* dst = first_pass_out(row_chunk, part, y);
-  // column tile: 3 for landmark gradients, 9 for the 3x3, 6x6 and 9x9 block
-  // widths (9, 36, 81) and 9-column rows, 8 otherwise
-  const int DT = D == 3 ? 3 : D % 9 == 0 ? 9 : 8;
+  const int DT = column_tile(D);
   cudaError_t err = cudaErrorInvalidValue;
   if (G == 128) {
     err = DT == 3   ? launch_reduce<128, 3>(n_seg, n, D, ptr, obs, contrib, dst, st)
@@ -240,4 +324,17 @@ extern "C" int viba_seg_reduce(int n_seg, int n_rows, int n, int D, int G, const
                     : launch_reduce<16, 8>(n_seg, n, D, ptr, obs, contrib, dst, st);
   }
   return finish(err, n_rows, D, row_chunk, part, y, st);
+}
+
+extern "C" int viba_seg_reduce_slot_major(int n_rows, int n, int D, const int* ptr,
+                                          const int* obs, const float* contrib, float* sm,
+                                          float* y, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_rows <= 0 || D <= 0) return 0;
+  const int DT = column_tile(D);
+  const cudaError_t err =
+      DT == 3   ? launch_slot_major<3>(n_rows, n, D, ptr, obs, contrib, sm, y, st)
+      : DT == 9 ? launch_slot_major<9>(n_rows, n, D, ptr, obs, contrib, sm, y, st)
+                : launch_slot_major<8>(n_rows, n, D, ptr, obs, contrib, sm, y, st);
+  return static_cast<int>(err);
 }

@@ -6,8 +6,9 @@ variables, masks and datas, `dataclasses.asdict` on every cfg, a dict of
 fields for the RS tables) and rebuild it here. Nothing of JAX is imported; a
 blocked batch keeps its slot order, calibration-window plan and point-sorted
 second grid, and gets the port's reduction plans: the rig and landmark
-lists, the chunked window rows and, for the general (two-grid) path, the
-chunked camera and detector-bias rows.
+lists with each slot's point-sorted position, the chunked window rows and
+(rig, window row) pairs and, for the general (two-grid) path, the chunked
+camera and detector-bias rows.
 """
 
 from __future__ import annotations
@@ -74,6 +75,8 @@ def problem_from_numpy(variables: dict, masks: dict, cfgs: list, datas: list, de
                 win = (np.repeat(np.asarray(data["_cb_base"]), info.ts)
                        + np.asarray(data["_cb_local"]))
                 plan.update(seg.cal_plan_arrays(win, pad, v.cam_intr.shape[0]))
+                plan.update(seg.pair_plan_arrays(np.asarray(data["rig"]), win, pad,
+                                                 v.pose_q.shape[0], v.cam_intr.shape[0]))
             plan.update(rcs.group_plan_arrays(data, pad, v, has_cal))
             d.update({k: torch.from_numpy(a).to(device) for k, a in plan.items()})
         problem.add_batch(cfg, d)

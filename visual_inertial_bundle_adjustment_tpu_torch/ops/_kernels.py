@@ -57,11 +57,13 @@ _SIGNATURES = {
     "viba_assemble_cal": [_I] * 7 + [_P] * 18 + [_P],
     "viba_schur_down_cal": [_I] * 8 + [_P] * 19 + [_P],
     "viba_schur_up_cal": [_I] * 6 + [_P] * 16 + [_P],
+    "viba_schur_pcg_cal": [_I] * 7 + [_P] * 22 + [_P],
     "viba_visual_cal_linearize": [_I] * 2 + [_P] * 25 + [_P],
     "viba_seg_mv_fused": [_I] * 5 + [_P] * 10 + [_P],
     "viba_seg_mv_scatter": [_I] * 5 + [_P] * 7 + [_P],
     "viba_seg_mv_gather": [_I] * 2 + [_P] * 4 + [_P],
     "viba_seg_reduce": [_I] * 5 + [_P] * 6 + [_P],
+    "viba_seg_reduce_slot_major": [_I] * 3 + [_P] * 5 + [_P],
     "viba_tile_reduce": [_I] * 4 + [_P] * 5 + [_P],
     "viba_tile_gather": [_I] * 4 + [_P] * 3 + [_P],
     "viba_tile_mv_fused": [_I] * 4 + [_P] * 8 + [_P],

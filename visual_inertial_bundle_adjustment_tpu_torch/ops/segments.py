@@ -18,7 +18,7 @@ landmark rows and, for calibration-coupled batches, calibration-window rows:
                       self-blocks of each calibration split (K8)
   seg_schur_down_cal  K6 with u = J_r x_r[rig] + J_c x_c[win]: y_r, y_c, t (K10)
   seg_schur_up_cal    K5 into rig and window rows (K10)
-  seg_schur_pcg_cal   K4 over rig and window columns (K9)
+  seg_schur_pcg_cal   K4's function over rig and window columns (K9)
   seg_mv_fused_table    wu = w (J x[row]), y[row] = sum J^T wu, J read once (K12)
   seg_mv_scatter_table  y[row] = sum J^T u (K13a)
   seg_mv_gather_table   u = J x[row] (K13b)
@@ -68,6 +68,17 @@ into chunks of CHUNK slots: one group per chunk writes a partial row, and a
 second pass sums each row's partials in chunk order. What bounds them:
 bytes of J read per pass — 2 x (rig_k + 3 (+ 23)) floats per observation.
 
+Walking a landmark's list reads the rig-ordered arrays at scattered slots,
+one 32-byte sector per float. K9 therefore goes through each slot's
+point-sorted position (SegPlan.pt_pos, built with the lists): its down pass,
+in slot order and coalesced, writes each slot's 3 landmark-side values there,
+and each landmark sums one contiguous range. K9 is one entry of four
+launches (down to those positions, landmark sums with the 3x3 solve, up per
+rig row with one window partial per (rig, window row) pair, the window
+rows' sums). K13c on a scattered family (RowPlan.scattered: the landmark
+rows) copies contrib slot-major, coalesced, and gathers each slot's D
+values as one or two sectors of that copy.
+
 The plain PyTorch versions below compute the same functions with
 `index_add_` over the global rig/point/window index (or tile row) of each
 slot; CPU tensors take them. Nothing that a CUDA tensor reaches sums with
@@ -99,6 +110,10 @@ class SegPlan(NamedTuple):
     rig_obs: torch.Tensor  # (n_real,) int32 real slots, rig-sorted
     pt_ptr: torch.Tensor  # (L+1,) int32 CSR offsets into pt_obs
     pt_obs: torch.Tensor  # (n_real,) int32 real slots, point-sorted
+    # (N,) int32 point-sorted position of each slot: pt_pos[pt_obs[j]] = j,
+    # -1 on the pads (K9 writes slot values there, so each landmark's are one
+    # contiguous run)
+    pt_pos: torch.Tensor
 
     @property
     def n_rows(self):
@@ -111,12 +126,19 @@ class SegPlan(NamedTuple):
 
 class CalPlan(NamedTuple):
     """Window-row reduction plan of a calibration-coupled batch: each row's
-    real slots (slot order) cut into chunks of at most CHUNK slots."""
+    real slots (slot order) cut into chunks of at most CHUNK slots (K8,
+    K10); and the (rig, window row) pairs of K9's up pass, in rig order,
+    each pair's J_c^T du summed into one partial row (pair_plan_arrays)."""
 
     win: torch.Tensor  # (N,) int32 global window row of each slot (pads: tile base)
     chunk_ptr: torch.Tensor  # (n_chunks+1,) int32 CSR offsets into chunk_obs
     chunk_obs: torch.Tensor  # (n_real,) int32 real slots, window-sorted
     row_chunk: torch.Tensor  # (n_c+1,) int32 offsets of each row's chunks
+    rig_pair: torch.Tensor  # (R+1,) int32 offsets of each rig's pairs
+    pair_ptr: torch.Tensor  # (n_pairs+1,) int32 CSR offsets into pair_obs
+    pair_obs: torch.Tensor  # (n_real,) int32 real slots by (rig, window row)
+    pair_part: torch.Tensor  # (n_pairs,) int32 partial row of each pair
+    win_pair: torch.Tensor  # (n_c+1,) int32 offsets of each row's partials
 
     @property
     def n_rows(self):
@@ -126,18 +148,25 @@ class CalPlan(NamedTuple):
     def n_chunks(self):
         return self.chunk_ptr.shape[0] - 1
 
+    @property
+    def n_pairs(self):
+        return self.pair_ptr.shape[0] - 1
+
 
 class RowPlan(NamedTuple):
     """One index family of a blocked batch for the table kernels (K12, K13):
     the row of every slot and the CSR list of each segment's real slots. A
     segment is a whole row, or, for a family of few long rows (row_chunk
     given), a chunk of at most CHUNK slots whose partial sums a second pass
-    adds in chunk order."""
+    adds in chunk order. A scattered family (the landmark rows, whose slots
+    lie far apart in the rig-ordered arrays) is reduced by K13c through a
+    slot-major copy."""
 
     row: torch.Tensor  # (N,) int32 row of each slot (pads: any valid row)
     ptr: torch.Tensor  # (n_seg+1,) int32 CSR offsets into obs
     obs: torch.Tensor  # (n_real,) int32 real slots, row-sorted
     row_chunk: torch.Tensor | None = None  # (n_rows+1,) int32 chunk offsets per row
+    scattered: bool = False  # lists that reach slots far apart (K13c gathers)
 
     @property
     def n_seg(self):
@@ -155,7 +184,7 @@ def rig_rows(plan: SegPlan) -> RowPlan:
 
 def point_rows(plan: SegPlan) -> RowPlan:
     """The landmark family of a batch, over the rig-ordered arrays."""
-    return RowPlan(plan.point, plan.pt_ptr, plan.pt_obs)
+    return RowPlan(plan.point, plan.pt_ptr, plan.pt_obs, scattered=True)
 
 
 def chunked_rows(row, arrays, prefix="_cal_") -> RowPlan:
@@ -182,6 +211,30 @@ def cal_plan_arrays(win, pad, n_rows, chunk=CHUNK):
     i32 = np.int32
     return {"_cal_chunk_ptr": chunk_ptr.astype(i32), "_cal_chunk_obs": obs.astype(i32),
             "_cal_row_chunk": row_chunk.astype(i32)}
+
+
+def pair_plan_arrays(rig, win, pad, n_rig, n_win):
+    """Host numpy arrays (keys `_cal_*`) of K9's (rig, window row) pairs for
+    rig rows `rig` and window rows `win` (N,) of a blocked batch with pad
+    flags `pad`: the real slots sorted by (rig, window row), slot order
+    inside a pair; each rig's pairs; and where each pair's partial row goes,
+    so that a window row's partials lie together, in rig order."""
+    real = np.nonzero(pad < 0.5)[0]
+    r, w = rig[real].astype(np.int64), win[real].astype(np.int64)
+    order = np.lexsort((w, r))  # by rig, then window row; stable
+    obs, key = real[order], r[order] * n_win + w[order]
+    first = np.flatnonzero(np.r_[True, key[1:] != key[:-1]]) if len(key) else np.zeros(0, int)
+    pr, pw = key[first] // n_win, key[first] % n_win
+    rig_pair = np.zeros(n_rig + 1, np.int64)
+    np.cumsum(np.bincount(pr, minlength=n_rig), out=rig_pair[1:])
+    win_pair = np.zeros(n_win + 1, np.int64)
+    np.cumsum(np.bincount(pw, minlength=n_win), out=win_pair[1:])
+    part = np.empty(len(first), np.int64)
+    part[np.argsort(pw, kind="stable")] = np.arange(len(first))
+    i32 = np.int32
+    return {"_cal_rig_pair": rig_pair.astype(i32),
+            "_cal_pair_ptr": np.r_[first, len(obs)].astype(i32), "_cal_pair_obs": obs.astype(i32),
+            "_cal_pair_part": part.astype(i32), "_cal_win_pair": win_pair.astype(i32)}
 
 
 def _rows_sum(contrib, idx, n_rows):
@@ -561,17 +614,49 @@ def seg_schur_up_cal(J_r, J_c, J_p, w, z, plan: SegPlan, cplan: CalPlan, wu=None
     return out
 
 
+def _launch_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
+    """K9 in four launches (csrc/cal_segments.cu viba_schur_pcg_cal): p =
+    J_p^T w u at each slot's point-sorted position, z = H_ll^-1 (landmark
+    sums of p), then per rig row y_r and one J_c^T du partial per (rig,
+    window row) pair, then the window rows' sums of their pair partials."""
+    n, k, _ = _jac_args(J_r, J_p, w)
+    R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
+    kc = J_c.shape[1]
+    n_real = plan.pt_obs.shape[0]
+    ck = _kernels.check
+    p = _empty((n_real, 4), w)  # float4 per slot, point-sorted
+    z = _empty((L, 3), w)
+    part = _empty((max(cplan.n_pairs, 1), kc), w)
+    y_r, y_c = _empty((R, k), w), _empty((n_c, kc), w)
+    _kernels.launch("viba_schur_pcg_cal", R, L, n, n_real, k, kc, n_c,
+                    ck(plan.rig, "rig", torch.int32, (n,)), ck(cplan.win, "win", torch.int32, (n,)),
+                    ck(plan.point, "point", torch.int32, (n,)),
+                    ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
+                    ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
+                    ck(cplan.rig_pair, "rig_pair", torch.int32, (R + 1,)),
+                    ck(cplan.pair_ptr, "pair_ptr", torch.int32),
+                    ck(cplan.pair_obs, "pair_obs", torch.int32, (n_real,)),
+                    ck(cplan.pair_part, "pair_part", torch.int32, (cplan.n_pairs,)),
+                    ck(cplan.win_pair, "win_pair", torch.int32, (n_c + 1,)),
+                    ck(J_r, "J_r", torch.float32, (2, k, n)), _jc_arg(J_c, n),
+                    ck(J_p, "J_p", torch.float32, (2, 3, n)), ck(w, "w", torch.float32, (n,)),
+                    ck(x_r, "x_r", torch.float32, (R, k)), ck(x_c, "x_c", torch.float32, (n_c, kc)),
+                    ck(hinv, "hinv", torch.float32, (L, 3, 3)), p.data_ptr(), z.data_ptr(),
+                    part.data_ptr(), y_r.data_ptr(), y_c.data_ptr())
+    return y_r, y_c
+
+
 @_kernels.register("schur_pcg_cal")
 def seg_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cplan: CalPlan):
     """K9, the PCG Schur matvec (y_r, y_c) = H_batch x - W H_ll^-1 W^T x of
-    one calibration-coupled batch: down (t, staged wu) -> z = H_ll^-1 t -> up."""
+    one calibration-coupled batch. Plain version: K10's down (t, staged wu)
+    -> z = H_ll^-1 t -> K10's up; on the card one entry of four launches
+    around the plan's point-sorted positions and (rig, window row) pairs."""
     if not _kernels.on_card(w):
         _, _, t, wu = _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, False)
         return _schur_up_cal_plain(J_r, J_c, J_p, w, (hinv * t[:, None, :]).sum(-1), plan,
                                    cplan, wu)
-    _, _, t, wu = _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, False)
-    out = _launch_schur_up_cal(J_r, J_c, J_p, w, (hinv * t[:, None, :]).sum(-1), plan, cplan,
-                               wu)
+    out = _launch_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
     seg_schur_pcg_cal.launches += 1
     return out
 
@@ -678,12 +763,41 @@ def _reduce_plain(contrib, rows):
     return _rows_sum(contrib, rows.row, rows.n_rows)
 
 
+SLOT_MAJOR_MAX_D = 96  # K13c's slot-major copy stages 128 x D floats: at most 48 KB
+
+
+def _launch_reduce_slot_major(contrib, rows: RowPlan):
+    """K13c on a scattered family: contrib copied slot-major, then one warp
+    per row gathering its slots' rows (csrc/table_segments.cu
+    viba_seg_reduce_slot_major)."""
+    D, n = contrib.shape
+    if D > SLOT_MAJOR_MAX_D:
+        raise ValueError(f"K13c on a scattered family takes at most {SLOT_MAJOR_MAX_D} "
+                         f"columns, got {D}")
+    ck = _kernels.check
+    ck(rows.row, "row", torch.int32, (n,))
+    slot_major = _empty((n, D), contrib)
+    y = _empty((rows.n_rows, D), contrib)
+    _kernels.launch("viba_seg_reduce_slot_major", rows.n_rows, n, D,
+                    ck(rows.ptr, "ptr", torch.int32, (rows.n_rows + 1,)),
+                    ck(rows.obs, "obs", torch.int32),
+                    ck(contrib, "contrib", torch.float32, (D, n)), slot_major.data_ptr(),
+                    y.data_ptr())
+    return y
+
+
 @_kernels.register("reduce_table")
 def seg_reduce_table(contrib, rows: RowPlan):
     """K13c: segment-sum contrib (D, N) into (n_rows, D). Slots outside the
-    family's lists (the padded ones) must carry zeros."""
+    family's lists (the padded ones) must carry zeros. A scattered family
+    (the landmark rows) reduces through a slot-major copy; the others walk
+    their lists."""
     if not _kernels.on_card(contrib):
         return _reduce_plain(contrib, rows)
+    if rows.scattered:
+        y = _launch_reduce_slot_major(contrib, rows)
+        seg_reduce_table.launches += 1
+        return y
     D, n = contrib.shape
     n_seg, n_rows, G, ptr, obs, row_chunk = _rows_args(rows, n)
     part, y = _rows_out(rows, D, contrib)

@@ -28,8 +28,8 @@ them (`_rig_only_fast` / `_cal_fast` / else):
 The JAX package reaches the landmark side of the general route through a
 second, point-sorted copy of the batch and permutations; here it is a CSR
 list over the rig-ordered arrays (finalize_blocks builds the point-sorted
-grid too, `_pt_*`, which only the K14 tile kernels read: see
-profile_matvec.py). Its bf16 preconditioner blocks are float32 here. Small
+grid too, `_pt_perm` ... `_pt_base`, which only the K14 tile kernels read:
+see profile_matvec.py). Its bf16 preconditioner blocks are float32 here. Small
 batches (inertial chains, priors, random walks) stay on the generic engine
 paths and a stacked rest-graph matvec; small point-coupled ones (a visual
 batch below the blocking threshold, `rest_pt`) add their Schur cross terms
@@ -116,7 +116,9 @@ def _tile_plan(key_sorted, rb, ts):
 def segment_plan(rig, point, pad, n_rows, n_pts):
     """CSR reduction lists over the real slots of a blocked batch (numpy):
     rig rows in slot order (rig-sorted tiles make them contiguous runs),
-    landmark rows in point-sorted order — the segment kernels' work lists."""
+    landmark rows in point-sorted order — the segment kernels' work lists —
+    and `_pt_pos`, each slot's position in the point-sorted list (-1 on the
+    pads)."""
     real = np.nonzero(pad < 0.5)[0]
     rig_r = rig[real].astype(np.int64)
     if np.any(np.diff(rig_r) < 0):
@@ -127,9 +129,12 @@ def segment_plan(rig, point, pad, n_rows, n_pts):
     porder = np.argsort(pt_r, kind="stable")
     pt_ptr = np.zeros(n_pts + 1, np.int64)
     np.cumsum(np.bincount(pt_r, minlength=n_pts), out=pt_ptr[1:])
+    pt_pos = np.full(len(pad), -1, np.int64)
+    pt_pos[real[porder]] = np.arange(len(real))
     i32 = np.int32
     return {"_rig_ptr": rig_ptr.astype(i32), "_rig_obs": real.astype(i32),
-            "_pt_ptr": pt_ptr.astype(i32), "_pt_obs": real[porder].astype(i32)}
+            "_pt_ptr": pt_ptr.astype(i32), "_pt_obs": real[porder].astype(i32),
+            "_pt_pos": pt_pos.astype(i32)}
 
 
 # index field of each non-rig, non-point group of a visual batch, and the
@@ -169,7 +174,7 @@ def finalize_blocks(problem, rb: int = 128, prb: int = 128, ts: int = 4096,
     chunked `_gp_*` plans; only the K14 tile kernels read the point grid
     (profile_matvec.py). Calibration-coupled batches tile at rb = 112, as in
     the JAX package, so the slot order stays the same; their window plan gets
-    the port's chunked window-row lists."""
+    the port's chunked window-row lists and K9's (rig, window row) pairs."""
     R = int(problem.variables.pose_q.shape[0])
     L = int(problem.variables.points.shape[0])
     n_c = int(problem.variables.cam_intr.shape[0])
@@ -253,8 +258,9 @@ def finalize_blocks(problem, rb: int = 128, prb: int = 128, ts: int = 4096,
                 cloc[pad_tiles] = 0
                 new["_cb_local"] = cloc.reshape(-1).astype(np.int32)
                 new["_cb_base"] = cbase.astype(np.int32)
-                new.update(seg.cal_plan_arrays(
-                    (cbase[:, None] + cloc).reshape(-1), pad, n_c))
+                win = (cbase[:, None] + cloc).reshape(-1)
+                new.update(seg.cal_plan_arrays(win, pad, n_c))
+                new.update(seg.pair_plan_arrays(new["rig"], win, pad, R, n_c))
             else:
                 wb = 0
         new.update(point_grid(pt_full, pad, prb, ts, float_dtype))
@@ -302,7 +308,7 @@ def permute_cols(a, idx):
 
 def plan_of(data) -> seg.SegPlan:
     return seg.SegPlan(data["rig"], data["point"], data["_rig_ptr"], data["_rig_obs"],
-                       data["_pt_ptr"], data["_pt_obs"])
+                       data["_pt_ptr"], data["_pt_obs"], data["_pt_pos"])
 
 
 def cal_plan_of(data, info) -> seg.CalPlan | None:
@@ -310,8 +316,8 @@ def cal_plan_of(data, info) -> seg.CalPlan | None:
     if info.wb == 0 or "_cal_chunk_ptr" not in data:
         return None
     base = data["_cb_base"].repeat_interleave(info.ts)
-    return seg.CalPlan((base + data["_cb_local"]).to(torch.int32), data["_cal_chunk_ptr"],
-                       data["_cal_chunk_obs"], data["_cal_row_chunk"])
+    return seg.CalPlan((base + data["_cb_local"]).to(torch.int32),
+                       *(data["_cal_" + f] for f in seg.CalPlan._fields[1:]))
 
 
 # ---------------------------------------------------------------------------

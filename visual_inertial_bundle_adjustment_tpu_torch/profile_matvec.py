@@ -303,29 +303,75 @@ def profile(ctx: Context, x: Tangent, reps=20):
     return ms
 
 
-def device_ms(fn, reps=10):
-    """Device milliseconds per call of fn(), by kernel name (torch.profiler,
-    CUDA activity only): what the card spends in each kernel, without the
-    host's enqueue time that CUDA events around one small call include."""
+def per_call(sessions, reps):
+    """{kernel: (launches per call, device ms per call)} from profiler
+    sessions of `reps` calls each, a session a list of rows (kernel, recorded
+    launches, device microseconds in all). The profiler can miss launches,
+    on the H100 one launch of a kernel in 20, and once every launch of a
+    session, so a kernel's launches per call are the most that one session
+    shows (its count over reps, rounded), and its time per call is its mean
+    recorded launch, over all sessions, times that."""
+    count, total, per = {}, {}, {}
+    if not any(sessions):
+        raise RuntimeError("the profiler recorded no device time in any session")
+    for rows in sessions:
+        for key, n, us in rows:
+            count[key] = count.get(key, 0) + n
+            total[key] = total.get(key, 0.0) + us
+            per[key] = max(per.get(key, 0), round(n / reps) or n / reps)
+    return {key: (per[key], total[key] / count[key] / 1e3 * per[key]) for key in count}
+
+
+def device_kernels(averages):
+    """[(kernel, recorded launches, device microseconds in all)]: the
+    device-side rows (kernels, memsets, copies) of a profile's
+    key_averages(). A PyTorch operator's own row carries the device time of
+    the kernels it launched as well, which those kernels' rows count
+    already."""
+    return [(e.key, e.count, e.self_device_time_total) for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+DEVICE_REPS = 20  # calls of fn in one profiler session (device_rows)
+SESSIONS = 2  # profiler sessions per device-time reading (device_ms)
+
+
+def device_rows(fn):
+    """One torch.profiler session (CUDA activity only) of DEVICE_REPS calls
+    of fn(): [(kernel, recorded launches, device microseconds in all)], what
+    the card spends in each kernel without the host's enqueue time that CUDA
+    events around one small call include. A first step of as many calls is
+    traced and dropped (the schedule's warm-up): on the H100 a session
+    missed the launches of its first call or two."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                                 repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(DEVICE_REPS):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return device_kernels(prof.key_averages())
 
 
-def visual_device_ms(ctx: Context, x: Tangent, reps=10):
+def device_ms(fn):
+    """Device milliseconds per call of fn(), by kernel name (per_call over
+    SESSIONS profiler sessions)."""
+    got = per_call([device_rows(fn) for _ in range(SESSIONS)], DEVICE_REPS)
+    return {key: ms for key, (_, ms) in got.items()}
+
+
+def visual_device_ms(ctx: Context, x: Tangent):
     """device_ms of the first batch's visual Schur summand on the tile route
     and on the K12/K13 route."""
     v, rs = ctx.v, ctx.rs
     tb = ctx.batches[0]
     R, L = v.pose_q.shape[0], v.points.shape[0]
     x_r = x.rig[:, :tb.b.rig_k].contiguous()
-    return {"tile": device_ms(lambda: _visual_tiles(tb, x.rig, rs, R, L), reps),
-            "csr": device_ms(lambda: _visual_csr(tb.b, x_r, rs), reps)}
+    return {"tile": device_ms(lambda: _visual_tiles(tb, x.rig, rs, R, L)),
+            "csr": device_ms(lambda: _visual_csr(tb.b, x_r, rs))}
 
 
 def _visual_tiles(tb: TileBatch, x_rig, rs, R, L):
