@@ -41,13 +41,13 @@ Phases, one printed line each (per path):
                relative to the max-abs of the plain version evaluated in
                float64 on the same inputs; median times of the kernel and of
                the plain version in float32; the least time the card could
-               take (bound). K9 (full, gs_cal, gs_cal at kc = 17) also against
-               the composition it replaced (K10's down, the 3x3 solve in torch,
-               K10's up), by CUDA events and by device time and device
-               operations per call (torch.profiler, in turns), beside its
-               two-pass floor; K13c on the two-grid landmark rows (D 9, D 3)
-               by device time against the walk on the same rows and against
-               index_add_, in turns
+               take (bound). Device time and device operations per call
+               (torch.profiler, in turns) of: K4 against the composition it
+               replaced (K6's down, the 3x3 solve in torch, K5's up with the
+               staged wu), beside its two-pass floor; K8 and K9 (full, gs_cal,
+               gs_cal at kc = 17), K9 beside its two-pass floor; K13a on the
+               two-grid landmark rows against the walk on the same rows; K13c
+               on those rows (D 9, D 3) against the walk and index_add_
   consistency  one LM iteration through the kernels vs the plain versions,
                from the initial state: new cost, reduced step and the step of
                the well-conditioned landmarks; and the kernel-path attempt run
@@ -124,9 +124,12 @@ KERNELS = {
 PATHS = ("bias", "full", "gs_cal", "two_grid", "profile")
 # bounds relative to the plain version's max-abs (tests/test_tpu_accuracy.py)
 TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
-# kernels whose ptxas report must show no register spill (the redesigned K9
-# and K13c's slot-major route), by the names ptxas gives them
-NO_SPILL = ("pcg_cal_down", "pcg_cal_points", "pcg_cal_up", "to_slot_major", "reduce_gather")
+# kernels whose ptxas report must show no register spill (the kernels
+# redesigned for this card: K4's down and up passes, K9's, the landmark pass
+# the two share, K13a's and K13c's slot-major routes on landmark rows), by
+# the names ptxas gives them
+NO_SPILL = ("pcg_down", "pcg_up", "pcg_cal_down", "pcg_cal_up", "point_range_sum",
+            "jtu_slot_major", "reduce_gather4", "to_slot_major", "reduce_gather")
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
 # kernel vs plain LM iteration, relative (see the consistency phases)
@@ -517,9 +520,42 @@ def bias_only(dev, bench):
                   [b.J, b.J_pt, b.w, x] + plan, (8 * k + 16) * n_real)
     bench.compare("schur_up", seg.seg_schur_up, (b.J, b.J_pt, b.w, zl, b.plan), [("y", TOL_SEG)],
                   [b.J, b.J_pt, b.w, zl] + plan, (4 * k + 14) * n_real)
-    bench.compare("schur_pcg", seg.seg_schur_pcg, (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan),
-                  [("y", TOL_SEG)], [b.J, b.J_pt, b.w, x, rs.H_ll_inv] + plan,
-                  (8 * k + 30) * n_real)
+    args4 = (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan)
+    index4 = [b.plan.rig, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, b.plan.rig_ptr,
+              b.plan.rig_obs]
+    row4 = bench.compare("schur_pcg", seg.seg_schur_pcg, args4, [("y", TOL_SEG)],
+                         [b.J, b.J_pt, b.w, x, rs.H_ll_inv] + index4, (8 * k + 30) * n_real)
+
+    # K4 against the composition it replaced, which K6's and K5's wrappers
+    # still hold: down (want_y off, staged wu) -> the 3x3 solve in torch ->
+    # up with the staged wu
+    def old4():
+        _, t4, wu4 = seg._launch_schur_down(b.J, b.J_pt, b.w, x, b.plan, False)
+        z4 = (rs.H_ll_inv * t4[:, None, :]).sum(-1)
+        return seg._launch_schur_up(b.J, b.J_pt, b.w, z4, b.plan, wu4)
+
+    r_old4, _ = rel_err(old4(), seg.seg_schur_pcg(*args4))
+    (dev4, ops4, kern4), (dev_old4, ops_old4, kern_old4) = in_turns(
+        [lambda: seg.seg_schur_pcg(*args4), old4])
+    # the least bytes with the landmark solve between two passes: J_r, J_p
+    # and w read twice, p (16 B a slot) written and read once, each index
+    # array, x and hinv read once, z and y written once
+    floor4 = (2 * nbytes([b.J, b.J_pt, b.w]) + 2 * 16 * n_real
+              + nbytes(index4, x, rs.H_ll_inv) + 4 * (3 * len(s.points_w) + s.num_rigs * k))
+    row4.update(device_ms=dev4, device_ops=ops4, device_kernels=kern4,
+                two_pass_floor_ms=floor4 / HBM_BYTES_PER_S * 1e3,
+                old_composition=dict(ms=cuda_time(old4), device_ms=dev_old4, device_ops=ops_old4,
+                                     device_kernels=kern_old4, rel_diff_y=r_old4))
+    phase("kernels", f"schur_pcg: device {dev4:.4f} ms in {ops4:g} ops vs the old composition "
+          f"{dev_old4:.4f} ms in {ops_old4:g} ops (events {row4['ms']:.4f} vs "
+          f"{row4['old_composition']['ms']:.4f} ms; y rel diff {r_old4:.1e}) | two-pass floor "
+          f"{row4['two_pass_floor_ms']:.4f} ms | kernels: "
+          + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in kern4.items()) + " | old: "
+          + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in kern_old4.items()))
+    if ops4 > 3:
+        raise AssertionError(f"schur_pcg: {ops4} device operations per call")
+    if not r_old4 <= TOL_SEG:
+        raise AssertionError(f"schur_pcg: the old composition differs by {r_old4:.1e}")
     del lg, asm, rs, lin, b
 
     # One LM iteration from the initial state, through the kernels and
@@ -624,12 +660,17 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
                       (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan), seg_tol("blocks"),
                       [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan,
                       (30 * k + 5 * k * (k + 1)) * n_real)
-    bench.compare(f"assemble_cal{suffix}", seg.seg_assemble_cal,
-                  (b.J, b.J_cal, b.J_pt, lin.res, b.w, b.plan, b.cplan),
-                  seg_tol("g_r", "diag_r", "g_c", "diag_c",
-                          *(f"blocks_{g}" for g, _ in b.cal_groups), "g_l", "H_ll0"),
-                  jread + [lin.res] + plan + cplan,
-                  (8 * k + 36 + 4 * kc + 5 * (n_out - kc)) * n_real)
+    args8 = (b.J, b.J_cal, b.J_pt, lin.res, b.w, b.plan, b.cplan)
+    row8 = bench.compare(f"assemble_cal{suffix}", seg.seg_assemble_cal, args8,
+                         seg_tol("g_r", "diag_r", "g_c", "diag_c",
+                                 *(f"blocks_{g}" for g, _ in b.cal_groups), "g_l", "H_ll0"),
+                         jread + [lin.res] + plan + cplan,
+                         (8 * k + 36 + 4 * kc + 5 * (n_out - kc)) * n_real)
+    (dev8, ops8, kern8), = in_turns([lambda: seg.seg_assemble_cal(*args8)])
+    row8.update(device_ms=dev8, device_ops=ops8, device_kernels=kern8)
+    phase("kernels", f"assemble_cal{suffix}: device {dev8:.4f} ms in {ops8:g} ops (events "
+          f"{row8['ms']:.4f}) | kernels: "
+          + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in kern8.items()))
     cp = b.cplan
     index9 = [b.plan.rig, cp.win, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, cp.rig_pair,
               cp.pair_ptr, cp.pair_obs, cp.pair_part, cp.win_pair]
@@ -637,36 +678,19 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
     row9 = bench.compare(f"schur_pcg_cal{suffix}", seg.seg_schur_pcg_cal, args9,
                          seg_tol("y_r", "y_c"), jread + [x, xc, rs.H_ll_inv] + index9,
                          (8 * k + 8 * kc + 24) * n_real)
-    # K9 against the composition it replaced, which K10's wrappers still
-    # hold: down (want_y off) -> the 3x3 solve in torch -> up with the staged wu
-    def old9():
-        _, _, t9, wu9 = seg._launch_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan,
-                                                   b.cplan, False)
-        return seg._launch_schur_up_cal(b.J, b.J_cal, b.J_pt, b.w,
-                                        (rs.H_ll_inv * t9[:, None, :]).sum(-1), b.plan, b.cplan,
-                                        wu9)
-
-    r_old, _ = rel_err(old9()[0], seg.seg_schur_pcg_cal(*args9)[0])
-    (dev_new, ops_new, k_new), (dev_old, ops_old, k_old) = in_turns(
-        [lambda: seg.seg_schur_pcg_cal(*args9), old9])
+    (dev_new, ops_new, k_new), = in_turns([lambda: seg.seg_schur_pcg_cal(*args9)])
     # the least bytes of any design with the landmark solve between two
     # passes: J_r, J_c, J_p and w read twice, p (16 B a slot) written and
     # read once, each index array read once, the outputs written once
     floor_bytes = 2 * nbytes(jread) + 2 * 16 * n_real + nbytes(index9) + 4 * (R * k + n_c * kc)
     extra = dict(device_ms=dev_new, device_ops=ops_new, device_kernels=k_new,
-                 two_pass_floor_ms=floor_bytes / HBM_BYTES_PER_S * 1e3,
-                 old_composition=dict(ms=cuda_time(old9), device_ms=dev_old, device_ops=ops_old,
-                                      device_kernels=k_old, rel_diff_y_r=r_old))
+                 two_pass_floor_ms=floor_bytes / HBM_BYTES_PER_S * 1e3)
     row9.update(extra)
-    phase("kernels", f"schur_pcg_cal{suffix}: device {dev_new:.4f} ms in {ops_new:g} ops vs the "
-          f"old composition {dev_old:.4f} ms in {ops_old:g} ops (events "
-          f"{row9['ms']:.4f} vs {extra['old_composition']['ms']:.4f} ms; y_r rel diff "
-          f"{r_old:.1e}) | two-pass floor {extra['two_pass_floor_ms']:.4f} ms | kernels: "
+    phase("kernels", f"schur_pcg_cal{suffix}: device {dev_new:.4f} ms in {ops_new:g} ops (events "
+          f"{row9['ms']:.4f} ms) | two-pass floor {extra['two_pass_floor_ms']:.4f} ms | kernels: "
           + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in k_new.items()))
     if ops_new > 4:
         raise AssertionError(f"schur_pcg_cal{suffix}: {ops_new} device operations per call")
-    if not r_old <= TOL_SEG:
-        raise AssertionError(f"schur_pcg_cal{suffix}: the old composition differs by {r_old:.1e}")
     bench.compare(f"schur_down_cal{suffix}", seg.seg_schur_down_cal,
                   (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan),
                   seg_tol("y_r", "y_c", "t", "wu"), jread + [x, xc] + plan + cplan,
@@ -824,8 +848,28 @@ def two_grid(dev, bench):
     # solve, K13b on the landmark rows, K13a on the rig rows
     bench.compare("mv_fused_table", seg.seg_mv_fused_table, (b.J, b.w, x, rig),
                   seg_tol("wu", "y"), [b.J, b.w, x] + list(rig), (8 * k + 2) * n_real)
-    bench.compare("mv_scatter_table", seg.seg_mv_scatter_table, (b.J_pt, u, pts), seg_tol("y"),
-                  [b.J_pt, u, pts.ptr, pts.obs], 12 * n_real)
+    row13 = bench.compare("mv_scatter_table", seg.seg_mv_scatter_table, (b.J_pt, u, pts),
+                          seg_tol("y"), [b.J_pt, u, pts.ptr, pts.obs], 12 * n_real)
+    # K13a on the landmark rows through the slot-major copy against the walk
+    # on the same rows (the RowPlan not marked scattered), in turns
+    walk13 = pts._replace(scattered=False)
+    r_walk13, _ = rel_err(seg.seg_mv_scatter_table(b.J_pt, u, walk13),
+                          seg.seg_mv_scatter_table(b.J_pt, u, pts))
+    (d13, o13, kern13), (d_walk13, _, _) = in_turns(
+        [lambda: seg.seg_mv_scatter_table(b.J_pt, u, pts),
+         lambda: seg.seg_mv_scatter_table(b.J_pt, u, walk13)])
+    row13.update(device_ms=d13, device_ops=o13, device_kernels=kern13,
+                 walk_ms=cuda_time(lambda: seg.seg_mv_scatter_table(b.J_pt, u, walk13)),
+                 walk_device_ms=d_walk13, rel_diff_walk=r_walk13)
+    phase("kernels", f"mv_scatter_table(landmark rows): device {d13:.4f} ms in {o13:g} ops ("
+          + ", ".join(f"{key[:30]} {ms:.4f}" for key, ms in kern13.items())
+          + f") vs the walk {d_walk13:.4f} ms (events {row13['ms']:.4f} vs "
+          f"{row13['walk_ms']:.4f}; rel diff {r_walk13:.1e})")
+    if o13 > 2:
+        raise AssertionError(f"mv_scatter_table(landmark rows): {o13} device operations per call")
+    if not r_walk13 <= TOL_SEG:
+        raise AssertionError(f"mv_scatter_table(landmark rows): the walk differs by "
+                             f"{r_walk13:.1e}")
     bench.compare("mv_scatter_table(rig rows)", seg.seg_mv_scatter_table, (b.J, u, rig),
                   seg_tol("y"), [b.J, u, rig.ptr, rig.obs], 4 * k * n_real)
     bench.compare("mv_gather_table", seg.seg_mv_gather_table, (b.J_pt, zl, pts), seg_tol("u"),

@@ -28,8 +28,11 @@ through a TorchFunctionMode) and repeats bit for bit. K9 also runs at every
 rig and window width on the full-sensor plans and on a made-up plan with an
 empty rig, rigs on three window rows, a landmark of one slot and one of
 none; K13c on landmark rows of 0, 1 and 2,000 slots, through the slot-major
-copy and, on a family not marked scattered, the walk. Each repeats bit for
-bit.
+copy and, on a family not marked scattered, the walk. K4 runs at rig widths 6
+and 9 on the bias-only plan and on that made-up plan, also against the
+composition it replaced; K13a on the landmark rows of the two-grid batch and
+of the made-up plan through the slot-major copy, also against the walk. Each
+repeats bit for bit.
 """
 
 import functools
@@ -710,3 +713,92 @@ def test_landmark_reduce_rows_of_every_length(D, scattered, cuda_device, monkeyp
     assert names == ["viba_seg_reduce_slot_major" if scattered else "viba_seg_reduce"] * 2
     _check((out,), (ref,), (1e-5,))
     assert torch.equal(out, again) and float(out[0].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# K4 in three launches, K13a on landmark rows through the slot-major copy
+# ---------------------------------------------------------------------------
+
+
+def _schur_pcg_args(w, plan, k, dev, seed):
+    """K4's inputs: weights w, random J blocks of rig width k, a rig table
+    and SPD landmark-block inverses over the plan."""
+    n = w.shape[0]
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(plan.n_pts, 3, 3))
+
+    def f32(a):
+        return torch.from_numpy(a).to(device=dev, dtype=torch.float32)
+
+    return (f32(rng.normal(size=(2, k, n))), f32(rng.normal(size=(2, 3, n))), w,
+            f32(rng.normal(size=(plan.n_rows, k))), f32(A @ np.swapaxes(A, -1, -2) + np.eye(3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_kind", ["bias", "edge"])
+@pytest.mark.parametrize("k", [6, 9])
+def test_schur_pcg_kernel_every_width(k, plan_kind, cuda_device, monkeypatch):
+    """K4 on the bias-only batch's plan and on the made-up plan (pads, an
+    empty rig, landmarks of one slot and of none) at rig widths 6 and 9:
+    one C entry a call, within 1e-5 of its plain version in float64 and of
+    the composition it replaced (K6's down, the 3x3 solve, K5's up with the
+    staged wu), the same bits every call."""
+    if plan_kind == "bias":
+        plan, a = _segment_inputs(cuda_device)
+        w = a["w"]
+    else:
+        plan, _, pad = _edge_plans(cuda_device)
+        rng = np.random.default_rng(127)
+        w = torch.from_numpy(rng.random(pad.shape[0]) * (1.0 - pad)).to(cuda_device,
+                                                                         torch.float32)
+    args = _schur_pcg_args(w, plan, k, cuda_device, 131 + k)
+    names = _recording_launches(monkeypatch)
+    _kernels.reset_launch_counts()
+    out = tseg.seg_schur_pcg(*args, plan)
+    again = tseg.seg_schur_pcg(*args, plan)
+    with _kernels.plain_reference():
+        ref = tseg.seg_schur_pcg(*_kernels.to_f64(args), plan)
+    counts = _kernels.launch_counts()
+    assert counts["schur_pcg"] == 2 and sum(counts.values()) == 2
+    assert names == ["viba_schur_pcg"] * 2
+    J_r, J_p, _, x, hinv = args
+    _, t, wu = tseg._launch_schur_down(J_r, J_p, w, x, plan, False)
+    old = tseg._launch_schur_up(J_r, J_p, w, (hinv * t[:, None, :]).sum(-1), plan, wu)
+    _check((out, out), (ref, old), (1e-5, 1e-5))
+    assert torch.equal(out, again)
+    if plan_kind == "edge":
+        assert float(out[2].abs().max()) == 0.0  # rig 2 has no slot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem", ["two_grid", "edge"])
+def test_landmark_mv_scatter_slot_major(problem, cuda_device, monkeypatch):
+    """K13a on landmark rows through the slot-major copy (the two-grid
+    batch's rows; the made-up plan's, with landmarks of one slot and of none):
+    within 1e-5 of its plain version in float64 and of the walk on the same
+    rows, the same bits every call."""
+    if problem == "two_grid":
+        rows_by, a = _table_inputs(cuda_device)
+        rows, J, u = rows_by["point"], a["J"]["point"], a["u"]
+    else:
+        plan, _, pad = _edge_plans(cuda_device)
+        rows = tseg.point_rows(plan)
+        rng = np.random.default_rng(137)
+        J = torch.from_numpy(rng.normal(size=(2, 3, pad.shape[0]))).to(cuda_device,
+                                                                        torch.float32)
+        u = torch.from_numpy(rng.normal(size=(2, pad.shape[0])) * (1.0 - pad)[None]).to(
+            cuda_device, torch.float32)
+    assert rows.scattered
+    names = _recording_launches(monkeypatch)
+    _kernels.reset_launch_counts()
+    out = tseg.seg_mv_scatter_table(J, u, rows)
+    again = tseg.seg_mv_scatter_table(J, u, rows)
+    walk = tseg.seg_mv_scatter_table(J, u, rows._replace(scattered=False))
+    with _kernels.plain_reference():
+        ref = tseg.seg_mv_scatter_table(J.double(), u.double(), rows)
+    assert _kernels.launch_counts()["mv_scatter_table"] == 3
+    assert names == ["viba_seg_mv_scatter_slot_major"] * 2 + ["viba_seg_mv_scatter"]
+    _check((out, out), (ref, walk), (1e-5, 1e-5))
+    assert torch.equal(out, again)
+    if problem == "edge":
+        assert float(out[7].abs().max()) == 0.0  # landmark 7 has no slot

@@ -1,15 +1,18 @@
-"""The plans and the data flow of the redesigned K9 and K13c, on the CPU.
+"""The plans and the data flow of the redesigned K4, K9, K13a and K13c, on
+the CPU.
 
-K9 (the calibration PCG matvec) goes on the card through each slot's
-point-sorted position `_pt_pos` (rcs.segment_plan) and, in its up pass, the
-(rig, window row) pairs of segments.pair_plan_arrays; K13c on landmark rows
-(a scattered family) through a slot-major copy of its input. The CUDA
+K4 (the bias-only PCG matvec) and K9 (the calibration PCG matvec) go on the
+card through each slot's point-sorted position `_pt_pos`
+(rcs.segment_plan), K9's up pass also through the (rig, window row) pairs
+of segments.pair_plan_arrays; K13a and K13c on landmark rows (a scattered
+family) through a slot-major copy of J^T u and of their input. The CUDA
 kernels run only on the card (tests/test_torch_kernels_cuda.py holds them
 against their plain versions); here:
 
   * `_pt_pos` inverts `_pt_obs` with -1 on the pads, as the port's own
-    finalize_blocks builds it (the tiny bias-only problem, the tiny
-    full-sensor one) and as interop.problem_from_numpy rebuilds it;
+    finalize_blocks builds it (the tiny bias-only problem, its two-grid
+    blocking, the tiny full-sensor one) and as interop.problem_from_numpy
+    rebuilds it;
   * the pair plan lists every real slot once, in rig order, a pair's slots
     of one rig and one window row, each window row's partials in rig order
     (also where a rig spans two window rows);
@@ -23,7 +26,15 @@ against their plain versions); here:
     and 9, and seg_schur_pcg_cal on the full-sensor batch at window widths
     kc 6, 17 and 23, with random J, weights and tables from a numpy seed and
     a third of the slots moved to the other window row, so that rigs span
-    two;
+    two; K4's (p at the point-sorted positions, contiguous sums, the 3x3
+    solve, w J_r x recomputed in the up pass, each rig's contiguous run
+    summed) equals seg_schur_pcg on the bias-only batch at rig widths 6 and
+    9, with two rigs and two landmarks left without slots; K13a's on the
+    landmark rows (J^T u copied slot-major, each row's slots gathered in
+    list order) equals seg_mv_scatter_table on the two-grid problem's
+    point-sorted grid;
+  * on CPU tensors the K4 and K13a wrappers take their plain versions and
+    count no launch;
   * profile_matvec.per_call, which turns the profiler's records into device
     time per call, counts a launch the profiler missed.
 """
@@ -34,12 +45,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port_fixtures import (jax_full, jax_two_grid_problem, port_blocked_problem,
-                                  port_full_built, port_full_from_jax, port_two_grid_problem,
-                                  rel, t)
+from _torch_port_fixtures import (TWO_GRID_BLOCKS, jax_full, jax_problem, jax_two_grid_problem,
+                                  port_blocked_problem, port_full_built, port_full_from_jax,
+                                  port_two_grid_problem, rel, t)
 
 from visual_inertial_bundle_adjustment_tpu.ops import segments as jseg
 from visual_inertial_bundle_adjustment_tpu.problem import rcs as jrcs
+from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
 from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as tseg
 from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs as trcs
 
@@ -59,9 +71,10 @@ def _check_positions(data):
     assert np.all(pos[pad] == -1) and np.all(pos[~pad] >= 0)
 
 
-@pytest.mark.parametrize("problem", ["bias", "full_sensor"])
+@pytest.mark.parametrize("problem", ["bias", "full_sensor", "two_grid"])
 def test_pt_pos_inverts_pt_obs(problem):
-    p = port_blocked_problem() if problem == "bias" else port_full_built()[0]
+    p = (port_full_built()[0] if problem == "full_sensor"
+         else port_blocked_problem(blocks=TWO_GRID_BLOCKS if problem == "two_grid" else None))
     data, _ = _blocked(p)
     _check_positions(data)
     plan = trcs.plan_of(data)
@@ -277,3 +290,102 @@ def test_device_kernels_leave_out_the_operators_rows():
                                        ("Memset (Device)", 2, 3.0)]
     with pytest.raises(RuntimeError):
         pm.per_call([[], []], 20)
+
+
+# ---------------------------------------------------------------------------
+# K4 through the positions, K13a on landmark rows through the slot-major copy
+# ---------------------------------------------------------------------------
+
+
+def _schur_pcg_flow(J_r, J_p, w, x, hinv, plan):
+    """K4's three launches as torch ops."""
+    def wu_of():  # down and up: w J_r x[rig] per slot
+        return (J_r * x[plan.rig.long()].T[None]).sum(1) * w[None]
+
+    p = _to_sorted((J_p * wu_of()[:, None]).sum(0), plan)  # J_p^T wu, point-sorted
+    z = (hinv * _segment_sums(p, plan.pt_ptr)[:, None, :]).sum(-1)
+    du = wu_of() - (J_p * z[plan.point.long()].T[None]).sum(1) * w[None]
+    contrib = (J_r * du[:, None]).sum(0)  # (k, N)
+    return _segment_sums(contrib.T[plan.rig_obs.long()], plan.rig_ptr)
+
+
+@pytest.mark.parametrize("k", [6, 9])
+def test_schur_pcg_flow_matches_jax(k):
+    pj = jax_problem()
+    (vi,) = [i for i, c in enumerate(pj.cfgs) if getattr(c, "block_info", None)]
+    dj, info = pj.datas[vi], pj.cfgs[vi].block_info
+    R, L = pj.variables.pose_q.shape[0], pj.variables.points.shape[0]
+    rig, point = np.asarray(dj["rig"]), np.asarray(dj["point"])
+    pad = np.asarray(dj["_pad"]).copy()
+    N = pad.shape[0]
+    # two rigs and two observed landmarks lose their slots: zero weights for
+    # the JAX entry, pads for the port's plan
+    empty_rigs = np.unique(rig[pad < 0.5])[[1, -2]]
+    empty_pts = np.unique(point[pad < 0.5])[[2, 7]]
+    pad[np.isin(rig, empty_rigs) | np.isin(point, empty_pts)] = 1.0
+    rng = np.random.default_rng(107 + k)
+    A = rng.normal(size=(L, 3, 3))
+    a = dict(J_r=rng.normal(size=(2, k, N)), J_p=rng.normal(size=(2, 3, N)),
+             w=rng.random(N) * (1.0 - pad), x=rng.normal(size=(R, k)),
+             hinv=A @ np.swapaxes(A, -1, -2) + np.eye(3))
+    J = {key: jnp.asarray(v) for key, v in a.items()}
+    want = np.asarray(jseg.seg_schur_pcg(
+        J["J_r"], J["J_p"], J["w"], dj["_rb_local"], dj["_rg_pt_local"], dj["_rg_hib"], J["x"],
+        J["hinv"], dj["_rb_base"], L, info.nt, info.ts, info.rb, info.prb2 // 128, info.nhg))
+    arrays = trcs.segment_plan(rig, point, pad, R, L)
+    plan = tseg.SegPlan(t(rig.astype(np.int32)), t(point.astype(np.int32)),
+                        *(t(arrays[key]) for key in ("_rig_ptr", "_rig_obs", "_pt_ptr",
+                                                     "_pt_obs", "_pt_pos")))
+    assert np.all(np.diff(arrays["_rig_ptr"])[empty_rigs] == 0)
+    assert np.all(np.diff(arrays["_pt_ptr"])[empty_pts] == 0)
+    args = [t(v) for v in a.values()]
+    assert np.abs(want).max() > 0 and np.all(want[empty_rigs] == 0)
+    assert rel(_schur_pcg_flow(*args, plan).numpy(), want) < TOL
+    assert rel(tseg.seg_schur_pcg(*args, plan).numpy(), want) < TOL  # the plain version
+
+
+def test_landmark_mv_scatter_flow_matches_jax():
+    pj = jax_two_grid_problem()
+    (vi,) = [i for i, c in enumerate(pj.cfgs) if getattr(c, "block_info", None)]
+    dj, info = pj.datas[vi], pj.cfgs[vi].block_info
+    L = pj.variables.points.shape[0]
+    pad = np.asarray(dj["_pad"])
+    rng = np.random.default_rng(109)
+    J = rng.normal(size=(2, 3, pad.shape[0]))
+    u = rng.normal(size=(2, pad.shape[0])) * (1.0 - pad)[None]
+    perm = dj["_pt_perm"]
+    J_po = jrcs.permute_cols(jnp.asarray(J), perm) * dj["_pt_w"][None, None]
+    want = jseg.seg_mv_scatter_table(J_po, jrcs.permute_cols(jnp.asarray(u), perm),
+                                     dj["_pt_local"], dj["_pt_base"], info.pnt, info.pts,
+                                     info.prb, L)
+    data, _ = _blocked(port_two_grid_problem())
+    rows = tseg.point_rows(trcs.plan_of(data))
+    assert rows.scattered and np.abs(np.asarray(want)).max() > 0
+    # K13a's flow: K13c's on the per-slot J^T u
+    assert rel(_reduce_flow((t(J) * t(u)[:, None]).sum(0), rows).numpy(), want) < TOL
+    assert rel(tseg.seg_mv_scatter_table(t(J), t(u), rows).numpy(), want) < TOL  # the plain
+
+
+@pytest.mark.parametrize("kernel", ["schur_pcg", "mv_scatter_table"])
+def test_cpu_tensors_take_the_plain_versions(kernel):
+    """On CPU tensors the wrappers compute their plain versions and count no
+    launch."""
+    data, _ = _blocked(port_blocked_problem())
+    plan = trcs.plan_of(data)
+    n, R, L = data["_pad"].shape[0], plan.n_rows, plan.n_pts
+    rng = np.random.default_rng(113)
+    w = t(rng.random(n) * (1.0 - data["_pad"].numpy()))
+    _kernels.reset_launch_counts()
+    if kernel == "schur_pcg":
+        A = rng.normal(size=(L, 3, 3))
+        args = (t(rng.normal(size=(2, 6, n))), t(rng.normal(size=(2, 3, n))), w,
+                t(rng.normal(size=(R, 6))), t(A @ np.swapaxes(A, -1, -2) + np.eye(3)))
+        got, want = tseg.seg_schur_pcg(*args, plan), _schur_pcg_flow(*args, plan)
+    else:
+        rows = tseg.point_rows(plan)
+        J, u = t(rng.normal(size=(2, 3, n))), t(rng.normal(size=(2, n))) * w[None]
+        got = tseg.seg_mv_scatter_table(J, u, rows)
+        want = _reduce_flow((J * u[:, None]).sum(0), rows)
+    assert got.device.type == "cpu" and got.dtype == torch.float64
+    assert rel(got.numpy(), want.numpy()) < TOL
+    assert sum(_kernels.launch_counts().values()) == 0

@@ -31,7 +31,8 @@
 //            p = J_p^T wu, stored at p[pt_pos[s]] (16 B, slot-major); wu is
 //            not stored. Coalesced: every slot array is read in slot order.
 //   points   a 16-thread group per landmark: t = the sum of p over the
-//            landmark's contiguous range, z = H_ll^-1[l] t in registers.
+//            landmark's contiguous range, z = H_ll^-1[l] t in registers
+//            (pt_segments.cuh, shared with K4).
 //   up       a warp per rig row, over the rig's (rig, window row) pairs
 //            (ops/segments.py pair_plan_arrays): wu recomputed from J_r, J_c
 //            and x (this pass reads them anyway), du = wu - w J_p z[point],
@@ -44,6 +45,7 @@
 // lists, the window rows reduce through chunks).
 #include <utility>
 
+#include "pt_segments.cuh"
 #include "tile_reduce.cuh"
 
 extern "C" int viba_assemble_rig(int R, int L, int n, int k, const int* rig_ptr,
@@ -190,7 +192,7 @@ cudaError_t launch_rows(int n_rows, int n_chunks, int n, const int* chunk_ptr,
   return viba::launch_sum_partials(n_rows, KC, row_chunk, part, out, st);
 }
 
-// K10 down / K9 down, rig pass: wu = w (J_r x_r[rig] + J_c x_c[win]) for every
+// K10 down, rig pass: wu = w (J_r x_r[rig] + J_c x_c[win]) for every
 // real slot and, if want_y, y_r = sum J_r^T wu
 template <int K, int KC>
 __global__ void __launch_bounds__(viba::kBlock) down_cal_rig(
@@ -238,14 +240,14 @@ __global__ void __launch_bounds__(viba::kBlock) down_cal_rig(
       });
 }
 
-// K10 up / K9 up, rig pass: du = wu - w J_p z[pt] (or w J_p z[pt] without a
-// staged wu), stored for the window pass, and y_r = sum J_r^T du
+// K10 up, rig pass: du = w J_p z[pt], stored for the window pass, and
+// y_r = sum J_r^T du
 template <int K>
 __global__ void __launch_bounds__(viba::kBlock) up_cal_rig(
     int R, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
     const int* __restrict__ point, const float* __restrict__ J_r,
     const float* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ z,
-    const float* __restrict__ wu, float* __restrict__ du, float* __restrict__ y_r) {
+    float* __restrict__ du, float* __restrict__ y_r) {
   viba::reduce_segments<kRowGroup, K>(
       blockIdx.x, R, rig_ptr, rig_obs,
       [&](int s, float(&acc)[K]) {
@@ -255,11 +257,7 @@ __global__ void __launch_bounds__(viba::kBlock) up_cal_rig(
         const float u1 =
             J_p[3 * (long)n + s] * z0 + J_p[4 * (long)n + s] * z1 + J_p[5 * (long)n + s] * z2;
         const float ws = w[s];
-        float d0 = u0 * ws, d1 = u1 * ws;
-        if (wu != nullptr) {
-          d0 = wu[s] - d0;
-          d1 = wu[n + s] - d1;
-        }
+        const float d0 = u0 * ws, d1 = u1 * ws;
         du[s] = d0;
         du[n + s] = d1;
 #pragma unroll
@@ -307,31 +305,6 @@ __global__ void __launch_bounds__(256) pcg_cal_down(
   for (int c = 0; c < 3; ++c)
     q[c] = J_p[c * (long)n + s] * wu0 + J_p[(3 + c) * (long)n + s] * wu1;
   p[pos] = make_float4(q[0], q[1], q[2], 0.f);
-}
-
-// K9 points: z[l] = H_ll^-1[l] (sum of p over the landmark's range)
-__global__ void __launch_bounds__(viba::kBlock) pcg_cal_points(
-    int L, const int* __restrict__ pt_ptr, const float4* __restrict__ p,
-    const float* __restrict__ hinv, float* __restrict__ z) {
-  constexpr int G = viba::kPointGroup;
-  const int l = blockIdx.x * (viba::kBlock / G) + threadIdx.x / G;
-  const int lane = threadIdx.x % G;
-  const bool live = l < L;
-  const int beg = live ? pt_ptr[l] : 0, end = live ? pt_ptr[l + 1] : 0;
-  float t[3] = {0.f, 0.f, 0.f};
-  for (int j = beg + lane; j < end; j += G) {
-    const float4 q = p[j];
-    t[0] += q.x;
-    t[1] += q.y;
-    t[2] += q.z;
-  }
-  viba::group_sum<G, 3>(t, nullptr);
-  if (live && lane == 0) {
-    const float* h = hinv + 9 * (long)l;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      z[3 * (long)l + i] = h[3 * i] * t[0] + h[3 * i + 1] * t[1] + h[3 * i + 2] * t[2];
-  }
 }
 
 template <int D>
@@ -425,10 +398,8 @@ cudaError_t pcg_cal(int R, int L, int n, int n_real, int n_c, const int* rig, co
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (L > 0) {
-    pcg_cal_points<<<viba::segment_blocks<viba::kPointGroup>(L), viba::kBlock, 0, st>>>(
-        L, pt_ptr, p, hinv, z);
-    const cudaError_t err = cudaGetLastError();
+  {
+    const cudaError_t err = viba::launch_point_range_sum(L, pt_ptr, p, hinv, z, st);
     if (err != cudaSuccess) return err;
   }
   if (R > 0) {
@@ -526,18 +497,18 @@ extern "C" int viba_schur_up_cal(int R, int n, int k, int kc, int n_c, int n_chu
                                  const int* rig_ptr, const int* rig_obs, const int* point,
                                  const int* chunk_ptr, const int* chunk_obs, const int* row_chunk,
                                  const float* J_r, const float* J_p, const float* w,
-                                 const float* J_c, const float* z, const float* wu, float* du,
-                                 float* part, float* y_r, float* y_c, void* stream) {
+                                 const float* J_c, const float* z, float* du, float* part,
+                                 float* y_r, float* y_c, void* stream) {
   if (kc != 6 && kc != 17 && kc != 23) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R > 0) {
     const int grid = viba::segment_blocks<kRowGroup>(R);
     if (k == 6) {
       up_cal_rig<6><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w,
-                                                   z, wu, du, y_r);
+                                                   z, du, y_r);
     } else if (k == 9) {
       up_cal_rig<9><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w,
-                                                   z, wu, du, y_r);
+                                                   z, du, y_r);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -47,6 +47,21 @@
 // position instead, so that the sum reads one contiguous range, measured
 // 2.5x slower than the walk on the H100: scattered partial-sector stores.)
 // Families that are not scattered (rig rows, chunked rows) keep the walk.
+//
+// mv_scatter on a scattered family (K13a on the landmark rows: y = J_pt^T u
+// per landmark, W^T x of every general-path matvec) would walk the same
+// lists: 8 scattered floats per slot (0.22 ms on the H100 at 3.1M slots).
+// It runs in two launches instead, the read side of K13c's route:
+//   jtu_slot_major  one thread per slot, in slot order (coalesced): q = J^T u
+//                   (6 + 2 floats read), stored as one float4 at q[s];
+//   reduce_gather4  one warp per row: each lane sums a fixed stride of the
+//                   row's slots, one aligned 16-byte load of q each, a fixed
+//                   butterfly at the end; a row without slots is written 0.
+// About 32 B read and 16 B written coalesced per slot, then one gathered
+// sector. (Storing q at each slot's point-sorted position instead, so that
+// a 16-thread group sums each landmark's contiguous range, measured 0.161
+// ms against this route's 0.087 on the H100: 16-byte stores scattered over
+// a table as large as the L2.)
 #include "tile_reduce.cuh"
 
 namespace {
@@ -252,6 +267,42 @@ cudaError_t launch_reduce(int n_seg, int n, int D, const int* ptr, const int* ob
   return cudaGetLastError();
 }
 
+// K13a down: q[s] = J^T u per slot (3 columns), slot-major float4 rows
+__global__ void __launch_bounds__(256) jtu_slot_major(int n, const float* __restrict__ J,
+                                                      const float* __restrict__ u,
+                                                      float4* __restrict__ q) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  const float u0 = u[s], u1 = u[n + s];
+  float v[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) v[c] = J[c * (long)n + s] * u0 + J[(3 + c) * (long)n + s] * u1;
+  q[s] = make_float4(v[0], v[1], v[2], 0.f);
+}
+
+// K13a sum: one warp per row, the sum of the float4 rows of the row's slots
+__global__ void __launch_bounds__(kBlock) reduce_gather4(int n_rows, const int* __restrict__ ptr,
+                                                         const int* __restrict__ obs,
+                                                         const float4* __restrict__ q,
+                                                         float* __restrict__ y) {
+  const int r = blockIdx.x * (kBlock / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const bool live = r < n_rows;
+  const int beg = live ? ptr[r] : 0, end = live ? ptr[r + 1] : 0;
+  float acc[3] = {0.f, 0.f, 0.f};
+  for (int j = beg + lane; j < end; j += 32) {
+    const float4 v = q[obs[j]];
+    acc[0] += v.x;
+    acc[1] += v.y;
+    acc[2] += v.z;
+  }
+  viba::group_sum<32, 3>(acc, nullptr);
+  if (live && lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) y[3 * (long)r + i] = acc[i];
+  }
+}
+
 }  // namespace
 
 // dispatch on the threads per segment (16 or 128) and a compile-time width
@@ -337,4 +388,19 @@ extern "C" int viba_seg_reduce_slot_major(int n_rows, int n, int D, const int* p
       : DT == 9 ? launch_slot_major<9>(n_rows, n, D, ptr, obs, contrib, sm, y, st)
                 : launch_slot_major<8>(n_rows, n, D, ptr, obs, contrib, sm, y, st);
   return static_cast<int>(err);
+}
+
+extern "C" int viba_seg_mv_scatter_slot_major(int n_rows, int n, const int* ptr,
+                                              const int* obs, const float* J, const float* u,
+                                              float* q, float* y, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_rows <= 0) return 0;
+  float4* q4 = reinterpret_cast<float4*>(q);
+  if (n > 0) {
+    jtu_slot_major<<<(n + 255) / 256, 256, 0, st>>>(n, J, u, q4);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  reduce_gather4<<<viba::segment_blocks<32>(n_rows), kBlock, 0, st>>>(n_rows, ptr, obs, q4, y);
+  return static_cast<int>(cudaGetLastError());
 }

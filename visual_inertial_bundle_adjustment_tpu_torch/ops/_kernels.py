@@ -53,14 +53,16 @@ _SIGNATURES = {
     "viba_precond_rig": [_I] * 3 + [_P] * 8 + [_P],
     "viba_schur_down": [_I] * 5 + [_P] * 11 + [_P],
     "viba_schur_up": [_I] * 3 + [_P] * 9 + [_P],
+    "viba_schur_pcg": [_I] * 5 + [_P] * 14 + [_P],
     "viba_rs_linearize": [_I] * 6 + [_P] * 34 + [_P],
     "viba_assemble_cal": [_I] * 7 + [_P] * 18 + [_P],
     "viba_schur_down_cal": [_I] * 8 + [_P] * 19 + [_P],
-    "viba_schur_up_cal": [_I] * 6 + [_P] * 16 + [_P],
+    "viba_schur_up_cal": [_I] * 6 + [_P] * 15 + [_P],
     "viba_schur_pcg_cal": [_I] * 7 + [_P] * 22 + [_P],
     "viba_visual_cal_linearize": [_I] * 2 + [_P] * 25 + [_P],
     "viba_seg_mv_fused": [_I] * 5 + [_P] * 10 + [_P],
     "viba_seg_mv_scatter": [_I] * 5 + [_P] * 7 + [_P],
+    "viba_seg_mv_scatter_slot_major": [_I] * 2 + [_P] * 6 + [_P],
     "viba_seg_mv_gather": [_I] * 2 + [_P] * 4 + [_P],
     "viba_seg_reduce": [_I] * 5 + [_P] * 6 + [_P],
     "viba_seg_reduce_slot_major": [_I] * 3 + [_P] * 5 + [_P],

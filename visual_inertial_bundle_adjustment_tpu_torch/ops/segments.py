@@ -12,8 +12,7 @@ landmark rows and, for calibration-coupled batches, calibration-window rows:
                       A = J_r^T w J_p (K3)
   seg_schur_down      y = sum_rig J_r^T w J_r x and t = W^T x (K6)
   seg_schur_up        W z = sum_rig J_r^T w J_p z[pt] (K5)
-  seg_schur_pcg       the PCG matvec y = J_r^T w J_r x - W H_ll^-1 W^T x (K4):
-                      down (stages wu = w J_r x) -> z = H_ll^-1 t -> up
+  seg_schur_pcg       the PCG matvec y = J_r^T w J_r x - W H_ll^-1 W^T x (K4)
   seg_assemble_cal    K2 plus, per window row, g_c, diag_c and the full
                       self-blocks of each calibration split (K8)
   seg_schur_down_cal  K6 with u = J_r x_r[rig] + J_c x_c[win]: y_r, y_c, t (K10)
@@ -69,14 +68,16 @@ second pass sums each row's partials in chunk order. What bounds them:
 bytes of J read per pass — 2 x (rig_k + 3 (+ 23)) floats per observation.
 
 Walking a landmark's list reads the rig-ordered arrays at scattered slots,
-one 32-byte sector per float. K9 therefore goes through each slot's
-point-sorted position (SegPlan.pt_pos, built with the lists): its down pass,
-in slot order and coalesced, writes each slot's 3 landmark-side values there,
-and each landmark sums one contiguous range. K9 is one entry of four
-launches (down to those positions, landmark sums with the 3x3 solve, up per
-rig row with one window partial per (rig, window row) pair, the window
-rows' sums). K13c on a scattered family (RowPlan.scattered: the landmark
-rows) copies contrib slot-major, coalesced, and gathers each slot's D
+one 32-byte sector per float. K4 and K9 therefore go through each slot's
+point-sorted position (SegPlan.pt_pos, built with the lists): a down pass,
+in slot order and coalesced, writes each slot's 3 landmark-side values there
+as one float4, and one landmark pass (csrc/pt_segments.cuh) sums each
+landmark's contiguous range and applies H_ll^-1. K4 is one entry of three
+launches (down to the positions, the landmark pass, up per rig row with
+w J_r x recomputed); K9 one of four (the same, with one window partial per
+(rig, window row) pair in its up pass, then the window rows' sums). On a
+scattered family (RowPlan.scattered: the landmark rows) K13a writes J^T u
+and K13c copies contrib slot-major, coalesced, and each gathers a slot's
 values as one or two sectors of that copy.
 
 The plain PyTorch versions below compute the same functions with
@@ -111,8 +112,8 @@ class SegPlan(NamedTuple):
     pt_ptr: torch.Tensor  # (L+1,) int32 CSR offsets into pt_obs
     pt_obs: torch.Tensor  # (n_real,) int32 real slots, point-sorted
     # (N,) int32 point-sorted position of each slot: pt_pos[pt_obs[j]] = j,
-    # -1 on the pads (K9 writes slot values there, so each landmark's are one
-    # contiguous run)
+    # -1 on the pads (K4 and K9 write slot values there, so each landmark's
+    # are one contiguous run)
     pt_pos: torch.Tensor
 
     @property
@@ -159,14 +160,14 @@ class RowPlan(NamedTuple):
     segment is a whole row, or, for a family of few long rows (row_chunk
     given), a chunk of at most CHUNK slots whose partial sums a second pass
     adds in chunk order. A scattered family (the landmark rows, whose slots
-    lie far apart in the rig-ordered arrays) is reduced by K13c through a
-    slot-major copy."""
+    lie far apart in the rig-ordered arrays) is reduced by K13a and K13c
+    through slot-major copies."""
 
     row: torch.Tensor  # (N,) int32 row of each slot (pads: any valid row)
     ptr: torch.Tensor  # (n_seg+1,) int32 CSR offsets into obs
     obs: torch.Tensor  # (n_real,) int32 real slots, row-sorted
     row_chunk: torch.Tensor | None = None  # (n_rows+1,) int32 chunk offsets per row
-    scattered: bool = False  # lists that reach slots far apart (K13c gathers)
+    scattered: bool = False  # lists that reach slots far apart (K13a, K13c gather)
 
     @property
     def n_seg(self):
@@ -437,15 +438,39 @@ def seg_schur_up(J_r, J_p, w, z, plan: SegPlan, wu=None):
     return y
 
 
+def _launch_schur_pcg(J_r, J_p, w, x_table, hinv, plan):
+    """K4 in three launches (csrc/schur.cu viba_schur_pcg): p = J_p^T w J_r x
+    at each slot's point-sorted position, z = H_ll^-1 (landmark sums of p),
+    then per rig row y = sum J_r^T (w J_r x - w J_p z[pt])."""
+    n, k, jargs = _jac_args(J_r, J_p, w)
+    R, L = plan.n_rows, plan.n_pts
+    n_real = plan.pt_obs.shape[0]
+    ck = _kernels.check
+    p = _empty((n_real, 4), w)  # float4 per slot, point-sorted
+    z, y = _empty((L, 3), w), _empty((R, k), w)
+    _kernels.launch("viba_schur_pcg", R, L, n, n_real, k,
+                    ck(plan.rig, "rig", torch.int32, (n,)),
+                    ck(plan.point, "point", torch.int32, (n,)),
+                    ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
+                    ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
+                    ck(plan.rig_ptr, "rig_ptr", torch.int32, (R + 1,)),
+                    ck(plan.rig_obs, "rig_obs", torch.int32, (n_real,)), *jargs,
+                    ck(x_table, "x_table", torch.float32, (R, k)),
+                    ck(hinv, "hinv", torch.float32, (L, 3, 3)), p.data_ptr(), z.data_ptr(),
+                    y.data_ptr())
+    return y
+
+
 @_kernels.register("schur_pcg")
 def seg_schur_pcg(J_r, J_p, w, x_table, hinv, plan: SegPlan):
     """K4, the PCG Schur matvec y = seg-sum_rig J_r^T w J_r x - W H_ll^-1 W^T x
-    of one rig-only batch: down (t, staged wu) -> z = H_ll^-1 t -> up."""
+    of one rig-only batch. Plain version: K6's down (t, staged wu) ->
+    z = H_ll^-1 t -> K5's up with wu; on the card one entry of three
+    launches around the plan's point-sorted positions."""
     if not _kernels.on_card(w):
         _, t, wu = _schur_down_plain(J_r, J_p, w, x_table, plan, False)
         return _schur_up_plain(J_r, J_p, w, (hinv * t[:, None, :]).sum(-1), plan, wu)
-    _, t, wu = _launch_schur_down(J_r, J_p, w, x_table, plan, False)
-    y = _launch_schur_up(J_r, J_p, w, (hinv * t[:, None, :]).sum(-1), plan, wu)
+    y = _launch_schur_pcg(J_r, J_p, w, x_table, hinv, plan)
     seg_schur_pcg.launches += 1
     return y
 
@@ -584,7 +609,7 @@ def _schur_up_cal_plain(J_r, J_c, J_p, w, z, plan, cplan, wu):
             _rows_sum((J_c * du[:, None, :]).sum(0), cplan.win, cplan.n_rows))
 
 
-def _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan, wu):
+def _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan):
     n, k, jargs = _jac_args(J_r, J_p, w)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
     kc = J_c.shape[1]
@@ -597,19 +622,17 @@ def _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan, wu):
                     ck(plan.rig_obs, "rig_obs", torch.int32),
                     ck(plan.point, "point", torch.int32, (n,)), *_cal_ptrs(cplan, n)[1:],
                     *jargs, _jc_arg(J_c, n), ck(z, "z", torch.float32, (L, 3)),
-                    ck(wu, "wu", torch.float32, (2, n)) if wu is not None else None,
                     du.data_ptr(), part.data_ptr(), y_r.data_ptr(), y_c.data_ptr())
     return y_r, y_c
 
 
 @_kernels.register("schur_up_cal")
-def seg_schur_up_cal(J_r, J_c, J_p, w, z, plan: SegPlan, cplan: CalPlan, wu=None):
+def seg_schur_up_cal(J_r, J_c, J_p, w, z, plan: SegPlan, cplan: CalPlan):
     """(y_r (R, k), y_c (n_c, kc)) = segment sums of (J_r, J_c)^T w J_p z[pt]
-    (= W z over rig and window columns); with the staged wu of
-    seg_schur_down_cal: the sums of (J_r, J_c)^T (wu - w J_p z[pt])."""
+    (= W z over rig and window columns)."""
     if not _kernels.on_card(w):
-        return _schur_up_cal_plain(J_r, J_c, J_p, w, z, plan, cplan, wu)
-    out = _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan, wu)
+        return _schur_up_cal_plain(J_r, J_c, J_p, w, z, plan, cplan, None)
+    out = _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan)
     seg_schur_up_cal.launches += 1
     return out
 
@@ -726,11 +749,36 @@ def _mv_scatter_plain(J, u, rows):
     return _rows_sum((J * u[:, None, :]).sum(0), rows.row, rows.n_rows)
 
 
+def _launch_mv_scatter_slot_major(J, u, rows: RowPlan):
+    """K13a on a scattered family: q = J^T u written slot-major, then one
+    warp per row gathering its slots' rows (csrc/table_segments.cu
+    viba_seg_mv_scatter_slot_major)."""
+    n, k, jp = _table_jac(J, "seg_mv_scatter_table")
+    if k != 3 or rows.row_chunk is not None:
+        raise ValueError(f"K13a on a scattered family takes 3-column J on unchunked rows, got "
+                         f"{k} columns" + (", chunked" if rows.row_chunk is not None else ""))
+    ck = _kernels.check
+    ck(rows.row, "row", torch.int32, (n,))
+    q = _empty((n, 4), u)  # float4 per slot, slot order
+    y = _empty((rows.n_rows, 3), u)
+    _kernels.launch("viba_seg_mv_scatter_slot_major", rows.n_rows, n,
+                    ck(rows.ptr, "ptr", torch.int32, (rows.n_rows + 1,)),
+                    ck(rows.obs, "obs", torch.int32), jp, ck(u, "u", torch.float32, (2, n)),
+                    q.data_ptr(), y.data_ptr())
+    return y
+
+
 @_kernels.register("mv_scatter_table")
 def seg_mv_scatter_table(J, u, rows: RowPlan):
-    """K13a: y (n_rows, k) = seg-sum over each row's slots of J^T u."""
+    """K13a: y (n_rows, k) = seg-sum over each row's slots of J^T u. A
+    scattered family (the landmark rows) goes through a slot-major copy of
+    J^T u; the others walk their lists."""
     if not _kernels.on_card(u):
         return _mv_scatter_plain(J, u, rows)
+    if rows.scattered:
+        y = _launch_mv_scatter_slot_major(J, u, rows)
+        seg_mv_scatter_table.launches += 1
+        return y
     n, k, jp = _table_jac(J, "seg_mv_scatter_table")
     n_seg, n_rows, G, ptr, obs, row_chunk = _rows_args(rows, n)
     part, y = _rows_out(rows, k, u)
