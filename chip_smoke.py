@@ -40,14 +40,14 @@ Phases, one printed line each (per path):
                at the problem's real shapes (J from one linearization): error
                relative to the max-abs of the plain version evaluated in
                float64 on the same inputs; median times of the kernel and of
-               the plain version in float32; the least time the card could
-               take (bound). Device time and device operations per call
-               (torch.profiler, in turns) of: K4 against the composition it
-               replaced (K6's down, the 3x3 solve in torch, K5's up with the
-               staged wu), beside its two-pass floor; K8 and K9 (full, gs_cal,
-               gs_cal at kc = 17), K9 beside its two-pass floor; K13a on the
-               two-grid landmark rows against the walk on the same rows; K13c
-               on those rows (D 9, D 3) against the walk and index_add_
+               the plain version in float32; the kernel's device time and
+               device operations per call (torch.profiler; no host copy may
+               be among them); the least time the card could take (bound).
+               K8 and K7 against the designs they replaced (branches only this
+               script reaches), in turns; K4 and K9 beside their two-pass
+               floors; K13a on the two-grid landmark rows against the walk on
+               the same rows; K13c on those rows (D 9, D 3) against the walk
+               and index_add_
   consistency  one LM iteration through the kernels vs the plain versions,
                from the initial state: new cost, reduced step and the step of
                the well-conditioned landmarks; and the kernel-path attempt run
@@ -126,10 +126,12 @@ PATHS = ("bias", "full", "gs_cal", "two_grid", "profile")
 TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 # kernels whose ptxas report must show no register spill (the kernels
 # redesigned for this card: K4's down and up passes, K9's, the landmark pass
-# the two share, K13a's and K13c's slot-major routes on landmark rows), by
-# the names ptxas gives them
+# the two share, K13a's and K13c's slot-major routes on landmark rows, K8's
+# window and sum passes, K7's instantiation per mode), by the names ptxas
+# gives them
 NO_SPILL = ("pcg_down", "pcg_up", "pcg_cal_down", "pcg_cal_up", "point_range_sum",
-            "jtu_slot_major", "reduce_gather4", "to_slot_major", "reduce_gather")
+            "jtu_slot_major", "reduce_gather4", "to_slot_major", "reduce_gather",
+            "assemble_cal_window", "sum_cal", "rs_linearize_mode")
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
 # kernel vs plain LM iteration, relative (see the consistency phases)
@@ -187,12 +189,17 @@ def in_turns(fns):
     read as profile_matvec.device_ms reads them (torch.profiler, CUDA
     activity: the card's own time in each kernel and memset, without the
     host's enqueue time): (device ms per call, device operations per call,
-    {kernel: ms per call}) of each."""
+    {kernel: ms per call}) of each. A session that recorded no device time
+    at all is run again, up to three times."""
     from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
 
     sessions = [[] for _ in fns]
     for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
-        sessions[i].append(pm.device_rows(fns[i]))
+        for _ in range(3):  # a session that recorded nothing (seen on the H100) is taken again
+            rows = pm.device_rows(fns[i])
+            if rows:
+                break
+        sessions[i].append(rows)
     out = []
     for rows in sessions:
         per = pm.per_call(rows, pm.DEVICE_REPS)
@@ -234,8 +241,7 @@ class Bench:
     def __init__(self):
         self.results = {}
 
-    def compare(self, name, fn, args, labels_tol, read, flops, f64=False, record=True,
-                library=None):
+    def compare(self, name, fn, args, labels_tol, read, flops, f64=False, library=None):
         """fn(*args) -> outputs. The kernel's outputs are held against the
         plain version evaluated in float64 on the same inputs (so the bound
         measures the kernel's own error, not the float32 rounding of two
@@ -260,19 +266,47 @@ class Bench:
         with _kernels.plain_reference():  # fewer repetitions: the plain K7 takes seconds
             plain_ms = cuda_time(lambda: fn(*args), reps=5, warmup=1)
         library_ms = cuda_time(library, reps=5, warmup=1) if library is not None else None
+        (dev_ms, dev_ops, dev_kern), = in_turns([lambda: fn(*args)])
+        copies = [key for key in dev_kern if "Memcpy" in key]
+        if copies:  # a copy from the host inside a wrapper: not capturable, not needed
+            raise AssertionError(f"{name}: host copies among its device operations: {copies}")
         byte_ms = (nbytes(read) + nbytes(out_k)) / HBM_BYTES_PER_S * 1e3
         flop_ms = flops / (F64_FLOPS if f64 else F32_FLOPS) * 1e3
         bound_ms = max(byte_ms, flop_ms)
         bound_by = "bytes" if byte_ms >= flop_ms else "operations"
         phase("kernels", f"{name}: " + ", ".join(f"{lb} rel {r:.2e}" for lb, r, _ in errs)
-              + f" | {ms:.4f} ms vs plain {plain_ms:.4f} ms | bound {bound_ms:.4f} ms "
-              f"({bound_by}) | {ms / bound_ms:.1f}x bound"
-              + (f" | library {library_ms:.4f} ms" if library is not None else ""))
+              + f" | {ms:.4f} ms vs plain {plain_ms:.4f} ms | device {dev_ms:.4f} ms in "
+              f"{dev_ops:g} ops | bound {bound_ms:.4f} ms ({bound_by}) | {dev_ms / bound_ms:.1f}x "
+              "bound by device time"
+              + (f" | library {library_ms:.4f} ms" if library is not None else "")
+              + " | kernels: " + ", ".join(f"{key[:40]} {t:.4f}" for key, t in dev_kern.items()))
         row = dict(max_abs_err=max(d for _, _, d in errs), ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-        if record:
-            self.results[name] = row
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, device_ms=dev_ms,
+                   device_ops=dev_ops, device_kernels=dev_kern)
+        self.results[name] = row
         return row
+
+
+def against_old(name, row, new, old, labels_tol):
+    """The redesigned kernel `new` against the design it replaced, `old`
+    (a branch only this script reaches), on the same inputs: each output
+    within its tolerance, relative to max-abs; device time and operations
+    per call in turns; old's CUDA-event time. Recorded in row["old"]."""
+    outs_new, outs_old = flat(new()), flat(old())
+    diffs = {}
+    for (label, tol), a, b in zip(labels_tol, outs_new, outs_old):
+        diffs[label] = rel_err(a, b)[0]
+        if not diffs[label] <= tol:
+            raise AssertionError(f"{name}.{label}: the old design differs by "
+                                 f"{diffs[label]:.3e} > {tol:g}")
+    (dev_n, ops_n, kern_n), (dev_o, ops_o, kern_o) = in_turns([new, old])
+    row["old"] = dict(ms=cuda_time(old), device_ms=dev_o, device_ops=ops_o,
+                      device_kernels=kern_o, rel_diff=diffs, device_ms_in_turns=dev_n)
+    phase("kernels", f"{name}: device {dev_n:.4f} ms in {ops_n:g} ops vs the old design "
+          f"{dev_o:.4f} ms in {ops_o:g} ops, in turns (events {row['ms']:.4f} vs "
+          f"{row['old']['ms']:.4f} ms; rel diff "
+          + ", ".join(f"{lb} {d:.1e}" for lb, d in diffs.items()) + ") | old: "
+          + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in kern_o.items()))
 
 
 def lm_iteration(problem, settings):
@@ -499,7 +533,7 @@ def bias_only(dev, bench):
                   vis_read + tables + [masks.rig, masks.points], 400.0 * N, f64=True)
     bench.compare("visual_linearize(residual-only)", visual_fused.visual_linearize,
                   (cfg.camera_kind, vdata, v, None, False), [("res", TOL_RES), ("valid", TOL_RES)],
-                  vis_read + tables, 150.0 * N, f64=True, record=False)
+                  vis_read + tables, 150.0 * N, f64=True)
 
     lg = k_lin(datas, v, masks, None)
     asm = k_assemble(datas, lg, v, masks)
@@ -526,36 +560,15 @@ def bias_only(dev, bench):
     row4 = bench.compare("schur_pcg", seg.seg_schur_pcg, args4, [("y", TOL_SEG)],
                          [b.J, b.J_pt, b.w, x, rs.H_ll_inv] + index4, (8 * k + 30) * n_real)
 
-    # K4 against the composition it replaced, which K6's and K5's wrappers
-    # still hold: down (want_y off, staged wu) -> the 3x3 solve in torch ->
-    # up with the staged wu
-    def old4():
-        _, t4, wu4 = seg._launch_schur_down(b.J, b.J_pt, b.w, x, b.plan, False)
-        z4 = (rs.H_ll_inv * t4[:, None, :]).sum(-1)
-        return seg._launch_schur_up(b.J, b.J_pt, b.w, z4, b.plan, wu4)
-
-    r_old4, _ = rel_err(old4(), seg.seg_schur_pcg(*args4))
-    (dev4, ops4, kern4), (dev_old4, ops_old4, kern_old4) = in_turns(
-        [lambda: seg.seg_schur_pcg(*args4), old4])
     # the least bytes with the landmark solve between two passes: J_r, J_p
     # and w read twice, p (16 B a slot) written and read once, each index
     # array, x and hinv read once, z and y written once
     floor4 = (2 * nbytes([b.J, b.J_pt, b.w]) + 2 * 16 * n_real
               + nbytes(index4, x, rs.H_ll_inv) + 4 * (3 * len(s.points_w) + s.num_rigs * k))
-    row4.update(device_ms=dev4, device_ops=ops4, device_kernels=kern4,
-                two_pass_floor_ms=floor4 / HBM_BYTES_PER_S * 1e3,
-                old_composition=dict(ms=cuda_time(old4), device_ms=dev_old4, device_ops=ops_old4,
-                                     device_kernels=kern_old4, rel_diff_y=r_old4))
-    phase("kernels", f"schur_pcg: device {dev4:.4f} ms in {ops4:g} ops vs the old composition "
-          f"{dev_old4:.4f} ms in {ops_old4:g} ops (events {row4['ms']:.4f} vs "
-          f"{row4['old_composition']['ms']:.4f} ms; y rel diff {r_old4:.1e}) | two-pass floor "
-          f"{row4['two_pass_floor_ms']:.4f} ms | kernels: "
-          + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in kern4.items()) + " | old: "
-          + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in kern_old4.items()))
-    if ops4 > 3:
-        raise AssertionError(f"schur_pcg: {ops4} device operations per call")
-    if not r_old4 <= TOL_SEG:
-        raise AssertionError(f"schur_pcg: the old composition differs by {r_old4:.1e}")
+    row4.update(two_pass_floor_ms=floor4 / HBM_BYTES_PER_S * 1e3)
+    phase("kernels", f"schur_pcg: two-pass floor {row4['two_pass_floor_ms']:.4f} ms")
+    if row4["device_ops"] > 3:
+        raise AssertionError(f"schur_pcg: {row4['device_ops']} device operations per call")
     del lg, asm, rs, lin, b
 
     # One LM iteration from the initial state, through the kernels and
@@ -666,11 +679,13 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
                                  *(f"blocks_{g}" for g, _ in b.cal_groups), "g_l", "H_ll0"),
                          jread + [lin.res] + plan + cplan,
                          (8 * k + 36 + 4 * kc + 5 * (n_out - kc)) * n_real)
-    (dev8, ops8, kern8), = in_turns([lambda: seg.seg_assemble_cal(*args8)])
-    row8.update(device_ms=dev8, device_ops=ops8, device_kernels=kern8)
-    phase("kernels", f"assemble_cal{suffix}: device {dev8:.4f} ms in {ops8:g} ops (events "
-          f"{row8['ms']:.4f}) | kernels: "
-          + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in kern8.items()))
+    against_old(f"assemble_cal{suffix}", row8, lambda: seg.seg_assemble_cal(*args8),
+                lambda: seg._launch_assemble_cal_v1(*args8),
+                seg_tol("g_r", "diag_r", "g_c", "diag_c",
+                        *(f"blocks_{g}" for g, _ in b.cal_groups), "g_l", "H_ll0"))
+    if row8["device_ops"] > 3:
+        raise AssertionError(f"assemble_cal{suffix}: {row8['device_ops']} device operations "
+                             "per call")
     cp = b.cplan
     index9 = [b.plan.rig, cp.win, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, cp.rig_pair,
               cp.pair_ptr, cp.pair_obs, cp.pair_part, cp.win_pair]
@@ -678,23 +693,24 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
     row9 = bench.compare(f"schur_pcg_cal{suffix}", seg.seg_schur_pcg_cal, args9,
                          seg_tol("y_r", "y_c"), jread + [x, xc, rs.H_ll_inv] + index9,
                          (8 * k + 8 * kc + 24) * n_real)
-    (dev_new, ops_new, k_new), = in_turns([lambda: seg.seg_schur_pcg_cal(*args9)])
+    ops_new = row9["device_ops"]
     # the least bytes of any design with the landmark solve between two
     # passes: J_r, J_c, J_p and w read twice, p (16 B a slot) written and
     # read once, each index array read once, the outputs written once
     floor_bytes = 2 * nbytes(jread) + 2 * 16 * n_real + nbytes(index9) + 4 * (R * k + n_c * kc)
-    extra = dict(device_ms=dev_new, device_ops=ops_new, device_kernels=k_new,
-                 two_pass_floor_ms=floor_bytes / HBM_BYTES_PER_S * 1e3)
-    row9.update(extra)
-    phase("kernels", f"schur_pcg_cal{suffix}: device {dev_new:.4f} ms in {ops_new:g} ops (events "
-          f"{row9['ms']:.4f} ms) | two-pass floor {extra['two_pass_floor_ms']:.4f} ms | kernels: "
-          + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in k_new.items()))
+    row9.update(two_pass_floor_ms=floor_bytes / HBM_BYTES_PER_S * 1e3)
+    phase("kernels", f"schur_pcg_cal{suffix}: two-pass floor {row9['two_pass_floor_ms']:.4f} ms")
     if ops_new > 4:
         raise AssertionError(f"schur_pcg_cal{suffix}: {ops_new} device operations per call")
     bench.compare(f"schur_down_cal{suffix}", seg.seg_schur_down_cal,
                   (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan),
                   seg_tol("y_r", "y_c", "t", "wu"), jread + [x, xc] + plan + cplan,
                   (8 * k + 8 * kc + 16) * n_real)
+    # as the main path calls it (rcs.w_transpose_x): t = W^T x alone
+    bench.compare(f"schur_down_cal{suffix}(want_y=False)", seg.seg_schur_down_cal,
+                  (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan, False),
+                  seg_tol("t", "wu"), jread + [x, xc] + plan + cplan[:1],
+                  (4 * k + 4 * kc + 16) * n_real)
     bench.compare(f"schur_up_cal{suffix}", seg.seg_schur_up_cal,
                   (b.J, b.J_cal, b.J_pt, b.w, zl, b.plan, b.cplan), seg_tol("y_r", "y_c"),
                   jread + [zl] + plan + cplan, (4 * k + 4 * kc + 14) * n_real)
@@ -719,15 +735,16 @@ def full_sensor(dev, bench, session, session_sec):
     rs_tables = [v.pose_q, v.pose_t, v.vel, v.points, v.cam_intr, v.cam_extr_q, v.cam_extr_t,
                  list(tab)]
     rs_masks = [masks.rig, masks.points, masks.cam_intr, masks.cam_extr]
-    bench.compare("rs_linearize", rs_fused.rs_linearize,
-                  (cfg.camera_kind, data, v, masks, True, True),
-                  [("res", TOL_RS_RES), ("valid", TOL_RS_RES), ("J_pt", TOL_RS_J),
-                   ("J_r", TOL_RS_J), ("J_cal", TOL_RS_J)],
-                  rs_read + rs_tables + rs_masks, 1500.0 * N, f64=True)
-    bench.compare("rs_linearize(residual-only)", rs_fused.rs_linearize,
-                  (cfg.camera_kind, data, v, None, False, False),
-                  [("res", TOL_RS_RES), ("valid", TOL_RS_RES)], rs_read + rs_tables, 500.0 * N,
-                  f64=True, record=False)
+    for mode, args7, tols7, read7, flops7 in (
+            ("", (cfg.camera_kind, data, v, masks, True, True),
+             [("res", TOL_RS_RES), ("valid", TOL_RS_RES), ("J_pt", TOL_RS_J), ("J_r", TOL_RS_J),
+              ("J_cal", TOL_RS_J)], rs_read + rs_tables + rs_masks, 1500.0 * N),
+            ("(residual-only)", (cfg.camera_kind, data, v, None, False, False),
+             [("res", TOL_RS_RES), ("valid", TOL_RS_RES)], rs_read + rs_tables, 500.0 * N)):
+        row7 = bench.compare(f"rs_linearize{mode}", rs_fused.rs_linearize, args7, tols7, read7,
+                             flops7, f64=True)
+        against_old(f"rs_linearize{mode}", row7, lambda: rs_fused.rs_linearize(*args7),
+                    lambda: rs_fused._launch_rs(*args7, entry="viba_rs_linearize_v1"), tols7)
 
     cal_segment_kernels(bench, problem, dev)
 

@@ -29,10 +29,14 @@ rig and window width on the full-sensor plans and on a made-up plan with an
 empty rig, rigs on three window rows, a landmark of one slot and one of
 none; K13c on landmark rows of 0, 1 and 2,000 slots, through the slot-major
 copy and, on a family not marked scattered, the walk. K4 runs at rig widths 6
-and 9 on the bias-only plan and on that made-up plan, also against the
-composition it replaced; K13a on the landmark rows of the two-grid batch and
+and 9 on the bias-only plan and on that made-up plan, also against K6's
+down and K5's up around the 3x3 solve; K13a on the landmark rows of the two-grid batch and
 of the made-up plan through the slot-major copy, also against the walk. Each
-repeats bit for bit.
+repeats bit for bit. K8 runs at rig widths 6 and 9 and window widths 6, 17
+and 23 on the full-sensor plans and on the made-up plan cut into chunks of
+1, 0, 300 and the rest of a window row's slots, with a window row of none;
+K7 in each of its instantiations (camera model, Jacobian, calibration
+columns, masked or not). Each repeats bit for bit.
 """
 
 import functools
@@ -741,8 +745,8 @@ def test_schur_pcg_kernel_every_width(k, plan_kind, cuda_device, monkeypatch):
     """K4 on the bias-only batch's plan and on the made-up plan (pads, an
     empty rig, landmarks of one slot and of none) at rig widths 6 and 9:
     one C entry a call, within 1e-5 of its plain version in float64 and of
-    the composition it replaced (K6's down, the 3x3 solve, K5's up with the
-    staged wu), the same bits every call."""
+    K6's down minus K5's up around the 3x3 solve, the same bits every
+    call."""
     if plan_kind == "bias":
         plan, a = _segment_inputs(cuda_device)
         w = a["w"]
@@ -762,8 +766,8 @@ def test_schur_pcg_kernel_every_width(k, plan_kind, cuda_device, monkeypatch):
     assert counts["schur_pcg"] == 2 and sum(counts.values()) == 2
     assert names == ["viba_schur_pcg"] * 2
     J_r, J_p, _, x, hinv = args
-    _, t, wu = tseg._launch_schur_down(J_r, J_p, w, x, plan, False)
-    old = tseg._launch_schur_up(J_r, J_p, w, (hinv * t[:, None, :]).sum(-1), plan, wu)
+    y_down, t, _ = tseg._launch_schur_down(J_r, J_p, w, x, plan, True)
+    old = y_down - tseg._launch_schur_up(J_r, J_p, w, (hinv * t[:, None, :]).sum(-1), plan)
     _check((out, out), (ref, old), (1e-5, 1e-5))
     assert torch.equal(out, again)
     if plan_kind == "edge":
@@ -802,3 +806,120 @@ def test_landmark_mv_scatter_slot_major(problem, cuda_device, monkeypatch):
     assert torch.equal(out, again)
     if problem == "edge":
         assert float(out[7].abs().max()) == 0.0  # landmark 7 has no slot
+
+
+# ---------------------------------------------------------------------------
+# K8 in three launches, K7 one instantiation per mode
+# ---------------------------------------------------------------------------
+
+
+def _odd_chunks(cplan, n_rows, dev):
+    """The window rows' slot lists of `cplan` cut again into chunks of 1, 0
+    and 300 slots, then the rest, in `n_rows` rows (rows past the plan's
+    have no slot)."""
+    ptr, obs = cplan.chunk_ptr.cpu().numpy(), cplan.chunk_obs.cpu().numpy()
+    rc = cplan.row_chunk.cpu().numpy()
+    starts, row_chunk = [], [0]
+    for r in range(n_rows):
+        if r < cplan.n_rows:
+            beg, end = int(ptr[rc[r]]), int(ptr[rc[r + 1]])
+            cuts = [beg, min(beg + 1, end), min(beg + 1, end)]
+            cuts += list(range(cuts[-1] + 300, end, 300))
+            starts += cuts
+        row_chunk.append(len(starts))
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    return cplan._replace(chunk_ptr=i32(starts + [len(obs)]), row_chunk=i32(row_chunk))
+
+
+def _flat(outs):
+    """K8's outputs with the list of split blocks expanded."""
+    return [x for o in outs for x in (o if isinstance(o, list) else [o])]
+
+
+def _assemble_cal_args(w, plan, cplan, k, kc, dev, seed):
+    """K8's inputs: random J blocks of rig width k and window width kc, a
+    random residual, the weights w."""
+    n = w.shape[0]
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.from_numpy(a).to(device=dev, dtype=torch.float32)
+
+    return (f32(rng.normal(size=(2, k, n))), f32(rng.normal(size=(2, kc, n))),
+            f32(rng.normal(size=(2, 3, n))), f32(rng.normal(size=(2, n))), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_kind", ["full", "edge"])
+@pytest.mark.parametrize("kc", [6, 17, 23])
+@pytest.mark.parametrize("k", [6, 9])
+def test_assemble_cal_kernel_every_width(k, kc, plan_kind, cuda_device, monkeypatch):
+    """K8 on the full-sensor batch's plans, and on the made-up plan with
+    chunks of 1, 0 and 300 slots and a window row without a slot, at every
+    rig and window width: one C entry a call, within 1e-5 of its plain
+    version in float64 and of the design it replaced, the same bits every
+    call."""
+    if plan_kind == "full":
+        b, _ = _cal_inputs(cuda_device)
+        plan, cplan, w = b.plan, b.cplan, b.w
+    else:
+        plan, cplan, pad = _edge_plans(cuda_device)
+        cplan = _odd_chunks(cplan, cplan.n_rows + 1, cuda_device)
+        assert (np.diff(cplan.chunk_ptr.cpu().numpy())[:3] == [1, 0, 300]).all()
+        rng = np.random.default_rng(139)
+        w = torch.from_numpy(rng.random(pad.shape[0]) * (1.0 - pad)).to(cuda_device,
+                                                                         torch.float32)
+    args = _assemble_cal_args(w, plan, cplan, k, kc, cuda_device, 149 + k + kc)
+    names = _recording_launches(monkeypatch)
+    _kernels.reset_launch_counts()
+    out = tseg.seg_assemble_cal(*args, plan, cplan)
+    again = tseg.seg_assemble_cal(*args, plan, cplan)
+    with _kernels.plain_reference():
+        ref = tseg.seg_assemble_cal(*_kernels.to_f64(args), plan, cplan)
+    counts = _kernels.launch_counts()
+    assert counts["assemble_cal"] == 2 and sum(counts.values()) == 2
+    assert names == ["viba_assemble_cal"] * 2
+    old = tseg._launch_assemble_cal_v1(*args, plan, cplan)
+    out, again, ref, old = (_flat(o) for o in (out, again, ref, old))
+    assert [tuple(o.shape) for o in out] == [tuple(r.shape) for r in ref]
+    _check(out + out, ref + old, (1e-5,) * (2 * len(out)))
+    for o, o2 in zip(out, again):
+        assert torch.equal(o, o2)
+    for blk in out[4:-2]:  # the split blocks come out symmetric
+        assert torch.equal(blk, blk.transpose(-1, -2))
+    if plan_kind == "edge":
+        assert all(float(o[-1].abs().max()) == 0.0 for o in out[2:-2])  # the empty window row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_jac,with_cal,masked", [
+    (True, True, True), (True, True, False), (True, False, True), (True, False, False),
+    (False, False, False)])
+@pytest.mark.parametrize("camera_kind", [0, 1])
+def test_rs_linearize_every_instantiation(camera_kind, with_jac, with_cal, masked, cuda_device,
+                                          monkeypatch):
+    """K7 in each mode against its plain version in float64 (residual 1e-4,
+    Jacobians 3e-4; unmasked against the plain version with all-ones masks),
+    the same bits every call."""
+    p, _, vi = _full_card(cuda_device)
+    data, v = p.datas[vi], p.variables
+    masks = p.masks if masked else None
+    ones = p.masks._replace(**{f: torch.ones_like(getattr(p.masks, f))
+                               for f in p.masks._fields})
+    names = _recording_launches(monkeypatch)
+    _kernels.reset_launch_counts()
+    out = rs_fused.rs_linearize(camera_kind, data, v, masks, with_jac, with_cal)
+    again = rs_fused.rs_linearize(camera_kind, data, v, masks, with_jac, with_cal)
+    f64 = _kernels.to_f64
+    with _kernels.plain_reference():
+        ref = rs_fused.rs_linearize(camera_kind, f64(data), f64(v),
+                                    f64(masks if masked or not with_jac else ones), with_jac,
+                                    with_cal)
+    assert rs_fused.rs_linearize.launches == 2 and names == ["viba_rs_linearize"] * 2
+    assert len(out) == (2 + 2 * with_jac + with_cal)
+    _check(out, ref, (1e-4, 0.0, 3e-4, 3e-4, 3e-4))
+    for o, o2 in zip(out, again):
+        assert torch.equal(o, o2)

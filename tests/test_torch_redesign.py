@@ -36,7 +36,17 @@ against their plain versions); here:
   * on CPU tensors the K4 and K13a wrappers take their plain versions and
     count no launch;
   * profile_matvec.per_call, which turns the profiler's records into device
-    time per call, counts a launch the profiler missed.
+    time per call, counts a launch the profiler missed;
+  * K8's window flow (cal_segments.cu: a chunk's slots in 128-slot steps,
+    the outputs cut into 3x3 items each owned by one warp, a lane's 4 slots
+    of each step summed in order, the warp's butterfly, the chunks' partial
+    rows summed in chunk order into g_c, diag_c and the full split blocks)
+    equals the JAX
+    package's seg_assemble_cal on its XLA branch at kc 6, 17 and 23 (chunks
+    of 1,024 and of 300 slots) within 1e-9;
+  * the full blocks that K2, K3 and K8's sum pass write from their upper
+    triangles (the index arithmetic of each kernel, written out) equal
+    segments._tri_to_full at k 3, 6, 9 and 17.
 """
 
 import functools
@@ -389,3 +399,157 @@ def test_cpu_tensors_take_the_plain_versions(kernel):
     assert got.device.type == "cpu" and got.dtype == torch.float64
     assert rel(got.numpy(), want.numpy()) < TOL
     assert sum(_kernels.launch_counts().values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# K8: one window pass over the chunk lists, then the sums in chunk order
+# ---------------------------------------------------------------------------
+
+STEP, LANES = 128, 32  # K8: the slots a warp takes per step, its lanes (4 slots each)
+
+
+def _tri_index(a, b, dim):
+    """cal_segments.cu tri_index: (a, b), a <= b, in a row-major upper triangle."""
+    return a * dim - a * (a - 1) // 2 + (b - a)
+
+
+def _cal_tiles(splits):
+    """CalTiles: the split widths KE, KI, the shared-memory column of the
+    residual KP, and the items (kind 0 a 3x3 tile, 1 a diagonal tile, 2
+    three gradient entries; first columns a0, b0) in kernel order."""
+    KE, KI = (6 if 6 in splits else 0), (17 if 17 in splits else 0)
+    KIP = -(-KI // 3) * 3
+    KP = KE + KIP
+    items = [(int(i == j), 3 * i, 3 * j) for i in range(KE // 3) for j in range(i, KE // 3)]
+    items += [(int(i == j), KE + 3 * i, KE + 3 * j) for i in range(KIP // 3)
+              for j in range(i, KIP // 3)]
+    items += [(2, 3 * g, KP) for g in range(-(-(KE + KI) // 3))]
+    return KE, KI, KP, items
+
+
+def _out_index(KE, KI, item, e):
+    """CalTiles::out_index: the partial-row position of entry e of an item."""
+    kind, a0, b0 = item
+    a, b, kc = a0 + e // 3, b0 + e % 3, KE + KI
+    if kind == 2:
+        return a if e % 3 == 0 and a < kc else -1
+    if a > b:
+        return -1
+    if b < KE:
+        return kc + _tri_index(a, b, KE)
+    return kc + KE * (KE + 1) // 2 + _tri_index(a - KE, b - KE, KI) if b - KE < KI else -1
+
+
+def _assemble_cal_flow(J_c, res, w, cplan, splits):
+    """K8's window and sum passes as torch ops: (g_c, diag_c, [blocks])."""
+    KE, KI, KP, items = _cal_tiles(splits)
+    kc = KE + KI
+    ptr, obs = cplan.chunk_ptr.tolist(), cplan.chunk_obs.long()
+    part = J_c.new_zeros((cplan.n_chunks, tseg.n_cal_out(splits)))
+    xor = [torch.arange(LANES) ^ off for off in (16, 8, 4, 2, 1)]
+    for ch in range(cplan.n_chunks):  # a block per chunk
+        acc = J_c.new_zeros((len(items), LANES, 9))  # each lane's tile of each item
+        for t0 in range(ptr[ch], ptr[ch + 1], STEP):  # the stages' 128-slot steps, in order
+            s = obs[t0:min(t0 + STEP, ptr[ch + 1])]
+            X = J_c.new_zeros((2, KP + 3, STEP))  # J_c's columns, padded, the residual
+            X[:, :kc, :len(s)] = J_c[:, :, s]
+            X[:, KP, :len(s)] = res[:, s]
+            sw = J_c.new_zeros(STEP)
+            sw[:len(s)] = w[s]
+            X, sw = X.reshape(2, KP + 3, LANES, 4), sw.reshape(LANES, 4)
+            for i, (kind, a0, b0) in enumerate(items):
+                for q in range(4):  # a lane's slots in order
+                    wa = X[:, a0:a0 + 3, :, q] * sw[:, q]
+                    b = X[:, b0:b0 + 3, :, q]  # a gradient item's: [res, 0, 0]
+                    acc[i] += (wa[:, :, None] * b[:, None]).sum(0).reshape(9, LANES).T
+        for perm in xor:  # the warp's butterfly
+            acc = acc + acc[:, perm]
+        for i, item in enumerate(items):
+            for e in range(9):
+                o = _out_index(KE, KI, item, e)
+                if o >= 0:
+                    part[ch, o] = acc[i, 0, e]
+    rc = cplan.row_chunk.tolist()
+    rows = []
+    for r in range(cplan.n_rows):  # the sum pass: chunk order
+        total = part.new_zeros(part.shape[1])
+        for ch in range(rc[r], rc[r + 1]):
+            total = total + part[ch]
+        rows.append(total)
+    sums = torch.stack(rows)
+    blocks, diag, off = [], [], 0
+    for dim in splits:
+        tri0 = kc + (KE * (KE + 1) // 2 if off else 0)
+        idx = torch.tensor([[tri0 + _tri_index(min(a, b), max(a, b), dim) for b in range(dim)]
+                            for a in range(dim)])
+        blocks.append(sums[:, idx])
+        diag.append(sums[:, idx.diagonal()])
+        off += dim
+    return sums[:, :kc], torch.cat(diag, dim=1), blocks
+
+
+@pytest.mark.parametrize("kc", [6, 17, 23])
+def test_assemble_cal_flow_matches_jax(kc):
+    pj, _ = jax_full()
+    (vi,) = [i for i, c in enumerate(pj.cfgs) if c.kind == "rs_visual"]
+    dj, info = pj.datas[vi], pj.cfgs[vi].block_info
+    v = pj.variables
+    R, L, n_c = v.pose_q.shape[0], v.points.shape[0], v.cam_intr.shape[0]
+    pad = np.asarray(dj["_pad"])
+    N = pad.shape[0]
+    win = np.asarray(dj["_cb_local"]).astype(np.int64)
+    assert n_c == 2 and not np.asarray(dj["_cb_base"]).any()
+    splits = tseg.CAL_SPLITS[kc]
+    rng = np.random.default_rng(151 + kc)
+    a = dict(J_r=rng.normal(size=(2, 9, N)), J_c=rng.normal(size=(2, kc, N)),
+             J_p=rng.normal(size=(2, 3, N)), res=rng.normal(size=(2, N)),
+             w=rng.random(N) * (1.0 - pad))
+    J = {k: jnp.asarray(x) for k, x in a.items()}
+    want = jseg.seg_assemble_cal(
+        J["J_r"], J["J_c"], J["J_p"], J["res"], J["w"], dj["_rb_local"], jnp.asarray(win),
+        dj["_rg_pt_local"], dj["_rg_hib"], dj["_rb_base"], dj["_cb_base"], L, info.nt, info.ts,
+        info.rb, info.wb, info.prb2 // 128, info.nhg, R, n_c, splits)
+    want = [np.asarray(x) for x in (*want[:4], *want[4], *want[5:])]
+    p, _ = _full_pair()
+    data, _ = _blocked(p)
+    plan = trcs.plan_of(data)
+    args = {k: t(x) for k, x in a.items()}
+    for chunk in (tseg.CHUNK, 300):
+        arrays = {**tseg.cal_plan_arrays(win, pad, n_c, chunk=chunk),
+                  **tseg.pair_plan_arrays(np.asarray(dj["rig"]), win, pad, R, n_c)}
+        cplan = tseg.CalPlan(torch.from_numpy(win.astype(np.int32)),
+                             *(torch.from_numpy(arrays["_cal_" + f])
+                               for f in tseg.CalPlan._fields[1:]))
+        g_c, diag_c, blocks = _assemble_cal_flow(args["J_c"], args["res"], args["w"], cplan,
+                                                 splits)
+        for got, wj in zip((g_c, diag_c, *blocks), want[2:-2]):
+            assert np.abs(wj).max() > 0 and rel(got.numpy(), wj) < TOL
+        plain = tseg.seg_assemble_cal(args["J_r"], args["J_c"], args["J_p"], args["res"],
+                                      args["w"], plan, cplan)
+        plain = [*plain[:4], *plain[4], *plain[5:]]
+        assert len(plain) == len(want)
+        for got, wj in zip(plain, want):
+            assert rel(got.numpy(), wj) < TOL
+
+
+@pytest.mark.parametrize("k", [3, 6, 9, 17])
+def test_full_block_layouts_match_tri_to_full(k):
+    """The full symmetric blocks the kernels write from their upper
+    triangles: K3 walks the triangle row by row and stores each entry at
+    (a, b) and (b, a) (precond_rig.cu); K8's sum pass reads entry (a, b)
+    at tri_index(min, max) (cal_segments.cu sum_cal); K2 maps the 3x3
+    block through kTri (assemble_rig.cu)."""
+    n = 5
+    tri = torch.from_numpy(np.random.default_rng(157 + k).normal(size=(n, k * (k + 1) // 2)))
+    want = tseg._tri_to_full(tri, k)
+    k3 = tri.new_empty((n, k, k))
+    m = 0
+    for a in range(k):
+        for b in range(a, k):
+            k3[:, a, b] = k3[:, b, a] = tri[:, m]
+            m += 1
+    k8 = tri[:, torch.tensor([[_tri_index(min(a, b), max(a, b), k) for b in range(k)]
+                              for a in range(k)])]
+    assert torch.equal(k3, want) and torch.equal(k8, want)
+    if k == 3:
+        assert torch.equal(tri[:, [0, 1, 2, 1, 3, 4, 2, 4, 5]].reshape(n, 3, 3), want)

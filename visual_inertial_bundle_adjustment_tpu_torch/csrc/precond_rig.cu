@@ -6,8 +6,8 @@
 // triangle of
 //   E = w J_r J_r^T - A H_ll^-1[pt] A^T,   A = J_r^T w J_p   (K x K, K = rig_k)
 // with H_ll^-1 gathered per observation from an f32 (L, 3, 3) table (the bf16
-// table of the TPU version is not carried over); the wrapper mirrors the
-// triangle into the symmetric block. K is a template parameter (6 for
+// table of the TPU version is not carried over); the triangle is written
+// mirrored, as the full symmetric K x K block. K is a template parameter (6 for
 // global-shutter batches, 9 for rolling-shutter ones, where the velocity
 // couples): the K(K+1)/2-float accumulator (21 or 45) and the per-slot K x 3
 // products stay in registers. Bound: bytes of J and the gathered 36 B
@@ -61,8 +61,16 @@ __global__ void __launch_bounds__(viba::kBlock) precond_rig(
         }
       },
       [&](int row, float(&acc)[T]) {
+        float* blk = out + K * K * (long)row;
+        int m = 0;
 #pragma unroll
-        for (int c = 0; c < T; ++c) out[T * (long)row + c] = acc[c];
+        for (int a = 0; a < K; ++a) {
+#pragma unroll
+          for (int b = a; b < K; ++b) {
+            blk[K * a + b] = acc[m];
+            blk[K * b + a] = acc[m++];
+          }
+        }
       });
 }
 

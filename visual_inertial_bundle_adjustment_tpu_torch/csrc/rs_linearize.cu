@@ -13,9 +13,9 @@
 //   p_cam = R(E) p_rig + t(E);       res = sqrt_h (proj(intr, p_cam) - obs)
 // and the Jacobian over the 35 tangents, written out as the chain rule
 // (the Pallas kernel took it from two in-kernel transpose passes):
-//   A = sqrt_h d uv/d p_cam,  A_r = A R(E),  B = A_r R(q_t)^T
-//   J_pt = A_r R(q_t^-1 T), J_pose = [B | z x B] with z = R(T) p + t(T) - (p_mid - dP_t),
-//   J_vel = -dtt B R(T), J_extr = [A | p_cam x A],
+//   A = sqrt_h d uv/d p_cam,  A_r = R(E)^T A,  B = R(q_t) A_r
+//   J_pt = R(q_t^-1 T)^T A_r, J_pose = [B | z x B] with z = R(T) p + t(T) - (p_mid - dP_t),
+//   J_vel = -dtt R(T)^T B, J_extr = [A | p_cam x A],
 //   J_intr[0:15] = sqrt_h d uv/d params,
 //   J_intr[15] = tpf J_dtt, J_intr[16] = -J_dtt,
 //   J_dtt = A_r (-ig x p_rig - R(q_t)^T (dV[seg] + R(q[seg]) (dV_loc + idv)
@@ -23,12 +23,28 @@
 // The derivative through readout and time offset flows only through dtt.
 // Each column is masked by its variable row's mask.
 //
-// Inputs and outputs are float32; the arithmetic is float64 in registers
-// (world-scale positions composed through a longer chain than K1's; float32
-// would miss the 1e-4 residual bound, as K1's float32 version missed its
-// 1e-5). Bound: bytes — ~44 B of per-observation inputs, ~150 B of gathered
-// rows (mostly L2 hits) and 316 B of outputs per observation; outputs are
-// written with the observation axis last, so every column store is coalesced.
+// Inputs and outputs are float32. The residual chain is float64 in
+// registers end to end (world-scale positions composed through a longer
+// chain than K1's; float32 would miss the 1e-4 residual bound, as K1's
+// float32 version missed its 1e-5). Bound: bytes — ~44 B of per-observation
+// inputs, ~150 B of gathered rows (mostly L2 hits) and 316 B of outputs per
+// observation (8 B in the residual-only mode); outputs are written with the
+// observation axis last, so every column store is coalesced.
+//
+// Design on the card (rs_linearize_mode): one instantiation per mode,
+// <camera model, Jacobian, calibration columns>, so the residual-only pass
+// (the cost) compiles no Jacobian chain and gets its own, small register
+// allocation, and the Jacobian pass keeps less alive at once: every rotation
+// is applied as a quaternion (no 3x3 matrices), the Jacobian chain below A
+// runs in float32 from float32 copies of its inputs made before the
+// projection (T, p_mid, dP_t and y stay float64), and each group is stored
+// as soon as it is computed (J_pt, J_r, J_cal extrinsics and J_dtt, then the
+// intrinsics' param_jac last).
+//
+// rs_linearize_v1, the kernel before that redesign (one kernel for all four
+// modes, the modes runtime arguments, the Jacobian chain in float64 through
+// four 3x3 rotation matrices), is kept as chip_smoke.py's yardstick
+// (viba_rs_linearize_v1); nothing else reaches it.
 #include "camera.cuh"
 
 namespace {
@@ -89,33 +105,37 @@ __device__ __forceinline__ void load3(const float* p, real* o) {
   o[2] = p[2];
 }
 
-__global__ void __launch_bounds__(128) rs_linearize(
-    int n, int K, int camera_kind, int with_jac, int with_cal, const int* __restrict__ rig,
-    const int* __restrict__ rs_row, const int* __restrict__ point, const int* __restrict__ intr,
-    const int* __restrict__ extr, const float* __restrict__ pad, const float* __restrict__ tpf,
-    const float* __restrict__ obs_uv, const float* __restrict__ sqrt_h,
-    const float* __restrict__ pose_q, const float* __restrict__ pose_t,
-    const float* __restrict__ vel, const float* __restrict__ points,
-    const float* __restrict__ cam_intr, const float* __restrict__ extr_q,
-    const float* __restrict__ extr_t, const float* __restrict__ rig_mask,
-    const float* __restrict__ pt_mask, const float* __restrict__ intr_mask,
-    const float* __restrict__ extr_mask, const float* __restrict__ rs_dt,
-    const float* __restrict__ rs_q, const float* __restrict__ rs_dP,
-    const float* __restrict__ rs_dV, const float* __restrict__ rs_ig,
-    const float* __restrict__ rs_ia, const float* __restrict__ rs_idv,
-    const int* __restrict__ rs_count, const float* __restrict__ gravity, float* __restrict__ res,
-    float* __restrict__ valid, float* __restrict__ J_pt, float* __restrict__ J_r,
-    float* __restrict__ J_cal) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int r = rig[i], rr = rs_row[i], p = point[i], ci = intr[i], ce = extr[i];
-  const float* Kp = cam_intr + (long)ci * kMaxParams;
+
+struct RsArgs {
+  int n, K;
+  const int *rig, *rs_row, *point, *intr, *extr;
+  const float *pad, *tpf, *obs_uv, *sqrt_h, *pose_q, *pose_t, *vel, *points, *cam_intr, *extr_q,
+      *extr_t, *rig_mask, *pt_mask, *intr_mask, *extr_mask, *rs_dt, *rs_q, *rs_dP, *rs_dV, *rs_ig,
+      *rs_ia, *rs_idv;
+  const long long* rs_count;  // the tables' int64 counts, read as they are
+  const float* gravity;
+  float *res, *valid, *J_pt, *J_r, *J_cal;
+};
+
+// the float64 primal chain of one observation, up to p_cam, and what the
+// Jacobian reads of it
+struct RsPrimal {
+  const float* Kp;
+  bool seg_ok;
+  real tp, dtt, sq[4], sdV[3], ig[3], idv[3], dVloc[3], qt[4], Tq[4], Tt[3], vmid[3], gmid[3],
+      prot[3], m[3], Tq2[4], pr[3], Eq[4], pc[3];
+};
+
+__device__ __forceinline__ void rs_primal(const RsArgs& a, int i, int r, int rr, int p, int ci,
+                                          int ce, RsPrimal& o) {
+  o.Kp = a.cam_intr + (long)ci * kMaxParams;
 
   // segment lookup at the primal capture time
-  const real tp = tpf[i];
-  const real dtt = real(Kp[15]) * tp - real(Kp[16]);
-  const float* dt_row = rs_dt + (long)rr * K;
-  int lo = 0, hi = K;
+  o.tp = a.tpf[i];
+  o.dtt = real(o.Kp[15]) * o.tp - real(o.Kp[16]);
+  const real dtt = o.dtt;
+  const float* dt_row = a.rs_dt + (long)rr * a.K;
+  int lo = 0, hi = a.K;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (real(dt_row[mid]) <= dtt) {
@@ -124,185 +144,368 @@ __global__ void __launch_bounds__(128) rs_linearize(
       hi = mid;
     }
   }
-  const bool seg_ok = lo > 0 && lo < rs_count[rr];
-  const long sk = (long)rr * K + (lo > 0 ? lo - 1 : 0);  // lo <= K
-  const real sdt = isfinite(rs_dt[sk]) ? real(rs_dt[sk]) : 0.0;
-  real sq[4], sdV[3], sdP[3], ig[3], ia[3], idv[3];
+  o.seg_ok = lo > 0 && lo < a.rs_count[rr];
+  const long sk = (long)rr * a.K + (lo > 0 ? lo - 1 : 0);  // lo <= K
+  const real sdt = isfinite(a.rs_dt[sk]) ? real(a.rs_dt[sk]) : 0.0;
+  real sdP[3], ia[3];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) sq[c] = rs_q[4 * sk + c];
-  load3(rs_dV + 3 * sk, sdV);
-  load3(rs_dP + 3 * sk, sdP);
-  load3(rs_ig + 3 * sk, ig);
-  load3(rs_ia + 3 * sk, ia);
-  load3(rs_idv + 3 * sk, idv);
+  for (int c = 0; c < 4; ++c) o.sq[c] = a.rs_q[4 * sk + c];
+  load3(a.rs_dV + 3 * sk, o.sdV);
+  load3(a.rs_dP + 3 * sk, sdP);
+  load3(a.rs_ig + 3 * sk, o.ig);
+  load3(a.rs_ia + 3 * sk, ia);
+  load3(a.rs_idv + 3 * sk, o.idv);
 
   // constant-signal integral over dtl and the capture-time pose shift
   const real dtl = dtt - sdt;
-  const real om[3] = {ig[0] * dtl, ig[1] * dtl, ig[2] * dtl};
+  const real om[3] = {o.ig[0] * dtl, o.ig[1] * dtl, o.ig[2] * dtl};
   const real up[3] = {ia[0] * dtl, ia[1] * dtl, ia[2] * dtl};
   real c1, c2, c3;
   int_coeffs(om[0] * om[0] + om[1] * om[1] + om[2] * om[2], c1, c2, c3);
-  real oxu[3], oxoxu[3], qloc[4], qt[4];
+  real oxu[3], oxoxu[3], qloc[4];
   cross3(om, up, oxu);
   cross3(om, oxu, oxoxu);
   so3_exp(om, qloc);
-  qmul(sq, qloc, qt);
-  real dPloc[3], dVloc[3];
+  qmul(o.sq, qloc, o.qt);
+  real dPloc[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    dPloc[c] = (0.5 * up[c] + c2 * oxu[c] + c3 * oxoxu[c]) * dtl + idv[c] * dtl;
-    dVloc[c] = up[c] + c1 * oxu[c] + c2 * oxoxu[c];
+    dPloc[c] = (0.5 * up[c] + c2 * oxu[c] + c3 * oxoxu[c]) * dtl + o.idv[c] * dtl;
+    o.dVloc[c] = up[c] + c1 * oxu[c] + c2 * oxoxu[c];
   }
   real rdp[3];
-  qrot(sq, dPloc, rdp);
-  real Tq[4], Tt[3], V[3], P[3], G[3];
+  qrot(o.sq, dPloc, rdp);
+  real V[3], P[3], G[3];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) Tq[c] = pose_q[4 * (long)r + c];
-  load3(pose_t + 3 * (long)r, Tt);
-  load3(vel + 3 * (long)r, V);
-  load3(points + 3 * (long)p, P);
-  load3(gravity, G);
-  real vmid[3], gmid[3], prot[3];
-  qrot(Tq, V, vmid);
-  qrot(Tq, G, gmid);
-  qrot(Tq, P, prot);
+  for (int c = 0; c < 4; ++c) o.Tq[c] = a.pose_q[4 * (long)r + c];
+  load3(a.pose_t + 3 * (long)r, o.Tt);
+  load3(a.vel + 3 * (long)r, V);
+  load3(a.points + 3 * (long)p, P);
+  load3(a.gravity, G);
+  qrot(o.Tq, V, o.vmid);
+  qrot(o.Tq, G, o.gmid);
+  qrot(o.Tq, P, o.prot);
   const real hdtt2 = 0.5 * dtt * dtt;
-  real m[3], pmid[3];
+  real pmid[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    m[c] = vmid[c] * dtt + gmid[c] * hdtt2;
-    pmid[c] = sdP[c] + sdV[c] * dtl + rdp[c] + m[c];
+    o.m[c] = o.vmid[c] * dtt + o.gmid[c] * hdtt2;
+    pmid[c] = sdP[c] + o.sdV[c] * dtl + rdp[c] + o.m[c];
   }
   // T_bodyImuAtT_world = (q_t, p_mid)^-1 T, composed as the factor does
   // (quaternion product first: the float32 table quaternions are unit only
   // to ~1e-7, and world-scale points make the order visible in the residual)
-  const real Sq[4] = {qt[0], -qt[1], -qt[2], -qt[3]};
-  real Tq2[4], pr[3], rt[3], rp[3];
-  qmul(Sq, Tq, Tq2);
-  qrot(Tq2, P, pr);
-  qrot(Sq, Tt, rt);
+  const real Sq[4] = {o.qt[0], -o.qt[1], -o.qt[2], -o.qt[3]};
+  real rt[3], rp[3];
+  qmul(Sq, o.Tq, o.Tq2);
+  qrot(o.Tq2, P, o.pr);
+  qrot(Sq, o.Tt, rt);
   qrot(Sq, pmid, rp);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) pr[c] += rt[c] - rp[c];
-  real pc[3], Eq[4], Et[3];
+  for (int c = 0; c < 3; ++c) o.pr[c] += rt[c] - rp[c];
+  real Et[3];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) Eq[c] = extr_q[4 * (long)ce + c];
-  load3(extr_t + 3 * (long)ce, Et);
-  qrot(Eq, pr, pc);
+  for (int c = 0; c < 4; ++c) o.Eq[c] = a.extr_q[4 * (long)ce + c];
+  load3(a.extr_t + 3 * (long)ce, Et);
+  qrot(o.Eq, o.pr, o.pc);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) pc[c] += Et[c];
+  for (int c = 0; c < 3; ++c) o.pc[c] += Et[c];
+}
 
+// d p_rig / d dtt
+__device__ __forceinline__ void rs_dpr(const RsPrimal& o, real (&dpr)[3]) {
+  real igxpr[3], rsdv[3], w3[3], rw3[3];
+  cross3(o.ig, o.pr, igxpr);
+  const real dvi[3] = {o.dVloc[0] + o.idv[0], o.dVloc[1] + o.idv[1], o.dVloc[2] + o.idv[2]};
+  qrot(o.sq, dvi, rsdv);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) w3[c] = o.sdV[c] + rsdv[c] + o.vmid[c] + o.gmid[c] * o.dtt;
+  const real Sq[4] = {o.qt[0], -o.qt[1], -o.qt[2], -o.qt[3]};
+  qrot(Sq, w3, rw3);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) dpr[c] = -igxpr[c] - rw3[c];
+}
+
+// res = sqrt_h (uv - obs) and valid; returns sqrt_h in h
+__device__ __forceinline__ void rs_residual(const RsArgs& a, int i, const RsPrimal& o,
+                                            const Dual& u, const Dual& v, real (&h)[2][2]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) h[c / 2][c % 2] = a.sqrt_h[4 * (long)i + c];
+  const real e0 = u.v - real(a.obs_uv[2 * (long)i]);
+  const real e1 = v.v - real(a.obs_uv[2 * (long)i + 1]);
+  a.res[i] = float(h[0][0] * e0 + h[0][1] * e1);
+  a.res[a.n + i] = float(h[1][0] * e0 + h[1][1] * e1);
+  a.valid[i] = fmaxf((o.pc[2] >= kMinZ && o.seg_ok) ? 1.f : 0.f, a.pad[i]);
+}
+
+__global__ void __launch_bounds__(128) rs_linearize_v1(RsArgs a, int camera_kind, int with_jac,
+                                                       int with_cal) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const int r = a.rig[i], p = a.point[i], ci = a.intr[i], ce = a.extr[i];
+  RsPrimal o;
+  rs_primal(a, i, r, a.rs_row[i], p, ci, ce, o);
+  const real* pc = o.pc;
   Dual u, v;
   const Dual dx = dvar(pc[0], 0), dy = dvar(pc[1], 1), dz = dvar(pc[2], 2);
   if (camera_kind == 1) {
-    proj_fisheye624(Kp, dx, dy, dz, u, v);
+    proj_fisheye624(o.Kp, dx, dy, dz, u, v);
   } else {
-    proj_pinhole(Kp, dx, dy, dz, u, v);
+    proj_pinhole(o.Kp, dx, dy, dz, u, v);
   }
-  const real h[2][2] = {{sqrt_h[4 * (long)i], sqrt_h[4 * (long)i + 1]},
-                        {sqrt_h[4 * (long)i + 2], sqrt_h[4 * (long)i + 3]}};
-  const real e0 = u.v - real(obs_uv[2 * (long)i]);
-  const real e1 = v.v - real(obs_uv[2 * (long)i + 1]);
-  res[i] = float(h[0][0] * e0 + h[0][1] * e1);
-  res[n + i] = float(h[1][0] * e0 + h[1][1] * e1);
-  valid[i] = fmaxf((pc[2] >= kMinZ && seg_ok) ? 1.f : 0.f, pad[i]);
+  real h[2][2];
+  rs_residual(a, i, o, u, v, h);
   if (!with_jac) return;
 
   // d res / d p_cam, then back through extr, the shifted pose and the pose
   const real du[3] = {u.d0, u.d1, u.d2}, dv[3] = {v.d0, v.d1, v.d2};
+  const real Sq[4] = {o.qt[0], -o.qt[1], -o.qt[2], -o.qt[3]};
+  const real dtt = o.dtt;
   real A[2][3], Ar[2][3], B[2][3], Jp[2][3], Jv[2][3];
   real RE[3][3], RS[3][3], RT[3][3], R2[3][3];
-  rot_matrix(Eq, RE);
+  rot_matrix(o.Eq, RE);
   rot_matrix(Sq, RS);
-  rot_matrix(Tq, RT);
-  rot_matrix(Tq2, R2);
+  rot_matrix(o.Tq, RT);
+  rot_matrix(o.Tq2, R2);
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
+  for (int a2 = 0; a2 < 2; ++a2) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) A[a][c] = h[a][0] * du[c] + h[a][1] * dv[c];
+    for (int c = 0; c < 3; ++c) A[a2][c] = h[a2][0] * du[c] + h[a2][1] * dv[c];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) Ar[a][c] = A[a][0] * RE[0][c] + A[a][1] * RE[1][c] + A[a][2] * RE[2][c];
+    for (int c = 0; c < 3; ++c) Ar[a2][c] = A[a2][0] * RE[0][c] + A[a2][1] * RE[1][c] + A[a2][2] * RE[2][c];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) B[a][c] = Ar[a][0] * RS[0][c] + Ar[a][1] * RS[1][c] + Ar[a][2] * RS[2][c];
+    for (int c = 0; c < 3; ++c) B[a2][c] = Ar[a2][0] * RS[0][c] + Ar[a2][1] * RS[1][c] + Ar[a2][2] * RS[2][c];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      Jp[a][c] = Ar[a][0] * R2[0][c] + Ar[a][1] * R2[1][c] + Ar[a][2] * R2[2][c];
-      Jv[a][c] = -dtt * (B[a][0] * RT[0][c] + B[a][1] * RT[1][c] + B[a][2] * RT[2][c]);
+      Jp[a2][c] = Ar[a2][0] * R2[0][c] + Ar[a2][1] * R2[1][c] + Ar[a2][2] * R2[2][c];
+      Jv[a2][c] = -dtt * (B[a2][0] * RT[0][c] + B[a2][1] * RT[1][c] + B[a2][2] * RT[2][c]);
     }
   }
-  // d p_rig / d dtt
-  real igxpr[3], rsdv[3], w3[3], rw3[3], dpr[3];
-  cross3(ig, pr, igxpr);
-  const real dvi[3] = {dVloc[0] + idv[0], dVloc[1] + idv[1], dVloc[2] + idv[2]};
-  qrot(sq, dvi, rsdv);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) w3[c] = sdV[c] + rsdv[c] + vmid[c] + gmid[c] * dtt;
-  qrot(Sq, w3, rw3);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) dpr[c] = -igxpr[c] - rw3[c];
-  const real z[3] = {prot[0] + Tt[0] - m[0], prot[1] + Tt[1] - m[1], prot[2] + Tt[2] - m[2]};
+  real dpr[3];
+  rs_dpr(o, dpr);
+  const real z[3] = {o.prot[0] + o.Tt[0] - o.m[0], o.prot[1] + o.Tt[1] - o.m[1],
+                     o.prot[2] + o.Tt[2] - o.m[2]};
 
   // masks: all four or none (residual-only callers pass none)
-  const bool masked = pt_mask != nullptr;
+  const bool masked = a.pt_mask != nullptr;
   real pm[3] = {1, 1, 1}, rm[9] = {1, 1, 1, 1, 1, 1, 1, 1, 1};
   if (masked) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) pm[c] = pt_mask[3 * (long)p + c];
+    for (int c = 0; c < 3; ++c) pm[c] = a.pt_mask[3 * (long)p + c];
 #pragma unroll
-    for (int c = 0; c < 9; ++c) rm[c] = rig_mask[12 * (long)r + c];
+    for (int c = 0; c < 9; ++c) rm[c] = a.rig_mask[12 * (long)r + c];
   }
+  const int n = a.n;
   real dup[15], dvp[15];
-  if (with_cal) param_jac(camera_kind, Kp, pc[0], pc[1], pc[2], dup, dvp);
+  if (with_cal) param_jac(camera_kind, o.Kp, pc[0], pc[1], pc[2], dup, dvp);
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
+  for (int a2 = 0; a2 < 2; ++a2) {
     real jw[3], je[3];
-    cross3(z, B[a], jw);
-    cross3(pc, A[a], je);
+    cross3(z, B[a2], jw);
+    cross3(pc, A[a2], je);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      J_pt[(a * 3 + c) * (long)n + i] = float(Jp[a][c] * pm[c]);
-      J_r[(a * 12 + c) * (long)n + i] = float(B[a][c] * rm[c]);
-      J_r[(a * 12 + 3 + c) * (long)n + i] = float(jw[c] * rm[3 + c]);
-      J_r[(a * 12 + 6 + c) * (long)n + i] = float(Jv[a][c] * rm[6 + c]);
-      J_r[(a * 12 + 9 + c) * (long)n + i] = 0.f;
+      a.J_pt[(a2 * 3 + c) * (long)n + i] = float(Jp[a2][c] * pm[c]);
+      a.J_r[(a2 * 12 + c) * (long)n + i] = float(B[a2][c] * rm[c]);
+      a.J_r[(a2 * 12 + 3 + c) * (long)n + i] = float(jw[c] * rm[3 + c]);
+      a.J_r[(a2 * 12 + 6 + c) * (long)n + i] = float(Jv[a2][c] * rm[6 + c]);
+      a.J_r[(a2 * 12 + 9 + c) * (long)n + i] = 0.f;
     }
     if (!with_cal) continue;
-    const float* em = masked ? extr_mask + 6 * (long)ce : nullptr;
-    const float* im = masked ? intr_mask + kMaxParams * (long)ci : nullptr;
+    const float* em = masked ? a.extr_mask + 6 * (long)ce : nullptr;
+    const float* im = masked ? a.intr_mask + kMaxParams * (long)ci : nullptr;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      J_cal[(a * 23 + c) * (long)n + i] = float(A[a][c] * (em ? em[c] : 1.f));
-      J_cal[(a * 23 + 3 + c) * (long)n + i] = float(je[c] * (em ? em[3 + c] : 1.f));
+      a.J_cal[(a2 * 23 + c) * (long)n + i] = float(A[a2][c] * (em ? em[c] : 1.f));
+      a.J_cal[(a2 * 23 + 3 + c) * (long)n + i] = float(je[c] * (em ? em[3 + c] : 1.f));
     }
 #pragma unroll
     for (int c = 0; c < 15; ++c)
-      J_cal[(a * 23 + 6 + c) * (long)n + i] =
-          float((h[a][0] * dup[c] + h[a][1] * dvp[c]) * (im ? im[c] : 1.f));
-    const real jdt = Ar[a][0] * dpr[0] + Ar[a][1] * dpr[1] + Ar[a][2] * dpr[2];
-    J_cal[(a * 23 + 21) * (long)n + i] = float(jdt * tp * (im ? im[15] : 1.f));
-    J_cal[(a * 23 + 22) * (long)n + i] = float(-jdt * (im ? im[16] : 1.f));
+      a.J_cal[(a2 * 23 + 6 + c) * (long)n + i] =
+          float((h[a2][0] * dup[c] + h[a2][1] * dvp[c]) * (im ? im[c] : 1.f));
+    const real jdt = Ar[a2][0] * dpr[0] + Ar[a2][1] * dpr[1] + Ar[a2][2] * dpr[2];
+    a.J_cal[(a2 * 23 + 21) * (long)n + i] = float(jdt * o.tp * (im ? im[15] : 1.f));
+    a.J_cal[(a2 * 23 + 22) * (long)n + i] = float(-jdt * (im ? im[16] : 1.f));
   }
+}
+
+// float32 helpers of the redesigned Jacobian chain
+__device__ __forceinline__ void qrot_f(const float* q, const float* v, float* out) {
+  const float ux = q[2] * v[2] - q[3] * v[1];
+  const float uy = q[3] * v[0] - q[1] * v[2];
+  const float uz = q[1] * v[1] - q[2] * v[0];
+  const float uux = q[2] * uz - q[3] * uy;
+  const float uuy = q[3] * ux - q[1] * uz;
+  const float uuz = q[1] * uy - q[2] * ux;
+  out[0] = v[0] + 2.f * (q[0] * ux + uux);
+  out[1] = v[1] + 2.f * (q[0] * uy + uuy);
+  out[2] = v[2] + 2.f * (q[0] * uz + uuz);
+}
+
+__device__ __forceinline__ void cross_f(const float* a, const float* b, float* out) {
+  out[0] = a[1] * b[2] - a[2] * b[1];
+  out[1] = a[2] * b[0] - a[0] * b[2];
+  out[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+// quaternion q (float64) or its conjugate as float32
+__device__ __forceinline__ void quat_f(const real* q, bool conj, float* out) {
+  out[0] = float(q[0]);
+#pragma unroll
+  for (int c = 1; c < 4; ++c) out[c] = float(conj ? -q[c] : q[c]);
+}
+
+// One mode of K7: CAM 1 Fisheye624, else pinhole; JAC the Jacobian; CAL its
+// calibration columns (J_cal)
+template <int CAM, bool JAC, bool CAL>
+__device__ __forceinline__ void rs_body(const RsArgs& a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const int r = a.rig[i], p = a.point[i], ci = a.intr[i], ce = a.extr[i];
+  RsPrimal o;
+  rs_primal(a, i, r, a.rs_row[i], p, ci, ce, o);
+  // the Jacobian chain's float32 inputs, taken before the projection so
+  // that the float64 primal state dies there
+  float qE[4], qt[4], q2[4], qT[4], z[3], dpr[3], pc[3];
+  if constexpr (JAC) {
+    quat_f(o.Eq, true, qE);    // R(E)^T
+    quat_f(o.qt, false, qt);   // R(q_t)
+    quat_f(o.Tq2, true, q2);   // R(q_t^-1 T)^T
+    quat_f(o.Tq, true, qT);    // R(T)^T
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      z[c] = float(o.prot[c] + o.Tt[c] - o.m[c]);
+      pc[c] = float(o.pc[c]);
+    }
+    if constexpr (CAL) {
+      real d[3];
+      rs_dpr(o, d);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dpr[c] = float(d[c]);
+    }
+  }
+  Dual u, v;
+  const Dual dx = dvar(o.pc[0], 0), dy = dvar(o.pc[1], 1), dz = dvar(o.pc[2], 2);
+  if constexpr (CAM == 1) {
+    proj_fisheye624(o.Kp, dx, dy, dz, u, v);
+  } else {
+    proj_pinhole(o.Kp, dx, dy, dz, u, v);
+  }
+  real h[2][2];
+  rs_residual(a, i, o, u, v, h);
+  if constexpr (JAC) {
+    const int n = a.n;
+    const bool masked = a.pt_mask != nullptr;  // all four masks or none
+    const auto mask = [&](const float* m, long k) { return masked ? m[k] : 1.f; };
+    const float mdtt = float(-o.dtt);
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      const float A[3] = {float(h[row][0] * u.d0 + h[row][1] * v.d0),
+                          float(h[row][0] * u.d1 + h[row][1] * v.d1),
+                          float(h[row][0] * u.d2 + h[row][1] * v.d2)};
+      float Ar[3], Jp[3], B[3], jw[3], Jv[3];
+      qrot_f(qE, A, Ar);
+      qrot_f(q2, Ar, Jp);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        a.J_pt[(row * 3 + c) * (long)n + i] = Jp[c] * mask(a.pt_mask, 3L * p + c);
+      qrot_f(qt, Ar, B);
+      cross_f(z, B, jw);
+      qrot_f(qT, B, Jv);
+      float* Jr = a.J_r + row * 12 * (long)n + i;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        Jr[c * (long)n] = B[c] * mask(a.rig_mask, 12L * r + c);
+        Jr[(3 + c) * (long)n] = jw[c] * mask(a.rig_mask, 12L * r + 3 + c);
+        Jr[(6 + c) * (long)n] = mdtt * Jv[c] * mask(a.rig_mask, 12L * r + 6 + c);
+        Jr[(9 + c) * (long)n] = 0.f;
+      }
+      if constexpr (CAL) {
+        float je[3];
+        cross_f(pc, A, je);
+        float* Jc = a.J_cal + row * 23 * (long)n + i;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          Jc[c * (long)n] = A[c] * mask(a.extr_mask, 6L * ce + c);
+          Jc[(3 + c) * (long)n] = je[c] * mask(a.extr_mask, 6L * ce + 3 + c);
+        }
+        const real jdt = Ar[0] * dpr[0] + Ar[1] * dpr[1] + Ar[2] * dpr[2];
+        Jc[21 * (long)n] = float(jdt * o.tp * mask(a.intr_mask, kMaxParams * (long)ci + 15));
+        Jc[22 * (long)n] = float(-jdt * mask(a.intr_mask, kMaxParams * (long)ci + 16));
+      }
+    }
+    if constexpr (CAL) {
+      real dup[15], dvp[15];
+      param_jac(CAM, o.Kp, o.pc[0], o.pc[1], o.pc[2], dup, dvp);
+#pragma unroll
+      for (int row = 0; row < 2; ++row) {
+#pragma unroll
+        for (int c = 0; c < 15; ++c)
+          a.J_cal[(row * 23 + 6 + c) * (long)n + i] = float(
+              (h[row][0] * dup[c] + h[row][1] * dvp[c]) * mask(a.intr_mask, kMaxParams * (long)ci + c));
+      }
+    }
+  }
+}
+
+// 128 threads a block and no minimum of blocks an SM: ptxas gives the modes
+// 128 (Jacobian with J_cal), 80-85 (Jacobian) and 70-72 (residual-only)
+// registers. A minimum of 4, 5 or 6 blocks spilled the J_cal mode and ran
+// 0.3752 / 0.3852 / 0.4919 ms against 0.3624; 8 and 10 blocks spilled the
+// residual-only mode (0.1084 / 0.1450 ms against 0.1160): device times in
+// turns on one H100 80GB HBM3 at 700 W.
+template <int CAM, bool JAC, bool CAL>
+__global__ void __launch_bounds__(128) rs_linearize_mode(RsArgs a) {
+  rs_body<CAM, JAC, CAL>(a);
+}
+
+template <int CAM, bool JAC, bool CAL>
+cudaError_t launch_rs(const RsArgs& a, cudaStream_t st) {
+  rs_linearize_mode<CAM, JAC, CAL><<<(a.n + 127) / 128, 128, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int CAM>
+cudaError_t launch_rs_mode(const RsArgs& a, int with_jac, int with_cal, cudaStream_t st) {
+  if (!with_jac) return launch_rs<CAM, false, false>(a, st);
+  if (!with_cal) return launch_rs<CAM, true, false>(a, st);
+  return launch_rs<CAM, true, true>(a, st);
 }
 
 }  // namespace
 
-extern "C" int viba_rs_linearize(
-    int n, int R, int K, int camera_kind, int with_jac, int with_cal, const int* rig,
-    const int* rs_row, const int* point, const int* intr, const int* extr, const float* pad,
-    const float* tpf, const float* obs_uv, const float* sqrt_h, const float* pose_q,
-    const float* pose_t, const float* vel, const float* points, const float* cam_intr,
-    const float* extr_q, const float* extr_t, const float* rig_mask, const float* pt_mask,
-    const float* intr_mask, const float* extr_mask, const float* rs_dt, const float* rs_q,
-    const float* rs_dP, const float* rs_dV, const float* rs_ig, const float* rs_ia,
-    const float* rs_idv, const int* rs_count, const float* gravity, float* res, float* valid,
-    float* J_pt, float* J_r, float* J_cal, void* stream) {
+#define VIBA_RS_PARAMS                                                                          \
+  int n, int R, int K, int camera_kind, int with_jac, int with_cal, const int *rig,             \
+      const int *rs_row, const int *point, const int *intr, const int *extr, const float *pad,  \
+      const float *tpf, const float *obs_uv, const float *sqrt_h, const float *pose_q,          \
+      const float *pose_t, const float *vel, const float *points, const float *cam_intr,        \
+      const float *extr_q, const float *extr_t, const float *rig_mask, const float *pt_mask,    \
+      const float *intr_mask, const float *extr_mask, const float *rs_dt, const float *rs_q,    \
+      const float *rs_dP, const float *rs_dV, const float *rs_ig, const float *rs_ia,           \
+      const float *rs_idv, const long long *rs_count, const float *gravity, float *res,       \
+      float *valid,                                                                          \
+      float *J_pt, float *J_r, float *J_cal, void *stream
+#define VIBA_RS_ARGS                                                                          \
+  RsArgs {                                                                                    \
+    n, K, rig, rs_row, point, intr, extr, pad, tpf, obs_uv, sqrt_h, pose_q, pose_t, vel,     \
+        points, cam_intr, extr_q, extr_t, rig_mask, pt_mask, intr_mask, extr_mask, rs_dt,    \
+        rs_q, rs_dP, rs_dV, rs_ig, rs_ia, rs_idv, rs_count, gravity, res, valid, J_pt, J_r, \
+        J_cal                                                                                 \
+  }
+
+extern "C" int viba_rs_linearize(VIBA_RS_PARAMS) {
   (void)R;
   if (n <= 0) return 0;
-  constexpr int kThreads = 128;
-  rs_linearize<<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      n, K, camera_kind, with_jac, with_cal, rig, rs_row, point, intr, extr, pad, tpf, obs_uv,
-      sqrt_h, pose_q, pose_t, vel, points, cam_intr, extr_q, extr_t, rig_mask, pt_mask,
-      intr_mask, extr_mask, rs_dt, rs_q, rs_dP, rs_dV, rs_ig, rs_ia, rs_idv, rs_count, gravity,
-      res, valid, J_pt, J_r, J_cal);
+  const RsArgs a = VIBA_RS_ARGS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(camera_kind == 1 ? launch_rs_mode<1>(a, with_jac, with_cal, st)
+                                           : launch_rs_mode<0>(a, with_jac, with_cal, st));
+}
+
+extern "C" int viba_rs_linearize_v1(VIBA_RS_PARAMS) {
+  (void)R;
+  if (n <= 0) return 0;
+  rs_linearize_v1<<<(n + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      VIBA_RS_ARGS, camera_kind, with_jac, with_cal);
   return static_cast<int>(cudaGetLastError());
 }

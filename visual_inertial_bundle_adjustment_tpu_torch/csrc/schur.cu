@@ -12,9 +12,7 @@
 //   landmark pass, a 16-thread group per landmark: t = sum J_p^T wu (= W^T x)
 //                  (also the landmark pass of K10, cal_segments.cu).
 // schur_up (K5), a 128-thread group per rig row:
-//   y = sum J_r^T w J_p z[pt]  (= W z), or, with a staged wu,
-//   y = sum J_r^T (wu - w J_p z[pt])  (the up half of the composition K4
-//   replaced, which chip_smoke.py times beside K4).
+//   y = sum J_r^T w J_p z[pt]  (= W z).
 // K = rig_k (6 or 9) is a template parameter. Bound: bytes — J_r (8K B) +
 // J_p (24 B) + w and wu per observation per pass.
 //
@@ -102,7 +100,7 @@ __global__ void __launch_bounds__(viba::kBlock) schur_up(
     int R, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
     const int* __restrict__ point, const float* __restrict__ J_r,
     const float* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ z,
-    const float* __restrict__ wu, float* __restrict__ y) {
+    float* __restrict__ y) {
   viba::reduce_segments<kRowGroup, K>(
       blockIdx.x, R, rig_ptr, rig_obs,
       [&](int s, float(&acc)[K]) {
@@ -112,11 +110,7 @@ __global__ void __launch_bounds__(viba::kBlock) schur_up(
         const float u1 =
             J_p[3 * (long)n + s] * z0 + J_p[4 * (long)n + s] * z1 + J_p[5 * (long)n + s] * z2;
         const float ws = w[s];
-        float d0 = u0 * ws, d1 = u1 * ws;
-        if (wu != nullptr) {
-          d0 = wu[s] - d0;
-          d1 = wu[n + s] - d1;
-        }
+        const float d0 = u0 * ws, d1 = u1 * ws;
 #pragma unroll
         for (int c = 0; c < K; ++c)
           acc[c] += J_r[c * (long)n + s] * d0 + J_r[(K + c) * (long)n + s] * d1;
@@ -249,17 +243,16 @@ extern "C" int viba_schur_down(int R, int L, int n, int k, int want_y, const int
 
 extern "C" int viba_schur_up(int R, int n, int k, const int* rig_ptr, const int* rig_obs,
                              const int* point, const float* J_r, const float* J_p,
-                             const float* w, const float* z, const float* wu, float* y,
-                             void* stream) {
+                             const float* w, const float* z, float* y, void* stream) {
   if (R <= 0) return 0;
   const int grid = viba::segment_blocks<kRowGroup>(R);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k == 6) {
     schur_up<6><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w, z,
-                                               wu, y);
+                                               y);
   } else if (k == 9) {
     schur_up<9><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w, z,
-                                               wu, y);
+                                               y);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

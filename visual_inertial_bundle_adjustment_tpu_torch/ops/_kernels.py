@@ -52,10 +52,12 @@ _SIGNATURES = {
     "viba_assemble_rig": [_I] * 4 + [_P] * 12 + [_P],
     "viba_precond_rig": [_I] * 3 + [_P] * 8 + [_P],
     "viba_schur_down": [_I] * 5 + [_P] * 11 + [_P],
-    "viba_schur_up": [_I] * 3 + [_P] * 9 + [_P],
+    "viba_schur_up": [_I] * 3 + [_P] * 8 + [_P],
     "viba_schur_pcg": [_I] * 5 + [_P] * 14 + [_P],
     "viba_rs_linearize": [_I] * 6 + [_P] * 34 + [_P],
-    "viba_assemble_cal": [_I] * 7 + [_P] * 18 + [_P],
+    "viba_rs_linearize_v1": [_I] * 6 + [_P] * 34 + [_P],
+    "viba_assemble_cal": [_I] * 7 + [_P] * 21 + [_P],
+    "viba_assemble_cal_v1": [_I] * 4 + [_P] * 8 + [_P],
     "viba_schur_down_cal": [_I] * 8 + [_P] * 19 + [_P],
     "viba_schur_up_cal": [_I] * 6 + [_P] * 15 + [_P],
     "viba_schur_pcg_cal": [_I] * 7 + [_P] * 22 + [_P],

@@ -18,8 +18,9 @@ intr 17], masked per variable row: J_pt (2, 3, N), J_r (2, 12, N) (pose,
 vel; omega columns zero) and, with the calibration groups active,
 J_cal (2, 23, N) = [extr 6 | intr 17].
 
-Kernel: csrc/rs_linearize.cu (one thread per observation, float64
-registers, the chain rule written out by hand). Replaces the Pallas kernel
+Kernel: csrc/rs_linearize.cu (one thread per observation, the primal chain
+in float64 registers, the chain rule written out by hand, one instantiation
+per mode: camera model x Jacobian x calibration columns). Replaces the Pallas kernel
 rs_fused._rs_kernel of the JAX package (ops/rs_fused.py:131, entry `_run_rs`
 :361), which took its Jacobian from two in-kernel linear-transpose passes
 over lane vectors. What bounds it on the card: bytes — per observation it
@@ -66,6 +67,15 @@ def rs_linearize(camera_kind, data, v, masks, with_jac, with_cal):
     J_cal (2,23,N)]]). `masks` is read only with the Jacobian."""
     if not _kernels.on_card(v.points):
         return _rs_plain(camera_kind, data, v, masks, with_jac, with_cal)
+    out = _launch_rs(camera_kind, data, v, masks, with_jac, with_cal)
+    rs_linearize.launches += 1
+    return out
+
+
+def _launch_rs(camera_kind, data, v, masks, with_jac, with_cal, entry="viba_rs_linearize"):
+    """Launch K7 through the C entry `entry`: viba_rs_linearize (one
+    instantiation per mode) or viba_rs_linearize_v1 (the kernel before that
+    redesign, chip_smoke.py's yardstick)."""
     ck = _kernels.check
     f32, i32 = torch.float32, torch.int32
     n = data["rig"].shape[0]
@@ -80,13 +90,13 @@ def rs_linearize(camera_kind, data, v, masks, with_jac, with_cal):
     J_r = torch.empty((2, 12, n), **kw) if with_jac else None
     J_cal = torch.empty((2, 23, n), **kw) if with_jac and with_cal else None
     use_masks = with_jac and masks is not None
-    count = tab.count.to(i32).contiguous()
+    count = tab.count.to(torch.int64).contiguous()  # a no-op on the tables' own counts
 
     def opt(t):
         return t.data_ptr() if t is not None else None
 
     _kernels.launch(
-        "viba_rs_linearize", n, R, K, int(camera_kind), int(bool(with_jac)),
+        entry, n, R, K, int(camera_kind), int(bool(with_jac)),
         int(bool(with_cal)),
         ck(data["rig"], "rig", i32, (n,)), ck(data["rs_row"], "rs_row", i32, (n,)),
         ck(data["point"], "point", i32, (n,)), ck(data["intr"], "intr", i32, (n,)),
@@ -106,11 +116,10 @@ def rs_linearize(camera_kind, data, v, masks, with_jac, with_cal):
         ck(tab.dP, "rs_dP", f32, (R, K, 3)), ck(tab.dV, "rs_dV", f32, (R, K, 3)),
         ck(tab.i_gyro, "rs_i_gyro", f32, (R, K, 3)),
         ck(tab.i_accel, "rs_i_accel", f32, (R, K, 3)),
-        ck(tab.i_dvel, "rs_i_dvel", f32, (R, K, 3)), ck(count, "rs_count", i32, (R,)),
+        ck(tab.i_dvel, "rs_i_dvel", f32, (R, K, 3)), ck(count, "rs_count", torch.int64, (R,)),
         ck(tab.gravity_w, "rs_gravity", f32, (3,)),
         res.data_ptr(), valid.data_ptr(), opt(J_pt), opt(J_r), opt(J_cal),
     )
-    rs_linearize.launches += 1
     if not with_jac:
         return res, valid
     if with_cal:

@@ -315,11 +315,11 @@ def _launch_assemble_rig(J_r, J_p, res, w, plan):
     n, k, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
     g_r, diag_r = _empty((R, k), w), _empty((R, k), w)
-    g_l, tri = _empty((L, 3), w), _empty((L, 6), w)
+    g_l, H = _empty((L, 3), w), _empty((L, 3, 3), w)
     _kernels.launch("viba_assemble_rig", R, L, n, k, *_plan_ptrs(plan), *jargs,
                     _kernels.check(res, "res", torch.float32, (2, n)),
-                    g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), tri.data_ptr())
-    return g_r, diag_r, g_l, _tri_to_full(tri)
+                    g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), H.data_ptr())
+    return g_r, diag_r, g_l, H
 
 
 @_kernels.register("assemble_rig")
@@ -358,15 +358,15 @@ def seg_precond_rig(J_r, J_p, w, hinv, plan: SegPlan):
         return _precond_rig_plain(J_r, J_p, w, hinv, plan)
     n, k, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
-    tri = _empty((R, k * (k + 1) // 2), w)
+    blocks = _empty((R, k, k), w)
     ck = _kernels.check
     _kernels.launch("viba_precond_rig", R, n, k,
                     ck(plan.rig_ptr, "rig_ptr", torch.int32),
                     ck(plan.rig_obs, "rig_obs", torch.int32),
                     ck(plan.point, "point", torch.int32, (n,)), *jargs,
-                    ck(hinv, "hinv", torch.float32, (L, 3, 3)), tri.data_ptr())
+                    ck(hinv, "hinv", torch.float32, (L, 3, 3)), blocks.data_ptr())
     seg_precond_rig.launches += 1
-    return _tri_to_full(tri, k)
+    return blocks
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +412,7 @@ def _schur_up_plain(J_r, J_p, w, z, plan, wu):
     return _rows_sum((J_r * du[:, None, :]).sum(0), plan.rig, plan.n_rows)
 
 
-def _launch_schur_up(J_r, J_p, w, z, plan, wu):
+def _launch_schur_up(J_r, J_p, w, z, plan):
     n, k, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
     y = _empty((R, k), w)
@@ -421,19 +421,21 @@ def _launch_schur_up(J_r, J_p, w, z, plan, wu):
                     ck(plan.rig_ptr, "rig_ptr", torch.int32),
                     ck(plan.rig_obs, "rig_obs", torch.int32),
                     ck(plan.point, "point", torch.int32, (n,)), *jargs,
-                    ck(z, "z", torch.float32, (L, 3)),
-                    ck(wu, "wu", torch.float32, (2, n)) if wu is not None else None,
-                    y.data_ptr())
+                    ck(z, "z", torch.float32, (L, 3)), y.data_ptr())
     return y
 
 
 @_kernels.register("schur_up")
 def seg_schur_up(J_r, J_p, w, z, plan: SegPlan, wu=None):
     """y (R, k) = seg-sum_rig J_r^T w J_p z[pt] (= W z); with the staged
-    wu = w J_r x of seg_schur_down: seg-sum_rig J_r^T (wu - w J_p z[pt])."""
+    wu = w J_r x of seg_schur_down (plain version only; K4 replaced that
+    composition on the card): seg-sum_rig J_r^T (wu - w J_p z[pt])."""
     if not _kernels.on_card(w):
         return _schur_up_plain(J_r, J_p, w, z, plan, wu)
-    y = _launch_schur_up(J_r, J_p, w, z, plan, wu)
+    if wu is not None:
+        raise ValueError("seg_schur_up: the kernel takes no staged wu (seg_schur_pcg is the "
+                         "composition's kernel)")
+    y = _launch_schur_up(J_r, J_p, w, z, plan)
     seg_schur_up.launches += 1
     return y
 
@@ -535,19 +537,39 @@ def seg_assemble_cal(J_r, J_c, J_p, res, w, plan: SegPlan, cplan: CalPlan):
     n, k, jargs = _jac_args(J_r, J_p, w)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
     splits = _cal_splits(J_c)
+    kc = sum(splits)
     g_r, diag_r = _empty((R, k), w), _empty((R, k), w)
-    g_l, tri = _empty((L, 3), w), _empty((L, 6), w)
+    g_l, H = _empty((L, 3), w), _empty((L, 3, 3), w)
     part = _empty((max(cplan.n_chunks, 1), n_cal_out(splits)), w)
-    out_c = _empty((n_c, n_cal_out(splits)), w)
-    _kernels.launch("viba_assemble_cal", R, L, n, k, sum(splits), n_c, cplan.n_chunks,
+    g_c, diag_c = _empty((n_c, kc), w), _empty((n_c, kc), w)
+    blocks = [_empty((n_c, dim, dim), w) for dim in splits]
+    by_dim = {dim: b.data_ptr() for dim, b in zip(splits, blocks)}
+    _kernels.launch("viba_assemble_cal", R, L, n, k, kc, n_c, cplan.n_chunks,
                     *_plan_ptrs(plan),
                     *_cal_ptrs(cplan, n)[1:], *jargs, _jc_arg(J_c, n),
                     _kernels.check(res, "res", torch.float32, (2, n)),
-                    g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), tri.data_ptr(),
-                    part.data_ptr(), out_c.data_ptr())
+                    g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), H.data_ptr(),
+                    part.data_ptr(), g_c.data_ptr(), diag_c.data_ptr(), by_dim.get(6),
+                    by_dim.get(17))
     seg_assemble_cal.launches += 1
+    return g_r, diag_r, g_c, diag_c, blocks, g_l, H
+
+
+def _launch_assemble_cal_v1(J_r, J_c, J_p, res, w, plan, cplan):
+    """K8 before its redesign (chip_smoke.py's yardstick): K2's launch, the
+    window pass of 32 outputs a launch (J_c read once per launch) and its
+    chunk sums into packed rows, unpacked by torch ops."""
+    n = w.shape[0]
+    g_r, diag_r, g_l, H = _launch_assemble_rig(J_r, J_p, res, w, plan)
+    splits = _cal_splits(J_c)
+    part = _empty((max(cplan.n_chunks, 1), n_cal_out(splits)), w)
+    out_c = _empty((cplan.n_rows, n_cal_out(splits)), w)
+    _kernels.launch("viba_assemble_cal_v1", n, sum(splits), cplan.n_rows, cplan.n_chunks,
+                    *_cal_ptrs(cplan, n)[1:], _jc_arg(J_c, n), _kernels.check(w, "w"),
+                    _kernels.check(res, "res", torch.float32, (2, n)), part.data_ptr(),
+                    out_c.data_ptr())
     g_c, diag_c, blocks = _unpack_cal(out_c, splits)
-    return g_r, diag_r, g_c, diag_c, blocks, g_l, _tri_to_full(tri)
+    return g_r, diag_r, g_c, diag_c, blocks, g_l, H
 
 
 # ---------------------------------------------------------------------------
