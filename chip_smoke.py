@@ -43,8 +43,10 @@ Phases, one printed line each (per path):
                the plain version in float32; the kernel's device time and
                device operations per call (torch.profiler; no host copy may
                be among them); the least time the card could take (bound).
-               K8 and K7 against the designs they replaced (branches only this
-               script reaches), in turns; K4 and K9 beside their two-pass
+               K1 (with the Jacobian and residual-only, at the bias, two_grid
+               and gs_cal shapes) and K11 against the designs they replaced
+               (C entries only this script reaches), in turns: residuals
+               bit-equal, Jacobians within 1e-5; K4 and K9 beside their two-pass
                floors; K13a on the two-grid landmark rows against the walk on
                the same rows; K13c on those rows (D 9, D 3) against the walk
                and index_add_
@@ -127,13 +129,17 @@ TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 # kernels whose ptxas report must show no register spill (the kernels
 # redesigned for this card: K4's down and up passes, K9's, the landmark pass
 # the two share, K13a's and K13c's slot-major routes on landmark rows, K8's
-# window and sum passes, K7's instantiation per mode), by the names ptxas
-# gives them
+# window and sum passes, the instantiations per mode of K7, K1 and K11), by
+# the names ptxas gives them
 NO_SPILL = ("pcg_down", "pcg_up", "pcg_cal_down", "pcg_cal_up", "point_range_sum",
             "jtu_slot_major", "reduce_gather4", "to_slot_major", "reduce_gather",
-            "assemble_cal_window", "sum_cal", "rs_linearize_mode")
+            "assemble_cal_window", "sum_cal", "rs_linearize_mode", "visual_linearize_mode",
+            "visual_cal_linearize_mode")
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
+# K1 and K11 against the designs they replaced: the same float64 residual
+# chain (bit-equal), the chain below A in float32 instead of float64
+TOL_OLD_J = 1e-5
 # kernel vs plain LM iteration, relative (see the consistency phases)
 TOL_ITER = 1e-3
 # the K14-composed Schur matvec vs rcs.matvec (K12/K13) on the same x, relative
@@ -307,6 +313,42 @@ def against_old(name, row, new, old, labels_tol):
           f"{row['old']['ms']:.4f} ms; rel diff "
           + ", ".join(f"{lb} {d:.1e}" for lb, d in diffs.items()) + ") | old: "
           + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in kern_o.items()))
+
+
+def vis_read(data):
+    """The per-observation arrays K1 and K11 read."""
+    return [data[k] for k in ("rig", "point", "intr", "extr", "bias", "bias_on", "obs_uv",
+                              "sqrt_h", "_pad")]
+
+
+def vis_tables(v):
+    """The variable tables K1 and K11 gather from."""
+    return [v.pose_q, v.pose_t, v.points, v.cam_intr, v.cam_extr_q, v.cam_extr_t, v.det_bias]
+
+
+def k1_rows(bench, shape, cfg, data, v, masks, N, modes=(True, False)):
+    """K1 at a path's shapes, with the Jacobian (masks applied) and
+    residual-only (`modes`), against its float64 plain version and, in turns,
+    against the design it replaced (visual_linearize_v1): residuals
+    bit-equal, Jacobians within TOL_OLD_J. Rows `visual_linearize(<shape>,
+    residual-only)`."""
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
+
+    for with_jac in modes:
+        tag = ",".join(t for t in (shape, "" if with_jac else "residual-only") if t)
+        name = "visual_linearize" + (f"({tag})" if tag else "")
+        args = (cfg.camera_kind, data, v, masks if with_jac else None, with_jac)
+        tols = [("res", TOL_RES), ("valid", TOL_RES)]
+        read = vis_read(data) + vis_tables(v)
+        if with_jac:
+            tols += [("J_pt", TOL_J), ("J_r", TOL_J)]
+            read += [masks.rig, masks.points]
+        row = bench.compare(name, visual_fused.visual_linearize, args, tols, read,
+                            (400.0 if with_jac else 150.0) * N, f64=True)
+        against_old(name, row, lambda: visual_fused.visual_linearize(*args),
+                    lambda: visual_fused._launch_visual(*args, entry="viba_visual_linearize_v1"),
+                    [(label, 0.0 if label in ("res", "valid") else TOL_OLD_J)
+                     for label, _ in tols])
 
 
 def lm_iteration(problem, settings):
@@ -497,7 +539,6 @@ def bias_only(dev, bench):
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
-    from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.builder import (
         BuildOptions, build_synthetic_problem)
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic import SyntheticSession
@@ -524,16 +565,7 @@ def bias_only(dev, bench):
     cfg = problem.active_cfgs[vi]
     gen = torch.Generator(device=dev).manual_seed(0)
     N = info.nt * info.ts
-    vis_read = [vdata[k] for k in ("rig", "point", "intr", "extr", "bias", "bias_on", "obs_uv",
-                                   "sqrt_h", "_pad")]
-    tables = [v.pose_q, v.pose_t, v.points, v.cam_intr, v.cam_extr_q, v.cam_extr_t, v.det_bias]
-    bench.compare("visual_linearize", visual_fused.visual_linearize,
-                  (cfg.camera_kind, vdata, v, masks, True),
-                  [("res", TOL_RES), ("valid", TOL_RES), ("J_pt", TOL_J), ("J_r", TOL_J)],
-                  vis_read + tables + [masks.rig, masks.points], 400.0 * N, f64=True)
-    bench.compare("visual_linearize(residual-only)", visual_fused.visual_linearize,
-                  (cfg.camera_kind, vdata, v, None, False), [("res", TOL_RES), ("valid", TOL_RES)],
-                  vis_read + tables, 150.0 * N, f64=True)
+    k1_rows(bench, "", cfg, vdata, v, masks, N)
 
     lg = k_lin(datas, v, masks, None)
     asm = k_assemble(datas, lg, v, masks)
@@ -679,10 +711,6 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
                                  *(f"blocks_{g}" for g, _ in b.cal_groups), "g_l", "H_ll0"),
                          jread + [lin.res] + plan + cplan,
                          (8 * k + 36 + 4 * kc + 5 * (n_out - kc)) * n_real)
-    against_old(f"assemble_cal{suffix}", row8, lambda: seg.seg_assemble_cal(*args8),
-                lambda: seg._launch_assemble_cal_v1(*args8),
-                seg_tol("g_r", "diag_r", "g_c", "diag_c",
-                        *(f"blocks_{g}" for g, _ in b.cal_groups), "g_l", "H_ll0"))
     if row8["device_ops"] > 3:
         raise AssertionError(f"assemble_cal{suffix}: {row8['device_ops']} device operations "
                              "per call")
@@ -741,10 +769,8 @@ def full_sensor(dev, bench, session, session_sec):
               ("J_cal", TOL_RS_J)], rs_read + rs_tables + rs_masks, 1500.0 * N),
             ("(residual-only)", (cfg.camera_kind, data, v, None, False, False),
              [("res", TOL_RS_RES), ("valid", TOL_RS_RES)], rs_read + rs_tables, 500.0 * N)):
-        row7 = bench.compare(f"rs_linearize{mode}", rs_fused.rs_linearize, args7, tols7, read7,
-                             flops7, f64=True)
-        against_old(f"rs_linearize{mode}", row7, lambda: rs_fused.rs_linearize(*args7),
-                    lambda: rs_fused._launch_rs(*args7, entry="viba_rs_linearize_v1"), tols7)
+        bench.compare(f"rs_linearize{mode}", rs_fused.rs_linearize, args7, tols7, read7, flops7,
+                      f64=True)
 
     cal_segment_kernels(bench, problem, dev)
 
@@ -780,18 +806,20 @@ def gs_cal(dev, bench, session, session_sec):
     info = cfg.block_info
     v, masks = problem.variables, problem.masks
     N = info.nt * info.ts
-    vis_read = [data[k] for k in ("rig", "point", "intr", "extr", "bias", "bias_on", "obs_uv",
-                                  "sqrt_h", "_pad")]
-    tables = [v.pose_q, v.pose_t, v.points, v.cam_intr, v.cam_extr_q, v.cam_extr_t, v.det_bias]
-    bench.compare("visual_cal_linearize", visual_fused.visual_cal_linearize,
-                  (cfg.camera_kind, data, v, masks),
-                  [("res", TOL_RES), ("valid", TOL_RES), ("J_pt", TOL_CAL_J), ("J_r", TOL_CAL_J),
-                   ("J_cal", TOL_CAL_J)],
-                  vis_read + tables + [masks.rig, masks.points, masks.cam_intr, masks.cam_extr],
-                  700.0 * N, f64=True)
-    bench.compare("visual_linearize(gs_cal,residual-only)", visual_fused.visual_linearize,
-                  (cfg.camera_kind, data, v, None, False), [("res", TOL_RES), ("valid", TOL_RES)],
-                  vis_read + tables, 150.0 * N, f64=True)
+    args11 = (cfg.camera_kind, data, v, masks)
+    row11 = bench.compare(
+        "visual_cal_linearize", visual_fused.visual_cal_linearize, args11,
+        [("res", TOL_RES), ("valid", TOL_RES), ("J_pt", TOL_CAL_J), ("J_r", TOL_CAL_J),
+         ("J_cal", TOL_CAL_J)],
+        vis_read(data) + vis_tables(v) + [masks.rig, masks.points, masks.cam_intr,
+                                          masks.cam_extr],
+        700.0 * N, f64=True)
+    against_old("visual_cal_linearize", row11, lambda: visual_fused.visual_cal_linearize(*args11),
+                lambda: visual_fused._launch_visual_cal(*args11,
+                                                        entry="viba_visual_cal_linearize_v1"),
+                [("res", 0.0), ("valid", 0.0), ("J_pt", TOL_OLD_J), ("J_r", TOL_OLD_J),
+                 ("J_cal", TOL_OLD_J)])
+    k1_rows(bench, "gs_cal", cfg, data, v, None, N, modes=(False,))
     cal_segment_kernels(bench, problem, dev, suffix="(gs_cal,k=6)")
 
     # 1e-3, as for the other paths: float32 kernel and plain versions sum in
@@ -840,6 +868,9 @@ def two_grid(dev, bench):
           f"rb={info.rb} prb2={info.prb2} nhg={info.nhg} built in {time.time() - t0:.1f} s")
     if info.prb2 != 0 or info.nhg != 0:
         raise AssertionError("two_grid: the batch has a landmark window (single-pass)")
+
+    # K1 at the general path's size: linearize and cost of 3.1M slots
+    k1_rows(bench, "two_grid", problem.active_cfgs[vi], vdata, v, masks, N)
 
     lg = ks[0](datas, v, masks, None)
     asm = ks[6](datas, lg, v, masks)

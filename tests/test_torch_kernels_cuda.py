@@ -36,7 +36,10 @@ repeats bit for bit. K8 runs at rig widths 6 and 9 and window widths 6, 17
 and 23 on the full-sensor plans and on the made-up plan cut into chunks of
 1, 0, 300 and the rest of a window row's slots, with a window row of none;
 K7 in each of its instantiations (camera model, Jacobian, calibration
-columns, masked or not). Each repeats bit for bit.
+columns, masked or not); K1 (camera model, Jacobian, masked or not) and K11
+(camera model, masked or not) in each of theirs, also against the kernels
+they replaced (residuals bit-equal, Jacobians within 1e-5). Each repeats bit
+for bit.
 """
 
 import functools
@@ -860,8 +863,7 @@ def test_assemble_cal_kernel_every_width(k, kc, plan_kind, cuda_device, monkeypa
     """K8 on the full-sensor batch's plans, and on the made-up plan with
     chunks of 1, 0 and 300 slots and a window row without a slot, at every
     rig and window width: one C entry a call, within 1e-5 of its plain
-    version in float64 and of the design it replaced, the same bits every
-    call."""
+    version in float64, the same bits every call."""
     if plan_kind == "full":
         b, _ = _cal_inputs(cuda_device)
         plan, cplan, w = b.plan, b.cplan, b.w
@@ -882,10 +884,9 @@ def test_assemble_cal_kernel_every_width(k, kc, plan_kind, cuda_device, monkeypa
     counts = _kernels.launch_counts()
     assert counts["assemble_cal"] == 2 and sum(counts.values()) == 2
     assert names == ["viba_assemble_cal"] * 2
-    old = tseg._launch_assemble_cal_v1(*args, plan, cplan)
-    out, again, ref, old = (_flat(o) for o in (out, again, ref, old))
+    out, again, ref = (_flat(o) for o in (out, again, ref))
     assert [tuple(o.shape) for o in out] == [tuple(r.shape) for r in ref]
-    _check(out + out, ref + old, (1e-5,) * (2 * len(out)))
+    _check(out, ref, (1e-5,) * len(out))
     for o, o2 in zip(out, again):
         assert torch.equal(o, o2)
     for blk in out[4:-2]:  # the split blocks come out symmetric
@@ -923,3 +924,84 @@ def test_rs_linearize_every_instantiation(camera_kind, with_jac, with_cal, maske
     _check(out, ref, (1e-4, 0.0, 3e-4, 3e-4, 3e-4))
     for o, o2 in zip(out, again):
         assert torch.equal(o, o2)
+
+
+def _against_v1(out, old, n_res=2):
+    """A redesigned linearizer against the kernel it replaced: the residual
+    and valid bit-equal (the same float64 chain), the Jacobians within 1e-5
+    relative to max-abs (the chain below A in float32 instead of float64)."""
+    torch.cuda.synchronize()
+    for o, v1 in zip(out[:n_res], old[:n_res]):
+        assert torch.equal(o, v1)
+    for o, v1 in zip(out[n_res:], old[n_res:]):
+        assert rel(o.cpu().numpy(), v1.cpu().numpy()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_jac,masked", [(True, True), (True, False), (False, True),
+                                             (False, False)])
+@pytest.mark.parametrize("camera_kind", [0, 1])
+def test_visual_linearize_every_instantiation(camera_kind, with_jac, masked, cuda_device,
+                                              monkeypatch):
+    """K1 in each instantiation (camera model x Jacobian; masks passed or
+    not: the residual-only mode reads none) against its plain version in
+    float64 (residual 1e-5, Jacobians 2e-4) and the kernel it replaced, one
+    launch of its C entry a call, J_r's columns 6-11 exactly zero, the same
+    bits every call."""
+    p, _, vi = _card_problem(cuda_device)
+    data, v = p.datas[vi], p.variables
+    masks = p.masks if masked else None
+    names = _recording_launches(monkeypatch)
+    _kernels.reset_launch_counts()
+    out = visual_fused.visual_linearize(camera_kind, data, v, masks, with_jac)
+    again = visual_fused.visual_linearize(camera_kind, data, v, masks, with_jac)
+    counts = _kernels.launch_counts()
+    assert counts["visual_linearize"] == 2 and sum(counts.values()) == 2
+    f64 = _kernels.to_f64
+    with _kernels.plain_reference():
+        ref = visual_fused.visual_linearize(camera_kind, f64(data), f64(v),
+                                            f64(masks if with_jac else None), with_jac)
+    old = visual_fused._launch_visual(camera_kind, data, v, masks, with_jac,
+                                      entry="viba_visual_linearize_v1")
+    assert names == ["viba_visual_linearize"] * 2 + ["viba_visual_linearize_v1"]
+    assert len(out) == 2 + 2 * with_jac
+    _check(out, ref, (1e-5, 0.0, 2e-4, 2e-4))
+    for o, o2 in zip(out, again):
+        assert torch.equal(o, o2)
+    if with_jac:
+        assert float(out[3][:, 6:].abs().max()) == 0.0
+    _against_v1(out, old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("camera_kind", [0, 1])
+def test_visual_cal_linearize_every_instantiation(camera_kind, masked, cuda_device, monkeypatch):
+    """K11 in each instantiation (camera model; masked or not) against its
+    plain version in float64 (residual 1e-5, Jacobians 3e-4) and the kernel
+    it replaced, one launch of its C entry a call, J_r's columns 6-11,
+    J_cal's readout and time-offset columns (and a pinhole's model columns
+    4-14) exactly zero, the same bits every call."""
+    p, _, vi = _gs_card(cuda_device)
+    data, v = p.datas[vi], p.variables
+    masks = p.masks if masked else None
+    names = _recording_launches(monkeypatch)
+    _kernels.reset_launch_counts()
+    out = visual_fused.visual_cal_linearize(camera_kind, data, v, masks)
+    again = visual_fused.visual_cal_linearize(camera_kind, data, v, masks)
+    counts = _kernels.launch_counts()
+    assert counts["visual_cal_linearize"] == 2 and sum(counts.values()) == 2
+    f64 = _kernels.to_f64
+    with _kernels.plain_reference():
+        ref = visual_fused.visual_cal_linearize(camera_kind, f64(data), f64(v), f64(masks))
+    old = visual_fused._launch_visual_cal(camera_kind, data, v, masks,
+                                          entry="viba_visual_cal_linearize_v1")
+    assert names == ["viba_visual_cal_linearize"] * 2 + ["viba_visual_cal_linearize_v1"]
+    _check(out, ref, (1e-5, 0.0, 3e-4, 3e-4, 3e-4))
+    for o, o2 in zip(out, again):
+        assert torch.equal(o, o2)
+    assert float(out[3][:, 6:].abs().max()) == 0.0
+    assert float(out[4][:, 21:].abs().max()) == 0.0
+    if camera_kind == 0:
+        assert float(out[4][:, 10:21].abs().max()) == 0.0
+    _against_v1(out, old)

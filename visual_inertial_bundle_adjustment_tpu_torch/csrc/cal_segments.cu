@@ -66,8 +66,6 @@
 // staged wu and no window chunk lists. K10's passes below stay separate
 // (down_cal_rig stages wu, schur_down_points gathers it through the landmark
 // lists, the window rows reduce through chunks).
-#include <utility>
-
 #include "pt_segments.cuh"
 #include "tile_reduce.cuh"
 
@@ -83,27 +81,8 @@ namespace {
 
 using viba::kRowGroup;
 
-constexpr int kPer = 32;  // window outputs per launch (viba_assemble_cal_v1)
-
 // the window columns of a batch: cam extr (KE = 6 or 0) then cam intr
 // (KI = 17 or 0), as the batch's cal_groups fold them (kc = 6, 17 or 23)
-__host__ __device__ constexpr int tri_row(int t, int dim) {
-  int a = 0;
-  while (t >= dim - a) {
-    t -= dim - a;
-    ++a;
-  }
-  return a;
-}
-__host__ __device__ constexpr int tri_col(int t, int dim) {
-  int a = 0;
-  while (t >= dim - a) {
-    t -= dim - a;
-    ++a;
-  }
-  return a + t;
-}
-
 template <int KE, int KI>
 struct Cal {
   static constexpr int kc = KE + KI;
@@ -111,77 +90,7 @@ struct Cal {
   // K8 window outputs in order: g_c[0..kc), then the row-major upper
   // triangle of each split's self block
   static constexpr int out = tri1 + KI * (KI + 1) / 2;
-  static constexpr int parts = (out + kPer - 1) / kPer;
-  __host__ __device__ static constexpr int ent_a(int e) {
-    return e < tri0 ? e : e < tri1 ? tri_row(e - tri0, KE) : KE + tri_row(e - tri1, KI);
-  }
-  __host__ __device__ static constexpr int ent_b(int e) {
-    return e < tri0 ? -1 : e < tri1 ? tri_col(e - tri0, KE) : KE + tri_col(e - tri1, KI);
-  }
 };
-
-template <class C, int E>
-__device__ __forceinline__ void accum_one(const float (&j0)[C::kc], const float (&j1)[C::kc],
-                                          float ws, float r0, float r1, float& acc) {
-  if constexpr (E < C::out) {
-    constexpr int a = C::ent_a(E);
-    constexpr int b = C::ent_b(E);
-    if constexpr (b < 0) {
-      acc += j0[a] * r0 + j1[a] * r1;
-    } else {
-      acc += (j0[a] * ws) * j0[b] + (j1[a] * ws) * j1[b];
-    }
-  }
-}
-
-template <class C, int P, int... I>
-__device__ __forceinline__ void accum_part(std::integer_sequence<int, I...>,
-                                           const float (&j0)[C::kc], const float (&j1)[C::kc],
-                                           float ws, float r0, float r1, float (&acc)[kPer]) {
-  (accum_one<C, P * kPer + I>(j0, j1, ws, r0, r1, acc[I]), ...);
-}
-
-// viba_assemble_cal_v1's window pass: chunk partials of outputs [P*kPer, P*kPer + kPer)
-template <class C, int P>
-__global__ void __launch_bounds__(viba::kBlock) assemble_cal_part(
-    int n_chunks, int n, const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_obs,
-    const float* __restrict__ J_c, const float* __restrict__ w, const float* __restrict__ res,
-    float* __restrict__ part) {
-  constexpr int kc = C::kc;
-  viba::reduce_segments<kRowGroup, kPer>(
-      blockIdx.x, n_chunks, chunk_ptr, chunk_obs,
-      [&](int s, float(&acc)[kPer]) {
-        float j0[kc], j1[kc];
-#pragma unroll
-        for (int c = 0; c < kc; ++c) {
-          j0[c] = J_c[c * (long)n + s];
-          j1[c] = J_c[(kc + c) * (long)n + s];
-        }
-        const float ws = w[s];
-        accum_part<C, P>(std::make_integer_sequence<int, kPer>{}, j0, j1, ws, res[s] * ws,
-                         res[n + s] * ws, acc);
-      },
-      [&](int ch, float(&acc)[kPer]) {
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          if (P * kPer + i < C::out) part[C::out * (long)ch + P * kPer + i] = acc[i];
-        }
-      });
-}
-
-template <class C, int P>
-cudaError_t launch_parts(int n_chunks, int n, const int* chunk_ptr, const int* chunk_obs,
-                         const float* J_c, const float* w, const float* res, float* part,
-                         cudaStream_t st) {
-  if constexpr (P < C::parts) {
-    assemble_cal_part<C, P><<<n_chunks, viba::kBlock, 0, st>>>(n_chunks, n, chunk_ptr,
-                                                              chunk_obs, J_c, w, res, part);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    return launch_parts<C, P + 1>(n_chunks, n, chunk_ptr, chunk_obs, J_c, w, res, part, st);
-  }
-  return cudaSuccess;
-}
 
 // upper-triangle position of (a, b), a <= b, in a dim x dim block
 __host__ __device__ constexpr int tri_index(int a, int b, int dim) {
@@ -711,18 +620,6 @@ int assemble_cal(int n_c, int n_chunks, int n, const int* chunk_ptr, const int* 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class C>
-int assemble_cal_v1(int n_c, int n_chunks, int n, const int* chunk_ptr, const int* chunk_obs,
-                    const int* row_chunk, const float* J_c, const float* w, const float* res,
-                    float* part, float* out_c, cudaStream_t st) {
-  if (n_chunks > 0) {
-    const cudaError_t err =
-        launch_parts<C, 0>(n_chunks, n, chunk_ptr, chunk_obs, J_c, w, res, part, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(viba::launch_sum_partials(n_c, C::out, row_chunk, part, out_c, st));
-}
-
 template <int KC>
 int down_cal(int R, int L, int n, int k, int n_c, int n_chunks, int want_y, const int* rig_ptr,
              const int* rig_obs, const int* pt_ptr, const int* pt_obs, const int* win,
@@ -772,19 +669,6 @@ extern "C" int viba_assemble_cal(int R, int L, int n, int k, int kc, int n_c, in
 #define VIBA_ASM(KE, KI)                                                                      \
   assemble_cal<KE, KI>(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk, J_c, w, res, part, \
                        g_c, diag_c, blk_e, blk_i, st)
-  return VIBA_DISPATCH_KC(kc, VIBA_ASM(6, 0), VIBA_ASM(0, 17), VIBA_ASM(6, 17));
-#undef VIBA_ASM
-}
-
-// the window pass before the redesign, packed rows (n_c, n_cal_out)
-extern "C" int viba_assemble_cal_v1(int n, int kc, int n_c, int n_chunks, const int* chunk_ptr,
-                                    const int* chunk_obs, const int* row_chunk, const float* J_c,
-                                    const float* w, const float* res, float* part, float* out_c,
-                                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VIBA_ASM(KE, KI)                                                                    \
-  assemble_cal_v1<Cal<KE, KI>>(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk, J_c, w, res, \
-                               part, out_c, st)
   return VIBA_DISPATCH_KC(kc, VIBA_ASM(6, 0), VIBA_ASM(0, 17), VIBA_ASM(6, 17));
 #undef VIBA_ASM
 }

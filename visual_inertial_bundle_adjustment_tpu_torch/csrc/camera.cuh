@@ -1,10 +1,13 @@
-// Float64 camera-model and quaternion helpers shared by the visual
-// linearization kernels (visual_linearize.cu, K1; rs_linearize.cu, K7;
-// visual_cal_linearize.cu, K11).
+// Camera-model and quaternion helpers shared by the visual linearization
+// kernels (visual_linearize.cu, K1; rs_linearize.cu, K7;
+// visual_cal_linearize.cu, K11): the float64 projections and rotations of
+// their primal chains, and the float32 helpers of their Jacobian chains.
 // The camera models mirror ops/camera/fisheye624.py and pinhole.py exactly,
 // including the optical-axis and z guards; derivatives wrt the camera-frame
 // point come from three forward tangents carried in a small dual type, those
-// wrt the model parameters are written out (param_jac).
+// wrt the model parameters are written out: in float64 from p_cam
+// (param_jac, K7) or in float32 from the projection's own intermediates
+// (ProjTerms, intr_jac_col: K11).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,9 +54,18 @@ __device__ __forceinline__ Dual datan2(Dual y, Dual x) {
 }
 __device__ __forceinline__ Dual dsel(bool c, Dual a, Dual b) { return c ? a : b; }
 
-// ops/camera/fisheye624.py project, on duals
+// What the intrinsics Jacobian reads of a projection, in float32.
+// Fisheye624: (a, b) the radially distorted plane point, rho2 = a^2 + b^2,
+// th2 = theta^2 and tr = theta / r (0 on the optical axis, r < 1e-12);
+// pinhole: (a, b) = (x, y) / z_safe.
+struct ProjTerms {
+  float a, b, rho2, th2, tr;
+};
+
+// ops/camera/fisheye624.py project, on duals; `terms`, when given, receives
+// the projection's intermediates
 __device__ __forceinline__ void proj_fisheye624(const float* K, Dual x, Dual y, Dual z, Dual& u,
-                                                Dual& v) {
+                                                Dual& v, ProjTerms* terms = nullptr) {
   const Dual r = dsqrt(x * x + y * y + 1e-30);
   const Dual theta = datan2(r, z);
   const Dual theta2 = theta * theta;
@@ -77,14 +89,71 @@ __device__ __forceinline__ void proj_fisheye624(const float* K, Dual x, Dual y, 
   const Dual tpy = s2 * rho2 + s3 * (rho2 * rho2);
   u = real(K[0]) * (a + tx + tpx) + real(K[1]);
   v = real(K[0]) * (b + ty + tpy) + real(K[2]);
+  if (terms != nullptr) {
+    *terms = {float(a.v), float(b.v), float(rho2.v), float(theta2.v),
+              near ? 0.f : float(theta.v) / float(r.v)};
+  }
 }
 
 // ops/camera/pinhole.py project, on duals
 __device__ __forceinline__ void proj_pinhole(const float* K, Dual x, Dual y, Dual z, Dual& u,
-                                             Dual& v) {
+                                             Dual& v, ProjTerms* terms = nullptr) {
   const Dual z_safe = dsel(fabs(z.v) < kMinZ, dconst(kMinZ), z);
   u = real(K[0]) * (x / z_safe) + real(K[2]);
   v = real(K[1]) * (y / z_safe) + real(K[3]);
+  if (terms != nullptr) *terms = {float(x.v / z_safe.v), float(y.v / z_safe.v), 0.f, 0.f, 0.f};
+}
+
+// d(u, v) / d(model param c), c in [0, 15), of camera model CAM (1
+// Fisheye624, else pinhole [fx, fy, cx, cy]) at the camera-frame point
+// (x, y, .), from the projection's intermediates, in float32: param_jac's
+// columns without a second pass through the model. The guards come with the
+// intermediates: tr is 0 on the optical axis, (a, b) carry z_safe.
+template <int CAM>
+__device__ __forceinline__ void intr_jac_col(const float* K, const ProjTerms& t, float x, float y,
+                                             int c, float& du, float& dv) {
+  du = dv = 0.f;
+  if constexpr (CAM != 1) {
+    if (c == 0) du = t.a;
+    if (c == 1) dv = t.b;
+    if (c == 2) du = 1.f;
+    if (c == 3) dv = 1.f;
+    return;
+  }
+  const float f = K[0], p0 = K[9], p1 = K[10], s0 = K[11], s1 = K[12], s2 = K[13], s3 = K[14];
+  const float a = t.a, b = t.b, rho2 = t.rho2;
+  if (c == 0) {
+    du = a + p0 * (rho2 + 2.f * a * a) + 2.f * p1 * a * b + s0 * rho2 + s1 * rho2 * rho2;
+    dv = b + p1 * (rho2 + 2.f * b * b) + 2.f * p0 * a * b + s2 * rho2 + s3 * rho2 * rho2;
+  } else if (c == 1) {
+    du = 1.f;
+  } else if (c == 2) {
+    dv = 1.f;
+  } else if (c < 9) {  // k0..k5: d(a, b) / dk = (x, y) theta th2^(c-2) / r
+    float ds = t.tr;
+    for (int e = 3; e <= c; ++e) ds *= t.th2;
+    const float sx = x * ds, sy = y * ds;
+    const float ua = f * (1.f + 6.f * p0 * a + 2.f * p1 * b + 2.f * a * (s0 + 2.f * s1 * rho2));
+    const float ub = f * (2.f * p0 * b + 2.f * p1 * a + 2.f * b * (s0 + 2.f * s1 * rho2));
+    const float va = f * (2.f * p1 * a + 2.f * p0 * b + 2.f * a * (s2 + 2.f * s3 * rho2));
+    const float vb = f * (1.f + 6.f * p1 * b + 2.f * p0 * a + 2.f * b * (s2 + 2.f * s3 * rho2));
+    du = ua * sx + ub * sy;
+    dv = va * sx + vb * sy;
+  } else if (c == 9) {
+    du = f * (rho2 + 2.f * a * a);
+    dv = f * 2.f * a * b;
+  } else if (c == 10) {
+    du = f * 2.f * a * b;
+    dv = f * (rho2 + 2.f * b * b);
+  } else if (c == 11) {
+    du = f * rho2;
+  } else if (c == 12) {
+    du = f * rho2 * rho2;
+  } else if (c == 13) {
+    dv = f * rho2;
+  } else {
+    dv = f * rho2 * rho2;
+  }
 }
 
 // lie.quat_rotate: v + 2 (w (q x v) + q x (q x v))
@@ -163,6 +232,34 @@ __device__ inline void param_jac(int camera_kind, const float* K, real x, real y
   du[12] = f * rho2 * rho2;
   dv[13] = f * rho2;
   dv[14] = f * rho2 * rho2;
+}
+
+// float32 helpers of the Jacobian chains below A = sqrt_h d uv / d p_cam
+// (K1, K7, K11): a rotation by a quaternion, a cross product, and a float64
+// quaternion or its conjugate (R^T: the rotation formula's transpose is
+// exactly its conjugate's, unit or not) as float32
+__device__ __forceinline__ void qrot_f(const float* q, const float* v, float* out) {
+  const float ux = q[2] * v[2] - q[3] * v[1];
+  const float uy = q[3] * v[0] - q[1] * v[2];
+  const float uz = q[1] * v[1] - q[2] * v[0];
+  const float uux = q[2] * uz - q[3] * uy;
+  const float uuy = q[3] * ux - q[1] * uz;
+  const float uuz = q[1] * uy - q[2] * ux;
+  out[0] = v[0] + 2.f * (q[0] * ux + uux);
+  out[1] = v[1] + 2.f * (q[0] * uy + uuy);
+  out[2] = v[2] + 2.f * (q[0] * uz + uuz);
+}
+
+__device__ __forceinline__ void cross_f(const float* a, const float* b, float* out) {
+  out[0] = a[1] * b[2] - a[2] * b[1];
+  out[1] = a[2] * b[0] - a[0] * b[2];
+  out[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ void quat_f(const real* q, bool conj, float* out) {
+  out[0] = float(q[0]);
+#pragma unroll
+  for (int c = 1; c < 4; ++c) out[c] = float(conj ? -q[c] : q[c]);
 }
 
 }  // namespace viba

@@ -40,11 +40,6 @@
 // projection (T, p_mid, dP_t and y stay float64), and each group is stored
 // as soon as it is computed (J_pt, J_r, J_cal extrinsics and J_dtt, then the
 // intrinsics' param_jac last).
-//
-// rs_linearize_v1, the kernel before that redesign (one kernel for all four
-// modes, the modes runtime arguments, the Jacobian chain in float64 through
-// four 3x3 rotation matrices), is kept as chip_smoke.py's yardstick
-// (viba_rs_linearize_v1); nothing else reaches it.
 #include "camera.cuh"
 
 namespace {
@@ -238,123 +233,6 @@ __device__ __forceinline__ void rs_residual(const RsArgs& a, int i, const RsPrim
   a.valid[i] = fmaxf((o.pc[2] >= kMinZ && o.seg_ok) ? 1.f : 0.f, a.pad[i]);
 }
 
-__global__ void __launch_bounds__(128) rs_linearize_v1(RsArgs a, int camera_kind, int with_jac,
-                                                       int with_cal) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const int r = a.rig[i], p = a.point[i], ci = a.intr[i], ce = a.extr[i];
-  RsPrimal o;
-  rs_primal(a, i, r, a.rs_row[i], p, ci, ce, o);
-  const real* pc = o.pc;
-  Dual u, v;
-  const Dual dx = dvar(pc[0], 0), dy = dvar(pc[1], 1), dz = dvar(pc[2], 2);
-  if (camera_kind == 1) {
-    proj_fisheye624(o.Kp, dx, dy, dz, u, v);
-  } else {
-    proj_pinhole(o.Kp, dx, dy, dz, u, v);
-  }
-  real h[2][2];
-  rs_residual(a, i, o, u, v, h);
-  if (!with_jac) return;
-
-  // d res / d p_cam, then back through extr, the shifted pose and the pose
-  const real du[3] = {u.d0, u.d1, u.d2}, dv[3] = {v.d0, v.d1, v.d2};
-  const real Sq[4] = {o.qt[0], -o.qt[1], -o.qt[2], -o.qt[3]};
-  const real dtt = o.dtt;
-  real A[2][3], Ar[2][3], B[2][3], Jp[2][3], Jv[2][3];
-  real RE[3][3], RS[3][3], RT[3][3], R2[3][3];
-  rot_matrix(o.Eq, RE);
-  rot_matrix(Sq, RS);
-  rot_matrix(o.Tq, RT);
-  rot_matrix(o.Tq2, R2);
-#pragma unroll
-  for (int a2 = 0; a2 < 2; ++a2) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) A[a2][c] = h[a2][0] * du[c] + h[a2][1] * dv[c];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) Ar[a2][c] = A[a2][0] * RE[0][c] + A[a2][1] * RE[1][c] + A[a2][2] * RE[2][c];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) B[a2][c] = Ar[a2][0] * RS[0][c] + Ar[a2][1] * RS[1][c] + Ar[a2][2] * RS[2][c];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      Jp[a2][c] = Ar[a2][0] * R2[0][c] + Ar[a2][1] * R2[1][c] + Ar[a2][2] * R2[2][c];
-      Jv[a2][c] = -dtt * (B[a2][0] * RT[0][c] + B[a2][1] * RT[1][c] + B[a2][2] * RT[2][c]);
-    }
-  }
-  real dpr[3];
-  rs_dpr(o, dpr);
-  const real z[3] = {o.prot[0] + o.Tt[0] - o.m[0], o.prot[1] + o.Tt[1] - o.m[1],
-                     o.prot[2] + o.Tt[2] - o.m[2]};
-
-  // masks: all four or none (residual-only callers pass none)
-  const bool masked = a.pt_mask != nullptr;
-  real pm[3] = {1, 1, 1}, rm[9] = {1, 1, 1, 1, 1, 1, 1, 1, 1};
-  if (masked) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) pm[c] = a.pt_mask[3 * (long)p + c];
-#pragma unroll
-    for (int c = 0; c < 9; ++c) rm[c] = a.rig_mask[12 * (long)r + c];
-  }
-  const int n = a.n;
-  real dup[15], dvp[15];
-  if (with_cal) param_jac(camera_kind, o.Kp, pc[0], pc[1], pc[2], dup, dvp);
-#pragma unroll
-  for (int a2 = 0; a2 < 2; ++a2) {
-    real jw[3], je[3];
-    cross3(z, B[a2], jw);
-    cross3(pc, A[a2], je);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      a.J_pt[(a2 * 3 + c) * (long)n + i] = float(Jp[a2][c] * pm[c]);
-      a.J_r[(a2 * 12 + c) * (long)n + i] = float(B[a2][c] * rm[c]);
-      a.J_r[(a2 * 12 + 3 + c) * (long)n + i] = float(jw[c] * rm[3 + c]);
-      a.J_r[(a2 * 12 + 6 + c) * (long)n + i] = float(Jv[a2][c] * rm[6 + c]);
-      a.J_r[(a2 * 12 + 9 + c) * (long)n + i] = 0.f;
-    }
-    if (!with_cal) continue;
-    const float* em = masked ? a.extr_mask + 6 * (long)ce : nullptr;
-    const float* im = masked ? a.intr_mask + kMaxParams * (long)ci : nullptr;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      a.J_cal[(a2 * 23 + c) * (long)n + i] = float(A[a2][c] * (em ? em[c] : 1.f));
-      a.J_cal[(a2 * 23 + 3 + c) * (long)n + i] = float(je[c] * (em ? em[3 + c] : 1.f));
-    }
-#pragma unroll
-    for (int c = 0; c < 15; ++c)
-      a.J_cal[(a2 * 23 + 6 + c) * (long)n + i] =
-          float((h[a2][0] * dup[c] + h[a2][1] * dvp[c]) * (im ? im[c] : 1.f));
-    const real jdt = Ar[a2][0] * dpr[0] + Ar[a2][1] * dpr[1] + Ar[a2][2] * dpr[2];
-    a.J_cal[(a2 * 23 + 21) * (long)n + i] = float(jdt * o.tp * (im ? im[15] : 1.f));
-    a.J_cal[(a2 * 23 + 22) * (long)n + i] = float(-jdt * (im ? im[16] : 1.f));
-  }
-}
-
-// float32 helpers of the redesigned Jacobian chain
-__device__ __forceinline__ void qrot_f(const float* q, const float* v, float* out) {
-  const float ux = q[2] * v[2] - q[3] * v[1];
-  const float uy = q[3] * v[0] - q[1] * v[2];
-  const float uz = q[1] * v[1] - q[2] * v[0];
-  const float uux = q[2] * uz - q[3] * uy;
-  const float uuy = q[3] * ux - q[1] * uz;
-  const float uuz = q[1] * uy - q[2] * ux;
-  out[0] = v[0] + 2.f * (q[0] * ux + uux);
-  out[1] = v[1] + 2.f * (q[0] * uy + uuy);
-  out[2] = v[2] + 2.f * (q[0] * uz + uuz);
-}
-
-__device__ __forceinline__ void cross_f(const float* a, const float* b, float* out) {
-  out[0] = a[1] * b[2] - a[2] * b[1];
-  out[1] = a[2] * b[0] - a[0] * b[2];
-  out[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-// quaternion q (float64) or its conjugate as float32
-__device__ __forceinline__ void quat_f(const real* q, bool conj, float* out) {
-  out[0] = float(q[0]);
-#pragma unroll
-  for (int c = 1; c < 4; ++c) out[c] = float(conj ? -q[c] : q[c]);
-}
-
 // One mode of K7: CAM 1 Fisheye624, else pinhole; JAC the Jacobian; CAL its
 // calibration columns (J_cal)
 template <int CAM, bool JAC, bool CAL>
@@ -474,38 +352,23 @@ cudaError_t launch_rs_mode(const RsArgs& a, int with_jac, int with_cal, cudaStre
 
 }  // namespace
 
-#define VIBA_RS_PARAMS                                                                          \
-  int n, int R, int K, int camera_kind, int with_jac, int with_cal, const int *rig,             \
-      const int *rs_row, const int *point, const int *intr, const int *extr, const float *pad,  \
-      const float *tpf, const float *obs_uv, const float *sqrt_h, const float *pose_q,          \
-      const float *pose_t, const float *vel, const float *points, const float *cam_intr,        \
-      const float *extr_q, const float *extr_t, const float *rig_mask, const float *pt_mask,    \
-      const float *intr_mask, const float *extr_mask, const float *rs_dt, const float *rs_q,    \
-      const float *rs_dP, const float *rs_dV, const float *rs_ig, const float *rs_ia,           \
-      const float *rs_idv, const long long *rs_count, const float *gravity, float *res,       \
-      float *valid,                                                                          \
-      float *J_pt, float *J_r, float *J_cal, void *stream
-#define VIBA_RS_ARGS                                                                          \
-  RsArgs {                                                                                    \
-    n, K, rig, rs_row, point, intr, extr, pad, tpf, obs_uv, sqrt_h, pose_q, pose_t, vel,     \
-        points, cam_intr, extr_q, extr_t, rig_mask, pt_mask, intr_mask, extr_mask, rs_dt,    \
-        rs_q, rs_dP, rs_dV, rs_ig, rs_ia, rs_idv, rs_count, gravity, res, valid, J_pt, J_r, \
-        J_cal                                                                                 \
-  }
-
-extern "C" int viba_rs_linearize(VIBA_RS_PARAMS) {
+extern "C" int viba_rs_linearize(
+    int n, int R, int K, int camera_kind, int with_jac, int with_cal, const int* rig,
+    const int* rs_row, const int* point, const int* intr, const int* extr, const float* pad,
+    const float* tpf, const float* obs_uv, const float* sqrt_h, const float* pose_q,
+    const float* pose_t, const float* vel, const float* points, const float* cam_intr,
+    const float* extr_q, const float* extr_t, const float* rig_mask, const float* pt_mask,
+    const float* intr_mask, const float* extr_mask, const float* rs_dt, const float* rs_q,
+    const float* rs_dP, const float* rs_dV, const float* rs_ig, const float* rs_ia,
+    const float* rs_idv, const long long* rs_count, const float* gravity, float* res,
+    float* valid, float* J_pt, float* J_r, float* J_cal, void* stream) {
   (void)R;
   if (n <= 0) return 0;
-  const RsArgs a = VIBA_RS_ARGS;
+  const RsArgs a{n, K, rig, rs_row, point, intr, extr, pad, tpf, obs_uv, sqrt_h, pose_q,
+                 pose_t, vel, points, cam_intr, extr_q, extr_t, rig_mask, pt_mask, intr_mask,
+                 extr_mask, rs_dt, rs_q, rs_dP, rs_dV, rs_ig, rs_ia, rs_idv, rs_count, gravity,
+                 res, valid, J_pt, J_r, J_cal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(camera_kind == 1 ? launch_rs_mode<1>(a, with_jac, with_cal, st)
                                            : launch_rs_mode<0>(a, with_jac, with_cal, st));
-}
-
-extern "C" int viba_rs_linearize_v1(VIBA_RS_PARAMS) {
-  (void)R;
-  if (n <= 0) return 0;
-  rs_linearize_v1<<<(n + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      VIBA_RS_ARGS, camera_kind, with_jac, with_cal);
-  return static_cast<int>(cudaGetLastError());
 }

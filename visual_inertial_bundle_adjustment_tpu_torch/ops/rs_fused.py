@@ -67,15 +67,6 @@ def rs_linearize(camera_kind, data, v, masks, with_jac, with_cal):
     J_cal (2,23,N)]]). `masks` is read only with the Jacobian."""
     if not _kernels.on_card(v.points):
         return _rs_plain(camera_kind, data, v, masks, with_jac, with_cal)
-    out = _launch_rs(camera_kind, data, v, masks, with_jac, with_cal)
-    rs_linearize.launches += 1
-    return out
-
-
-def _launch_rs(camera_kind, data, v, masks, with_jac, with_cal, entry="viba_rs_linearize"):
-    """Launch K7 through the C entry `entry`: viba_rs_linearize (one
-    instantiation per mode) or viba_rs_linearize_v1 (the kernel before that
-    redesign, chip_smoke.py's yardstick)."""
     ck = _kernels.check
     f32, i32 = torch.float32, torch.int32
     n = data["rig"].shape[0]
@@ -96,7 +87,7 @@ def _launch_rs(camera_kind, data, v, masks, with_jac, with_cal, entry="viba_rs_l
         return t.data_ptr() if t is not None else None
 
     _kernels.launch(
-        entry, n, R, K, int(camera_kind), int(bool(with_jac)),
+        "viba_rs_linearize", n, R, K, int(camera_kind), int(bool(with_jac)),
         int(bool(with_cal)),
         ck(data["rig"], "rig", i32, (n,)), ck(data["rs_row"], "rs_row", i32, (n,)),
         ck(data["point"], "point", i32, (n,)), ck(data["intr"], "intr", i32, (n,)),
@@ -120,6 +111,7 @@ def _launch_rs(camera_kind, data, v, masks, with_jac, with_cal, entry="viba_rs_l
         ck(tab.gravity_w, "rs_gravity", f32, (3,)),
         res.data_ptr(), valid.data_ptr(), opt(J_pt), opt(J_r), opt(J_cal),
     )
+    rs_linearize.launches += 1
     if not with_jac:
         return res, valid
     if with_cal:

@@ -498,19 +498,6 @@ def n_cal_out(splits):
     return len(_cal_entries(splits))
 
 
-def _unpack_cal(out, splits):
-    """(n_c, n_cal_out) kernel rows -> g_c, diag_c (n_c, kc), [blocks]."""
-    kc = sum(splits)
-    g_c = out[:, :kc]
-    blocks, pos = [], kc
-    for dim in splits:
-        m = dim * (dim + 1) // 2
-        blocks.append(_tri_to_full(out[:, pos:pos + m], dim))
-        pos += m
-    diag_c = torch.cat([torch.diagonal(b, dim1=-2, dim2=-1) for b in blocks], dim=1)
-    return g_c.contiguous(), diag_c.contiguous(), blocks
-
-
 def _assemble_cal_plain(J_r, J_c, J_p, res, w, plan, cplan):
     g_r, diag_r, g_l, H = _assemble_rig_plain(J_r, J_p, res, w, plan)
     n_c = cplan.n_rows
@@ -552,23 +539,6 @@ def seg_assemble_cal(J_r, J_c, J_p, res, w, plan: SegPlan, cplan: CalPlan):
                     part.data_ptr(), g_c.data_ptr(), diag_c.data_ptr(), by_dim.get(6),
                     by_dim.get(17))
     seg_assemble_cal.launches += 1
-    return g_r, diag_r, g_c, diag_c, blocks, g_l, H
-
-
-def _launch_assemble_cal_v1(J_r, J_c, J_p, res, w, plan, cplan):
-    """K8 before its redesign (chip_smoke.py's yardstick): K2's launch, the
-    window pass of 32 outputs a launch (J_c read once per launch) and its
-    chunk sums into packed rows, unpacked by torch ops."""
-    n = w.shape[0]
-    g_r, diag_r, g_l, H = _launch_assemble_rig(J_r, J_p, res, w, plan)
-    splits = _cal_splits(J_c)
-    part = _empty((max(cplan.n_chunks, 1), n_cal_out(splits)), w)
-    out_c = _empty((cplan.n_rows, n_cal_out(splits)), w)
-    _kernels.launch("viba_assemble_cal_v1", n, sum(splits), cplan.n_rows, cplan.n_chunks,
-                    *_cal_ptrs(cplan, n)[1:], _jc_arg(J_c, n), _kernels.check(w, "w"),
-                    _kernels.check(res, "res", torch.float32, (2, n)), part.data_ptr(),
-                    out_c.data_ptr())
-    g_c, diag_c, blocks = _unpack_cal(out_c, splits)
     return g_r, diag_r, g_c, diag_c, blocks, g_l, H
 
 

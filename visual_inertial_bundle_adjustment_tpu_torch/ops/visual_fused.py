@@ -14,8 +14,9 @@ with the camera model's 2x3 Jacobian D wrt p_cam chained analytically:
 J_r keeps the (2, 12, N) layout of the JAX package: columns 0-5 are
 [trans, rot] x rig mask, columns 6-11 are zero.
 
-Kernel: csrc/visual_linearize.cu, `visual_linearize` (one thread per
-observation; D from three forward tangents carried in a small dual type).
+Kernel: csrc/visual_linearize.cu, `visual_linearize_mode` (one thread per
+observation, one template instantiation per camera model and mode; D from
+three forward tangents carried in a small dual type; csrc/visual_body.cuh).
 Replaces the Pallas kernel visual_fused._visual_kernel of the JAX package
 (ops/visual_fused.py:139, entry `_run` :237). What bounds it on the card:
 bytes — per observation it reads 5 indices, obs_uv, sqrt_h, pad, bias_on
@@ -23,7 +24,10 @@ bytes — per observation it reads 5 indices, obs_uv, sqrt_h, pad, bias_on
 res, valid, J_pt, J_r (132 B): about 0.1 GB per linearization at the bias-only
 headline's 397,312 slots, ~28 us at the H100's 3.35 TB/s. The design keeps every table
 gather an indexed load (no one-hot selection, no hi/lo point windows) and
-writes each output column coalesced (observation axis last).
+writes each output column coalesced (observation axis last). The
+residual-only instantiation compiles no Jacobian chain; the Jacobian's chain
+below sqrt_h D runs in float32 (the primal chain and the residual in
+float64).
 
 With the camera calibration estimated (point + pose + cam extr + cam intr
 active, a global-shutter camera) the batch goes through K11 instead:
@@ -34,8 +38,9 @@ active, a global-shutter camera) the batch goes through K11 instead:
 
 returned as J_cal (2, 23, N) = [extr 6 | intr 17], each column times the mask
 of its variable row. Kernel: csrc/visual_cal_linearize.cu,
-`visual_cal_linearize` (one thread per observation, float64 registers, the
-chain rule written out). Replaces the Pallas kernel
+`visual_cal_linearize_mode` (K1's body with the calibration columns, one
+instantiation per camera model; the intrinsics columns from the projection's
+own intermediates). Replaces the Pallas kernel
 visual_fused._visual_cal_kernel of the JAX package (ops/visual_fused.py:347,
 entry `_run_cal` :445), which took the Jacobian from an in-kernel
 jax.linearize and two transpose passes. Bound: bytes, 316 B of outputs per
@@ -45,7 +50,10 @@ such a batch is K1's residual-only launch.
 
 The plain PyTorch versions below compute the same functions (D by three
 forward-mode JVPs through ops/camera, d proj / d intr by forward-mode AD)
-and serve CPU tensors.
+and serve CPU tensors. `_launch_visual` and `_launch_visual_cal` also reach
+the kernels before their redesign (the C entries `viba_visual_linearize_v1`,
+`viba_visual_cal_linearize_v1`), chip_smoke.py's yardsticks; the wrappers
+never do.
 """
 
 from __future__ import annotations
@@ -131,6 +139,15 @@ def visual_linearize(camera_kind, data, v, masks, with_jac):
     """K1 wrapper: (res (2,N), valid (N,)[, J_pt (2,3,N), J_r (2,12,N)])."""
     if not _kernels.on_card(v.points):
         return _visual_plain(camera_kind, data, v, masks, with_jac)
+    out = _launch_visual(camera_kind, data, v, masks, with_jac)
+    visual_linearize.launches += 1
+    return out
+
+
+def _launch_visual(camera_kind, data, v, masks, with_jac, entry="viba_visual_linearize"):
+    """Launch K1 through the C entry `entry`: viba_visual_linearize (one
+    instantiation per mode) or viba_visual_linearize_v1 (the kernel before
+    that redesign)."""
     n, rig_mask, pt_mask = _inputs(data, v, masks)
     ck = _kernels.check
     R, L = v.pose_q.shape[0], v.points.shape[0]
@@ -142,7 +159,7 @@ def visual_linearize(camera_kind, data, v, masks, with_jac):
     J_r = torch.empty((2, 12, n), **kw) if with_jac else None
     null = None
     _kernels.launch(
-        "viba_visual_linearize", n, int(camera_kind), int(bool(with_jac)),
+        entry, n, int(camera_kind), int(bool(with_jac)),
         ck(data["rig"], "rig", torch.int32, (n,)),
         ck(data["point"], "point", torch.int32, (n,)),
         ck(data["intr"], "intr", torch.int32, (n,)),
@@ -165,7 +182,6 @@ def visual_linearize(camera_kind, data, v, masks, with_jac):
         J_pt.data_ptr() if with_jac else null,
         J_r.data_ptr() if with_jac else null,
     )
-    visual_linearize.launches += 1
     if with_jac:
         return res, valid, J_pt, J_r
     return res, valid
@@ -177,6 +193,15 @@ def visual_cal_linearize(camera_kind, data, v, masks):
     J_cal (2,23,N) = extr 6 | intr 17). `masks` None means no masking."""
     if not _kernels.on_card(v.points):
         return _visual_plain(camera_kind, data, v, masks, True, with_cal=True)
+    out = _launch_visual_cal(camera_kind, data, v, masks)
+    visual_cal_linearize.launches += 1
+    return out
+
+
+def _launch_visual_cal(camera_kind, data, v, masks, entry="viba_visual_cal_linearize"):
+    """Launch K11 through the C entry `entry`: viba_visual_cal_linearize (one
+    instantiation per camera model) or viba_visual_cal_linearize_v1 (the
+    kernel before that redesign)."""
     ck = _kernels.check
     f32, i32 = torch.float32, torch.int32
     n = data["rig"].shape[0]
@@ -188,7 +213,7 @@ def visual_cal_linearize(camera_kind, data, v, masks):
     J_cal = torch.empty((2, 23, n), **kw)
     use_masks = masks is not None
     _kernels.launch(
-        "viba_visual_cal_linearize", n, int(camera_kind),
+        entry, n, int(camera_kind),
         ck(data["rig"], "rig", i32, (n,)), ck(data["point"], "point", i32, (n,)),
         ck(data["intr"], "intr", i32, (n,)), ck(data["extr"], "extr", i32, (n,)),
         ck(data["bias"], "bias", i32, (n,)), ck(data["bias_on"], "bias_on", f32, (n,)),
@@ -206,7 +231,6 @@ def visual_cal_linearize(camera_kind, data, v, masks):
         ck(masks.cam_extr, "extr_mask", f32, (n_e, 6)) if use_masks else None,
         res.data_ptr(), valid.data_ptr(), J_pt.data_ptr(), J_r.data_ptr(), J_cal.data_ptr(),
     )
-    visual_cal_linearize.launches += 1
     return res, valid, J_pt, J_r, J_cal
 
 
