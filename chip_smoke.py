@@ -43,13 +43,15 @@ Phases, one printed line each (per path):
                the plain version in float32; the kernel's device time and
                device operations per call (torch.profiler; no host copy may
                be among them); the least time the card could take (bound).
-               K1 (with the Jacobian and residual-only, at the bias, two_grid
-               and gs_cal shapes) and K11 against the designs they replaced
-               (C entries only this script reaches), in turns: residuals
-               bit-equal, Jacobians within 1e-5; K4 and K9 beside their two-pass
-               floors; K13a on the two-grid landmark rows against the walk on
-               the same rows; K13c on those rows (D 9, D 3) against the walk
-               and index_add_
+               K1 with the Jacobian and residual-only at the bias, two_grid
+               and gs_cal shapes; K2 (at bias, and on K8's batches at full
+               and gs_cal) and K6 (with y and as the main path calls it,
+               t alone) against the designs they replaced (C entries only
+               this script reaches), in turns, within 1e-5; K4 and K9
+               beside their two-pass floors; K13a on the two-grid landmark
+               rows against the walk on the same rows; K13c on those rows
+               (D 9, D 3) against the walk and index_add_; K14a and K14b
+               against index_add_ and index_select by device time, in turns
   consistency  one LM iteration through the kernels vs the plain versions,
                from the initial state: new cost, reduced step and the step of
                the well-conditioned landmarks; and the kernel-path attempt run
@@ -128,18 +130,17 @@ PATHS = ("bias", "full", "gs_cal", "two_grid", "profile")
 TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 # kernels whose ptxas report must show no register spill (the kernels
 # redesigned for this card: K4's down and up passes, K9's, the landmark pass
-# the two share, K13a's and K13c's slot-major routes on landmark rows, K8's
-# window and sum passes, the instantiations per mode of K7, K1 and K11), by
-# the names ptxas gives them
+# they share with K6, K13a's and K13c's slot-major routes on landmark rows,
+# K8's window pass and its sum pass (which holds K2's landmark pass), the
+# instantiations per mode of K7, K1 and K11, K2's two passes, K6's rig-row
+# pass), by the names ptxas gives them
 NO_SPILL = ("pcg_down", "pcg_up", "pcg_cal_down", "pcg_cal_up", "point_range_sum",
             "jtu_slot_major", "reduce_gather4", "to_slot_major", "reduce_gather",
-            "assemble_cal_window", "sum_cal", "rs_linearize_mode", "visual_linearize_mode",
-            "visual_cal_linearize_mode")
+            "assemble_cal_window", "sum_cal_points", "rs_linearize_mode", "visual_linearize_mode",
+            "visual_cal_linearize_mode", "assemble_rows_slots", "assemble_points",
+            "schur_down_rows")
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
-# K1 and K11 against the designs they replaced: the same float64 residual
-# chain (bit-equal), the chain below A in float32 instead of float64
-TOL_OLD_J = 1e-5
 # kernel vs plain LM iteration, relative (see the consistency phases)
 TOL_ITER = 1e-3
 # the K14-composed Schur matvec vs rcs.matvec (K12/K13) on the same x, relative
@@ -328,10 +329,8 @@ def vis_tables(v):
 
 def k1_rows(bench, shape, cfg, data, v, masks, N, modes=(True, False)):
     """K1 at a path's shapes, with the Jacobian (masks applied) and
-    residual-only (`modes`), against its float64 plain version and, in turns,
-    against the design it replaced (visual_linearize_v1): residuals
-    bit-equal, Jacobians within TOL_OLD_J. Rows `visual_linearize(<shape>,
-    residual-only)`."""
+    residual-only (`modes`), against its float64 plain version. Rows
+    `visual_linearize(<shape>,residual-only)`."""
     from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
 
     for with_jac in modes:
@@ -343,12 +342,25 @@ def k1_rows(bench, shape, cfg, data, v, masks, N, modes=(True, False)):
         if with_jac:
             tols += [("J_pt", TOL_J), ("J_r", TOL_J)]
             read += [masks.rig, masks.points]
-        row = bench.compare(name, visual_fused.visual_linearize, args, tols, read,
-                            (400.0 if with_jac else 150.0) * N, f64=True)
-        against_old(name, row, lambda: visual_fused.visual_linearize(*args),
-                    lambda: visual_fused._launch_visual(*args, entry="viba_visual_linearize_v1"),
-                    [(label, 0.0 if label in ("res", "valid") else TOL_OLD_J)
-                     for label, _ in tols])
+        bench.compare(name, visual_fused.visual_linearize, args, tols, read,
+                      (400.0 if with_jac else 150.0) * N, f64=True)
+
+
+def assemble_rig_rows(bench, name, b, lin, n_real):
+    """K2 on a batch against its float64 plain version and, in turns,
+    against its old design (a 16-thread group per landmark walking its
+    list); at most 2 device operations a call."""
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+
+    args = (b.J, b.J_pt, lin.res, b.w, b.plan)
+    tols = [(label, TOL_SEG) for label in ("g_r", "diag_r", "g_l", "H_ll0")]
+    row = bench.compare(name, seg.seg_assemble_rig, args, tols,
+                        [b.J, b.J_pt, lin.res, b.w] + walk_plan(b.plan)[2:],
+                        (8 * b.rig_k + 36) * n_real)
+    against_old(name, row, lambda: seg.seg_assemble_rig(*args),
+                lambda: seg._launch_assemble_rig(*args, entry="viba_assemble_rig_v1"), tols)
+    if row["device_ops"] > 2:
+        raise AssertionError(f"{name}: {row['device_ops']} device operations per call")
 
 
 def lm_iteration(problem, settings):
@@ -575,15 +587,24 @@ def bias_only(dev, bench):
     x = torch.randn((s.num_rigs, k), generator=gen, device=dev)
     zl = torch.randn((len(s.points_w), 3), generator=gen, device=dev)
     plan = walk_plan(b.plan)
-    bench.compare("assemble_rig", seg.seg_assemble_rig, (b.J, b.J_pt, lin.res, b.w, b.plan),
-                  [("g_r", TOL_SEG), ("diag_r", TOL_SEG), ("g_l", TOL_SEG), ("H_ll0", TOL_SEG)],
-                  [b.J, b.J_pt, lin.res, b.w] + plan, (8 * k + 36) * n_real)
+    assemble_rig_rows(bench, "assemble_rig", b, lin, n_real)
     bench.compare("precond_rig", seg.seg_precond_rig, (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan),
                   [("blocks", TOL_SEG)], [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan,
                   (30 * k + 5 * k * (k + 1)) * n_real)
-    bench.compare("schur_down", seg.seg_schur_down, (b.J, b.J_pt, b.w, x, b.plan),
-                  [("y", TOL_SEG), ("t", TOL_SEG), ("wu", TOL_SEG)],
-                  [b.J, b.J_pt, b.w, x] + plan, (8 * k + 16) * n_real)
+    # K6 with y (the multi-batch matvec) and as the main path calls it
+    # (rcs.w_transpose_x: t = W^T x alone), each against its old design
+    for name, want_y, index6, flops6 in (
+            ("schur_down", True, [b.plan.rig_ptr, b.plan.rig_obs], 8 * k + 17),
+            ("schur_down(want_y=False)", False, [b.plan.rig], 4 * k + 17)):
+        args6 = (b.J, b.J_pt, b.w, x, b.plan, want_y)
+        tols6 = [("y", TOL_SEG)] * want_y + [("t", TOL_SEG)]
+        row6 = bench.compare(name, seg.seg_schur_down, args6, tols6,
+                             [b.J, b.J_pt, b.w, x, b.plan.pt_pos, b.plan.pt_ptr] + index6,
+                             flops6 * n_real)
+        against_old(name, row6, lambda: seg.seg_schur_down(*args6),
+                    lambda: seg._launch_schur_down_v1(*args6), tols6)
+        if row6["device_ops"] > 2:
+            raise AssertionError(f"{name}: {row6['device_ops']} device operations per call")
     bench.compare("schur_up", seg.seg_schur_up, (b.J, b.J_pt, b.w, zl, b.plan), [("y", TOL_SEG)],
                   [b.J, b.J_pt, b.w, zl] + plan, (4 * k + 14) * n_real)
     args4 = (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan)
@@ -705,6 +726,8 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
                       (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan), seg_tol("blocks"),
                       [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan,
                       (30 * k + 5 * k * (k + 1)) * n_real)
+    if kc != 17:  # K2, whose two passes K8 runs, alone on this batch (no window column)
+        assemble_rig_rows(bench, f"assemble_rig{suffix or '(full)'}", b, lin, n_real)
     args8 = (b.J, b.J_cal, b.J_pt, lin.res, b.w, b.plan, b.cplan)
     row8 = bench.compare(f"assemble_cal{suffix}", seg.seg_assemble_cal, args8,
                          seg_tol("g_r", "diag_r", "g_c", "diag_c",
@@ -807,18 +830,13 @@ def gs_cal(dev, bench, session, session_sec):
     v, masks = problem.variables, problem.masks
     N = info.nt * info.ts
     args11 = (cfg.camera_kind, data, v, masks)
-    row11 = bench.compare(
+    bench.compare(
         "visual_cal_linearize", visual_fused.visual_cal_linearize, args11,
         [("res", TOL_RES), ("valid", TOL_RES), ("J_pt", TOL_CAL_J), ("J_r", TOL_CAL_J),
          ("J_cal", TOL_CAL_J)],
         vis_read(data) + vis_tables(v) + [masks.rig, masks.points, masks.cam_intr,
                                           masks.cam_extr],
         700.0 * N, f64=True)
-    against_old("visual_cal_linearize", row11, lambda: visual_fused.visual_cal_linearize(*args11),
-                lambda: visual_fused._launch_visual_cal(*args11,
-                                                        entry="viba_visual_cal_linearize_v1"),
-                [("res", 0.0), ("valid", 0.0), ("J_pt", TOL_OLD_J), ("J_r", TOL_OLD_J),
-                 ("J_cal", TOL_OLD_J)])
     k1_rows(bench, "gs_cal", cfg, data, v, None, N, modes=(False,))
     cal_segment_kernels(bench, problem, dev, suffix="(gs_cal,k=6)")
 
@@ -1036,12 +1054,24 @@ def tile_profile(dev, bench, problem):
                   seg_tol("u"), [tb.J_pt_po, zt, p.local], 12 * n_pt)
     bench.compare("mv_gather(rig grid)", seg.seg_mv_gather, (b.J, xt, g.local, g.nt, g.ts, g.rb),
                   seg_tol("u"), [b.J, xt, g.local], 4 * k * n_rig)
-    bench.compare("reduce_partials", seg.seg_reduce_partials,
-                  (A, p.local, p.nt, p.ts, p.rb, p.plan), seg_tol("part"), [A] + runs_p, 9 * n_pt,
-                  library=lambda: part_lib.zero_().index_add_(0, key, A.T))
-    bench.compare("gather_from_tiles", seg.seg_gather_from_tiles,
-                  (zt, p.local, p.nt, p.ts, p.rb), seg_tol("rows"), [zt, p.local], 0,
-                  library=lambda: zt.reshape(-1, 3).index_select(0, key))
+    args14a, lib14a = (A, p.local, p.nt, p.ts, p.rb, p.plan), \
+        lambda: part_lib.zero_().index_add_(0, key, A.T)
+    args14b, lib14b = (zt, p.local, p.nt, p.ts, p.rb), \
+        lambda: zt.reshape(-1, 3).index_select(0, key)
+    bench.compare("reduce_partials", seg.seg_reduce_partials, args14a, seg_tol("part"),
+                  [A] + runs_p, 9 * n_pt, library=lib14a)
+    bench.compare("gather_from_tiles", seg.seg_gather_from_tiles, args14b, seg_tol("rows"),
+                  [zt, p.local], 0, library=lib14b)
+    # K14a and K14b against their library calls by device time, in turns
+    for name, fn, args, lib in (("reduce_partials", seg.seg_reduce_partials, args14a, lib14a),
+                                ("gather_from_tiles", seg.seg_gather_from_tiles, args14b,
+                                 lib14b)):
+        (d_k, _, _), (d_l, o_l, k_l) = in_turns([lambda: fn(*args), lib])
+        bench.results[name].update(device_ms_in_turns=d_k, library_device_ms=d_l,
+                                   library_device_ops=o_l, library_device_kernels=k_l)
+        phase("kernels", f"{name}: device {d_k:.4f} ms vs its library call {d_l:.4f} ms in "
+              f"{o_l:g} ops, in turns (" + ", ".join(
+                  f"{key[:40]} {ms:.4f}" for key, ms in k_l.items()) + ")")
 
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()

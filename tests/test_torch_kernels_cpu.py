@@ -162,8 +162,7 @@ def _port_segment(name, a, plan):
     if name == "precond_rig":
         return tseg.seg_precond_rig(J, J_pt, w, a["hinv"], plan)
     if name == "schur_down":
-        y, t_, _ = tseg.seg_schur_down(J, J_pt, w, a["x"], plan)
-        return y, t_
+        return tseg.seg_schur_down(J, J_pt, w, a["x"], plan)
     if name == "schur_up":
         return tseg.seg_schur_up(J, J_pt, w, a["z"], plan)
     return tseg.seg_schur_pcg(J, J_pt, w, a["x"], a["hinv"], plan)

@@ -1,5 +1,5 @@
-"""The plans and the data flow of the redesigned K4, K9, K13a and K13c, on
-the CPU.
+"""The plans and the data flow of the redesigned K2, K4, K6, K8, K9, K13a and
+K13c, on the CPU.
 
 K4 (the bias-only PCG matvec) and K9 (the calibration PCG matvec) go on the
 card through each slot's point-sorted position `_pt_pos`
@@ -46,7 +46,15 @@ against their plain versions); here:
     of 1,024 and of 300 slots) within 1e-9;
   * the full blocks that K2, K3 and K8's sum pass write from their upper
     triangles (the index arithmetic of each kernel, written out) equal
-    segments._tri_to_full at k 3, 6, 9 and 17.
+    segments._tri_to_full at k 3, 6, 9 and 17;
+  * K2's flow (the rig rows' 128-thread group sums; each slot's sqrt(w) J_p
+    and sqrt(w) res written as one sector at its point-sorted position, a
+    16-lane group per landmark summing its range in lane-stride order with
+    its butterfly) equals seg_assemble_rig, and K6's (p at the point-sorted positions, the
+    16-thread groups' range sums without the 3x3 solve; with y, the rig
+    rows' group sums) equals seg_schur_down, both JAX entries on their XLA
+    branches in float64 within 1e-10, on the bias-only batch at rig widths
+    6 and 9 with two rigs and two landmarks left without slots.
 """
 
 import functools
@@ -376,6 +384,134 @@ def test_landmark_mv_scatter_flow_matches_jax():
     assert rel(tseg.seg_mv_scatter_table(t(J), t(u), rows).numpy(), want) < TOL  # the plain
 
 
+# ---------------------------------------------------------------------------
+# K2 through the slot-major table, K6 through the positions
+# ---------------------------------------------------------------------------
+
+
+def _group_sums(vals, ptr, lanes):
+    """Each row's sum of vals (n_real, D) over its range [ptr[r], ptr[r+1])
+    as a group of `lanes` threads takes it (tile_reduce.cuh group_sum): lane
+    i sums the entries i, i + lanes, ... in order, a xor butterfly inside
+    each warp, then the warps' totals in warp order."""
+    warp = min(lanes, 32)
+    out = []
+    for a, b in zip(ptr[:-1].tolist(), ptr[1:].tolist()):
+        acc = vals.new_zeros((lanes, vals.shape[1]))
+        for j in range(a, b):
+            acc[(j - a) % lanes] += vals[j]
+        acc = acc.reshape(lanes // warp, warp, -1)
+        off = warp // 2
+        while off:
+            acc = acc + acc[:, torch.arange(warp) ^ off]
+            off //= 2
+        total = acc[0, 0]
+        for wi in range(1, lanes // warp):
+            total = total + acc[wi, 0]
+        out.append(total)
+    return torch.stack(out)
+
+
+def _assemble_rig_flow(J_r, J_p, res, w, plan):
+    """K2's two launches as torch ops: the 128-thread group's sums of
+    J_r^T w res and diag(J_r^T w J_r) per rig row, and each real slot's
+    sector sqrt(w) (J_p row 0, res 0 | J_p row 1, res 1) written at its
+    point-sorted position; then a 16-lane group per landmark summing its
+    contiguous range of sectors into g_l and the upper triangle of H_ll0
+    (the full 3x3 block through kTri)."""
+    wr = res * w[None]
+    rows = torch.cat([(J_r * wr[:, None]).sum(0), (J_r * J_r * w[None, None]).sum(0)])
+    per_rig = _group_sums(rows.T[plan.rig_obs.long()], plan.rig_ptr, 128)
+    k = J_r.shape[1]
+    sw = w.sqrt()
+    sectors = torch.cat([J_p[0], res[:1], J_p[1], res[1:]]) * sw[None]  # (8, N)
+    a, b = _to_sorted(sectors, plan).reshape(-1, 2, 4).unbind(1)  # the two float4, point-sorted
+    tri = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+    vals = torch.stack([a[:, c] * a[:, 3] + b[:, c] * b[:, 3] for c in range(3)]
+                       + [a[:, p] * a[:, q] + b[:, p] * b[:, q] for p, q in tri], dim=1)
+    pt = _group_sums(vals, plan.pt_ptr, 16)
+    H = pt[:, 3:][:, [0, 1, 2, 1, 3, 4, 2, 4, 5]].reshape(-1, 3, 3)
+    return per_rig[:, :k], per_rig[:, k:], pt[:, :3], H
+
+
+def _schur_down_flow(J_r, J_p, w, x, plan, want_y):
+    """K6's two launches as torch ops: p = J_p^T w J_r x written at each
+    real slot's point-sorted position (with y, the 128-thread group's sums
+    of J_r^T w J_r x per rig row beside it), then each landmark's
+    contiguous range of p summed by a 16-thread group, no 3x3 solve."""
+    wu = (J_r * x[plan.rig.long()].T[None]).sum(1) * w[None]
+    t_l = _group_sums(_to_sorted((J_p * wu[:, None]).sum(0), plan), plan.pt_ptr, 16)
+    if not want_y:
+        return None, t_l
+    contrib = (J_r * wu[:, None]).sum(0)  # (k, N)
+    return _group_sums(contrib.T[plan.rig_obs.long()], plan.rig_ptr, 128), t_l
+
+
+def _bias_case(seed, k, names):
+    """The tiny bias-only batch with two rigs and two observed landmarks left
+    without slots (zero weights for the JAX entries, pads for the port's
+    plan): the JAX entries' layout arguments, the port's plan, and random
+    arrays `names` from a numpy seed (J_r at rig width k)."""
+    pj = jax_problem()
+    (vi,) = [i for i, c in enumerate(pj.cfgs) if getattr(c, "block_info", None)]
+    dj, info = pj.datas[vi], pj.cfgs[vi].block_info
+    R, L = pj.variables.pose_q.shape[0], pj.variables.points.shape[0]
+    rig, point = np.asarray(dj["rig"]), np.asarray(dj["point"])
+    pad = np.asarray(dj["_pad"]).copy()
+    N = pad.shape[0]
+    empty_rigs = np.unique(rig[pad < 0.5])[[1, -2]]
+    empty_pts = np.unique(point[pad < 0.5])[[2, 7]]
+    pad[np.isin(rig, empty_rigs) | np.isin(point, empty_pts)] = 1.0
+    rng = np.random.default_rng(seed)
+    shapes = dict(J_r=(2, k, N), J_p=(2, 3, N), res=(2, N), x=(R, k))
+    a = {nm: rng.random(N) * (1.0 - pad) if nm == "w" else rng.normal(size=shapes[nm])
+         for nm in names}
+    arrays = trcs.segment_plan(rig, point, pad, R, L)
+    plan = tseg.SegPlan(t(rig.astype(np.int32)), t(point.astype(np.int32)),
+                        *(t(arrays[key]) for key in ("_rig_ptr", "_rig_obs", "_pt_ptr",
+                                                     "_pt_obs", "_pt_pos")))
+    loc = (dj["_rb_local"], dj["_rg_pt_local"], dj["_rg_hib"])
+    geo = (info.nt, info.ts, info.rb, info.prb2 // 128, info.nhg)
+    return dict(loc=loc, base=dj["_rb_base"], geo=geo, R=R, L=L), plan, a, empty_rigs, empty_pts
+
+
+@pytest.mark.parametrize("k", [6, 9])
+def test_assemble_rig_flow_matches_jax(k):
+    """K2's flow and its plain version equal the JAX entry on its XLA branch
+    (f64, 1e-10); the rigs and landmarks without slots come out zero."""
+    j, plan, a, empty_rigs, empty_pts = _bias_case(211 + k, k, ("J_r", "J_p", "res", "w"))
+    J = {key: jnp.asarray(v) for key, v in a.items()}
+    want = [np.asarray(x) for x in jseg.seg_assemble_rig(
+        J["J_r"], J["J_p"], J["res"], J["w"], *j["loc"], j["base"], j["L"], *j["geo"], j["R"])]
+    args = [t(v) for v in a.values()]
+    got = _assemble_rig_flow(*args, plan)
+    plain = tseg.seg_assemble_rig(*args, plan)
+    assert len(got) == len(plain) == len(want) == 4
+    for g, pl, wj in zip(got, plain, want):
+        assert np.abs(wj).max() > 0
+        assert rel(g.numpy(), wj) < 1e-10 and rel(pl.numpy(), wj) < 1e-10
+    assert np.all(got[0].numpy()[empty_rigs] == 0) and np.all(got[3].numpy()[empty_pts] == 0)
+
+
+@pytest.mark.parametrize("want_y", [True, False])
+@pytest.mark.parametrize("k", [6, 9])
+def test_schur_down_flow_matches_jax(k, want_y):
+    """K6's flow and its plain version, (y, t) or (None, t), equal the JAX
+    entry's (y, t) on its XLA branch (f64, 1e-10)."""
+    j, plan, a, empty_rigs, empty_pts = _bias_case(223 + k, k, ("J_r", "J_p", "w", "x"))
+    J = {key: jnp.asarray(v) for key, v in a.items()}
+    want = [np.asarray(x) for x in jseg.seg_schur_down(
+        J["J_r"], J["J_p"], J["w"], *j["loc"], J["x"], j["base"], j["L"], *j["geo"])]
+    args = [t(v) for v in a.values()]
+    got = _schur_down_flow(*args, plan, want_y)
+    plain = tseg.seg_schur_down(*args, plan, want_y)
+    assert len(got) == len(plain) == 2 and (got[0] is None) == (plain[0] is None) == (not want_y)
+    for g, pl, wj in list(zip(got, plain, want))[1 - want_y:]:
+        assert np.abs(wj).max() > 0
+        assert rel(g.numpy(), wj) < 1e-10 and rel(pl.numpy(), wj) < 1e-10
+    assert np.all(got[1].numpy()[empty_pts] == 0)
+
+
 @pytest.mark.parametrize("kernel", ["schur_pcg", "mv_scatter_table"])
 def test_cpu_tensors_take_the_plain_versions(kernel):
     """On CPU tensors the wrappers compute their plain versions and count no
@@ -537,8 +673,8 @@ def test_full_block_layouts_match_tri_to_full(k):
     """The full symmetric blocks the kernels write from their upper
     triangles: K3 walks the triangle row by row and stores each entry at
     (a, b) and (b, a) (precond_rig.cu); K8's sum pass reads entry (a, b)
-    at tri_index(min, max) (cal_segments.cu sum_cal); K2 maps the 3x3
-    block through kTri (assemble_rig.cu)."""
+    at tri_index(min, max) (cal_segments.cu sum_cal_points); K2 maps the 3x3
+    block through kTri (assemble_rig.cuh)."""
     n = 5
     tri = torch.from_numpy(np.random.default_rng(157 + k).normal(size=(n, k * (k + 1) // 2)))
     want = tseg._tri_to_full(tri, k)

@@ -18,8 +18,9 @@
 // at most CHUNK slots (ops/segments.py) whose partial rows a second pass sums
 // in chunk order. Deterministic, no atomics.
 //
-// K8 (viba_assemble_cal) is three launches: K2's assemble_rig for the rig and
-// landmark rows (H_ll0 written as full 3x3 blocks), then
+// K8 (viba_assemble_cal) is three launches: K2's first (assemble_rig.cuh: the
+// rig rows, and each slot's landmark-side sector at its point-sorted
+// position), then
 //   window   one 256-thread block per chunk, two blocks an SM. The chunk's
 //            slots come into shared memory in stages of 256 (J_c's 2 x kc
 //            columns, the residual, w; a slot a thread, cp.async into one of
@@ -43,7 +44,9 @@
 //            0.212 ms (noise).
 //   sum      one thread per entry of g_c, diag_c and the full symmetric
 //            blocks (n_c, 6, 6) / (n_c, 17, 17): the row's chunk partials
-//            summed in chunk order.
+//            summed in chunk order; the same launch's other blocks are K2's
+//            second, 16 lanes per landmark summing its sectors (H_ll0 as
+//            full 3x3 blocks), so that K2's two launches add none.
 // Bound: bytes, J_c (2 x kc floats a slot) read once; FP32 FMA throughout
 // (TF32 stays off). Shared-memory traffic, ~13 floats a slot per 3x3 tile
 // (~1.3 kB a slot at kc = 23), is the second limit.
@@ -66,14 +69,14 @@
 // staged wu and no window chunk lists. K10's passes below stay separate
 // (down_cal_rig stages wu, schur_down_points gathers it through the landmark
 // lists, the window rows reduce through chunks).
+#include "assemble_rig.cuh"
 #include "pt_segments.cuh"
 #include "tile_reduce.cuh"
 
-extern "C" int viba_assemble_rig(int R, int L, int n, int k, const int* rig_ptr,
-                                 const int* rig_obs, const int* pt_ptr, const int* pt_obs,
-                                 const float* J_r, const float* J_p, const float* w,
-                                 const float* res, float* g_r, float* diag_r, float* g_l,
-                                 float* H, void* stream);
+extern "C" int viba_assemble_rows_slots(int R, int n, int k, const int* rig_ptr,
+                                        const int* rig_obs, const int* pt_pos, const float* J_r,
+                                        const float* J_p, const float* w, const float* res,
+                                        float* g_r, float* diag_r, float* q, void* stream);
 extern "C" int viba_schur_down_points(int L, int n, const int* pt_ptr, const int* pt_obs,
                                       const float* J_p, const float* wu, float* t, void* stream);
 
@@ -303,15 +306,22 @@ __global__ void __launch_bounds__(kCalThreads, 2) assemble_cal_window(
   }
 }
 
-// K8 sum pass: g_c, diag_c and the full symmetric split blocks of each
-// window row, the row's chunk partials summed in chunk order
+// K8 sum pass, blocks [0, n_sum): g_c, diag_c and the full symmetric split
+// blocks of each window row, the row's chunk partials summed in chunk order,
+// one thread per entry; blocks [n_sum, ...): K2's second launch, 16 lanes
+// per landmark over the point-sorted sectors q (assemble_rig.cuh)
 template <int KE, int KI>
-__global__ void __launch_bounds__(256) sum_cal(int n_c, const int* __restrict__ row_chunk,
-                                               const float* __restrict__ part,
-                                               float* __restrict__ g_c,
-                                               float* __restrict__ diag_c,
-                                               float* __restrict__ blk_e,
-                                               float* __restrict__ blk_i) {
+__global__ void __launch_bounds__(256) sum_cal_points(
+    int n_c, int n_sum, const int* __restrict__ row_chunk, const float* __restrict__ part,
+    float* __restrict__ g_c, float* __restrict__ diag_c, float* __restrict__ blk_e,
+    float* __restrict__ blk_i, int L, const int* __restrict__ pt_ptr,
+    const float4* __restrict__ q, float* __restrict__ g_l, float* __restrict__ H) {
+  if (static_cast<int>(blockIdx.x) >= n_sum) {
+    viba::assemble_point_row((blockIdx.x - n_sum) * (256 / viba::kPointGroup) +
+                                 threadIdx.x / viba::kPointGroup,
+                             L, pt_ptr, q, g_l, H);
+    return;
+  }
   using C = Cal<KE, KI>;
   constexpr int kc = C::kc, per = 2 * kc + KE * KE + KI * KI;
   const long idx = blockIdx.x * 256L + threadIdx.x;
@@ -598,10 +608,10 @@ cudaError_t pcg_cal(int R, int L, int n, int n_real, int n_c, const int* rig, co
 }
 
 template <int KE, int KI>
-int assemble_cal(int n_c, int n_chunks, int n, const int* chunk_ptr, const int* chunk_obs,
-                 const int* row_chunk, const float* J_c, const float* w, const float* res,
-                 float* part, float* g_c, float* diag_c, float* blk_e, float* blk_i,
-                 cudaStream_t st) {
+int assemble_cal(int L, int n, int n_c, int n_chunks, const int* pt_ptr, const int* chunk_ptr,
+                 const int* chunk_obs, const int* row_chunk, const float* J_c, const float* w,
+                 const float* res, const float4* q, float* g_l, float* H, float* part,
+                 float* g_c, float* diag_c, float* blk_e, float* blk_i, cudaStream_t st) {
   if (n_chunks > 0) {
     constexpr int smem = CalTiles<KE, KI>::smem_bytes;
     cudaError_t err = cudaFuncSetAttribute(assemble_cal_window<KE, KI>,
@@ -613,9 +623,12 @@ int assemble_cal(int n_c, int n_chunks, int n, const int* chunk_ptr, const int* 
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long total = (long)n_c * (2 * (KE + KI) + KE * KE + KI * KI);
-  if (total > 0) {
-    sum_cal<KE, KI><<<static_cast<int>((total + 255) / 256), 256, 0, st>>>(
-        n_c, row_chunk, part, g_c, diag_c, blk_e, blk_i);
+  constexpr int pts_per_block = 256 / viba::kPointGroup;
+  const int n_sum = static_cast<int>((total + 255) / 256);
+  const int grid = n_sum + (L + pts_per_block - 1) / pts_per_block;
+  if (grid > 0) {
+    sum_cal_points<KE, KI><<<grid, 256, 0, st>>>(n_c, n_sum, row_chunk, part, g_c, diag_c, blk_e,
+                                                 blk_i, L, pt_ptr, q, g_l, H);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -657,18 +670,21 @@ int down_cal(int R, int L, int n, int k, int n_c, int n_chunks, int want_y, cons
 
 extern "C" int viba_assemble_cal(int R, int L, int n, int k, int kc, int n_c, int n_chunks,
                                  const int* rig_ptr, const int* rig_obs, const int* pt_ptr,
-                                 const int* pt_obs, const int* chunk_ptr, const int* chunk_obs,
+                                 const int* pt_pos, const int* chunk_ptr, const int* chunk_obs,
                                  const int* row_chunk, const float* J_r, const float* J_p,
                                  const float* w, const float* J_c, const float* res, float* g_r,
                                  float* diag_r, float* g_l, float* H, float* part, float* g_c,
-                                 float* diag_c, float* blk_e, float* blk_i, void* stream) {
-  const int rc = viba_assemble_rig(R, L, n, k, rig_ptr, rig_obs, pt_ptr, pt_obs, J_r, J_p, w,
-                                   res, g_r, diag_r, g_l, H, stream);
+                                 float* diag_c, float* blk_e, float* blk_i, float* q,
+                                 void* stream) {
+  if (k != 6 && k != 9) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = viba_assemble_rows_slots(R, n, k, rig_ptr, rig_obs, pt_pos, J_r, J_p, w, res,
+                                          g_r, diag_r, q, stream);
   if (rc != 0) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VIBA_ASM(KE, KI)                                                                      \
-  assemble_cal<KE, KI>(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk, J_c, w, res, part, \
-                       g_c, diag_c, blk_e, blk_i, st)
+  const float4* q4 = reinterpret_cast<const float4*>(q);
+#define VIBA_ASM(KE, KI)                                                                     \
+  assemble_cal<KE, KI>(L, n, n_c, n_chunks, pt_ptr, chunk_ptr, chunk_obs, row_chunk, J_c, w, \
+                       res, q4, g_l, H, part, g_c, diag_c, blk_e, blk_i, st)
   return VIBA_DISPATCH_KC(kc, VIBA_ASM(6, 0), VIBA_ASM(0, 17), VIBA_ASM(6, 17));
 #undef VIBA_ASM
 }

@@ -169,19 +169,6 @@ __device__ __forceinline__ void qrot(const real* q, const real* v, real* out) {
   out[2] = v[2] + 2.0 * (q[0] * uz + uuz);
 }
 
-// R[i][j] = (R e_j)_i
-__device__ __forceinline__ void rot_matrix(const real* q, real (&R)[3][3]) {
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const real e[3] = {j == 0 ? 1.0 : 0.0, j == 1 ? 1.0 : 0.0, j == 2 ? 1.0 : 0.0};
-    real c[3];
-    qrot(q, e, c);
-    R[0][j] = c[0];
-    R[1][j] = c[1];
-    R[2][j] = c[2];
-  }
-}
-
 // d(u, v) / d(model params 0..14) at p_cam (primal), ops/camera models
 __device__ inline void param_jac(int camera_kind, const float* K, real x, real y, real z,
                                  real (&du)[15], real (&dv)[15]) {

@@ -6,15 +6,26 @@
 // bodies _down_light_kernel :1318 and _up_du_kernel :1347), is
 // viba_schur_pcg below.
 //
-// schur_down (K6) runs in two launches (tile_reduce.cuh groups):
-//   rig pass,      a 128-thread group per rig row: wu = w J_r x[rig] (stored
-//                  for every real slot) and, if want_y, y = sum J_r^T wu;
-//   landmark pass, a 16-thread group per landmark: t = sum J_p^T wu (= W^T x)
-//                  (also the landmark pass of K10, cal_segments.cu).
+// K6, y = J_r^T w J_r x (optional) and t = W^T x = sum J_p^T w J_r x per
+// landmark, is K4's down half around each slot's point-sorted position
+// (pt_segments.cuh), in two launches, no memset and no staged wu:
+//   want_y false  (the Schur right-hand side, rcs.w_transpose_x) K4's
+//                 pcg_down: one thread per slot in slot order stores
+//                 p = J_p^T w J_r x[rig] as one float4 at p[pt_pos[s]];
+//   want_y true   schur_down_rows, a 128-thread group per rig row over its
+//                 contiguous run of slots: the same p stored at pt_pos, and
+//                 y = sum J_r^T w J_r x;
+// then point_range_sum without the 3x3 solve: t = the sum of each
+// landmark's contiguous range of p. Bound: bytes — J_r (8K B), J_p (24 B),
+// w, rig or the row lists and pt_pos read once per slot, p (16 B) written
+// and read once. schur_down_rig_v1 + schur_down_points (viba_schur_down_v1),
+// the design before (wu = w J_r x stored for every slot, then a 16-thread
+// group per landmark gathering J_p and wu through its list, 8 scattered
+// sectors a slot), is kept as chip_smoke.py's yardstick; schur_down_points
+// is also K10's landmark pass (cal_segments.cu).
 // schur_up (K5), a 128-thread group per rig row:
 //   y = sum J_r^T w J_p z[pt]  (= W z).
-// K = rig_k (6 or 9) is a template parameter. Bound: bytes — J_r (8K B) +
-// J_p (24 B) + w and wu per observation per pass.
+// K = rig_k (6 or 9) is a template parameter.
 //
 // K4 is one entry of three launches around each slot's point-sorted
 // position (pt_segments.cuh), the design of K9 (cal_segments.cu) without
@@ -41,8 +52,46 @@ namespace {
 using viba::kPointGroup;
 using viba::kRowGroup;
 
+// K6 with y: per rig row, y = sum J_r^T wu; p[pt_pos[s]] = J_p^T wu per slot
 template <int K>
-__global__ void __launch_bounds__(viba::kBlock) schur_down_rig(
+__global__ void __launch_bounds__(viba::kBlock) schur_down_rows(
+    int R, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
+    const int* __restrict__ pt_pos, const float* __restrict__ J_r, const float* __restrict__ J_p,
+    const float* __restrict__ w, const float* __restrict__ x, float* __restrict__ y,
+    float4* __restrict__ p) {
+  const int row = blockIdx.x;  // one rig row per block (kRowGroup == kBlock)
+  float xr[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) xr[c] = row < R ? x[K * (long)row + c] : 0.f;
+  viba::reduce_segments<kRowGroup, K>(
+      blockIdx.x, R, rig_ptr, rig_obs,
+      [&](int s, float(&acc)[K]) {
+        float j0[K], j1[K], u0 = 0.f, u1 = 0.f;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          j0[c] = J_r[c * (long)n + s];
+          j1[c] = J_r[(K + c) * (long)n + s];
+          u0 += j0[c] * xr[c];
+          u1 += j1[c] * xr[c];
+        }
+        const float ws = w[s];
+        const float wu0 = u0 * ws, wu1 = u1 * ws;
+#pragma unroll
+        for (int c = 0; c < K; ++c) acc[c] += j0[c] * wu0 + j1[c] * wu1;
+        float q[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          q[c] = J_p[c * (long)n + s] * wu0 + J_p[(3 + c) * (long)n + s] * wu1;
+        p[pt_pos[s]] = make_float4(q[0], q[1], q[2], 0.f);
+      },
+      [&](int r, float(&acc)[K]) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) y[K * (long)r + c] = acc[c];
+      });
+}
+
+template <int K>
+__global__ void __launch_bounds__(viba::kBlock) schur_down_rig_v1(
     int R, int n, int want_y, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
     const float* __restrict__ J_r, const float* __restrict__ w, const float* __restrict__ x,
     float* __restrict__ y, float* __restrict__ wu) {
@@ -219,19 +268,49 @@ extern "C" int viba_schur_down_points(int L, int n, const int* pt_ptr, const int
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int viba_schur_down(int R, int L, int n, int k, int want_y, const int* rig_ptr,
-                               const int* rig_obs, const int* pt_ptr, const int* pt_obs,
-                               const float* J_r, const float* J_p, const float* w,
-                               const float* x, float* y, float* t, float* wu, void* stream) {
+extern "C" int viba_schur_down(int R, int L, int n, int n_real, int k, int want_y,
+                               const int* rig, const int* pt_pos, const int* pt_ptr,
+                               const int* rig_ptr, const int* rig_obs, const float* J_r,
+                               const float* J_p, const float* w, const float* x, float* y,
+                               float* t, float* p, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float4* p4 = reinterpret_cast<float4*>(p);
+  if (k != 6 && k != 9) return static_cast<int>(cudaErrorInvalidValue);
+  if (want_y && R > 0) {
+    const int grid = viba::segment_blocks<kRowGroup>(R);
+    if (k == 6) {
+      schur_down_rows<6><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, pt_pos, J_r, J_p,
+                                                        w, x, y, p4);
+    } else {
+      schur_down_rows<9><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, pt_pos, J_r, J_p,
+                                                        w, x, y, p4);
+    }
+  } else if (!want_y && n_real > 0) {
+    const int grid = (n + 255) / 256;
+    if (k == 6) {
+      pcg_down<6><<<grid, 256, 0, st>>>(n, rig, pt_pos, J_r, J_p, w, x, p4);
+    } else {
+      pcg_down<9><<<grid, 256, 0, st>>>(n, rig, pt_pos, J_r, J_p, w, x, p4);
+    }
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(viba::launch_point_sums(L, pt_ptr, p4, t, st));
+}
+
+extern "C" int viba_schur_down_v1(int R, int L, int n, int k, int want_y, const int* rig_ptr,
+                                  const int* rig_obs, const int* pt_ptr, const int* pt_obs,
+                                  const float* J_r, const float* J_p, const float* w,
+                                  const float* x, float* y, float* t, float* wu, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R > 0) {
     const int grid = viba::segment_blocks<kRowGroup>(R);
     if (k == 6) {
-      schur_down_rig<6><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, J_r, w,
-                                                       x, y, wu);
+      schur_down_rig_v1<6><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, J_r, w,
+                                                          x, y, wu);
     } else if (k == 9) {
-      schur_down_rig<9><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, J_r, w,
-                                                       x, y, wu);
+      schur_down_rig_v1<9><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, J_r, w,
+                                                          x, y, wu);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }

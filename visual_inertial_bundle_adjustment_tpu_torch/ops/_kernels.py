@@ -49,19 +49,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "viba_visual_linearize": [_I] * 3 + [_P] * 22 + [_P],
-    "viba_visual_linearize_v1": [_I] * 3 + [_P] * 22 + [_P],
-    "viba_assemble_rig": [_I] * 4 + [_P] * 12 + [_P],
+    "viba_assemble_rig": [_I] * 4 + [_P] * 13 + [_P],
+    "viba_assemble_rig_v1": [_I] * 4 + [_P] * 12 + [_P],
     "viba_precond_rig": [_I] * 3 + [_P] * 8 + [_P],
-    "viba_schur_down": [_I] * 5 + [_P] * 11 + [_P],
+    "viba_schur_down": [_I] * 6 + [_P] * 12 + [_P],
+    "viba_schur_down_v1": [_I] * 5 + [_P] * 11 + [_P],
     "viba_schur_up": [_I] * 3 + [_P] * 8 + [_P],
     "viba_schur_pcg": [_I] * 5 + [_P] * 14 + [_P],
     "viba_rs_linearize": [_I] * 6 + [_P] * 34 + [_P],
-    "viba_assemble_cal": [_I] * 7 + [_P] * 21 + [_P],
+    "viba_assemble_cal": [_I] * 7 + [_P] * 22 + [_P],
     "viba_schur_down_cal": [_I] * 8 + [_P] * 19 + [_P],
     "viba_schur_up_cal": [_I] * 6 + [_P] * 15 + [_P],
     "viba_schur_pcg_cal": [_I] * 7 + [_P] * 22 + [_P],
     "viba_visual_cal_linearize": [_I] * 2 + [_P] * 25 + [_P],
-    "viba_visual_cal_linearize_v1": [_I] * 2 + [_P] * 25 + [_P],
     "viba_seg_mv_fused": [_I] * 5 + [_P] * 10 + [_P],
     "viba_seg_mv_scatter": [_I] * 5 + [_P] * 7 + [_P],
     "viba_seg_mv_scatter_slot_major": [_I] * 2 + [_P] * 6 + [_P],

@@ -68,17 +68,21 @@ second pass sums each row's partials in chunk order. What bounds them:
 bytes of J read per pass — 2 x (rig_k + 3 (+ 23)) floats per observation.
 
 Walking a landmark's list reads the rig-ordered arrays at scattered slots,
-one 32-byte sector per float. K4 and K9 therefore go through each slot's
-point-sorted position (SegPlan.pt_pos, built with the lists): a down pass,
-in slot order and coalesced, writes each slot's 3 landmark-side values there
-as one float4, and one landmark pass (csrc/pt_segments.cuh) sums each
-landmark's contiguous range and applies H_ll^-1. K4 is one entry of three
-launches (down to the positions, the landmark pass, up per rig row with
-w J_r x recomputed); K9 one of four (the same, with one window partial per
-(rig, window row) pair in its up pass, then the window rows' sums). On a
-scattered family (RowPlan.scattered: the landmark rows) K13a writes J^T u
-and K13c copies contrib slot-major, coalesced, and each gathers a slot's
-values as one or two sectors of that copy.
+one 32-byte sector per float. K4, K6 and K9 therefore go through each
+slot's point-sorted position (SegPlan.pt_pos, built with the lists): a down
+pass, in slot order and coalesced, writes each slot's 3 landmark-side values
+there as one float4, and one landmark pass (csrc/pt_segments.cuh) sums each
+landmark's contiguous range and, for K4 and K9, applies H_ll^-1. K6 is two
+launches (down to the positions, per slot or, with y, per rig row; the
+landmark sums); K4 three (the same, then up per rig row with w J_r x
+recomputed); K9 four (the same, with one window partial per (rig, window
+row) pair in its up pass, then the window rows' sums). K2's slots pass
+(and so K8's first) writes one 32-byte sector a slot at the same
+positions, sqrt(w) J_p and sqrt(w) res (robust weights, w >= 0), and a
+16-lane group per landmark sums its range. On a scattered family
+(RowPlan.scattered: the landmark rows) K13a writes J^T u and K13c copies
+contrib slot-major, coalesced, and each gathers a slot's values as one or
+two sectors of that copy.
 
 The plain PyTorch versions below compute the same functions with
 `index_add_` over the global rig/point/window index (or tile row) of each
@@ -311,20 +315,45 @@ def _assemble_rig_plain(J_r, J_p, res, w, plan):
     return g_r, diag_r, pt[:, :3].contiguous(), _tri_to_full(pt[:, 3:])
 
 
-def _launch_assemble_rig(J_r, J_p, res, w, plan):
+def _k2_ptrs(plan):
+    """The lists and positions K2's passes read: rig_ptr, rig_obs, pt_ptr,
+    pt_pos."""
+    ck = _kernels.check
+    return (ck(plan.rig_ptr, "rig_ptr", torch.int32), ck(plan.rig_obs, "rig_obs", torch.int32),
+            ck(plan.pt_ptr, "pt_ptr", torch.int32),
+            ck(plan.pt_pos, "pt_pos", torch.int32, (plan.rig.shape[0],)))
+
+
+def _sector_scratch(plan, like):
+    """K2's point-sorted sectors, sqrt(w) (J_p row 0, res 0 | J_p row 1,
+    res 1) a real slot; every row is written by its slot: no memset."""
+    return _empty((plan.pt_obs.shape[0], 8), like)
+
+
+def _launch_assemble_rig(J_r, J_p, res, w, plan, entry="viba_assemble_rig"):
+    """K2 in two launches (csrc/assemble_rig.cu viba_assemble_rig: a group
+    per rig row beside each slot's sector stored at its point-sorted
+    position, then a 16-lane group per landmark); entry="viba_assemble_rig_v1"
+    launches the design before it (a 16-thread group per landmark walking
+    its list), chip_smoke.py's yardstick, which the wrapper never calls."""
     n, k, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
     g_r, diag_r = _empty((R, k), w), _empty((R, k), w)
     g_l, H = _empty((L, 3), w), _empty((L, 3, 3), w)
-    _kernels.launch("viba_assemble_rig", R, L, n, k, *_plan_ptrs(plan), *jargs,
-                    _kernels.check(res, "res", torch.float32, (2, n)),
-                    g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), H.data_ptr())
+    res_p = _kernels.check(res, "res", torch.float32, (2, n))
+    outs = (g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), H.data_ptr())
+    if entry == "viba_assemble_rig_v1":
+        _kernels.launch(entry, R, L, n, k, *_plan_ptrs(plan), *jargs, res_p, *outs)
+    else:
+        _kernels.launch(entry, R, L, n, k, *_k2_ptrs(plan), *jargs, res_p, *outs,
+                        _sector_scratch(plan, w).data_ptr())
     return g_r, diag_r, g_l, H
 
 
 @_kernels.register("assemble_rig")
 def seg_assemble_rig(J_r, J_p, res, w, plan: SegPlan):
-    """g_r (R, k), diag_r (R, k), g_l (L, 3), H_ll0 (L, 3, 3) of one batch."""
+    """g_r (R, k), diag_r (R, k), g_l (L, 3), H_ll0 (L, 3, 3) of one batch;
+    w >= 0 (robust weights: the kernel stores sqrt(w) J_p)."""
     if not _kernels.on_card(w):
         return _assemble_rig_plain(J_r, J_p, res, w, plan)
     out = _launch_assemble_rig(J_r, J_p, res, w, plan)
@@ -374,7 +403,9 @@ def seg_precond_rig(J_r, J_p, w, hinv, plan: SegPlan):
 # ---------------------------------------------------------------------------
 
 
-def _schur_down_plain(J_r, J_p, w, x_table, plan, want_y):
+def _schur_down_staged(J_r, J_p, w, x_table, plan, want_y):
+    """(y or None, t, wu (2, N) = w J_r x): K6's function with the per-slot
+    wu staged, which the plain K4 composition reuses."""
     xg = x_table.index_select(0, plan.rig)  # (N, k)
     wu = (J_r * xg.T[None]).sum(1) * w[None, :]  # (d, N)
     y = _rows_sum((J_r * wu[:, None, :]).sum(0), plan.rig, plan.n_rows) if want_y else None
@@ -383,23 +414,48 @@ def _schur_down_plain(J_r, J_p, w, x_table, plan, want_y):
 
 
 def _launch_schur_down(J_r, J_p, w, x_table, plan, want_y):
+    """K6 in two launches (csrc/schur.cu viba_schur_down): p = J_p^T w J_r x
+    at each slot's point-sorted position (per slot, or per rig row with y),
+    then t = the landmark sums of p."""
+    n, k, jargs = _jac_args(J_r, J_p, w)
+    R, L = plan.n_rows, plan.n_pts
+    n_real = plan.pt_obs.shape[0]
+    ck = _kernels.check
+    y = _empty((R, k), w) if want_y else None
+    t = _empty((L, 3), w)
+    p = _empty((n_real, 4), w)  # float4 per slot, point-sorted
+    _kernels.launch("viba_schur_down", R, L, n, n_real, k, int(bool(want_y)),
+                    ck(plan.rig, "rig", torch.int32, (n,)),
+                    ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
+                    ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
+                    ck(plan.rig_ptr, "rig_ptr", torch.int32, (R + 1,)),
+                    ck(plan.rig_obs, "rig_obs", torch.int32, (n_real,)), *jargs,
+                    ck(x_table, "x_table", torch.float32, (R, k)),
+                    y.data_ptr() if want_y else None, t.data_ptr(), p.data_ptr())
+    return y, t
+
+
+def _launch_schur_down_v1(J_r, J_p, w, x_table, plan, want_y):
+    """K6's design before (csrc/schur.cu viba_schur_down_v1: wu staged for
+    every slot, then a 16-thread group per landmark walking its list),
+    chip_smoke.py's yardstick, which the wrapper never calls: (y, t)."""
     n, k, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
     y = _empty((R, k), w) if want_y else None
     t = _empty((L, 3), w)
     wu = torch.zeros((2, n), dtype=torch.float32, device=w.device)
-    _kernels.launch("viba_schur_down", R, L, n, k, int(bool(want_y)), *_plan_ptrs(plan),
+    _kernels.launch("viba_schur_down_v1", R, L, n, k, int(bool(want_y)), *_plan_ptrs(plan),
                     *jargs, _kernels.check(x_table, "x_table", torch.float32, (R, k)),
                     y.data_ptr() if want_y else None, t.data_ptr(), wu.data_ptr())
-    return y, t, wu
+    return y, t
 
 
 @_kernels.register("schur_down")
 def seg_schur_down(J_r, J_p, w, x_table, plan: SegPlan, want_y=True):
-    """One pass over the batch: (y (R, k) = seg-sum_rig J_r^T w J_r x or
-    None, t (L, 3) = seg-sum_pt J_p^T w J_r x = W^T x, wu (2, N) = w J_r x)."""
+    """(y (R, k) = seg-sum_rig J_r^T w J_r x, or None without want_y;
+    t (L, 3) = seg-sum_pt J_p^T w J_r x = W^T x)."""
     if not _kernels.on_card(w):
-        return _schur_down_plain(J_r, J_p, w, x_table, plan, want_y)
+        return _schur_down_staged(J_r, J_p, w, x_table, plan, want_y)[:2]
     out = _launch_schur_down(J_r, J_p, w, x_table, plan, want_y)
     seg_schur_down.launches += 1
     return out
@@ -428,8 +484,8 @@ def _launch_schur_up(J_r, J_p, w, z, plan):
 @_kernels.register("schur_up")
 def seg_schur_up(J_r, J_p, w, z, plan: SegPlan, wu=None):
     """y (R, k) = seg-sum_rig J_r^T w J_p z[pt] (= W z); with the staged
-    wu = w J_r x of seg_schur_down (plain version only; K4 replaced that
-    composition on the card): seg-sum_rig J_r^T (wu - w J_p z[pt])."""
+    wu = w J_r x of _schur_down_staged (plain version only; K4 replaced
+    that composition on the card): seg-sum_rig J_r^T (wu - w J_p z[pt])."""
     if not _kernels.on_card(w):
         return _schur_up_plain(J_r, J_p, w, z, plan, wu)
     if wu is not None:
@@ -470,7 +526,7 @@ def seg_schur_pcg(J_r, J_p, w, x_table, hinv, plan: SegPlan):
     z = H_ll^-1 t -> K5's up with wu; on the card one entry of three
     launches around the plan's point-sorted positions."""
     if not _kernels.on_card(w):
-        _, t, wu = _schur_down_plain(J_r, J_p, w, x_table, plan, False)
+        _, t, wu = _schur_down_staged(J_r, J_p, w, x_table, plan, False)
         return _schur_up_plain(J_r, J_p, w, (hinv * t[:, None, :]).sum(-1), plan, wu)
     y = _launch_schur_pcg(J_r, J_p, w, x_table, hinv, plan)
     seg_schur_pcg.launches += 1
@@ -518,7 +574,8 @@ def seg_assemble_cal(J_r, J_c, J_p, res, w, plan: SegPlan, cplan: CalPlan):
     """All lambda-independent assembly of a calibration-coupled batch:
     g_r, diag_r (R, k); g_c, diag_c (n_c, kc); blocks_c, the window
     variables' block-Jacobi blocks per split of J_c ([(n_c, 6, 6), (n_c, 17,
-    17)] at kc = 23; no Schur correction); g_l (L, 3); H_ll0 (L, 3, 3)."""
+    17)] at kc = 23; no Schur correction); g_l (L, 3); H_ll0 (L, 3, 3);
+    w >= 0, as for seg_assemble_rig."""
     if not _kernels.on_card(w):
         return _assemble_cal_plain(J_r, J_c, J_p, res, w, plan, cplan)
     n, k, jargs = _jac_args(J_r, J_p, w)
@@ -531,13 +588,14 @@ def seg_assemble_cal(J_r, J_c, J_p, res, w, plan: SegPlan, cplan: CalPlan):
     g_c, diag_c = _empty((n_c, kc), w), _empty((n_c, kc), w)
     blocks = [_empty((n_c, dim, dim), w) for dim in splits]
     by_dim = {dim: b.data_ptr() for dim, b in zip(splits, blocks)}
+    q = _sector_scratch(plan, w)
     _kernels.launch("viba_assemble_cal", R, L, n, k, kc, n_c, cplan.n_chunks,
-                    *_plan_ptrs(plan),
+                    *_k2_ptrs(plan),
                     *_cal_ptrs(cplan, n)[1:], *jargs, _jc_arg(J_c, n),
                     _kernels.check(res, "res", torch.float32, (2, n)),
                     g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), H.data_ptr(),
                     part.data_ptr(), g_c.data_ptr(), diag_c.data_ptr(), by_dim.get(6),
-                    by_dim.get(17))
+                    by_dim.get(17), q.data_ptr())
     seg_assemble_cal.launches += 1
     return g_r, diag_r, g_c, diag_c, blocks, g_l, H
 

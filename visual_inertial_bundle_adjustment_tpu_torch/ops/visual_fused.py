@@ -50,10 +50,7 @@ such a batch is K1's residual-only launch.
 
 The plain PyTorch versions below compute the same functions (D by three
 forward-mode JVPs through ops/camera, d proj / d intr by forward-mode AD)
-and serve CPU tensors. `_launch_visual` and `_launch_visual_cal` also reach
-the kernels before their redesign (the C entries `viba_visual_linearize_v1`,
-`viba_visual_cal_linearize_v1`), chip_smoke.py's yardsticks; the wrappers
-never do.
+and serve CPU tensors.
 """
 
 from __future__ import annotations
@@ -144,10 +141,8 @@ def visual_linearize(camera_kind, data, v, masks, with_jac):
     return out
 
 
-def _launch_visual(camera_kind, data, v, masks, with_jac, entry="viba_visual_linearize"):
-    """Launch K1 through the C entry `entry`: viba_visual_linearize (one
-    instantiation per mode) or viba_visual_linearize_v1 (the kernel before
-    that redesign)."""
+def _launch_visual(camera_kind, data, v, masks, with_jac):
+    """Launch K1 (viba_visual_linearize: one instantiation per mode)."""
     n, rig_mask, pt_mask = _inputs(data, v, masks)
     ck = _kernels.check
     R, L = v.pose_q.shape[0], v.points.shape[0]
@@ -159,7 +154,7 @@ def _launch_visual(camera_kind, data, v, masks, with_jac, entry="viba_visual_lin
     J_r = torch.empty((2, 12, n), **kw) if with_jac else None
     null = None
     _kernels.launch(
-        entry, n, int(camera_kind), int(bool(with_jac)),
+        "viba_visual_linearize", n, int(camera_kind), int(bool(with_jac)),
         ck(data["rig"], "rig", torch.int32, (n,)),
         ck(data["point"], "point", torch.int32, (n,)),
         ck(data["intr"], "intr", torch.int32, (n,)),
@@ -198,10 +193,9 @@ def visual_cal_linearize(camera_kind, data, v, masks):
     return out
 
 
-def _launch_visual_cal(camera_kind, data, v, masks, entry="viba_visual_cal_linearize"):
-    """Launch K11 through the C entry `entry`: viba_visual_cal_linearize (one
-    instantiation per camera model) or viba_visual_cal_linearize_v1 (the
-    kernel before that redesign)."""
+def _launch_visual_cal(camera_kind, data, v, masks):
+    """Launch K11 (viba_visual_cal_linearize: one instantiation per camera
+    model)."""
     ck = _kernels.check
     f32, i32 = torch.float32, torch.int32
     n = data["rig"].shape[0]
@@ -213,7 +207,7 @@ def _launch_visual_cal(camera_kind, data, v, masks, entry="viba_visual_cal_linea
     J_cal = torch.empty((2, 23, n), **kw)
     use_masks = masks is not None
     _kernels.launch(
-        entry, n, int(camera_kind),
+        "viba_visual_cal_linearize", n, int(camera_kind),
         ck(data["rig"], "rig", i32, (n,)), ck(data["point"], "point", i32, (n,)),
         ck(data["intr"], "intr", i32, (n,)), ck(data["extr"], "extr", i32, (n,)),
         ck(data["bias"], "bias", i32, (n,)), ck(data["bias_on"], "bias_on", f32, (n,)),

@@ -803,8 +803,8 @@ def w_transpose_x(rs: RcsSystem, v, x: Tangent):
     t = torch.zeros_like(v.points)
     for b in rs.vis:
         if _rig_only_fast(b):
-            _, t_b, _ = seg.seg_schur_down(b.J, b.J_pt, b.w, x.rig[:, :b.rig_k].contiguous(),
-                                           b.plan, want_y=False)
+            _, t_b = seg.seg_schur_down(b.J, b.J_pt, b.w, x.rig[:, :b.rig_k].contiguous(),
+                                        b.plan, want_y=False)
         elif _cal_fast(b):
             _, _, t_b, _ = seg.seg_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w,
                                                   x.rig[:, :b.rig_k].contiguous(),
@@ -859,7 +859,7 @@ def _matvec_factor_sums(rs: RcsSystem, v, x: Tangent) -> Tangent:
     for b in rs.vis:
         x_r = x.rig[:, :b.rig_k].contiguous()
         if _rig_only_fast(b):
-            y_b, t_b, _ = seg.seg_schur_down(b.J, b.J_pt, b.w, x_r, b.plan)
+            y_b, t_b = seg.seg_schur_down(b.J, b.J_pt, b.w, x_r, b.plan)
         elif _cal_fast(b):
             y_b, y_c, t_b, _ = seg.seg_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w, x_r,
                                                       _cal_table(b, x), b.plan, b.cplan)
