@@ -44,14 +44,16 @@ Phases, one printed line each (per path):
                device operations per call (torch.profiler; no host copy may
                be among them); the least time the card could take (bound).
                K1 with the Jacobian and residual-only at the bias, two_grid
-               and gs_cal shapes; K2 (at bias, and on K8's batches at full
-               and gs_cal) and K6 (with y and as the main path calls it,
-               t alone) against the designs they replaced (C entries only
-               this script reaches), in turns, within 1e-5; K4 and K9
-               beside their two-pass floors; K13a on the two-grid landmark
-               rows against the walk on the same rows; K13c on those rows
-               (D 9, D 3) against the walk and index_add_; K14a and K14b
-               against index_add_ and index_select by device time, in turns
+               and gs_cal shapes; K2 at bias and on K8's batches at full
+               and gs_cal, K6 with y and as the main path calls it (t
+               alone); K4 and K9 beside their two-pass floors; K13a on the
+               two-grid landmark rows against the walk on the same rows;
+               K13c on those rows (D 9, D 3) against the walk and
+               index_add_; K14a and K14b against index_add_ and
+               index_select by device time, in turns; K14b (point grid,
+               D 3) and K14e (point grid k 3, rig grid k 6) against the
+               designs they replaced (C entries only this script reaches),
+               in turns, within 1e-5, and bit-equal across two calls
   consistency  one LM iteration through the kernels vs the plain versions,
                from the initial state: new cost, reduced step and the step of
                the well-conditioned landmarks; and the kernel-path attempt run
@@ -133,12 +135,13 @@ TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 # they share with K6, K13a's and K13c's slot-major routes on landmark rows,
 # K8's window pass and its sum pass (which holds K2's landmark pass), the
 # instantiations per mode of K7, K1 and K11, K2's two passes, K6's rig-row
-# pass), by the names ptxas gives them
+# pass, K14b's flat gather, K14e's staged tile pass), by the names ptxas
+# gives them
 NO_SPILL = ("pcg_down", "pcg_up", "pcg_cal_down", "pcg_cal_up", "point_range_sum",
             "jtu_slot_major", "reduce_gather4", "to_slot_major", "reduce_gather",
             "assemble_cal_window", "sum_cal_points", "rs_linearize_mode", "visual_linearize_mode",
             "visual_cal_linearize_mode", "assemble_rows_slots", "assemble_points",
-            "schur_down_rows")
+            "schur_down_rows", "tile_gather_flat", "tile_scatter_staged")
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
 # kernel vs plain LM iteration, relative (see the consistency phases)
@@ -192,27 +195,11 @@ def cuda_time(fn, reps=20, warmup=3):
 
 
 def in_turns(fns):
-    """Device time of each fn, its sessions run in turns a, b, ..., b, a and
-    read as profile_matvec.device_ms reads them (torch.profiler, CUDA
-    activity: the card's own time in each kernel and memset, without the
-    host's enqueue time): (device ms per call, device operations per call,
-    {kernel: ms per call}) of each. A session that recorded no device time
-    at all is run again, up to three times."""
+    """Device time of each fn, read in turns (profile_matvec.in_turns): (device
+    ms per call, device operations per call, {kernel: ms per call}) of each."""
     from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
 
-    sessions = [[] for _ in fns]
-    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
-        for _ in range(3):  # a session that recorded nothing (seen on the H100) is taken again
-            rows = pm.device_rows(fns[i])
-            if rows:
-                break
-        sessions[i].append(rows)
-    out = []
-    for rows in sessions:
-        per = pm.per_call(rows, pm.DEVICE_REPS)
-        out.append((sum(ms for _, ms in per.values()), sum(n for n, _ in per.values()),
-                    {key: ms for key, (_, ms) in per.items()}))
-    return out
+    return pm.in_turns(fns)
 
 
 def walk_plan(plan):
@@ -347,9 +334,8 @@ def k1_rows(bench, shape, cfg, data, v, masks, N, modes=(True, False)):
 
 
 def assemble_rig_rows(bench, name, b, lin, n_real):
-    """K2 on a batch against its float64 plain version and, in turns,
-    against its old design (a 16-thread group per landmark walking its
-    list); at most 2 device operations a call."""
+    """K2 on a batch against its float64 plain version; at most 2 device
+    operations a call."""
     from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
 
     args = (b.J, b.J_pt, lin.res, b.w, b.plan)
@@ -357,8 +343,6 @@ def assemble_rig_rows(bench, name, b, lin, n_real):
     row = bench.compare(name, seg.seg_assemble_rig, args, tols,
                         [b.J, b.J_pt, lin.res, b.w] + walk_plan(b.plan)[2:],
                         (8 * b.rig_k + 36) * n_real)
-    against_old(name, row, lambda: seg.seg_assemble_rig(*args),
-                lambda: seg._launch_assemble_rig(*args, entry="viba_assemble_rig_v1"), tols)
     if row["device_ops"] > 2:
         raise AssertionError(f"{name}: {row['device_ops']} device operations per call")
 
@@ -592,7 +576,7 @@ def bias_only(dev, bench):
                   [("blocks", TOL_SEG)], [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan,
                   (30 * k + 5 * k * (k + 1)) * n_real)
     # K6 with y (the multi-batch matvec) and as the main path calls it
-    # (rcs.w_transpose_x: t = W^T x alone), each against its old design
+    # (rcs.w_transpose_x: t = W^T x alone)
     for name, want_y, index6, flops6 in (
             ("schur_down", True, [b.plan.rig_ptr, b.plan.rig_obs], 8 * k + 17),
             ("schur_down(want_y=False)", False, [b.plan.rig], 4 * k + 17)):
@@ -601,8 +585,6 @@ def bias_only(dev, bench):
         row6 = bench.compare(name, seg.seg_schur_down, args6, tols6,
                              [b.J, b.J_pt, b.w, x, b.plan.pt_pos, b.plan.pt_ptr] + index6,
                              flops6 * n_real)
-        against_old(name, row6, lambda: seg.seg_schur_down(*args6),
-                    lambda: seg._launch_schur_down_v1(*args6), tols6)
         if row6["device_ops"] > 2:
             raise AssertionError(f"{name}: {row6['device_ops']} device operations per call")
     bench.compare("schur_up", seg.seg_schur_up, (b.J, b.J_pt, b.w, zl, b.plan), [("y", TOL_SEG)],
@@ -1009,11 +991,13 @@ def two_grid(dev, bench):
 
 def tile_profile(dev, bench, problem):
     """K14a-e against their plain versions at the two_grid problem's shapes
-    (the rig grid at k 6, the point-sorted grid at k 3), then the profile
-    path: the launch counts set to 0, the Schur matvec composed from the
-    tile kernels held against rcs.matvec (and K14a's landmark blocks against
-    K13c's, K14b's slot steps against an index_select), the counts read;
-    then each component timed. Returns the profile path's launch counts."""
+    (the rig grid at k 6, the point-sorted grid at k 3), K14a and K14b
+    against their library calls and the redesigned K14b and K14e against
+    their old designs (in turns), then the profile path: the launch counts
+    set to 0, the Schur matvec composed from the tile kernels held against
+    rcs.matvec (and K14a's landmark blocks against K13c's, K14b's slot steps
+    against an index_select), the counts read; then each component timed.
+    Returns the profile path's launch counts."""
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
@@ -1044,11 +1028,11 @@ def tile_profile(dev, bench, problem):
     runs_g, runs_p = list(g.plan), list(p.plan)
     bench.compare("mv_fused", seg.seg_mv_fused, (b.J, b.w, xt, g.local, g.nt, g.ts, g.rb, g.plan),
                   seg_tol("wu", "part"), [b.J, b.w, xt] + runs_g, (8 * k + 2) * n_rig)
-    bench.compare("mv_scatter", seg.seg_mv_scatter,
-                  (tb.J_pt_po, u_pt, p.local, p.nt, p.ts, p.rb, p.plan), seg_tol("part"),
+    args14e_p = (tb.J_pt_po, u_pt, p.local, p.nt, p.ts, p.rb, p.plan)
+    args14e_g = (b.J, u_rig, g.local, g.nt, g.ts, g.rb, g.plan)
+    bench.compare("mv_scatter", seg.seg_mv_scatter, args14e_p, seg_tol("part"),
                   [tb.J_pt_po, u_pt] + runs_p, 12 * n_pt)
-    bench.compare("mv_scatter(rig grid)", seg.seg_mv_scatter,
-                  (b.J, u_rig, g.local, g.nt, g.ts, g.rb, g.plan), seg_tol("part"),
+    bench.compare("mv_scatter(rig grid)", seg.seg_mv_scatter, args14e_g, seg_tol("part"),
                   [b.J, u_rig] + runs_g, 4 * k * n_rig)
     bench.compare("mv_gather", seg.seg_mv_gather, (tb.J_pt_po, zt, p.local, p.nt, p.ts, p.rb),
                   seg_tol("u"), [tb.J_pt_po, zt, p.local], 12 * n_pt)
@@ -1072,6 +1056,21 @@ def tile_profile(dev, bench, problem):
         phase("kernels", f"{name}: device {d_k:.4f} ms vs its library call {d_l:.4f} ms in "
               f"{o_l:g} ops, in turns (" + ", ".join(
                   f"{key[:40]} {ms:.4f}" for key, ms in k_l.items()) + ")")
+    # the redesigned K14b and K14e: bit-equal across two calls, and against
+    # the designs they replaced (C entries only this script reaches), in turns
+    for name, args, new, old, tols in (
+            ("gather_from_tiles", args14b, seg.seg_gather_from_tiles,
+             lambda *a: seg._launch_gather_from_tiles(*a, entry="viba_tile_gather_v1"),
+             seg_tol("rows")),
+            ("mv_scatter", args14e_p, seg.seg_mv_scatter,
+             lambda *a: seg._launch_mv_scatter(*a, entry="viba_tile_mv_scatter_v1"),
+             seg_tol("part")),
+            ("mv_scatter(rig grid)", args14e_g, seg.seg_mv_scatter,
+             lambda *a: seg._launch_mv_scatter(*a, entry="viba_tile_mv_scatter_v1"),
+             seg_tol("part"))):
+        if not all(torch.equal(o1, o2) for o1, o2 in zip(flat(new(*args)), flat(new(*args)))):
+            raise AssertionError(f"{name}: two calls on the same inputs differ")
+        against_old(name, bench.results[name], lambda: new(*args), lambda: old(*args), tols)
 
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()

@@ -19,8 +19,11 @@ same inputs, within the JAX package's on-chip bounds
 (tests/test_tpu_accuracy.py): K1 residual 1e-5 and J 2e-4, K7 residual 1e-4
 and J 3e-4, K11 residual 1e-5 and J 3e-4, segment kernels 1e-5, relative to
 max-abs. The tile kernels K14a-e run on the two-grid problem's rig-sorted
-and point-sorted grids and on a grid of random, unsorted local indices (rows
-no slot addresses, locals outside the window); K8-K10 also at the window
+and point-sorted grids, on a grid of random, unsorted local indices (rows
+no slot addresses, locals outside the window) and on an edge grid of tiles
+of 1,031 slots (a tile that addresses nothing, one row holding all of a
+tile's slots, a row of one slot; K14b at D 1, 3 and 6, K14e at k 3, 6 and
+9); K8-K10 also at the window
 widths kc = 17 and 6 (the extrinsics or the intrinsics held constant). An
 LM attempt of the full-sensor problem and of an unblocked problem calls no
 scattering operator that sums with float atomics (index_add_ and kin, seen
@@ -31,9 +34,9 @@ none; K13c on landmark rows of 0, 1 and 2,000 slots, through the slot-major
 copy and, on a family not marked scattered, the walk. K4 runs at rig widths 6
 and 9 on the bias-only plan and on that made-up plan, also against K6's
 down and K5's up around the 3x3 solve; K2 and K6 (with y and without) at
-rig widths 6 and 9 on the bias-only plan and on that made-up plan, also
-against their old designs; K4 and K9 give the bits they gave before K6
-shared their landmark pass (digests of fixed inputs); K13a on the landmark
+rig widths 6 and 9 on the bias-only plan and on that made-up plan; K4 and
+K9 give the bits they gave before K6 shared their landmark pass (digests
+of fixed inputs); K13a on the landmark
 rows of the two-grid batch and
 of the made-up plan through the slot-major copy, also against the walk. Each
 repeats bit for bit. K8 runs at rig widths 6 and 9 and window widths 6, 17
@@ -443,18 +446,35 @@ def test_general_groups_on_card_are_repeatable(cuda_device):
 # ---------------------------------------------------------------------------
 
 
+EDGE_TS = 1031  # not a multiple of 4 (nor of 32): N D has a tail at D 1, 3 and 6
+
+
+def _edge_locals(rng):
+    """Three tiles of EDGE_TS slots in a 64-row window: tile 0 addresses
+    nothing (-1 and 64); tile 1 puts all its slots in row 5 (the longest
+    row, cut into the most pieces); tile 2 holds row 63 in one slot and
+    unsorted locals in [-1, 40] elsewhere (more runs than K14e caches)."""
+    ts = EDGE_TS
+    none = np.where(np.arange(ts) % 2 == 0, -1, 64)
+    one_row = np.full(ts, 5)
+    mixed = rng.integers(-1, 41, size=ts)
+    mixed[500] = 63
+    return np.concatenate([none, one_row, mixed]).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def _tile_grids(dev):
-    """(local, nt, ts, rb) of the two-grid problem's rig and point grids and
-    of a random grid: unsorted locals in [-1, 40] of a 64-row window (rows
-    41-63 empty, -1 addresses nothing)."""
+    """(local, nt, ts, rb) of the two-grid problem's rig and point grids, of
+    a random grid: unsorted locals in [-1, 40] of a 64-row window (rows
+    41-63 empty, -1 addresses nothing), and of the edge grid (_edge_locals)."""
     p, _, vi = _two_grid_card(dev)
     d, info = p.datas[vi], p.cfgs[vi].block_info
     rng = np.random.default_rng(59)
     rand = torch.from_numpy(rng.integers(-1, 41, size=5 * 300).astype(np.int32)).to(dev)
+    edge = torch.from_numpy(_edge_locals(rng)).to(dev)
     return {"rig": (d["_rb_local"], info.nt, info.ts, info.rb),
             "point": (d["_pt_local"], info.pnt, info.pts, info.prb),
-            "random": (rand, 5, 300, 64)}
+            "random": (rand, 5, 300, 64), "edge": (edge, 3, EDGE_TS, 64)}
 
 
 def _tile(name, a, local, nt, ts, rb):
@@ -470,12 +490,16 @@ def _tile(name, a, local, nt, ts, rb):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("grid", ["rig", "point", "random"])
+@pytest.mark.parametrize("grid", ["rig", "point", "random", "edge"])
 @pytest.mark.parametrize("name,k", [
     ("reduce_partials", 9), ("reduce_partials", 3), ("gather_from_tiles", 3),
-    ("mv_fused", 6), ("mv_fused", 3), ("mv_gather", 3), ("mv_gather", 6), ("mv_scatter", 3),
-    ("mv_scatter", 6)])
+    ("gather_from_tiles", 6), ("gather_from_tiles", 1), ("mv_fused", 6), ("mv_fused", 3),
+    ("mv_gather", 3), ("mv_gather", 6), ("mv_scatter", 3), ("mv_scatter", 6),
+    ("mv_scatter", 9)])
 def test_tile_kernel_matches_plain(name, k, grid, cuda_device):
+    """Each K14 kernel within 1e-5 of its plain version in float64, one
+    launch a call, the same bits on every call; on the edge grid the tile
+    that addresses nothing gives zeros (its partials, its slots' rows)."""
     local, nt, ts, rb = _tile_grids(cuda_device)[grid]
     n = nt * ts
     rng = np.random.default_rng(61)
@@ -495,6 +519,10 @@ def test_tile_kernel_matches_plain(name, k, grid, cuda_device):
     _check(out, ref, (1e-5,) * len(out))
     for o, o2 in zip(out, again):  # ordered sums: the same bits every call
         assert torch.equal(o, o2)
+    if grid == "edge":  # tile 0: its partials, or its slots' rows
+        empty = {"gather_from_tiles": out[0][:ts], "mv_gather": out[0][:, :ts]}.get(name,
+                                                                                  out[-1][0])
+        assert float(empty.abs().max()) == 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -843,8 +871,7 @@ def _two_launch_inputs(plan_kind, k, dev, seed):
 @pytest.mark.parametrize("k", [6, 9])
 def test_assemble_rig_kernel_every_width(k, plan_kind, cuda_device, monkeypatch):
     """K2 at rig widths 6 and 9: one C entry a call, within 1e-5 of its plain
-    version in float64 and of its old design (a 16-thread group per landmark
-    walking its list), full symmetric H_ll0 blocks, zeros for a rig and a
+    version in float64, full symmetric H_ll0 blocks, zeros for a rig and a
     landmark without slots, the same bits every call."""
     plan, a = _two_launch_inputs(plan_kind, k, cuda_device, 191 + k)
     args = (a["J_r"], a["J_p"], a["res"], a["w"], plan)
@@ -854,12 +881,10 @@ def test_assemble_rig_kernel_every_width(k, plan_kind, cuda_device, monkeypatch)
     again = tseg.seg_assemble_rig(*args)
     with _kernels.plain_reference():
         ref = tseg.seg_assemble_rig(*_kernels.to_f64(args))
-    old = tseg._launch_assemble_rig(*args, entry="viba_assemble_rig_v1")
     counts = _kernels.launch_counts()
     assert counts["assemble_rig"] == 2 and sum(counts.values()) == 2
-    assert names == ["viba_assemble_rig"] * 2 + ["viba_assemble_rig_v1"]
+    assert names == ["viba_assemble_rig"] * 2
     _check(out, ref, (1e-5,) * 4)
-    _check(out, old, (1e-5,) * 4)
     for o, o2 in zip(out, again):
         assert torch.equal(o, o2)
     assert torch.equal(out[3], out[3].transpose(-1, -2))
@@ -874,10 +899,8 @@ def test_assemble_rig_kernel_every_width(k, plan_kind, cuda_device, monkeypatch)
 @pytest.mark.parametrize("k", [6, 9])
 def test_schur_down_kernel_every_width(k, plan_kind, want_y, cuda_device, monkeypatch):
     """K6 at rig widths 6 and 9, with y and without (the Schur right-hand
-    side): one C entry a call, within 1e-5 of its plain version in float64
-    and of its old design (wu staged, a 16-thread group per landmark walking
-    its list), zeros for a landmark without slots, the same bits every
-    call."""
+    side): one C entry a call, within 1e-5 of its plain version in float64,
+    zeros for a landmark without slots, the same bits every call."""
     plan, a = _two_launch_inputs(plan_kind, k, cuda_device, 197 + k)
     args = (a["J_r"], a["J_p"], a["w"], a["x"], plan, want_y)
     names = _recording_launches(monkeypatch)
@@ -886,14 +909,12 @@ def test_schur_down_kernel_every_width(k, plan_kind, want_y, cuda_device, monkey
     again = tseg.seg_schur_down(*args)
     with _kernels.plain_reference():
         ref = tseg.seg_schur_down(*_kernels.to_f64(args))
-    old = tseg._launch_schur_down_v1(*args)
     counts = _kernels.launch_counts()
     assert counts["schur_down"] == 2 and sum(counts.values()) == 2
-    assert names == ["viba_schur_down"] * 2 + ["viba_schur_down_v1"]
+    assert names == ["viba_schur_down"] * 2
     assert len(out) == 2 and (out[0] is None) == (not want_y)
     pick = (lambda o: o) if want_y else (lambda o: o[1:])  # noqa: E731
     _check(pick(out), pick(ref), (1e-5, 1e-5))
-    _check(pick(out), pick(old), (1e-5, 1e-5))
     for o, o2 in zip(pick(out), pick(again)):
         assert torch.equal(o, o2)
     if plan_kind == "edge":

@@ -16,7 +16,14 @@ branches (one-hot einsums).
     relative to the JAX result's max-abs;
   * the run lists of the tile kernels cover every slot once, in slot order;
   * the matvec composed from the tile kernels (profile_matvec.tile_matvec)
-    against the JAX package's rcs.matvec on the same state: 1e-10.
+    against the JAX package's rcs.matvec on the same state: 1e-10;
+  * the data flow of the redesigned K14b (the flat float4 walk: slot f // D,
+    column, tile slot // ts, the N D % 4 tail) and K14e (J^T u staged a
+    chunk at a time, the tile's run list loaded once, rows cut into pieces
+    summed by warps in the kernel's order), written as torch ops, against
+    the JAX entries seg_gather_from_tiles and seg_mv_scatter on both grids
+    (K14b also on a grid whose ts is not a multiple of 4; K14e also with
+    small chunks and pieces): 1e-12.
 """
 
 import functools
@@ -192,3 +199,160 @@ def test_tile_matvec_matches_jax():
     errs = pm.check(ctx, tst.Tangent(**{f: t(a) for f, a in x.items()}),
                     t(rng.normal(size=tuple(p.variables.points.shape))))
     assert all(e < TOL for e in errs.values()), errs
+
+
+# ---------------------------------------------------------------------------
+# The redesigned K14b and K14e: their data flow as torch ops (f64)
+# ---------------------------------------------------------------------------
+
+# csrc/tile_segments.cu: warps of a K14e CTA, slots of a row piece, staged
+# floats of a chunk
+WARPS, PIECE, STAGE_FLOATS = 8, 512, 12288
+
+
+def _gather_flow(xt, local, nt, ts, rb):
+    """K14b's flat walk (tile_gather_flat): float4 v of the (N, D) output
+    holds floats f = 4v .. 4v + 3; at D >= 3 they span slots a = f // D and
+    a + 1 (column ca + i of a while below D, else column ca + i - D of
+    a + 1), below 3 each float's slot is its own f // D; the last N D % 4
+    floats one by one. A float reads row local[slot] of tile slot // ts, 0
+    where local is outside [0, rb)."""
+    D = xt.shape[-1]
+    n, nf = nt * ts, nt * ts * D
+    nv = nf // 4
+    flat_xt, loc = xt.reshape(-1), local.long()
+
+    def row_val(slot, col):
+        lo = loc[slot]
+        ok = (lo >= 0) & (lo < rb)
+        return torch.where(ok, flat_xt[((slot // ts) * rb + lo.clamp(0, rb - 1)) * D + col], 0.0)
+
+    out = xt.new_full((nf,), float("nan"))
+    f = 4 * torch.arange(nv)
+    sa = f // D
+    ca = f - sa * D
+    for i in range(4):
+        if D >= 3:
+            c = ca + i
+            first = c < D
+            slot = torch.where(first, sa, (sa + 1).clamp(max=n - 1))
+            out[f + i] = row_val(slot, torch.where(first, c, c - D))
+        else:
+            s = (f + i) // D
+            out[f + i] = row_val(s, f + i - s * D)
+    tail = torch.arange(4 * nv, nf)
+    out[tail] = row_val(tail // D, tail % D)
+    return out.reshape(n, D)
+
+
+def _odd_grid():
+    """Three tiles of 67 slots (not a multiple of 4) in a 16-row window,
+    unsorted locals in [-1, 16] (-1 and 16 address nothing)."""
+    rng = np.random.default_rng(79)
+    return rng.integers(-1, 17, size=3 * 67).astype(np.int32), 3, 67, 16
+
+
+@pytest.mark.parametrize("grid,D", [("rig", 3), ("rig", 6), ("point", 3), ("point", 6),
+                                    ("odd", 1), ("odd", 3)])
+def test_gather_flow_matches_jax(grid, D):
+    """K14b's flat walk equals the JAX seg_gather_from_tiles (XLA branch) on
+    the rig and point grids and on a grid whose ts is not a multiple of 4
+    (N D with a tail), 1e-12 relative."""
+    if grid == "odd":
+        local, nt, ts, rb = _odd_grid()
+        xt = np.random.default_rng(83).normal(size=(nt, rb, D))
+    else:
+        grids, pay = _grids()
+        local, _, nt, ts, rb, _ = grids[grid]
+        xt = pay[grid][f"xt{D}"]
+    want = np.asarray(jseg.seg_gather_from_tiles(jnp.asarray(xt), jnp.asarray(local), nt, ts, rb))
+    got = _gather_flow(t(xt), torch.from_numpy(np.array(local)), nt, ts, rb)
+    assert np.abs(want).max() > 0 and not torch.isnan(got).any()
+    assert rel(got.numpy(), want) < TOL
+
+
+def _butterfly(acc):
+    """Lane 0's total of (32, k) lane sums after the xor butterfly
+    (tile_reduce.cuh group_sum<32>)."""
+    off = 16
+    while off:
+        acc = acc + acc[torch.arange(32) ^ off]
+        off //= 2
+    return acc[0]
+
+
+def _mv_scatter_flow(J, u, local, nt, ts, rb, chunk=None, piece=PIECE):
+    """K14e's flow (tile_scatter_staged): per tile, the tile's run list
+    loaded once; per chunk of the tile's slots, c_s = J_s^T u_s staged; each
+    row's slots (its runs concatenated in slot order) cut into pieces of
+    `piece` at fixed offsets from the row's start, piece i of row r summed by
+    warp (r + i) % WARPS: within a run, clipped to the chunk, lane j takes
+    the run's slots j, j + 32, ...; the warp's butterfly total added to its
+    partial of the row, chunk by chunk; the row's partial the sum of the
+    warps' partials in warp order."""
+    k = J.shape[1]
+    chunk = chunk or min(ts, STAGE_FLOATS // k // 32 * 32)
+    run_ptr, run_start, run_len = (a.long() for a in tseg.tile_plan(local, nt, ts, rb))
+    c = (J * u[:, None]).sum(0)  # (k, N)
+    part = J.new_zeros((nt, rb, k))
+    for tile in range(nt):
+        q0, q1 = int(run_ptr[tile * rb]), int(run_ptr[(tile + 1) * rb])
+        runs = list(zip((run_start[q0:q1] - tile * ts).tolist(), run_len[q0:q1].tolist()))
+        ptr = (run_ptr[tile * rb:(tile + 1) * rb + 1] - q0).tolist()
+        n_row = [sum(ln for _, ln in runs[ptr[r]:ptr[r + 1]]) for r in range(rb)]
+        pp = J.new_zeros((WARPS, rb, k))
+        for c0 in range(0, ts, chunk):
+            cn = min(chunk, ts - c0)
+            cs = c[:, tile * ts + c0:tile * ts + c0 + cn]  # the staged chunk
+            for r in range(rb):
+                for w in range(WARPS):
+                    pieces = range((w - r) % WARPS, -(-n_row[r] // piece), WARPS)
+                    if not pieces:
+                        continue
+                    acc = J.new_zeros((32, k))
+                    for i in pieces:
+                        lo, hi = i * piece, min((i + 1) * piece, n_row[r])
+                        a = 0
+                        for s0, ln in runs[ptr[r]:ptr[r + 1]]:
+                            x_lo = max(lo, a, a + c0 - s0)
+                            x_hi = min(hi, a + ln, a + c0 + cn - s0)
+                            if x_lo < x_hi:
+                                x = torch.arange(x_lo, x_hi)
+                                acc.index_add_(0, (x - x_lo) % 32, cs[:, s0 + x - a - c0].T)
+                            a += ln
+                    pp[w, r] += _butterfly(acc)
+        part[tile] = pp[0]
+        for w in range(1, WARPS):
+            part[tile] = part[tile] + pp[w]
+    return part
+
+
+@pytest.mark.parametrize("chunk,piece", [(None, PIECE), (24, 8)])
+@pytest.mark.parametrize("k", [3, 6])
+@pytest.mark.parametrize("grid", ["rig", "point"])
+def test_mv_scatter_flow_matches_jax(grid, k, chunk, piece):
+    """K14e's flow equals the JAX seg_mv_scatter (XLA branch) on the rig and
+    point grids, at the kernel's chunk and piece sizes and at small ones
+    (rows cut into many pieces across the warps, runs clipped to chunks),
+    1e-12 relative."""
+    grids, pay = _grids()
+    local, _, nt, ts, rb, _ = grids[grid]
+    J, u = pay[grid][f"J{k}"], pay[grid]["u"]
+    want = np.asarray(jseg.seg_mv_scatter(jnp.asarray(J), jnp.asarray(u), jnp.asarray(local),
+                                          nt, ts, rb))
+    got = _mv_scatter_flow(t(J), t(u), torch.from_numpy(np.array(local)), nt, ts, rb, chunk,
+                           piece)
+    assert np.abs(want).max() > 0
+    assert rel(got.numpy(), want) < TOL
+
+
+def test_tile_variants_apply_to_the_source():
+    """Each variant of tile_variants (one choice of K14e's kept design undone)
+    is an edit that applies once to the current csrc/tile_segments.cu; the
+    kept design is the source itself."""
+    from visual_inertial_bundle_adjustment_tpu_torch import tile_variants as tv
+
+    source = tv.SOURCE.read_text()
+    assert set(tv.VARIANTS) > {"kept"}
+    for name, (edits, _) in tv.VARIANTS.items():
+        assert (tv.variant_source(edits) == source) == (name == "kept"), name

@@ -18,11 +18,9 @@
 // then point_range_sum without the 3x3 solve: t = the sum of each
 // landmark's contiguous range of p. Bound: bytes — J_r (8K B), J_p (24 B),
 // w, rig or the row lists and pt_pos read once per slot, p (16 B) written
-// and read once. schur_down_rig_v1 + schur_down_points (viba_schur_down_v1),
-// the design before (wu = w J_r x stored for every slot, then a 16-thread
-// group per landmark gathering J_p and wu through its list, 8 scattered
-// sectors a slot), is kept as chip_smoke.py's yardstick; schur_down_points
-// is also K10's landmark pass (cal_segments.cu).
+// and read once. schur_down_points (a 16-thread group per landmark
+// gathering J_p and a staged wu through its list) is K10's landmark pass
+// (cal_segments.cu).
 // schur_up (K5), a 128-thread group per rig row:
 //   y = sum J_r^T w J_p z[pt]  (= W z).
 // K = rig_k (6 or 9) is a template parameter.
@@ -87,43 +85,6 @@ __global__ void __launch_bounds__(viba::kBlock) schur_down_rows(
       [&](int r, float(&acc)[K]) {
 #pragma unroll
         for (int c = 0; c < K; ++c) y[K * (long)r + c] = acc[c];
-      });
-}
-
-template <int K>
-__global__ void __launch_bounds__(viba::kBlock) schur_down_rig_v1(
-    int R, int n, int want_y, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
-    const float* __restrict__ J_r, const float* __restrict__ w, const float* __restrict__ x,
-    float* __restrict__ y, float* __restrict__ wu) {
-  const int row = blockIdx.x;  // one rig row per block (kRowGroup == kBlock)
-  float xr[K];
-#pragma unroll
-  for (int c = 0; c < K; ++c) xr[c] = row < R ? x[K * (long)row + c] : 0.f;
-  viba::reduce_segments<kRowGroup, K>(
-      blockIdx.x, R, rig_ptr, rig_obs,
-      [&](int s, float(&acc)[K]) {
-        float j0[K], j1[K], u0 = 0.f, u1 = 0.f;
-#pragma unroll
-        for (int c = 0; c < K; ++c) {
-          j0[c] = J_r[c * (long)n + s];
-          j1[c] = J_r[(K + c) * (long)n + s];
-          u0 += j0[c] * xr[c];
-          u1 += j1[c] * xr[c];
-        }
-        const float ws = w[s];
-        const float wu0 = u0 * ws, wu1 = u1 * ws;
-        wu[s] = wu0;
-        wu[n + s] = wu1;
-        if (want_y) {
-#pragma unroll
-          for (int c = 0; c < K; ++c) acc[c] += j0[c] * wu0 + j1[c] * wu1;
-        }
-      },
-      [&](int r, float(&acc)[K]) {
-        if (want_y) {
-#pragma unroll
-          for (int c = 0; c < K; ++c) y[K * (long)r + c] = acc[c];
-        }
       });
 }
 
@@ -296,28 +257,6 @@ extern "C" int viba_schur_down(int R, int L, int n, int n_real, int k, int want_
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(viba::launch_point_sums(L, pt_ptr, p4, t, st));
-}
-
-extern "C" int viba_schur_down_v1(int R, int L, int n, int k, int want_y, const int* rig_ptr,
-                                  const int* rig_obs, const int* pt_ptr, const int* pt_obs,
-                                  const float* J_r, const float* J_p, const float* w,
-                                  const float* x, float* y, float* t, float* wu, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R > 0) {
-    const int grid = viba::segment_blocks<kRowGroup>(R);
-    if (k == 6) {
-      schur_down_rig_v1<6><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, J_r, w,
-                                                          x, y, wu);
-    } else if (k == 9) {
-      schur_down_rig_v1<9><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, J_r, w,
-                                                          x, y, wu);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return viba_schur_down_points(L, n, pt_ptr, pt_obs, J_p, wu, t, stream);
 }
 
 extern "C" int viba_schur_up(int R, int n, int k, const int* rig_ptr, const int* rig_obs,

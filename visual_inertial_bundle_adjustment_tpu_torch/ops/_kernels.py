@@ -50,10 +50,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "viba_visual_linearize": [_I] * 3 + [_P] * 22 + [_P],
     "viba_assemble_rig": [_I] * 4 + [_P] * 13 + [_P],
-    "viba_assemble_rig_v1": [_I] * 4 + [_P] * 12 + [_P],
     "viba_precond_rig": [_I] * 3 + [_P] * 8 + [_P],
     "viba_schur_down": [_I] * 6 + [_P] * 12 + [_P],
-    "viba_schur_down_v1": [_I] * 5 + [_P] * 11 + [_P],
     "viba_schur_up": [_I] * 3 + [_P] * 8 + [_P],
     "viba_schur_pcg": [_I] * 5 + [_P] * 14 + [_P],
     "viba_rs_linearize": [_I] * 6 + [_P] * 34 + [_P],
@@ -70,9 +68,11 @@ _SIGNATURES = {
     "viba_seg_reduce_slot_major": [_I] * 3 + [_P] * 5 + [_P],
     "viba_tile_reduce": [_I] * 4 + [_P] * 5 + [_P],
     "viba_tile_gather": [_I] * 4 + [_P] * 3 + [_P],
+    "viba_tile_gather_v1": [_I] * 4 + [_P] * 3 + [_P],
     "viba_tile_mv_fused": [_I] * 4 + [_P] * 8 + [_P],
     "viba_tile_mv_gather": [_I] * 4 + [_P] * 4 + [_P],
     "viba_tile_mv_scatter": [_I] * 4 + [_P] * 6 + [_P],
+    "viba_tile_mv_scatter_v1": [_I] * 4 + [_P] * 6 + [_P],
 }
 
 _state = threading.local()

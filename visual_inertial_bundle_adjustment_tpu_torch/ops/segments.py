@@ -330,35 +330,25 @@ def _sector_scratch(plan, like):
     return _empty((plan.pt_obs.shape[0], 8), like)
 
 
-def _launch_assemble_rig(J_r, J_p, res, w, plan, entry="viba_assemble_rig"):
-    """K2 in two launches (csrc/assemble_rig.cu viba_assemble_rig: a group
-    per rig row beside each slot's sector stored at its point-sorted
-    position, then a 16-lane group per landmark); entry="viba_assemble_rig_v1"
-    launches the design before it (a 16-thread group per landmark walking
-    its list), chip_smoke.py's yardstick, which the wrapper never calls."""
+@_kernels.register("assemble_rig")
+def seg_assemble_rig(J_r, J_p, res, w, plan: SegPlan):
+    """g_r (R, k), diag_r (R, k), g_l (L, 3), H_ll0 (L, 3, 3) of one batch;
+    w >= 0 (robust weights: the kernel stores sqrt(w) J_p). On the card K2
+    in two launches (csrc/assemble_rig.cu viba_assemble_rig: a group per rig
+    row beside each slot's sector stored at its point-sorted position, then
+    a 16-lane group per landmark)."""
+    if not _kernels.on_card(w):
+        return _assemble_rig_plain(J_r, J_p, res, w, plan)
     n, k, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
     g_r, diag_r = _empty((R, k), w), _empty((R, k), w)
     g_l, H = _empty((L, 3), w), _empty((L, 3, 3), w)
     res_p = _kernels.check(res, "res", torch.float32, (2, n))
-    outs = (g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), H.data_ptr())
-    if entry == "viba_assemble_rig_v1":
-        _kernels.launch(entry, R, L, n, k, *_plan_ptrs(plan), *jargs, res_p, *outs)
-    else:
-        _kernels.launch(entry, R, L, n, k, *_k2_ptrs(plan), *jargs, res_p, *outs,
-                        _sector_scratch(plan, w).data_ptr())
-    return g_r, diag_r, g_l, H
-
-
-@_kernels.register("assemble_rig")
-def seg_assemble_rig(J_r, J_p, res, w, plan: SegPlan):
-    """g_r (R, k), diag_r (R, k), g_l (L, 3), H_ll0 (L, 3, 3) of one batch;
-    w >= 0 (robust weights: the kernel stores sqrt(w) J_p)."""
-    if not _kernels.on_card(w):
-        return _assemble_rig_plain(J_r, J_p, res, w, plan)
-    out = _launch_assemble_rig(J_r, J_p, res, w, plan)
+    _kernels.launch("viba_assemble_rig", R, L, n, k, *_k2_ptrs(plan), *jargs, res_p,
+                    g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), H.data_ptr(),
+                    _sector_scratch(plan, w).data_ptr())
     seg_assemble_rig.launches += 1
-    return out
+    return g_r, diag_r, g_l, H
 
 
 # ---------------------------------------------------------------------------
@@ -432,21 +422,6 @@ def _launch_schur_down(J_r, J_p, w, x_table, plan, want_y):
                     ck(plan.rig_obs, "rig_obs", torch.int32, (n_real,)), *jargs,
                     ck(x_table, "x_table", torch.float32, (R, k)),
                     y.data_ptr() if want_y else None, t.data_ptr(), p.data_ptr())
-    return y, t
-
-
-def _launch_schur_down_v1(J_r, J_p, w, x_table, plan, want_y):
-    """K6's design before (csrc/schur.cu viba_schur_down_v1: wu staged for
-    every slot, then a 16-thread group per landmark walking its list),
-    chip_smoke.py's yardstick, which the wrapper never calls: (y, t)."""
-    n, k, jargs = _jac_args(J_r, J_p, w)
-    R, L = plan.n_rows, plan.n_pts
-    y = _empty((R, k), w) if want_y else None
-    t = _empty((L, 3), w)
-    wu = torch.zeros((2, n), dtype=torch.float32, device=w.device)
-    _kernels.launch("viba_schur_down_v1", R, L, n, k, int(bool(want_y)), *_plan_ptrs(plan),
-                    *jargs, _kernels.check(x_table, "x_table", torch.float32, (R, k)),
-                    y.data_ptr() if want_y else None, t.data_ptr(), wu.data_ptr())
     return y, t
 
 
@@ -919,7 +894,9 @@ def seg_reduce_table(contrib, rows: RowPlan):
 # whatever contrib holds. Locals outside [0, rb) address nothing.
 
 TILE_KS = (3, 6, 9)  # Jacobian widths of the tile mat-vec kernels
-TILE_MAX_D = 64  # widest row of a gathered tile (its rb x D floats are staged in shared memory)
+# widest row of a gathered tile (K14d and the old K14b stage a tile's rb x D
+# floats in shared memory)
+TILE_MAX_D = 64
 
 
 class TilePlan(NamedTuple):
@@ -1059,15 +1036,23 @@ def seg_reduce_partials(contrib, local, nt, ts, rb, plan: TilePlan | None = None
     return part
 
 
+def _launch_gather_from_tiles(xt, local, nt, ts, rb, entry="viba_tile_gather"):
+    """K14b (csrc/tile_segments.cu viba_tile_gather: a flat stream of float4
+    over the (N, D) output); entry="viba_tile_gather_v1" launches the design
+    before (a CTA per tile staging xt in shared memory), chip_smoke.py's
+    yardstick, which the wrapper never calls."""
+    D, xp = _xt_arg(xt, nt, rb)
+    out = _empty((nt * ts, D), xt)
+    _kernels.launch(entry, nt, ts, rb, D, _local_arg(local, nt, ts), xp, out.data_ptr())
+    return out
+
+
 @_kernels.register("gather_from_tiles")
 def seg_gather_from_tiles(xt, local, nt, ts, rb):
     """K14b: xt (nt, rb, D) addressed tile rows -> per-slot rows (nt*ts, D)."""
     if not _kernels.on_card(xt):
         return _gather_tiles_plain(xt, local, nt, ts, rb)
-    D, xp = _xt_arg(xt, nt, rb)
-    out = _empty((nt * ts, D), xt)
-    _kernels.launch("viba_tile_gather", nt, ts, rb, D, _local_arg(local, nt, ts), xp,
-                    out.data_ptr())
+    out = _launch_gather_from_tiles(xt, local, nt, ts, rb)
     seg_gather_from_tiles.launches += 1
     return out
 
@@ -1110,15 +1095,25 @@ def seg_mv_gather(J, xt, local, nt, ts, rb):
     return u
 
 
-@_kernels.register("mv_scatter")
-def seg_mv_scatter(J, u, local, nt, ts, rb, plan: TilePlan | None = None):
-    """K14e: tile partials (nt, rb, k) of the segment sums of J^T u."""
-    if not _kernels.on_card(J):
-        return _reduce_partials_plain((J * u[:, None, :]).sum(0), local, nt, ts, rb)
+def _launch_mv_scatter(J, u, local, nt, ts, rb, plan, entry="viba_tile_mv_scatter"):
+    """K14e (csrc/tile_segments.cu viba_tile_mv_scatter: a CTA per tile
+    staging J^T u in shared memory, each row's slots cut into pieces across
+    its warps); entry="viba_tile_mv_scatter_v1" launches the design before (a
+    warp per row walking its runs), chip_smoke.py's yardstick, which the
+    wrapper never calls."""
     k, jp = _tile_jac(J, nt, ts)
     part = _empty((nt, rb, k), J)
-    _kernels.launch("viba_tile_mv_scatter", nt, rb, nt * ts, k,
-                    *_plan_args(plan, local, nt, ts, rb), jp,
+    _kernels.launch(entry, nt, rb, nt * ts, k, *_plan_args(plan, local, nt, ts, rb), jp,
                     _kernels.check(u, "u", torch.float32, (2, nt * ts)), part.data_ptr())
+    return part
+
+
+@_kernels.register("mv_scatter")
+def seg_mv_scatter(J, u, local, nt, ts, rb, plan: TilePlan | None = None):
+    """K14e: tile partials (nt, rb, k) of the segment sums of J^T u, each
+    row's slots summed in a fixed order."""
+    if not _kernels.on_card(J):
+        return _reduce_partials_plain((J * u[:, None, :]).sum(0), local, nt, ts, rb)
+    part = _launch_mv_scatter(J, u, local, nt, ts, rb, plan)
     seg_mv_scatter.launches += 1
     return part

@@ -363,6 +363,28 @@ def device_ms(fn):
     return {key: ms for key, (_, ms) in got.items()}
 
 
+def in_turns(fns):
+    """Device time of each fn, its profiler sessions (device_rows: the
+    card's own time in each kernel and memset, without the host's enqueue
+    time) run in turns a, b, ..., b, a and read by per_call over both:
+    (device ms per call, device operations per call, {kernel: ms per call})
+    of each. A session that recorded no device time at all (seen on the
+    H100) is run again, up to three times."""
+    sessions = [[] for _ in fns]
+    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+        for _ in range(3):
+            rows = device_rows(fns[i])
+            if rows:
+                break
+        sessions[i].append(rows)
+    out = []
+    for rows in sessions:
+        per = per_call(rows, DEVICE_REPS)
+        out.append((sum(ms for _, ms in per.values()), sum(n for n, _ in per.values()),
+                    {key: ms for key, (_, ms) in per.items()}))
+    return out
+
+
 def visual_device_ms(ctx: Context, x: Tangent):
     """device_ms of the first batch's visual Schur summand on the tile route
     and on the K12/K13 route."""
