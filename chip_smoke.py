@@ -50,10 +50,11 @@ Phases, one printed line each (per path):
                two-grid landmark rows against the walk on the same rows;
                K13c on those rows (D 9, D 3) against the walk and
                index_add_; K14a and K14b against index_add_ and
-               index_select by device time, in turns; K14b (point grid,
-               D 3) and K14e (point grid k 3, rig grid k 6) against the
-               designs they replaced (C entries only this script reaches),
-               in turns, within 1e-5, and bit-equal across two calls
+               index_select by device time, in turns; K14a (point grid,
+               D 9) and K14c (rig grid k 6) against the designs they
+               replaced (C entries only this script reaches), in turns,
+               within 1e-5, each in one device operation; K14a-e
+               bit-equal across two calls
   consistency  one LM iteration through the kernels vs the plain versions,
                from the initial state: new cost, reduced step and the step of
                the well-conditioned landmarks; and the kernel-path attempt run
@@ -135,13 +136,14 @@ TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 # they share with K6, K13a's and K13c's slot-major routes on landmark rows,
 # K8's window pass and its sum pass (which holds K2's landmark pass), the
 # instantiations per mode of K7, K1 and K11, K2's two passes, K6's rig-row
-# pass, K14b's flat gather, K14e's staged tile pass), by the names ptxas
-# gives them
+# pass, K14b's flat gather, the tile pass of K14e, K14c and K14a), by the
+# names ptxas gives them
 NO_SPILL = ("pcg_down", "pcg_up", "pcg_cal_down", "pcg_cal_up", "point_range_sum",
             "jtu_slot_major", "reduce_gather4", "to_slot_major", "reduce_gather",
             "assemble_cal_window", "sum_cal_points", "rs_linearize_mode", "visual_linearize_mode",
             "visual_cal_linearize_mode", "assemble_rows_slots", "assemble_points",
-            "schur_down_rows", "tile_gather_flat", "tile_scatter_staged")
+            "schur_down_rows", "tile_gather_flat", "tile_scatter_staged", "tile_fused_staged",
+            "tile_reduce_split")
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
 # kernel vs plain LM iteration, relative (see the consistency phases)
@@ -992,7 +994,7 @@ def two_grid(dev, bench):
 def tile_profile(dev, bench, problem):
     """K14a-e against their plain versions at the two_grid problem's shapes
     (the rig grid at k 6, the point-sorted grid at k 3), K14a and K14b
-    against their library calls and the redesigned K14b and K14e against
+    against their library calls and the redesigned K14a and K14c against
     their old designs (in turns), then the profile path: the launch counts
     set to 0, the Schur matvec composed from the tile kernels held against
     rcs.matvec (and K14a's landmark blocks against K13c's, K14b's slot steps
@@ -1026,16 +1028,18 @@ def tile_profile(dev, bench, problem):
     part_lib = torch.zeros((p.nt * p.rb, 9), device=dev)
     seg_tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
     runs_g, runs_p = list(g.plan), list(p.plan)
-    bench.compare("mv_fused", seg.seg_mv_fused, (b.J, b.w, xt, g.local, g.nt, g.ts, g.rb, g.plan),
-                  seg_tol("wu", "part"), [b.J, b.w, xt] + runs_g, (8 * k + 2) * n_rig)
+    args14c = (b.J, b.w, xt, g.local, g.nt, g.ts, g.rb, g.plan)
+    bench.compare("mv_fused", seg.seg_mv_fused, args14c, seg_tol("wu", "part"),
+                  [b.J, b.w, xt] + runs_g, (8 * k + 2) * n_rig)
     args14e_p = (tb.J_pt_po, u_pt, p.local, p.nt, p.ts, p.rb, p.plan)
     args14e_g = (b.J, u_rig, g.local, g.nt, g.ts, g.rb, g.plan)
     bench.compare("mv_scatter", seg.seg_mv_scatter, args14e_p, seg_tol("part"),
                   [tb.J_pt_po, u_pt] + runs_p, 12 * n_pt)
     bench.compare("mv_scatter(rig grid)", seg.seg_mv_scatter, args14e_g, seg_tol("part"),
                   [b.J, u_rig] + runs_g, 4 * k * n_rig)
-    bench.compare("mv_gather", seg.seg_mv_gather, (tb.J_pt_po, zt, p.local, p.nt, p.ts, p.rb),
-                  seg_tol("u"), [tb.J_pt_po, zt, p.local], 12 * n_pt)
+    args14d = (tb.J_pt_po, zt, p.local, p.nt, p.ts, p.rb)
+    bench.compare("mv_gather", seg.seg_mv_gather, args14d, seg_tol("u"),
+                  [tb.J_pt_po, zt, p.local], 12 * n_pt)
     bench.compare("mv_gather(rig grid)", seg.seg_mv_gather, (b.J, xt, g.local, g.nt, g.ts, g.rb),
                   seg_tol("u"), [b.J, xt, g.local], 4 * k * n_rig)
     args14a, lib14a = (A, p.local, p.nt, p.ts, p.rb, p.plan), \
@@ -1056,21 +1060,28 @@ def tile_profile(dev, bench, problem):
         phase("kernels", f"{name}: device {d_k:.4f} ms vs its library call {d_l:.4f} ms in "
               f"{o_l:g} ops, in turns (" + ", ".join(
                   f"{key[:40]} {ms:.4f}" for key, ms in k_l.items()) + ")")
-    # the redesigned K14b and K14e: bit-equal across two calls, and against
-    # the designs they replaced (C entries only this script reaches), in turns
-    for name, args, new, old, tols in (
-            ("gather_from_tiles", args14b, seg.seg_gather_from_tiles,
-             lambda *a: seg._launch_gather_from_tiles(*a, entry="viba_tile_gather_v1"),
-             seg_tol("rows")),
-            ("mv_scatter", args14e_p, seg.seg_mv_scatter,
-             lambda *a: seg._launch_mv_scatter(*a, entry="viba_tile_mv_scatter_v1"),
-             seg_tol("part")),
-            ("mv_scatter(rig grid)", args14e_g, seg.seg_mv_scatter,
-             lambda *a: seg._launch_mv_scatter(*a, entry="viba_tile_mv_scatter_v1"),
-             seg_tol("part"))):
-        if not all(torch.equal(o1, o2) for o1, o2 in zip(flat(new(*args)), flat(new(*args)))):
+    # K14a-e: bit-equal across two calls
+    for name, fn, args in (("reduce_partials", seg.seg_reduce_partials, args14a),
+                           ("gather_from_tiles", seg.seg_gather_from_tiles, args14b),
+                           ("mv_fused", seg.seg_mv_fused, args14c),
+                           ("mv_gather", seg.seg_mv_gather, args14d),
+                           ("mv_scatter", seg.seg_mv_scatter, args14e_p),
+                           ("mv_scatter(rig grid)", seg.seg_mv_scatter, args14e_g)):
+        if not all(torch.equal(o1, o2) for o1, o2 in zip(flat(fn(*args)), flat(fn(*args)))):
             raise AssertionError(f"{name}: two calls on the same inputs differ")
+    # the redesigned K14a and K14c against the designs they replaced (C
+    # entries only this script reaches), in turns; one device operation each
+    for name, args, new, old, tols in (
+            ("reduce_partials", args14a, seg.seg_reduce_partials,
+             lambda *a: seg._launch_reduce_partials(*a, entry="viba_tile_reduce_v1"),
+             seg_tol("part")),
+            ("mv_fused", args14c, seg.seg_mv_fused,
+             lambda *a: seg._launch_mv_fused(*a, entry="viba_tile_mv_fused_v1"),
+             seg_tol("wu", "part"))):
         against_old(name, bench.results[name], lambda: new(*args), lambda: old(*args), tols)
+        if bench.results[name]["device_ops"] > 1:
+            raise AssertionError(f"{name}: {bench.results[name]['device_ops']} device "
+                                 "operations per call")
 
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()

@@ -22,8 +22,11 @@ max-abs. The tile kernels K14a-e run on the two-grid problem's rig-sorted
 and point-sorted grids, on a grid of random, unsorted local indices (rows
 no slot addresses, locals outside the window) and on an edge grid of tiles
 of 1,031 slots (a tile that addresses nothing, one row holding all of a
-tile's slots, a row of one slot; K14b at D 1, 3 and 6, K14e at k 3, 6 and
-9); K8-K10 also at the window
+tile's slots, a row of one slot; K14a at D 1, 3, 9 and 12, K14b at D 1, 3
+and 6, K14c and K14e at k 3, 6 and 9; K14a and K14c also against the
+designs they replaced), and K14a, K14c and K14e at the largest window
+their shared memory allows and one row past it (refused before any
+launch); K8-K10 also at the window
 widths kc = 17 and 6 (the extrinsics or the intrinsics held constant). An
 LM attempt of the full-sensor problem and of an unblocked problem calls no
 scattering operator that sums with float atomics (index_add_ and kin, seen
@@ -489,17 +492,30 @@ def _tile(name, a, local, nt, ts, rb):
     return (tseg.seg_mv_scatter(a["J"], a["u"], local, nt, ts, rb),)
 
 
+# the designs K14a and K14c replaced (C entries only chip_smoke.py and this
+# file reach)
+def _old_tile(name, a, local, nt, ts, rb):
+    if name == "reduce_partials":
+        return (tseg._launch_reduce_partials(a["contrib"], local, nt, ts, rb, None,
+                                             entry="viba_tile_reduce_v1"),)
+    return tseg._launch_mv_fused(a["J"], a["w"], a["xt"], local, nt, ts, rb, None,
+                                 entry="viba_tile_mv_fused_v1")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", ["rig", "point", "random", "edge"])
 @pytest.mark.parametrize("name,k", [
-    ("reduce_partials", 9), ("reduce_partials", 3), ("gather_from_tiles", 3),
-    ("gather_from_tiles", 6), ("gather_from_tiles", 1), ("mv_fused", 6), ("mv_fused", 3),
+    ("reduce_partials", 9), ("reduce_partials", 3), ("reduce_partials", 1),
+    ("reduce_partials", 12), ("gather_from_tiles", 3), ("gather_from_tiles", 6),
+    ("gather_from_tiles", 1), ("mv_fused", 6), ("mv_fused", 3), ("mv_fused", 9),
     ("mv_gather", 3), ("mv_gather", 6), ("mv_scatter", 3), ("mv_scatter", 6),
     ("mv_scatter", 9)])
 def test_tile_kernel_matches_plain(name, k, grid, cuda_device):
     """Each K14 kernel within 1e-5 of its plain version in float64, one
-    launch a call, the same bits on every call; on the edge grid the tile
-    that addresses nothing gives zeros (its partials, its slots' rows)."""
+    launch a call, the same bits on every call; K14a and K14c also within
+    1e-5 of the designs they replaced; on the edge grid the tile that
+    addresses nothing gives zeros (its partials, its slots' rows, K14c's wu
+    of its slots, which no memset clears)."""
     local, nt, ts, rb = _tile_grids(cuda_device)[grid]
     n = nt * ts
     rng = np.random.default_rng(61)
@@ -519,10 +535,54 @@ def test_tile_kernel_matches_plain(name, k, grid, cuda_device):
     _check(out, ref, (1e-5,) * len(out))
     for o, o2 in zip(out, again):  # ordered sums: the same bits every call
         assert torch.equal(o, o2)
+    if name in ("reduce_partials", "mv_fused"):
+        old = _old_tile(name, a, local, nt, ts, rb)
+        torch.cuda.synchronize()
+        _check(out, old, (1e-5,) * len(out))
     if grid == "edge":  # tile 0: its partials, or its slots' rows
         empty = {"gather_from_tiles": out[0][:ts], "mv_gather": out[0][:, :ts]}.get(name,
                                                                                   out[-1][0])
         assert float(empty.abs().max()) == 0.0
+        if name == "mv_fused":
+            assert float(out[0][:, :ts].abs().max()) == 0.0
+
+
+# The reduce side's largest window at ts 4,096: the tile's shared memory
+# (tile_segments.cu tile_smem) reaches 227 KB one row later. K14e and K14c
+# stage a chunk (k 9: 1,344 slots) beside 8 warp partials of each row; K14a
+# (D 9) holds the warp partials alone.
+SMEM_MAX_RB = {"mv_scatter": 618, "mv_fused": 618, "reduce_partials": 781}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SMEM_MAX_RB))
+def test_tile_kernel_refuses_a_window_past_shared_memory(name, cuda_device):
+    """One tile of 4,096 slots at k 9 (K14a: D 9): at the largest window the
+    tile's shared memory allows, the kernel runs and matches its plain
+    version; one row more, the C entry refuses it and the wrapper raises
+    before any launch (no launch counted, nothing left to fault)."""
+    ts, k = 4096, 9
+    rng = np.random.default_rng(97)
+    for rb in (SMEM_MAX_RB[name], SMEM_MAX_RB[name] + 1):
+        local = torch.from_numpy(rng.integers(0, rb, size=ts).astype(np.int32)).to(cuda_device)
+
+        def f32(*shape):
+            return torch.from_numpy(rng.normal(size=shape)).to(device=cuda_device,
+                                                               dtype=torch.float32)
+
+        a = dict(contrib=f32(k, ts), J=f32(2, k, ts), w=f32(ts), u=f32(2, ts), xt=f32(1, rb, k))
+        _kernels.reset_launch_counts()
+        if rb == SMEM_MAX_RB[name]:
+            out = _tile(name, a, local, 1, ts, rb)
+            with _kernels.plain_reference():
+                ref = _tile(name, _kernels.to_f64(a), local, 1, ts, rb)
+            _check(out, ref, (1e-5,) * len(out))
+            assert _kernels.launch_counts()[name] == 1
+        else:
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                _tile(name, a, local, 1, ts, rb)
+            torch.cuda.synchronize()
+            assert sum(_kernels.launch_counts().values()) == 0
 
 
 # ---------------------------------------------------------------------------

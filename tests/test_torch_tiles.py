@@ -18,12 +18,16 @@ branches (one-hot einsums).
   * the matvec composed from the tile kernels (profile_matvec.tile_matvec)
     against the JAX package's rcs.matvec on the same state: 1e-10;
   * the data flow of the redesigned K14b (the flat float4 walk: slot f // D,
-    column, tile slot // ts, the N D % 4 tail) and K14e (J^T u staged a
-    chunk at a time, the tile's run list loaded once, rows cut into pieces
-    summed by warps in the kernel's order), written as torch ops, against
-    the JAX entries seg_gather_from_tiles and seg_mv_scatter on both grids
-    (K14b also on a grid whose ts is not a multiple of 4; K14e also with
-    small chunks and pieces): 1e-12.
+    column, tile slot // ts, the N D % 4 tail) and of the tile pass K14a,
+    K14c and K14e share (the tile's run list loaded once, rows cut into
+    pieces summed by warps in the kernel's order, warp partials summed in
+    warp order): K14e's J^T u staged a chunk at a time, K14a's column tiles
+    read in the piece walk, K14c's wu = w (J x_row) for every slot (0
+    outside the window) and J^T wu staged; written as torch ops, against the
+    JAX entries seg_gather_from_tiles, seg_mv_scatter, seg_reduce_partials
+    and seg_mv_fused on both grids (K14b also on a grid whose ts is not a
+    multiple of 4; the pass also with small chunks and pieces): 1e-12;
+  * each variant of tile_variants applies to the source.
 """
 
 import functools
@@ -205,9 +209,9 @@ def test_tile_matvec_matches_jax():
 # The redesigned K14b and K14e: their data flow as torch ops (f64)
 # ---------------------------------------------------------------------------
 
-# csrc/tile_segments.cu: warps of a K14e CTA, slots of a row piece, staged
-# floats of a chunk
-WARPS, PIECE, STAGE_FLOATS = 8, 512, 12288
+# csrc/tile_segments.cu: warps of a CTA, slots of a row piece (K14e, K14c;
+# K14a's), staged floats of a chunk
+WARPS, PIECE, REDUCE_PIECE, STAGE_FLOATS = 8, 512, 128, 12288
 
 
 def _gather_flow(xt, local, nt, ts, rb):
@@ -281,35 +285,34 @@ def _butterfly(acc):
     return acc[0]
 
 
-def _mv_scatter_flow(J, u, local, nt, ts, rb, chunk=None, piece=PIECE):
-    """K14e's flow (tile_scatter_staged): per tile, the tile's run list
-    loaded once; per chunk of the tile's slots, c_s = J_s^T u_s staged; each
-    row's slots (its runs concatenated in slot order) cut into pieces of
-    `piece` at fixed offsets from the row's start, piece i of row r summed by
-    warp (r + i) % WARPS: within a run, clipped to the chunk, lane j takes
-    the run's slots j, j + 32, ...; the warp's butterfly total added to its
+def _tile_flow(c, local, nt, ts, rb, chunk, piece=PIECE):
+    """The pass K14a, K14c and K14e share (tile_pass) over per-slot columns
+    c (W, N): per tile, the tile's run list loaded once; per chunk of the
+    tile's slots (chunk = ts: one chunk, as K14a's direct reads), each row's
+    slots (its runs concatenated in slot order) cut into pieces of `piece`
+    at fixed offsets from the row's start, piece i of row r summed by warp
+    (r + i) % WARPS: within a run, clipped to the chunk, lane j takes the
+    run's slots j, j + 32, ...; the warp's butterfly total added to its
     partial of the row, chunk by chunk; the row's partial the sum of the
     warps' partials in warp order."""
-    k = J.shape[1]
-    chunk = chunk or min(ts, STAGE_FLOATS // k // 32 * 32)
+    W = c.shape[0]
     run_ptr, run_start, run_len = (a.long() for a in tseg.tile_plan(local, nt, ts, rb))
-    c = (J * u[:, None]).sum(0)  # (k, N)
-    part = J.new_zeros((nt, rb, k))
+    part = c.new_zeros((nt, rb, W))
     for tile in range(nt):
         q0, q1 = int(run_ptr[tile * rb]), int(run_ptr[(tile + 1) * rb])
         runs = list(zip((run_start[q0:q1] - tile * ts).tolist(), run_len[q0:q1].tolist()))
         ptr = (run_ptr[tile * rb:(tile + 1) * rb + 1] - q0).tolist()
         n_row = [sum(ln for _, ln in runs[ptr[r]:ptr[r + 1]]) for r in range(rb)]
-        pp = J.new_zeros((WARPS, rb, k))
+        pp = c.new_zeros((WARPS, rb, W))
         for c0 in range(0, ts, chunk):
             cn = min(chunk, ts - c0)
-            cs = c[:, tile * ts + c0:tile * ts + c0 + cn]  # the staged chunk
+            cs = c[:, tile * ts + c0:tile * ts + c0 + cn]  # the chunk's values
             for r in range(rb):
                 for w in range(WARPS):
                     pieces = range((w - r) % WARPS, -(-n_row[r] // piece), WARPS)
                     if not pieces:
                         continue
-                    acc = J.new_zeros((32, k))
+                    acc = c.new_zeros((32, W))
                     for i in pieces:
                         lo, hi = i * piece, min((i + 1) * piece, n_row[r])
                         a = 0
@@ -325,6 +328,46 @@ def _mv_scatter_flow(J, u, local, nt, ts, rb, chunk=None, piece=PIECE):
         for w in range(1, WARPS):
             part[tile] = part[tile] + pp[w]
     return part
+
+
+def _stage_chunk(W, ts):
+    """Slots a chunk stages (tile_segments.cu stage_chunk)."""
+    return min(ts, STAGE_FLOATS // W // 32 * 32)
+
+
+def _mv_scatter_flow(J, u, local, nt, ts, rb, chunk=None, piece=PIECE):
+    """K14e's flow (tile_scatter_staged): c_s = J_s^T u_s staged a chunk at a
+    time, then the shared pass."""
+    k = J.shape[1]
+    return _tile_flow((J * u[:, None]).sum(0), local, nt, ts, rb,
+                      chunk or _stage_chunk(k, ts), piece)
+
+
+def _reduce_partials_flow(contrib, local, nt, ts, rb, chunk=None, piece=REDUCE_PIECE):
+    """K14a's flow (tile_reduce_split): contrib's D columns in column tiles
+    of W (3 for D <= 3, else 9; the last tile padded with zero columns), each
+    through the shared pass, contrib read in the piece walk (one chunk of
+    the whole tile)."""
+    D, n = contrib.shape
+    W = 3 if D <= 3 else 9
+    n_tiles = -(-D // W)
+    padded = torch.cat([contrib, contrib.new_zeros((n_tiles * W - D, n))])
+    return torch.cat([_tile_flow(padded[y * W:(y + 1) * W], local, nt, ts, rb, chunk or ts,
+                                 piece) for y in range(n_tiles)], dim=-1)[..., :D]
+
+
+def _mv_fused_flow(J, w, xt, local, nt, ts, rb, chunk=None, piece=PIECE):
+    """K14c's flow (tile_fused_staged): per slot, x_row = xt[tile, local]
+    (0 for a local outside [0, rb)), wu = w (J x_row) for every slot; c_s =
+    J_s^T wu_s staged a chunk at a time, then the shared pass."""
+    k, n = J.shape[1], J.shape[2]
+    loc = local.long()
+    ok = (loc >= 0) & (loc < rb)
+    row = (torch.arange(n) // ts) * rb + loc.clamp(0, rb - 1)
+    x = torch.where(ok[:, None], xt.reshape(-1, k)[row], 0.0)  # (N, k)
+    wu = (J * x.T[None]).sum(1) * w[None]
+    return wu, _tile_flow((J * wu[:, None]).sum(0), local, nt, ts, rb,
+                          chunk or _stage_chunk(k, ts), piece)
 
 
 @pytest.mark.parametrize("chunk,piece", [(None, PIECE), (24, 8)])
@@ -346,13 +389,61 @@ def test_mv_scatter_flow_matches_jax(grid, k, chunk, piece):
     assert rel(got.numpy(), want) < TOL
 
 
+@pytest.mark.parametrize("chunk,piece", [(None, REDUCE_PIECE), (24, 8)])
+@pytest.mark.parametrize("D", [9, 12])
+@pytest.mark.parametrize("grid", ["rig", "point"])
+def test_reduce_partials_flow_matches_jax(grid, D, chunk, piece):
+    """K14a's flow (pieces across warps in warp order, column tiles of 9:
+    one at D 9, two at D 12) equals the JAX seg_reduce_partials (XLA
+    branch) on the rig and point grids, at the kernel's sizes (the whole
+    tile, pieces of 128) and at small chunks and pieces, 1e-12 relative."""
+    grids, _ = _grids()
+    local, _, nt, ts, rb, _ = grids[grid]
+    contrib = np.random.default_rng(89).normal(size=(D, nt * ts))
+    want = np.asarray(jseg.seg_reduce_partials(jnp.asarray(contrib), jnp.asarray(local), nt, ts,
+                                               rb))
+    got = _reduce_partials_flow(t(contrib), torch.from_numpy(np.array(local)), nt, ts, rb, chunk,
+                                piece)
+    assert got.shape == want.shape and np.abs(want).max() > 0
+    assert rel(got.numpy(), want) < TOL
+
+
+@pytest.mark.parametrize("chunk,piece", [(None, PIECE), (24, 8)])
+@pytest.mark.parametrize("k", [3, 6])
+@pytest.mark.parametrize("grid", ["rig", "point"])
+def test_mv_fused_flow_matches_jax(grid, k, chunk, piece):
+    """K14c's flow equals the JAX seg_mv_fused (XLA branch) on the rig and
+    point grids, wu and partials, with a few locals moved outside the
+    window (-1 and rb: their wu is 0 and they sum into no row), at the
+    kernel's chunk and piece sizes and at small ones, 1e-12 relative."""
+    grids, pay = _grids()
+    local, _, nt, ts, rb, _ = grids[grid]
+    local = local.copy()
+    local[[3, ts + 7]] = -1, rb
+    a = pay[grid]
+    J, xt = a[f"J{k}"], a[f"xt{k}"]
+    want = jseg.seg_mv_fused(jnp.asarray(J), jnp.asarray(a["w"]), jnp.asarray(xt),
+                             jnp.asarray(local), nt, ts, rb)
+    got = _mv_fused_flow(t(J), t(a["w"]), t(xt), torch.from_numpy(local), nt, ts, rb, chunk,
+                         piece)
+    wu = np.asarray(want[0])
+    assert wu[:, [3, ts + 7]].max() == 0 == np.abs(got[0][:, [3, ts + 7]].numpy()).max()
+    for g, wnt in zip(got, want):
+        assert np.abs(np.asarray(wnt)).max() > 0
+        assert rel(g.numpy(), wnt) < TOL
+
+
 def test_tile_variants_apply_to_the_source():
-    """Each variant of tile_variants (one choice of K14e's kept design undone)
-    is an edit that applies once to the current csrc/tile_segments.cu; the
-    kept design is the source itself."""
+    """Each variant of tile_variants (one choice of the kept tile pass undone:
+    K14e's, K14a's and K14c's) is an edit that applies once to the current
+    csrc/tile_segments.cu and concerns kernels the script times; the kept
+    design is the source itself; every kernel of the pass has variants."""
     from visual_inertial_bundle_adjustment_tpu_torch import tile_variants as tv
 
     source = tv.SOURCE.read_text()
     assert set(tv.VARIANTS) > {"kept"}
-    for name, (edits, _) in tv.VARIANTS.items():
+    for name, (edits, kernels, _) in tv.VARIANTS.items():
         assert (tv.variant_source(edits) == source) == (name == "kept"), name
+        assert kernels and set(kernels) <= set(tv.ENTRIES), name
+    for kernel in tv.ENTRIES:
+        assert sum(kernel in kernels for _, kernels, _ in tv.VARIANTS.values()) >= 3, kernel

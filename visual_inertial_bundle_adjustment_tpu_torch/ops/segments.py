@@ -894,8 +894,8 @@ def seg_reduce_table(contrib, rows: RowPlan):
 # whatever contrib holds. Locals outside [0, rb) address nothing.
 
 TILE_KS = (3, 6, 9)  # Jacobian widths of the tile mat-vec kernels
-# widest row of a gathered tile (K14d and the old K14b stage a tile's rb x D
-# floats in shared memory)
+# widest row of a gathered tile that K14d stages in shared memory (rb x D
+# floats); K14b's flat walk stages nothing and takes any width
 TILE_MAX_D = 64
 
 
@@ -1014,45 +1014,48 @@ def _local_arg(local, nt, ts):
     return _kernels.check(local, "local", torch.int32, (nt * ts,))
 
 
-def _xt_arg(xt, nt, rb):
-    D = xt.shape[-1]
+def _xt_arg(xt, nt, rb, D):
     if D > TILE_MAX_D:
         raise ValueError(f"gathered tile rows wider than {TILE_MAX_D}: {D}")
-    return D, _kernels.check(xt, "xt", torch.float32, (nt, rb, D))
+    return _kernels.check(xt, "xt", torch.float32, (nt, rb, D))
+
+
+def _launch_reduce_partials(contrib, local, nt, ts, rb, plan, entry="viba_tile_reduce"):
+    """K14a (csrc/tile_segments.cu viba_tile_reduce: each tile's rows cut
+    into pieces across its warps, contrib read in the piece walk);
+    entry="viba_tile_reduce_v1" launches the design before (a warp per row
+    walking its runs), chip_smoke.py's yardstick, which the wrapper never
+    calls."""
+    D, n = contrib.shape
+    part = _empty((nt, rb, D), contrib)
+    _kernels.launch(entry, nt, rb, n, D, *_plan_args(plan, local, nt, ts, rb),
+                    _kernels.check(contrib, "contrib", torch.float32, (D, nt * ts)),
+                    part.data_ptr())
+    return part
 
 
 @_kernels.register("reduce_partials")
 def seg_reduce_partials(contrib, local, nt, ts, rb, plan: TilePlan | None = None):
     """K14a: contrib (D, nt*ts), local (nt*ts,) -> tile partials (nt, rb, D),
-    each row's slots summed in slot order."""
+    each row's slots summed in a fixed order."""
     if not _kernels.on_card(contrib):
         return _reduce_partials_plain(contrib, local, nt, ts, rb)
-    D, n = contrib.shape
-    part = _empty((nt, rb, D), contrib)
-    _kernels.launch("viba_tile_reduce", nt, rb, n, D, *_plan_args(plan, local, nt, ts, rb),
-                    _kernels.check(contrib, "contrib", torch.float32, (D, nt * ts)),
-                    part.data_ptr())
+    part = _launch_reduce_partials(contrib, local, nt, ts, rb, plan)
     seg_reduce_partials.launches += 1
     return part
 
 
-def _launch_gather_from_tiles(xt, local, nt, ts, rb, entry="viba_tile_gather"):
-    """K14b (csrc/tile_segments.cu viba_tile_gather: a flat stream of float4
-    over the (N, D) output); entry="viba_tile_gather_v1" launches the design
-    before (a CTA per tile staging xt in shared memory), chip_smoke.py's
-    yardstick, which the wrapper never calls."""
-    D, xp = _xt_arg(xt, nt, rb)
-    out = _empty((nt * ts, D), xt)
-    _kernels.launch(entry, nt, ts, rb, D, _local_arg(local, nt, ts), xp, out.data_ptr())
-    return out
-
-
 @_kernels.register("gather_from_tiles")
 def seg_gather_from_tiles(xt, local, nt, ts, rb):
-    """K14b: xt (nt, rb, D) addressed tile rows -> per-slot rows (nt*ts, D)."""
+    """K14b: xt (nt, rb, D) addressed tile rows -> per-slot rows (nt*ts, D)
+    (csrc/tile_segments.cu viba_tile_gather: a flat stream of float4 over the
+    output)."""
     if not _kernels.on_card(xt):
         return _gather_tiles_plain(xt, local, nt, ts, rb)
-    out = _launch_gather_from_tiles(xt, local, nt, ts, rb)
+    D = xt.shape[-1]
+    out = _empty((nt * ts, D), xt)
+    _kernels.launch("viba_tile_gather", nt, ts, rb, D, _local_arg(local, nt, ts),
+                    _kernels.check(xt, "xt", torch.float32, (nt, rb, D)), out.data_ptr())
     seg_gather_from_tiles.launches += 1
     return out
 
@@ -1063,6 +1066,23 @@ def _mv_fused_tiles_plain(J, w, xt, local, nt, ts, rb):
     return wu, _reduce_partials_plain((J * wu[:, None, :]).sum(0), local, nt, ts, rb)
 
 
+def _launch_mv_fused(J, w, xt, local, nt, ts, rb, plan, entry="viba_tile_mv_fused"):
+    """K14c (csrc/tile_segments.cu viba_tile_mv_fused: a CTA per tile
+    staging w (J x) and J^T wu in shared memory, wu stored for every slot,
+    each row's slots cut into pieces across its warps);
+    entry="viba_tile_mv_fused_v1" launches the design before (wu cleared,
+    then a warp per row walking its runs), chip_smoke.py's yardstick, which
+    the wrapper never calls."""
+    k, jp = _tile_jac(J, nt, ts)
+    wu = _empty((2, nt * ts), J)
+    part = _empty((nt, rb, k), J)
+    _kernels.launch(entry, nt, rb, nt * ts, k, *_plan_args(plan, local, nt, ts, rb), jp,
+                    _kernels.check(w, "w", torch.float32, (nt * ts,)),
+                    _kernels.check(xt, "xt", torch.float32, (nt, rb, k)),
+                    _local_arg(local, nt, ts), wu.data_ptr(), part.data_ptr())
+    return wu, part
+
+
 @_kernels.register("mv_fused")
 def seg_mv_fused(J, w, xt, local, nt, ts, rb, plan: TilePlan | None = None):
     """K14c, the rig-side matvec tile pass: J (2, k, nt*ts), w (nt*ts,), xt
@@ -1070,16 +1090,9 @@ def seg_mv_fused(J, w, xt, local, nt, ts, rb, plan: TilePlan | None = None):
     partials (nt, rb, k) of J^T wu), J read once."""
     if not _kernels.on_card(J):
         return _mv_fused_tiles_plain(J, w, xt, local, nt, ts, rb)
-    k, jp = _tile_jac(J, nt, ts)
-    wu = torch.zeros((2, nt * ts), dtype=torch.float32, device=J.device)
-    part = _empty((nt, rb, k), J)
-    _kernels.launch("viba_tile_mv_fused", nt, rb, nt * ts, k,
-                    *_plan_args(plan, local, nt, ts, rb), jp,
-                    _kernels.check(w, "w", torch.float32, (nt * ts,)),
-                    _kernels.check(xt, "xt", torch.float32, (nt, rb, k)), wu.data_ptr(),
-                    part.data_ptr())
+    out = _launch_mv_fused(J, w, xt, local, nt, ts, rb, plan)
     seg_mv_fused.launches += 1
-    return wu, part
+    return out
 
 
 @_kernels.register("mv_gather")
@@ -1090,30 +1103,23 @@ def seg_mv_gather(J, xt, local, nt, ts, rb):
     k, jp = _tile_jac(J, nt, ts)
     u = _empty((2, nt * ts), J)
     _kernels.launch("viba_tile_mv_gather", nt, ts, rb, k, _local_arg(local, nt, ts), jp,
-                    _kernels.check(xt, "xt", torch.float32, (nt, rb, k)), u.data_ptr())
+                    _xt_arg(xt, nt, rb, k), u.data_ptr())
     seg_mv_gather.launches += 1
     return u
-
-
-def _launch_mv_scatter(J, u, local, nt, ts, rb, plan, entry="viba_tile_mv_scatter"):
-    """K14e (csrc/tile_segments.cu viba_tile_mv_scatter: a CTA per tile
-    staging J^T u in shared memory, each row's slots cut into pieces across
-    its warps); entry="viba_tile_mv_scatter_v1" launches the design before (a
-    warp per row walking its runs), chip_smoke.py's yardstick, which the
-    wrapper never calls."""
-    k, jp = _tile_jac(J, nt, ts)
-    part = _empty((nt, rb, k), J)
-    _kernels.launch(entry, nt, rb, nt * ts, k, *_plan_args(plan, local, nt, ts, rb), jp,
-                    _kernels.check(u, "u", torch.float32, (2, nt * ts)), part.data_ptr())
-    return part
 
 
 @_kernels.register("mv_scatter")
 def seg_mv_scatter(J, u, local, nt, ts, rb, plan: TilePlan | None = None):
     """K14e: tile partials (nt, rb, k) of the segment sums of J^T u, each
-    row's slots summed in a fixed order."""
+    row's slots summed in a fixed order (csrc/tile_segments.cu
+    viba_tile_mv_scatter: a CTA per tile staging J^T u in shared memory, each
+    row's slots cut into pieces across its warps)."""
     if not _kernels.on_card(J):
         return _reduce_partials_plain((J * u[:, None, :]).sum(0), local, nt, ts, rb)
-    part = _launch_mv_scatter(J, u, local, nt, ts, rb, plan)
+    k, jp = _tile_jac(J, nt, ts)
+    part = _empty((nt, rb, k), J)
+    _kernels.launch("viba_tile_mv_scatter", nt, rb, nt * ts, k,
+                    *_plan_args(plan, local, nt, ts, rb), jp,
+                    _kernels.check(u, "u", torch.float32, (2, nt * ts)), part.data_ptr())
     seg_mv_scatter.launches += 1
     return part
