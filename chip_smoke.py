@@ -28,7 +28,19 @@ Drives the port's four main paths through the entry points a user calls:
                and the point-sorted second grid
                (`profile_matvec.setup` / `check` / `profile`), held against
                rcs.matvec and timed component by component against the
-               K12/K13 route.
+               K12/K13 route;
+  cli          the command-line entry point `pipeline.cli.main` on the card
+               (float32): `cli:golden` on the two committed sessions
+               (tests/data/golden_session{,_full}) against their expected
+               outputs; `cli:full` on the full-sensor session directory
+               with readout and time offset estimated, 5 LM iterations,
+               --recompute-preint, the calibration evaluation, simple stats,
+               a JSONL monitor and a JSON report: every output written, one
+               row or record per rig, one monitor record per iteration, the
+               cost falls, and K3, K7-K10 and K13c (point refinement's
+               landmark sums) launch, with the counts set to 0 just before;
+               then K13c on refinement's own tables of that session (D 13
+               and D 1 over its landmark plan) against its plain version.
 
 Phases, one printed line each (per path):
 
@@ -49,12 +61,12 @@ Phases, one printed line each (per path):
                alone); K4 and K9 beside their two-pass floors; K13a on the
                two-grid landmark rows against the walk on the same rows;
                K13c on those rows (D 9, D 3) against the walk and
-               index_add_; K14a and K14b against index_add_ and
+               index_add_, and on point refinement's tables (cli, D 13
+               and D 1); K14a and K14b against index_add_ and
                index_select by device time, in turns; K14a (point grid,
-               D 9) and K14c (rig grid k 6) against the designs they
-               replaced (C entries only this script reaches), in turns,
-               within 1e-5, each in one device operation; K14a-e
-               bit-equal across two calls
+               D 9) and K14c (rig grid k 6) each in one device operation;
+               K14a-e bit-equal across two calls; K5 with the L2 flushed
+               before every timed call (its inputs fit the 50 MB L2)
   consistency  one LM iteration through the kernels vs the plain versions,
                from the initial state: new cost, reduced step and the step of
                the well-conditioned landmarks; and the kernel-path attempt run
@@ -93,20 +105,20 @@ KERNELS = {
                          f"{JAXPKG}/ops/visual_fused.py:139", "bias+gs_cal+two_grid"),
     "assemble_rig": ("K2", f"{PKG}/csrc/assemble_rig.cu", f"{JAXPKG}/ops/segments.py:840", "bias"),
     "precond_rig": ("K3", f"{PKG}/csrc/precond_rig.cu", f"{JAXPKG}/ops/segments.py:1861",
-                    "bias+full+gs_cal"),
+                    "bias+full+gs_cal+cli"),
     "schur_pcg": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347", "bias"),
     "schur_up": ("K5", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:725", "bias"),
     "schur_down": ("K6", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:586", "bias"),
     "rs_linearize": ("K7", f"{PKG}/csrc/rs_linearize.cu", f"{JAXPKG}/ops/rs_fused.py:131",
-                     "full"),
+                     "full+cli"),
     "assemble_cal": ("K8", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1674",
-                     "full+gs_cal"),
+                     "full+gs_cal+cli"),
     "schur_pcg_cal": ("K9", f"{PKG}/csrc/cal_segments.cu",
-                      f"{JAXPKG}/ops/segments.py:1468,1519", "full+gs_cal"),
+                      f"{JAXPKG}/ops/segments.py:1468,1519", "full+gs_cal+cli"),
     "schur_down_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1005",
-                       "full+gs_cal"),
+                       "full+gs_cal+cli"),
     "schur_up_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1146",
-                     "full+gs_cal"),
+                     "full+gs_cal+cli"),
     "visual_cal_linearize": ("K11", f"{PKG}/csrc/visual_cal_linearize.cu",
                              f"{JAXPKG}/ops/visual_fused.py:347", "gs_cal"),
     "mv_fused_table": ("K12", f"{PKG}/csrc/table_segments.cu", f"{JAXPKG}/ops/segments.py:304",
@@ -116,7 +128,7 @@ KERNELS = {
     "mv_gather_table": ("K13b", f"{PKG}/csrc/table_segments.cu",
                         f"{JAXPKG}/ops/segments.py:406", "two_grid"),
     "reduce_table": ("K13c", f"{PKG}/csrc/table_segments.cu", f"{JAXPKG}/ops/segments.py:441",
-                     "two_grid+profile"),
+                     "two_grid+profile+cli"),
     "reduce_partials": ("K14a", f"{PKG}/csrc/tile_segments.cu", f"{JAXPKG}/ops/segments.py:97",
                         "profile"),
     "gather_from_tiles": ("K14b", f"{PKG}/csrc/tile_segments.cu",
@@ -128,7 +140,19 @@ KERNELS = {
     "mv_scatter": ("K14e", f"{PKG}/csrc/tile_segments.cu", f"{JAXPKG}/ops/segments.py:249",
                    "profile"),
 }
-PATHS = ("bias", "full", "gs_cal", "two_grid", "profile")
+PATHS = ("bias", "full", "gs_cal", "two_grid", "profile", "cli")
+# the golden sessions' flags: a copy of tools_dev/gen_golden_session.py's
+# CLI_ARGS / CLI_ARGS_FULL (which imports JAX; a CPU test holds them equal)
+CLI_ARGS = [
+    "--calib-constant", "cam-all",
+    "--imu-calib-estimation-options", "gyro-bias,accel-bias",
+    "--max-num-iterations", "6",
+]
+CLI_ARGS_FULL = [
+    "--estimate-readout-time",
+    "--estimate-time-offset",
+    "--max-num-iterations", "6",
+]
 # bounds relative to the plain version's max-abs (tests/test_tpu_accuracy.py)
 TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 # kernels whose ptxas report must show no register spill (the kernels
@@ -178,8 +202,9 @@ def rel_err(a, b):
     return d / max(b.double().abs().max().item(), 1e-30), d
 
 
-def cuda_time(fn, reps=20, warmup=3):
-    """Median milliseconds of fn() over reps, CUDA events around each call."""
+def cuda_time(fn, reps=20, warmup=3, pre=None):
+    """Median milliseconds of fn() over reps, CUDA events around each call
+    (pre(), if given, runs before each call, outside the events)."""
     import torch
 
     for _ in range(warmup):
@@ -188,6 +213,8 @@ def cuda_time(fn, reps=20, warmup=3):
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if pre is not None:
+            pre()
         start.record()
         fn()
         end.record()
@@ -204,22 +231,47 @@ def in_turns(fns):
     return pm.in_turns(fns)
 
 
+def library_sum(contrib, rows):
+    """K13c's library call: index_add_ of contrib's columns into their rows."""
+    import torch
+
+    out = torch.zeros((rows.n_rows, contrib.shape[0]), dtype=contrib.dtype,
+                      device=contrib.device)
+    idx = rows.row.long()
+    return lambda: out.zero_().index_add_(0, idx, contrib.T)
+
+
 def walk_plan(plan):
     """The arrays of a SegPlan that the walking segment kernels read."""
     return [plan.rig, plan.point, plan.rig_ptr, plan.rig_obs, plan.pt_ptr, plan.pt_obs]
 
 
 def nbytes(*xs):
-    """Bytes of every tensor in xs (through tuples, lists, NamedTuples)."""
+    """Bytes of every tensor in xs (through tuples, lists, NamedTuples); a
+    (tensor, share) pair counts that share of the tensor's bytes."""
     import torch
 
     total = 0
     for x in xs:
         if isinstance(x, torch.Tensor):
             total += x.numel() * x.element_size()
+        elif (isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], torch.Tensor)
+              and isinstance(x[1], float)):
+            total += x[0].numel() * x[0].element_size() * x[1]
         elif isinstance(x, (tuple, list)):
             total += nbytes(*x)
     return total
+
+
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+
+
+def l2_flush():
+    """A callable that evicts the L2: an in-place add over a 256 MB buffer."""
+    import torch
+
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    return lambda: buf.add_(1.0)
 
 
 def flat(out):
@@ -237,14 +289,19 @@ class Bench:
     def __init__(self):
         self.results = {}
 
-    def compare(self, name, fn, args, labels_tol, read, flops, f64=False, library=None):
+    def compare(self, name, fn, args, labels_tol, read, flops, f64=False, library=None,
+                flush=False):
         """fn(*args) -> outputs. The kernel's outputs are held against the
         plain version evaluated in float64 on the same inputs (so the bound
         measures the kernel's own error, not the float32 rounding of two
         summation orders); the kernel is timed against the plain version in
         float32, the type the main path runs. `read` lists the tensors the
-        function reads (each counted once), `flops` its arithmetic, `library`
-        one PyTorch call computing the same function (timed, used nowhere)."""
+        function reads (each counted once; a (tensor, share) pair counts that
+        share of its bytes), `flops` its arithmetic, `library` one PyTorch
+        call computing the same function (timed, used nowhere). flush: the L2
+        is flushed before every timed call (outside the events; the flush's
+        own kernel is left out of the device time), for a kernel whose
+        inputs the L2 would otherwise hold across the calls."""
         from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
         import torch
 
@@ -258,11 +315,23 @@ class Bench:
             errs.append((label, r, d))
             if not (r <= tol):
                 raise AssertionError(f"{name}.{label}: rel err {r:.3e} > {tol:g}")
-        ms = cuda_time(lambda: fn(*args))
+        pre = l2_flush() if flush else None
+        ms = cuda_time(lambda: fn(*args), pre=pre)
         with _kernels.plain_reference():  # fewer repetitions: the plain K7 takes seconds
-            plain_ms = cuda_time(lambda: fn(*args), reps=5, warmup=1)
-        library_ms = cuda_time(library, reps=5, warmup=1) if library is not None else None
-        (dev_ms, dev_ops, dev_kern), = in_turns([lambda: fn(*args)])
+            plain_ms = cuda_time(lambda: fn(*args), reps=5, warmup=1, pre=pre)
+        library_ms = (cuda_time(library, reps=5, warmup=1, pre=pre) if library is not None
+                      else None)
+        if flush:
+            from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
+
+            flush_keys = {key for key, _, _ in pm.device_rows(pre)}
+            per = pm.per_call([pm.device_rows(lambda: (pre(), fn(*args)))
+                               for _ in range(pm.SESSIONS)], pm.DEVICE_REPS)
+            per = {key: val for key, val in per.items() if key not in flush_keys}
+            dev_ms, dev_ops = sum(t for _, t in per.values()), sum(n for n, _ in per.values())
+            dev_kern = {key: t for key, (_, t) in per.items()}
+        else:
+            (dev_ms, dev_ops, dev_kern), = in_turns([lambda: fn(*args)])
         copies = [key for key in dev_kern if "Memcpy" in key]
         if copies:  # a copy from the host inside a wrapper: not capturable, not needed
             raise AssertionError(f"{name}: host copies among its device operations: {copies}")
@@ -281,28 +350,6 @@ class Bench:
                    device_ops=dev_ops, device_kernels=dev_kern)
         self.results[name] = row
         return row
-
-
-def against_old(name, row, new, old, labels_tol):
-    """The redesigned kernel `new` against the design it replaced, `old`
-    (a branch only this script reaches), on the same inputs: each output
-    within its tolerance, relative to max-abs; device time and operations
-    per call in turns; old's CUDA-event time. Recorded in row["old"]."""
-    outs_new, outs_old = flat(new()), flat(old())
-    diffs = {}
-    for (label, tol), a, b in zip(labels_tol, outs_new, outs_old):
-        diffs[label] = rel_err(a, b)[0]
-        if not diffs[label] <= tol:
-            raise AssertionError(f"{name}.{label}: the old design differs by "
-                                 f"{diffs[label]:.3e} > {tol:g}")
-    (dev_n, ops_n, kern_n), (dev_o, ops_o, kern_o) = in_turns([new, old])
-    row["old"] = dict(ms=cuda_time(old), device_ms=dev_o, device_ops=ops_o,
-                      device_kernels=kern_o, rel_diff=diffs, device_ms_in_turns=dev_n)
-    phase("kernels", f"{name}: device {dev_n:.4f} ms in {ops_n:g} ops vs the old design "
-          f"{dev_o:.4f} ms in {ops_o:g} ops, in turns (events {row['ms']:.4f} vs "
-          f"{row['old']['ms']:.4f} ms; rel diff "
-          + ", ".join(f"{lb} {d:.1e}" for lb, d in diffs.items()) + ") | old: "
-          + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in kern_o.items()))
 
 
 def vis_read(data):
@@ -589,8 +636,13 @@ def bias_only(dev, bench):
                              flops6 * n_real)
         if row6["device_ops"] > 2:
             raise AssertionError(f"{name}: {row6['device_ops']} device operations per call")
+    # K5 walks the rig lists: it reads J_r, J_p and w of the real slots,
+    # their landmark index, z, and writes y. Called once a solve, after the
+    # preconditioner: its 30 MB would sit in the L2 across repeated calls
+    real = n_real / b.J.shape[-1]
     bench.compare("schur_up", seg.seg_schur_up, (b.J, b.J_pt, b.w, zl, b.plan), [("y", TOL_SEG)],
-                  [b.J, b.J_pt, b.w, zl] + plan, (4 * k + 14) * n_real)
+                  [(b.J, real), (b.J_pt, real), (b.w, real), (b.plan.point, real), zl,
+                   b.plan.rig_ptr, b.plan.rig_obs], (4 * k + 14) * n_real, flush=True)
     args4 = (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan)
     index4 = [b.plan.rig, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, b.plan.rig_ptr,
               b.plan.rig_obs]
@@ -637,25 +689,29 @@ def session_600():
     return s, time.time() - t0
 
 
-def adapter_problem(path, dev, session, session_sec, readout_time_sec, options):
-    """write_session_dir -> load_session -> SessionAdapter.build -> blocking;
-    prints the path's problem line and returns (problem, adapter, index of the
-    blocked visual batch)."""
+def write_600(session, path, readout_time_sec):
+    """write_session_dir of the 600 s session into path; returns seconds."""
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic_io import (
+        write_session_dir)
+
+    t0 = time.time()
+    write_session_dir(session, path, num_imus=2, readout_time_sec=readout_time_sec, seed=23)
+    return time.time() - t0
+
+
+def adapter_problem(path, dev, session_dir, times, options):
+    """load_session -> SessionAdapter.build -> blocking of a session
+    directory; prints the path's problem line (with the stage seconds in
+    `times`) and returns (problem, adapter, index of the blocked visual
+    batch)."""
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline import session_data as sio
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import SessionAdapter
-    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic_io import (
-        write_session_dir)
 
-    times = {"session": session_sec}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        write_session_dir(session, tmp, num_imus=2, readout_time_sec=readout_time_sec, seed=23)
-        times["write"] = time.time() - t0
-        t0 = time.time()
-        sd = sio.load_session(tmp)
-        times["load"] = time.time() - t0
+    t0 = time.time()
+    sd = sio.load_session(session_dir)
+    times["load"] = time.time() - t0
     t0 = time.time()
     adapter = SessionAdapter(sd, options, log=lambda *a: None, device=dev, dtype=torch.float32)
     problem = adapter.build()
@@ -751,12 +807,14 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
                   jread + [zl] + plan + cplan, (4 * k + 4 * kc + 14) * n_real)
 
 
-def full_sensor(dev, bench, session, session_sec):
+def full_sensor(dev, bench, session_dir, times):
+    """The full-sensor path on the session directory written for it (kept
+    for cli:full)."""
     from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import AdapterOptions
 
     problem, adapter, vi = adapter_problem(
-        "full", dev, session, session_sec, 0.03,
+        "full", dev, session_dir, times,
         AdapterOptions(estimate_readout=True, estimate_cam_time_offset=True))
     cfg, data = problem.active_cfgs[vi], problem.datas[vi]
     info = cfg.block_info
@@ -802,8 +860,9 @@ def gs_cal(dev, bench, session, session_sec):
     from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import AdapterOptions
 
-    problem, adapter, vi = adapter_problem("gs_cal", dev, session, session_sec, None,
-                                           AdapterOptions())
+    with tempfile.TemporaryDirectory() as tmp:
+        times = {"session": session_sec, "write": write_600(session, tmp, None)}
+        problem, adapter, vi = adapter_problem("gs_cal", dev, tmp, times, AdapterOptions())
     kinds = [c.kind for c in problem.cfgs]
     if "rs_visual" in kinds or any("rs_tables" in d for d in problem.datas):
         raise AssertionError(f"gs_cal: rolling-shutter batch or tables in {kinds}")
@@ -888,11 +947,6 @@ def two_grid(dev, bench):
     zl = torch.randn((L, 3), generator=gen, device=dev)
     u = torch.randn((2, N), generator=gen, device=dev) * real
     seg_tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
-
-    def library_sum(contrib, rows):
-        out = torch.zeros((rows.n_rows, contrib.shape[0]), dtype=contrib.dtype, device=dev)
-        idx = rows.row.long()
-        return lambda: out.zero_().index_add_(0, idx, contrib.T)
 
     # per PCG matvec: K12 on the rig rows, K13a on the landmark rows, the 3x3
     # solve, K13b on the landmark rows, K13a on the rig rows
@@ -994,8 +1048,7 @@ def two_grid(dev, bench):
 def tile_profile(dev, bench, problem):
     """K14a-e against their plain versions at the two_grid problem's shapes
     (the rig grid at k 6, the point-sorted grid at k 3), K14a and K14b
-    against their library calls and the redesigned K14a and K14c against
-    their old designs (in turns), then the profile path: the launch counts
+    against their library calls (in turns), then the profile path: the launch counts
     set to 0, the Schur matvec composed from the tile kernels held against
     rcs.matvec (and K14a's landmark blocks against K13c's, K14b's slot steps
     against an index_select), the counts read; then each component timed.
@@ -1069,16 +1122,8 @@ def tile_profile(dev, bench, problem):
                            ("mv_scatter(rig grid)", seg.seg_mv_scatter, args14e_g)):
         if not all(torch.equal(o1, o2) for o1, o2 in zip(flat(fn(*args)), flat(fn(*args)))):
             raise AssertionError(f"{name}: two calls on the same inputs differ")
-    # the redesigned K14a and K14c against the designs they replaced (C
-    # entries only this script reaches), in turns; one device operation each
-    for name, args, new, old, tols in (
-            ("reduce_partials", args14a, seg.seg_reduce_partials,
-             lambda *a: seg._launch_reduce_partials(*a, entry="viba_tile_reduce_v1"),
-             seg_tol("part")),
-            ("mv_fused", args14c, seg.seg_mv_fused,
-             lambda *a: seg._launch_mv_fused(*a, entry="viba_tile_mv_fused_v1"),
-             seg_tol("wu", "part"))):
-        against_old(name, bench.results[name], lambda: new(*args), lambda: old(*args), tols)
+    # the redesigned K14a and K14c: one device operation each
+    for name in ("reduce_partials", "mv_fused"):
         if bench.results[name]["device_ops"] > 1:
             raise AssertionError(f"{name}: {bench.results[name]['device_ops']} device "
                                  "operations per call")
@@ -1109,6 +1154,217 @@ def tile_profile(dev, bench, problem):
     bench.results["mv_fused"]["profile_ms"] = ms
     bench.results["mv_fused"]["profile_device_ms"] = dev_ms
     bench.results["mv_fused"]["profile_errors"] = errs
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# cli: the command-line entry point on the golden sessions and the full session
+# ---------------------------------------------------------------------------
+
+GOLDEN = "tests/data"
+# (golden_session bound of tests/test_golden_session.py, float32 bound) of
+# each error against the expected outputs (written by the float64 CPU run).
+# A float32 run converges to another point within float32's noise; its
+# bounds are ~10x the errors of the first float32 run on an H100, which
+# missed the float64 bounds of position, 1-|q.q|, accel bias, the time
+# offsets, readout and projection parameters (PERF.md §4)
+GOLDEN_BOUNDS = {
+    "position_m": (1e-4, 1e-3),
+    "1-|q.q|": (1e-8, 1e-6),
+    "gyro_bias": (1e-6, 1e-4),
+    "accel_bias": (1e-6, 1e-3),
+    "gyro_time_offset_s": (1e-8, 5e-6),
+    "projection_params": (1.0, 100.0),  # max |a - e| / (1e-7 + 1e-6 |e|)
+    "readout_s": (1e-8, 5e-6),
+    "camera_time_offset_s": (1e-8, 5e-6),
+}
+
+
+def run_cli(argv, dev, timings):
+    """pipeline.cli.main(argv) on dev with its printed lines captured:
+    (exit code, the lines)."""
+    import contextlib
+    import io
+
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv, device=dev, timings=timings)
+    return rc, out.getvalue().splitlines()
+
+
+def stage_line(timings):
+    return ", ".join(f"{k} {sum(v):.3f} s ({len(v)}: " + " ".join(f"{x:.3f}" for x in v) + ")"
+                     if isinstance(v, list) else f"{k} {v:.3f} s" for k, v in timings.items())
+
+
+def golden_errors(base, out):
+    """The errors of a CLI run's outputs against a golden session's expected
+    ones (tests/test_golden_session.py's quantities, over every record)."""
+    import csv
+
+    import numpy as np
+
+    def traj(path):
+        rows = list(csv.DictReader(open(path)))
+        return (np.asarray([int(r["tracking_timestamp_us"]) for r in rows]),
+                np.asarray([[float(r[f"t{a}_world_device"]) for a in "xyz"] for r in rows]),
+                np.asarray([[float(r[f"q{a}_world_device"]) for a in "wxyz"] for r in rows]))
+
+    t_e, p_e, q_e = traj(f"{base}/expected/closed_loop_framerate_trajectory.csv")
+    t_a, p_a, q_a = traj(f"{out}/closed_loop_framerate_trajectory.csv")
+    if not np.array_equal(t_a, t_e):
+        raise AssertionError(f"{base}: trajectory timestamps differ")
+    err = {"position_m": float(np.linalg.norm(p_a - p_e, axis=-1).max()),
+           "1-|q.q|": float((1.0 - np.abs((q_a * q_e).sum(-1))).max())}
+    exp = [json.loads(ln) for ln in open(f"{base}/expected/online_calibration.jsonl")]
+    act = [json.loads(ln) for ln in open(f"{out}/online_calibration.jsonl")]
+    if len(exp) != len(act):
+        raise AssertionError(f"{base}: {len(act)} calibration records, expected {len(exp)}")
+
+    def worst(key, pairs):
+        err[key] = max([err.get(key, 0.0)] + [float(np.abs(np.asarray(a, float)
+                                                           - np.asarray(e, float)).max())
+                                              for a, e in pairs])
+
+    for e, a in zip(exp, act):
+        imus = list(zip(a["ImuCalibrations"], e["ImuCalibrations"]))
+        cams = list(zip(a["CameraCalibrations"], e["CameraCalibrations"]))
+        worst("gyro_bias", [(ai["Gyroscope"]["Bias"]["Offset"], ei["Gyroscope"]["Bias"]["Offset"])
+                            for ai, ei in imus])
+        worst("accel_bias", [(ai["Accelerometer"]["Bias"]["Offset"],
+                              ei["Accelerometer"]["Bias"]["Offset"]) for ai, ei in imus])
+        worst("gyro_time_offset_s", [(ai.get("TimeOffsetSec_Device_Gyro", 0.0),
+                                      ei.get("TimeOffsetSec_Device_Gyro", 0.0))
+                                     for ai, ei in imus])
+        for key, field in (("readout_s", "ReadoutTimeSec"),
+                           ("camera_time_offset_s", "TimeOffsetSec_Device_Camera")):
+            worst(key, [(ac.get(field, 0.0), ec.get(field, 0.0)) for ac, ec in cams])
+        for ac, ec in cams:
+            pa = np.asarray(ac["Projection"]["Params"], float)
+            pe = np.asarray(ec["Projection"]["Params"], float)
+            err["projection_params"] = max(err.get("projection_params", 0.0), float(
+                (np.abs(pa - pe) / (1e-7 + 1e-6 * np.abs(pe))).max()))
+    return err
+
+
+def cli_golden(dev, smi):
+    """pipeline.cli.main on the card (float32) on the two committed golden
+    sessions with their flags, against their expected outputs: each error
+    within the golden test's bound, or where float32 misses it, within the
+    float32 bound (GOLDEN_BOUNDS)."""
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+
+    for name, flags in (("golden_session", CLI_ARGS), ("golden_session_full", CLI_ARGS_FULL)):
+        base = f"{GOLDEN}/{name}"
+        with tempfile.TemporaryDirectory() as out:
+            timings = {}
+            _kernels.reset_launch_counts()
+            rc, lines = run_cli(["-i", f"{base}/input", "-o", out, *flags], dev, timings)
+            launches = {k: n for k, n in _kernels.launch_counts().items() if n}
+            if rc != 0:
+                raise AssertionError(f"cli:golden {name}: exit code {rc}")
+            err = golden_errors(base, out)
+        summary = next(ln for ln in lines if ln.startswith("optimize:"))
+        phase("cli:golden", f"{name}: {summary} | {stage_line(timings)} | launches {launches} "
+              f"| {smi}")
+        for key, val in err.items():
+            bound64, bound32 = GOLDEN_BOUNDS[key]
+            held = "the golden bound" if val <= bound64 else f"the float32 bound {bound32:g}"
+            phase("cli:golden", f"{name}: {key} {val:.3e} (golden bound {bound64:g}; held to "
+                  f"{held})")
+            if not val <= bound32:
+                raise AssertionError(f"cli:golden {name}: {key} {val:.3e} > {bound32:g}")
+
+
+def cli_argv(session_dir, out_dir, tmp):
+    """cli:full's command line."""
+    return ["-i", session_dir, "-o", out_dir, "--estimate-readout-time",
+            "--estimate-time-offset", "--max-num-iterations", str(LM_ITERATIONS),
+            "--recompute-preint", "--eval-calib-vs-factory", "--simple-stats",
+            "--monitor-jsonl", f"{tmp}/monitor.jsonl", "--json-report", f"{tmp}/report.json"]
+
+
+def cli_refinement_rows(dev, bench, session_dir):
+    """K13c at the shapes point refinement gives it on cli:full: the CLI's
+    problem (its flags' options, blocked as main blocks it), the per-slot
+    tables refine_points sums at the initial landmarks (D 13 in the Jacobian
+    pass: cost, gradient, 3x3 block; D 1 in the cost passes) over the
+    landmark plan it builds, each against the plain version and index_add_."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import cli
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import point_refinement as pr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        options = cli.make_adapter_options(
+            cli.build_arg_parser().parse_args(cli_argv(session_dir, tmp, tmp)))
+    problem, _, _ = adapter_problem("cli", dev, session_dir, {}, options)
+    b, = pr.point_batches(problem)
+    n_real, N = int(b.plan.obs.shape[0]), int(b.plan.row.shape[0])
+    for D, with_jac in ((13, True), (1, False)):
+        contrib = pr.point_contrib(problem, b, problem.variables.points, with_jac)
+        if tuple(contrib.shape) != (D, N):
+            raise AssertionError(f"cli: refinement table {tuple(contrib.shape)}, not {(D, N)}")
+        # K13c reads the real slots' columns of contrib (by the plan's obs)
+        bench.compare(f"reduce_table(cli,D={D})", seg.seg_reduce_table, (contrib, b.plan),
+                      [("y", TOL_SEG)], [(contrib, n_real / N), b.plan.ptr, b.plan.obs],
+                      D * n_real, library=library_sum(contrib, b.plan))
+        del contrib
+
+
+def cli_full(dev, session_dir, smi):
+    """pipeline.cli.main on the full-sensor session directory, 5 LM
+    iterations with every report on, the launch counts set to 0 just before
+    and read just after; returns the counts."""
+    import numpy as np
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+
+    traj_ts = np.loadtxt(f"{session_dir}/closed_loop_framerate_trajectory.csv", delimiter=",",
+                         skiprows=1, usecols=[1], dtype=np.int64)
+    online_ts = [json.loads(ln)["tracking_timestamp_us"]
+                 for ln in open(f"{session_dir}/online_calibration.jsonl")]
+    R = len(np.intersect1d(traj_ts, online_ts))
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = cli_argv(session_dir, f"{tmp}/out", tmp)
+        timings = {}
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        rc, lines = run_cli(argv, dev, timings)
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()
+        if rc != 0:
+            raise AssertionError(f"cli:full: exit code {rc}")
+        report = json.load(open(f"{tmp}/report.json"))
+        counts = {fn: sum(1 for _ in open(f"{tmp}/out/{fn}")) - (fn.endswith(".csv"))
+                  for fn in ("closed_loop_framerate_trajectory.csv",
+                             "open_loop_framerate_trajectory.csv", "online_calibration.jsonl")}
+        finite = all(np.isfinite(np.genfromtxt(f"{tmp}/out/{fn}", delimiter=",",
+                                               skip_header=1)[:, 3:]).all()
+                     for fn in ("closed_loop_framerate_trajectory.csv",
+                                "open_loop_framerate_trajectory.csv"))
+        monitor = [json.loads(ln) for ln in open(f"{tmp}/monitor.jsonl")]
+    for ln in lines:
+        if ln.startswith(("rigs:", "optimize:")) or "proj_offset@1.0m" in ln \
+                or ln.startswith(("imu0/gyro_bias", "rs_visual_cam0/px")):
+            phase("cli:full", ln)
+    phase("cli:full", f"{smi} | {stage_line(timings)}")
+    phase("cli:full", f"report {report} | rows {counts} (rigs {R}) | monitor records "
+          f"{len(monitor)} | launches { {k: n for k, n in launches.items() if n} }")
+    if any(n != R for n in counts.values()) or not finite:
+        raise AssertionError(f"cli:full: outputs {counts} (finite {finite}) for {R} rigs")
+    if not report["finalCost"] < report["initialCost"]:
+        raise AssertionError(f"cli:full: cost did not fall: {report}")
+    if len(monitor) != report["numIterations"]:
+        raise AssertionError(f"cli:full: {len(monitor)} monitor records for "
+                             f"{report['numIterations']} iterations")
+    missing = [k for k in path_kernels("cli") if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"cli:full: kernels not launched: {missing}")
     return launches
 
 
@@ -1151,9 +1407,17 @@ def main():
     launches.update(two_grid(dev, bench))
     torch.cuda.empty_cache()
     session, session_sec = session_600()
-    launches["full"] = full_sensor(dev, bench, session, session_sec)
-    torch.cuda.empty_cache()
-    launches["gs_cal"] = gs_cal(dev, bench, session, session_sec)
+    with tempfile.TemporaryDirectory() as full_dir:
+        times = {"session": session_sec, "write": write_600(session, full_dir, 0.03)}
+        launches["full"] = full_sensor(dev, bench, full_dir, times)
+        torch.cuda.empty_cache()
+        launches["gs_cal"] = gs_cal(dev, bench, session, session_sec)
+        del session
+        torch.cuda.empty_cache()
+        cli_golden(dev, smi)
+        launches["cli"] = cli_full(dev, full_dir, smi)
+        torch.cuda.empty_cache()
+        cli_refinement_rows(dev, bench, full_dir)
 
     rows = []
     for name, (kid, src, rep, path) in KERNELS.items():

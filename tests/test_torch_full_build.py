@@ -344,9 +344,3 @@ def test_entry_points_default_to_the_card():
 
         with pytest.raises((RuntimeError, AssertionError)):
             tbuilder.build_synthetic_problem(port_session(), tbuilder.BuildOptions(**BUILD))
-
-
-def test_init_rigs_options_raise():
-    with pytest.raises(NotImplementedError, match="init_rigs"):
-        SessionAdapter(tsd.load_session(full_session_dir()),
-                       AdapterOptions(map_keyrigs=([], [], [])), log=None, device="cpu")

@@ -492,16 +492,6 @@ def _tile(name, a, local, nt, ts, rb):
     return (tseg.seg_mv_scatter(a["J"], a["u"], local, nt, ts, rb),)
 
 
-# the designs K14a and K14c replaced (C entries only chip_smoke.py and this
-# file reach)
-def _old_tile(name, a, local, nt, ts, rb):
-    if name == "reduce_partials":
-        return (tseg._launch_reduce_partials(a["contrib"], local, nt, ts, rb, None,
-                                             entry="viba_tile_reduce_v1"),)
-    return tseg._launch_mv_fused(a["J"], a["w"], a["xt"], local, nt, ts, rb, None,
-                                 entry="viba_tile_mv_fused_v1")
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", ["rig", "point", "random", "edge"])
 @pytest.mark.parametrize("name,k", [
@@ -512,8 +502,7 @@ def _old_tile(name, a, local, nt, ts, rb):
     ("mv_scatter", 9)])
 def test_tile_kernel_matches_plain(name, k, grid, cuda_device):
     """Each K14 kernel within 1e-5 of its plain version in float64, one
-    launch a call, the same bits on every call; K14a and K14c also within
-    1e-5 of the designs they replaced; on the edge grid the tile that
+    launch a call, the same bits on every call; on the edge grid the tile that
     addresses nothing gives zeros (its partials, its slots' rows, K14c's wu
     of its slots, which no memset clears)."""
     local, nt, ts, rb = _tile_grids(cuda_device)[grid]
@@ -535,10 +524,6 @@ def test_tile_kernel_matches_plain(name, k, grid, cuda_device):
     _check(out, ref, (1e-5,) * len(out))
     for o, o2 in zip(out, again):  # ordered sums: the same bits every call
         assert torch.equal(o, o2)
-    if name in ("reduce_partials", "mv_fused"):
-        old = _old_tile(name, a, local, nt, ts, rb)
-        torch.cuda.synchronize()
-        _check(out, old, (1e-5,) * len(out))
     if grid == "edge":  # tile 0: its partials, or its slots' rows
         empty = {"gather_from_tiles": out[0][:ts], "mv_gather": out[0][:, :ts]}.get(name,
                                                                                   out[-1][0])
@@ -777,11 +762,13 @@ def test_pcg_cal_kernel_edge_plan(k, kc, cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [3, 9])
+@pytest.mark.parametrize("D", [1, 3, 9, 13])
 @pytest.mark.parametrize("scattered", [True, False])
 def test_landmark_reduce_rows_of_every_length(D, scattered, cuda_device, monkeypatch):
     """K13c on a landmark family with rows of 0, 1 and 2,000 slots: through
-    the slot-major copy when the RowPlan is marked scattered, else the walk."""
+    the slot-major copy when the RowPlan is marked scattered, else the walk;
+    at the widths of the landmark blocks (9) and gradient (3), and of point
+    refinement's tables (13, 1)."""
     rng = np.random.default_rng(103)
     n, R, L = 6000, 4, 40
     pad = (rng.random(n) < 0.1).astype(np.float64)

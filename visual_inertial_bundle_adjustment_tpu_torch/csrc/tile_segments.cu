@@ -78,88 +78,12 @@
 // xt; K14e reads J and u; K14d reads J, local and writes u; K14a reads D
 // floats; K14b reads local and writes D floats per slot. The run lists add
 // 12 bytes per run.
-//
-// The designs K14a and K14c replaced, kept as chip_smoke.py's yardsticks and
-// reached by nothing else: viba_tile_reduce_v1 and viba_tile_mv_fused_v1
-// (tile_reduce_rows: a warp per row walking its runs).
 #include "tile_reduce.cuh"
 
 namespace {
 
 constexpr int kTileThreads = 256;
 constexpr int kTileWarps = kTileThreads / 32;
-
-// ---------------------------------------------------------------------------
-// The designs K14a and K14c replaced (chip_smoke.py's yardsticks)
-// ---------------------------------------------------------------------------
-
-enum Mode { kReduce, kFused };
-
-// One CTA per tile; warp w owns rows w, w + 8, ... . MODE kReduce: partials
-// of contrib columns [col0, col0 + W) (D columns in all); kFused: wu = w
-// (J x_row) per slot of a run and partials of J^T wu.
-template <int MODE, int K, int W>
-__global__ void __launch_bounds__(kTileThreads) tile_reduce_rows(
-    int rb, int n, int D, const int* __restrict__ run_ptr, const int* __restrict__ run_start,
-    const int* __restrict__ run_len, const float* __restrict__ contrib,
-    const float* __restrict__ J, const float* __restrict__ w, const float* __restrict__ xt,
-    float* __restrict__ wu, float* __restrict__ part) {
-  const int t = blockIdx.x;
-  const int col0 = blockIdx.y * W;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int width = MODE == kReduce ? D : K;
-  for (int r = warp; r < rb; r += kTileWarps) {
-    const long row = (long)t * rb + r;
-    float acc[W];
-#pragma unroll
-    for (int i = 0; i < W; ++i) acc[i] = 0.f;
-    float xr[K];
-    if constexpr (MODE == kFused) {
-#pragma unroll
-      for (int c = 0; c < K; ++c) xr[c] = xt[K * row + c];
-    }
-    const int q_end = run_ptr[row + 1];
-    for (int q = run_ptr[row]; q < q_end; ++q) {
-      const int s0 = run_start[q], len = run_len[q];
-      for (int j = lane; j < len; j += 32) {
-        const int s = s0 + j;
-        if constexpr (MODE == kReduce) {
-#pragma unroll
-          for (int i = 0; i < W; ++i) {
-            if (col0 + i < D) acc[i] += contrib[(col0 + i) * (long)n + s];
-          }
-        } else {
-          float j0[K], j1[K];
-#pragma unroll
-          for (int c = 0; c < K; ++c) {
-            j0[c] = J[c * (long)n + s];
-            j1[c] = J[(K + c) * (long)n + s];
-          }
-          float u0 = 0.f, u1 = 0.f;
-#pragma unroll
-          for (int c = 0; c < K; ++c) {
-            u0 += j0[c] * xr[c];
-            u1 += j1[c] * xr[c];
-          }
-          const float ws = w[s];
-          u0 *= ws;
-          u1 *= ws;
-          wu[s] = u0;
-          wu[n + s] = u1;
-#pragma unroll
-          for (int c = 0; c < K; ++c) acc[c] += j0[c] * u0 + j1[c] * u1;
-        }
-      }
-    }
-    viba::group_sum<32, W>(acc, nullptr);
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < W; ++i) {
-        if (col0 + i < width) part[width * row + col0 + i] = acc[i];
-      }
-    }
-  }
-}
 
 // One CTA per tile (K14d): stage xt[t] (rb, K) in shared memory, then per
 // slot u (2, N) = J x.
@@ -685,26 +609,6 @@ cudaError_t launch_reduce_split(int nt, int rb, int n, int D, const int* run_ptr
   return cudaGetLastError();
 }
 
-template <int MODE, int K, int W>
-cudaError_t launch_reduce_rows(int nt, int rb, int n, int D, const int* run_ptr,
-                               const int* run_start, const int* run_len, const float* contrib,
-                               const float* J, const float* w, const float* xt, float* wu,
-                               float* part, cudaStream_t st) {
-  const dim3 grid(nt, MODE == kReduce ? (D + W - 1) / W : 1);
-  tile_reduce_rows<MODE, K, W><<<grid, kTileThreads, 0, st>>>(rb, n, D, run_ptr, run_start,
-                                                               run_len, contrib, J, w, xt, wu,
-                                                               part);
-  return cudaGetLastError();
-}
-
-template <int K>
-cudaError_t launch_fused_rows(int nt, int rb, int n, const int* run_ptr, const int* run_start,
-                              const int* run_len, const float* J, const float* w, const float* xt,
-                              float* wu, float* part, cudaStream_t st) {
-  return launch_reduce_rows<kFused, K, K>(nt, rb, n, K, run_ptr, run_start, run_len, nullptr, J,
-                                          w, xt, wu, part, st);
-}
-
 template <int K>
 cudaError_t launch_gather(int nt, int ts, int rb, const int* local, const float* J,
                           const float* xt, float* out, cudaStream_t st) {
@@ -760,23 +664,6 @@ extern "C" int viba_tile_reduce(int nt, int rb, int n, int D, const int* run_ptr
                                       st));
 }
 
-// K14a's design before (a warp per row walking its runs): chip_smoke.py's
-// yardstick
-extern "C" int viba_tile_reduce_v1(int nt, int rb, int n, int D, const int* run_ptr,
-                                   const int* run_start, const int* run_len,
-                                   const float* contrib, float* part, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nt <= 0 || D <= 0) return 0;
-  const cudaError_t err =
-      D <= 3 ? launch_reduce_rows<kReduce, 1, 3>(nt, rb, n, D, run_ptr, run_start, run_len,
-                                                 contrib, nullptr, nullptr, nullptr, nullptr,
-                                                 part, st)
-             : launch_reduce_rows<kReduce, 1, 9>(nt, rb, n, D, run_ptr, run_start, run_len,
-                                                 contrib, nullptr, nullptr, nullptr, nullptr,
-                                                 part, st);
-  return static_cast<int>(err);
-}
-
 extern "C" int viba_tile_mv_scatter(int nt, int rb, int n, int k, const int* run_ptr,
                                     const int* run_start, const int* run_len, const float* J,
                                     const float* u, float* part, void* stream) {
@@ -797,20 +684,6 @@ extern "C" int viba_tile_mv_fused(int nt, int rb, int n, int k, const int* run_p
   return static_cast<int>(VIBA_DISPATCH_K(
       launch_fused_staged, k,
       (nt, rb, n, run_ptr, run_start, run_len, J, w, xt, local, wu, part, st)));
-}
-
-// K14c's design before (a warp per row walking its runs, wu cleared first
-// for the slots no run covers): chip_smoke.py's yardstick
-extern "C" int viba_tile_mv_fused_v1(int nt, int rb, int n, int k, const int* run_ptr,
-                                     const int* run_start, const int* run_len, const float* J,
-                                     const float* w, const float* xt, const int*, float* wu,
-                                     float* part, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nt <= 0) return 0;
-  const cudaError_t err = cudaMemsetAsync(wu, 0, sizeof(float) * 2 * (size_t)n, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(VIBA_DISPATCH_K(
-      launch_fused_rows, k, (nt, rb, n, run_ptr, run_start, run_len, J, w, xt, wu, part, st)));
 }
 
 extern "C" int viba_tile_gather(int nt, int ts, int rb, int D, const int* local, const float* xt,

@@ -67,10 +67,8 @@ _SIGNATURES = {
     "viba_seg_reduce": [_I] * 5 + [_P] * 6 + [_P],
     "viba_seg_reduce_slot_major": [_I] * 3 + [_P] * 5 + [_P],
     "viba_tile_reduce": [_I] * 4 + [_P] * 5 + [_P],
-    "viba_tile_reduce_v1": [_I] * 4 + [_P] * 5 + [_P],
     "viba_tile_gather": [_I] * 4 + [_P] * 3 + [_P],
     "viba_tile_mv_fused": [_I] * 4 + [_P] * 9 + [_P],
-    "viba_tile_mv_fused_v1": [_I] * 4 + [_P] * 9 + [_P],
     "viba_tile_mv_gather": [_I] * 4 + [_P] * 4 + [_P],
     "viba_tile_mv_scatter": [_I] * 4 + [_P] * 6 + [_P],
 }

@@ -81,10 +81,17 @@ def _row(a, i):
     return a[torch.arange(a.shape[0], device=a.device), i]
 
 
+DONE_CHECK_STEPS = 32  # preintegrate_batch's early stop: steps between host reads
+
+
 def preintegrate_batch(calibs, iv: PreintInterval, noise: imu_model.ImuNoiseModel,
                        num_steps: int) -> Preintegration:
     """Full preintegration of B intervals with per-interval calibrations
-    (B, 23); `num_steps` bounds the merged boundary count (gyro + accel)."""
+    (B, 23); `num_steps` bounds the merged boundary count (gyro + accel).
+    The loop stops once every interval is done (checked every
+    DONE_CHECK_STEPS steps, one host read each): the steps after that change
+    nothing, and a bucket's padding makes num_steps ~3x the steps its
+    intervals take."""
     dtype, device = calibs.dtype, calibs.device
     Bn = calibs.shape[0]
     dt_gyro = calibs[:, imu_model.DT_REF_GYRO]
@@ -179,6 +186,8 @@ def preintegrate_batch(calibs, iv: PreintInterval, noise: imu_model.ImuNoiseMode
         )
         s = {k: torch.where(active.reshape((Bn,) + (1,) * (a.ndim - 1)), a, s[k])
              for k, a in new.items()}
+        if step % DONE_CHECK_STEPS == DONE_CHECK_STEPS - 1 and bool(s["done"].all()):
+            break
 
     valid = valid & s["done"]
     rvp = RotVelPos(s["q"], s["dV"], s["dP"], s["dt"])

@@ -1020,27 +1020,19 @@ def _xt_arg(xt, nt, rb, D):
     return _kernels.check(xt, "xt", torch.float32, (nt, rb, D))
 
 
-def _launch_reduce_partials(contrib, local, nt, ts, rb, plan, entry="viba_tile_reduce"):
-    """K14a (csrc/tile_segments.cu viba_tile_reduce: each tile's rows cut
-    into pieces across its warps, contrib read in the piece walk);
-    entry="viba_tile_reduce_v1" launches the design before (a warp per row
-    walking its runs), chip_smoke.py's yardstick, which the wrapper never
-    calls."""
-    D, n = contrib.shape
-    part = _empty((nt, rb, D), contrib)
-    _kernels.launch(entry, nt, rb, n, D, *_plan_args(plan, local, nt, ts, rb),
-                    _kernels.check(contrib, "contrib", torch.float32, (D, nt * ts)),
-                    part.data_ptr())
-    return part
-
-
 @_kernels.register("reduce_partials")
 def seg_reduce_partials(contrib, local, nt, ts, rb, plan: TilePlan | None = None):
     """K14a: contrib (D, nt*ts), local (nt*ts,) -> tile partials (nt, rb, D),
-    each row's slots summed in a fixed order."""
+    each row's slots summed in a fixed order (csrc/tile_segments.cu
+    viba_tile_reduce: each tile's rows cut into pieces across its warps,
+    contrib read in the piece walk)."""
     if not _kernels.on_card(contrib):
         return _reduce_partials_plain(contrib, local, nt, ts, rb)
-    part = _launch_reduce_partials(contrib, local, nt, ts, rb, plan)
+    D, n = contrib.shape
+    part = _empty((nt, rb, D), contrib)
+    _kernels.launch("viba_tile_reduce", nt, rb, n, D, *_plan_args(plan, local, nt, ts, rb),
+                    _kernels.check(contrib, "contrib", torch.float32, (D, nt * ts)),
+                    part.data_ptr())
     seg_reduce_partials.launches += 1
     return part
 
@@ -1066,33 +1058,26 @@ def _mv_fused_tiles_plain(J, w, xt, local, nt, ts, rb):
     return wu, _reduce_partials_plain((J * wu[:, None, :]).sum(0), local, nt, ts, rb)
 
 
-def _launch_mv_fused(J, w, xt, local, nt, ts, rb, plan, entry="viba_tile_mv_fused"):
-    """K14c (csrc/tile_segments.cu viba_tile_mv_fused: a CTA per tile
-    staging w (J x) and J^T wu in shared memory, wu stored for every slot,
-    each row's slots cut into pieces across its warps);
-    entry="viba_tile_mv_fused_v1" launches the design before (wu cleared,
-    then a warp per row walking its runs), chip_smoke.py's yardstick, which
-    the wrapper never calls."""
-    k, jp = _tile_jac(J, nt, ts)
-    wu = _empty((2, nt * ts), J)
-    part = _empty((nt, rb, k), J)
-    _kernels.launch(entry, nt, rb, nt * ts, k, *_plan_args(plan, local, nt, ts, rb), jp,
-                    _kernels.check(w, "w", torch.float32, (nt * ts,)),
-                    _kernels.check(xt, "xt", torch.float32, (nt, rb, k)),
-                    _local_arg(local, nt, ts), wu.data_ptr(), part.data_ptr())
-    return wu, part
-
-
 @_kernels.register("mv_fused")
 def seg_mv_fused(J, w, xt, local, nt, ts, rb, plan: TilePlan | None = None):
     """K14c, the rig-side matvec tile pass: J (2, k, nt*ts), w (nt*ts,), xt
     (nt, rb, k) gathered tile rows -> (wu (2, nt*ts) = w (J x_g), tile
-    partials (nt, rb, k) of J^T wu), J read once."""
+    partials (nt, rb, k) of J^T wu), J read once (csrc/tile_segments.cu
+    viba_tile_mv_fused: a CTA per tile staging w (J x) and J^T wu in shared
+    memory, wu stored for every slot, each row's slots cut into pieces
+    across its warps)."""
     if not _kernels.on_card(J):
         return _mv_fused_tiles_plain(J, w, xt, local, nt, ts, rb)
-    out = _launch_mv_fused(J, w, xt, local, nt, ts, rb, plan)
+    k, jp = _tile_jac(J, nt, ts)
+    wu = _empty((2, nt * ts), J)
+    part = _empty((nt, rb, k), J)
+    _kernels.launch("viba_tile_mv_fused", nt, rb, nt * ts, k,
+                    *_plan_args(plan, local, nt, ts, rb), jp,
+                    _kernels.check(w, "w", torch.float32, (nt * ts,)),
+                    _kernels.check(xt, "xt", torch.float32, (nt, rb, k)),
+                    _local_arg(local, nt, ts), wu.data_ptr(), part.data_ptr())
     seg_mv_fused.launches += 1
-    return out
+    return wu, part
 
 
 @_kernels.register("mv_gather")

@@ -18,13 +18,15 @@ FactoryCalibPriors,OmegaPriors}.cpp):
   - omega priors per (rig, imu) when >= 2 IMUs (OmegaPriors.cpp:19-31)
   - visual factors per inlier observation after triangulation, rolling-shutter
     ones with per-rig RS tables (VisualFactors.cpp:16-62)
+  - rig states from the trajectory, optionally anchored to map keyrigs or
+    overridden from a ground-truth trajectory (pipeline/init_rigs.py)
 
 Setup numerics (triangulation, preintegration, RS tables) run batched in
 float64 on `device`; the factor batches are assembled on the host, and the
 finished problem moves to `device` as `dtype` in one pass at the end of
 build(). The device is the first CUDA card unless the caller asks for
-another. Not ported yet: the map-anchored and GT-trajectory initialisations
-(pipeline/init_rigs.py) and recompute_preintegrations.
+another. `recompute_preintegrations` re-runs the preintegration on the
+device at the current calibration (the --recompute-preint pre-step).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..ops import rolling_shutter as rs
 from ..problem import factors as fct
 from ..problem.optimizer import Problem
 from ..problem.structure import GRAVITY_MAG, VariableTables, full_masks
+from . import init_rigs as ir
 from . import triangulation as tri
 from .builder import REPROJ_LOSS, chol_inv_lower, default_device
 from .session_data import SessionData, _se3_inv, _se3_mul
@@ -102,10 +105,15 @@ class AdapterOptions:
     rigs_constant: bool = False
     use_detector_bias: bool = False
     max_track_len: int = 64  # padding bound for triangulation
-    trajectory_to_gt: tuple = ()  # needs init_rigs (not ported yet)
-    trajectory_constant: tuple = ()
-    gt_trajectory: object = None  # needs init_rigs (not ported yet)
-    map_keyrigs: tuple = None  # needs init_rigs (not ported yet)
+    # trajectory init overrides (Settings.h:34-37; tokens pose|vel|omega|all)
+    trajectory_to_gt: tuple = ()  # components initialized from gt_trajectory
+    trajectory_constant: tuple = ()  # components held constant
+    gt_trajectory: object = None  # init_rigs.InterpolatedTrajectory-like
+    # map-anchored init (initRigsInterpolatingPoses): (kr_timestamps_us,
+    # kr_pose_q, kr_pose_t), poses T_bodyImu_world in the map world frame;
+    # rigs outside the grown keyrig ranges stay on the raw trajectory
+    map_keyrigs: tuple = None
+    rig_window_grow: int = 10  # SingleSessionAdapter.h:101
 
 
 class SessionAdapter:
@@ -117,11 +125,6 @@ class SessionAdapter:
         self.device = torch.device(device) if device is not None else default_device()
         self.dtype = dtype
         self.timings = {}  # seconds per build stage (host clock)
-        if self.opts.map_keyrigs is not None or (
-                self.opts.gt_trajectory is not None and self.opts.trajectory_to_gt):
-            raise NotImplementedError(
-                "map-anchored / GT-trajectory rig initialisation needs pipeline/init_rigs.py, "
-                "which a later slice of the port brings")
         self._match()
 
     # -- Matcher (reference Matcher.cpp) ------------------------------------
@@ -139,6 +142,7 @@ class SessionAdapter:
             raise RuntimeError("no rigs: trajectory and online calib timestamps disjoint")
         self.traj_row = {t: i for i, t in enumerate(sd.traj_timestamp_us.tolist())}
         self.online_row = {t: i for i, t in enumerate(online_ts.tolist())}
+        self.ts_to_rig = {t: i for i, t in enumerate(rig_ts.tolist())}
 
         oc = sd.online[0]
         self.num_cams = len(oc.cameras)
@@ -223,6 +227,27 @@ class SessionAdapter:
         rows = np.asarray([self.traj_row[t] for t in self.rig_ts_us.tolist()])
         pose_q, pose_t = sd.traj_pose_q[rows], sd.traj_pose_t[rows]
         vel, omega = sd.traj_vel_w[rows], sd.traj_omega[rows]
+
+        # map-anchored init (initRigsInterpolatingPoses, InitRigs.cpp:236-400)
+        if opts.map_keyrigs is not None:
+            kr_ts, kr_q, kr_t = opts.map_keyrigs
+            kr_rig = np.asarray([self.ts_to_rig[int(t)] for t in kr_ts], np.int64)
+            reset_rigs = [self.ts_to_rig[t] for t in getattr(sd, "reset_timestamps_us", [])
+                          if t in self.ts_to_rig]
+            pose_q, pose_t, vel, omega, _, _ = ir.init_rigs_interpolating_poses(
+                pose_q, pose_t, vel, omega, self.rig_ts_us, kr_rig, np.asarray(kr_q),
+                np.asarray(kr_t), reset_rig_indices=reset_rigs,
+                rig_window_grow=opts.rig_window_grow, log=self.log)
+
+        # GT-trajectory overrides (initRigsFromGtTrajectory, InitRigs.cpp:146-230)
+        to_gt = set(opts.trajectory_to_gt)
+        if "all" in to_gt:
+            to_gt = {"pose", "vel", "omega"}
+        if opts.gt_trajectory is not None and to_gt:
+            pose_q, pose_t, vel, omega = ir.init_rigs_from_gt(
+                pose_q, pose_t, vel, omega, self.rig_ts_us, opts.gt_trajectory,
+                pose_to_gt="pose" in to_gt, vel_to_gt="vel" in to_gt,
+                omega_to_gt="omega" in to_gt)
 
         # calibration window variables, value at each window's LAST rig
         calib_src = sd.factory if opts.factory_init else None
@@ -455,13 +480,41 @@ class SessionAdapter:
             if cfg.kind == "rs_visual":
                 data["rs_tables"] = self._rs_tables
 
-    def make_pre_step_callback(self):
-        """Pre-step hook for the LM loop (reference preStepCallback): refresh
-        the RS tables after the first iteration."""
+    def recompute_preintegrations(self):
+        """Re-run the preintegration on the device, in float64, at the
+        CURRENT calibration estimates and refresh every inertial batch (the
+        reference's --recompute-preint pre-step, main_AriaKit_ViBa.cpp:95-101
+        + regenerateAllPreintegrationsFromImuMeasurements). The build-time
+        buckets are kept on the device (`_preint_cache`), each with the batch
+        rows of its intervals; a row whose interval turns invalid keeps its
+        sqrt information."""
+        v = self.problem.variables
+        for cfg, data in zip(self.problem.cfgs, self.problem.datas):
+            if cfg.kind not in ("inertial", "inertial_secondary"):
+                continue
+            ii = 0 if cfg.kind == "inertial" else int(cfg.label.rsplit("imu", 1)[-1])
+            noise = self.imu_noise_model(ii)
+            for iv, num_steps, rows in self._preint_cache[ii]:
+                calibs = v.imu_calib.index_select(0, data["calib"].index_select(0, rows).long())
+                p = pre.preintegrate_batch(calibs.to(F64), iv, noise, num_steps)
+                sqrt_info = torch.where(p.valid[:, None, None], chol_inv_lower(p.cov),
+                                        data["sqrt_info"].index_select(0, rows).to(F64))
+                for key, val in (("preint_q", p.rvp.q), ("preint_dv", p.rvp.dV),
+                                 ("preint_dp", p.rvp.dP), ("preint_dt", p.rvp.dt),
+                                 ("preint_J", p.J), ("calib_eval", p.calib_eval),
+                                 ("sqrt_info", sqrt_info)):
+                    data[key] = data[key].index_copy(0, rows, val.to(data[key].dtype))
+
+    def make_pre_step_callback(self, recompute_preint: bool = False):
+        """Pre-step hook for the LM loop (reference preStepCallback): after
+        the first iteration, optionally recompute the preintegrations, then
+        refresh the RS tables."""
 
         def cb(iteration, problem):
             if iteration == 0:
                 return
+            if recompute_preint:
+                self.recompute_preintegrations()
             self.update_rolling_shutter_data()
 
         return cb
@@ -498,19 +551,21 @@ class SessionAdapter:
         """Batched preintegration over [t0, t1] pairs, grouped by the pow-2
         bucket of each interval's sample count (each bucket padded only to
         its own size). Returns the merged Preintegration (original order) as
-        host numpy."""
+        host numpy, and the buckets (interval indices, intervals on the
+        device, num_steps) for recompute_preintegrations."""
         t_abs, _, _ = self._imu_stream(ii)
         rate = 1.0 / max(np.diff(t_abs).min(), 1e-5)
         need = np.ceil((np.asarray(t1s) - np.asarray(t0s) + 2 * slack) * rate) + 4
         S = np.maximum(2 ** np.ceil(np.log2(np.maximum(need, 1))).astype(np.int64), 8)
         n = len(t0s)
-        merged = None
+        merged, buckets = None, []
         for s_val in np.unique(S):
             sel = np.nonzero(S == s_val)[0]
             iv, num_steps = self._intervals_for(ii, np.asarray(t0s)[sel], np.asarray(t1s)[sel],
                                                 slack=slack, S=int(s_val))
             p = pre.preintegrate_batch(torch.from_numpy(calibs[sel]).to(self.device), iv,
                                        noise, num_steps)
+            buckets.append((sel, iv, num_steps))
             flat = {"q": p.rvp.q, "dV": p.rvp.dV, "dP": p.rvp.dP, "dt": p.rvp.dt, "J": p.J,
                     "cov": p.cov, "omega_at_end": p.omega_at_end, "calib_eval": p.calib_eval,
                     "valid": p.valid}
@@ -519,7 +574,7 @@ class SessionAdapter:
                           for k, a in flat.items()}
             for k, a in flat.items():
                 merged[k][sel] = a.cpu().numpy()
-        return merged
+        return merged, buckets
 
     def _add_inertial(self, problem, imu_calib_init):
         R, nI = self.R, self.num_imus
@@ -529,15 +584,28 @@ class SessionAdapter:
         if len(prev) == 0:
             return
         self._omega_meas = {}
+        self._preint_cache = {}
         for ii in range(nI):
             noise = self.imu_noise_model(ii)
             calib_rows = self.rig_window[prev] * nI + ii
-            p = self._preintegrate_pairs(ii, rig_t[prev], rig_t[nxt], imu_calib_init[calib_rows],
-                                         noise)
+            p, buckets = self._preintegrate_pairs(ii, rig_t[prev], rig_t[nxt],
+                                                  imu_calib_init[calib_rows], noise)
             ok = p["valid"]
             if not ok.all():
                 self.log(f"imu {ii}: {int((~ok).sum())} invalid preint intervals dropped")
             sel = np.nonzero(ok)[0]
+            # batch row of each kept interval; each bucket keeps its kept
+            # intervals and their batch rows
+            row_of = np.full(len(prev), -1, np.int64)
+            row_of[sel] = np.arange(len(sel))
+            self._preint_cache[ii] = []
+            for bsel, iv, num_steps in buckets:
+                keep = np.nonzero(row_of[bsel] >= 0)[0]
+                if len(keep):
+                    k = torch.from_numpy(keep).to(self.device)
+                    self._preint_cache[ii].append((pre.PreintInterval(*(
+                        a.index_select(0, k) for a in iv)), num_steps,
+                        torch.from_numpy(row_of[bsel[keep]]).to(self.device)))
             sqrt_info = chol_inv_lower(torch.from_numpy(p["cov"][sel]).to(self.device)).cpu()
             self._omega_meas[ii] = (nxt[sel], p["omega_at_end"][sel])
             mask = np.asarray(self.imu_calib_mask, np.float64)

@@ -17,9 +17,10 @@ schemas —
 Loaded quantities use the reference's conventions (SessionData.cpp:278-316):
 poses are converted device->bodyImu at load, T_Cam_BodyImu =
 (T_bodyImu_device * T_Device_Camera)^-1, velocities corrected by
-omega x t_device_bodyImu. The observation and IMU CSVs are parsed with
-numpy (`np.loadtxt`); the JAX package's optional C++ parser is not ported.
-Everything here is host numpy.
+omega x t_device_bodyImu. `load_session` parses the observation and IMU
+CSVs with the C++ parser (`pipeline/native.py`, built with g++ at first
+use); `load_observations_csv` / `load_imu_csv` are the numpy parsers of the
+same files. Everything here is host numpy.
 """
 
 from __future__ import annotations
@@ -296,6 +297,27 @@ def load_observations_csv(path):
     return ints[:, 0], ts_ns, ints[:, 1].astype(np.int32), uv, sh
 
 
+OBS_COLUMNS = ["point_id", "capture_timestamp_ns", "camera_index", "projection_base_res_x",
+               "projection_base_res_y", "sqrt_h_base_res_00", "sqrt_h_base_res_01",
+               "sqrt_h_base_res_10", "sqrt_h_base_res_11"]
+
+
+def _parse_observations(path):
+    """load_observations_csv through the C++ parser, which reads the
+    writer's column order (a microsecond timestamp column scales to ns);
+    another order goes through the numpy parser by column name."""
+    from . import native
+
+    with open(path) as f:
+        names = [c.strip() for c in f.readline().strip().lstrip("#").split(",")]
+    us = names[1:2] == ["capture_timestamp_us"]
+    if (names[:1] + OBS_COLUMNS[1:2] + names[2:] != OBS_COLUMNS
+            or names[1] not in ("capture_timestamp_ns", "capture_timestamp_us")):
+        return load_observations_csv(path)
+    pid, ts, cam, uv, sh = native.parse_obs_csv(path)
+    return pid, ts * (1000 if us else 1), cam, uv, sh
+
+
 def load_imu_csv(path):
     """(times_ns, gyro (S,3), accel (S,3)) of an EuRoC-style IMU CSV
     (ImuDataFormat.h:14-23)."""
@@ -359,12 +381,14 @@ def load_session(path, load_imu=True) -> SessionData:
         else [""] * len(ts_us)
     )
 
-    obs_pid, obs_ts_ns, obs_cam, obs_uv, sh = load_observations_csv(
+    from . import native
+
+    obs_pid, obs_ts_ns, obs_cam, obs_uv, sh = _parse_observations(
         path / "session_observations.csv")
     imu_times, imu_gyro, imu_accel = [], [], []
     if load_imu:
         for label in slam_imus:
-            t, g, a = load_imu_csv(path / f"imu_samples_{label}.csv")
+            t, g, a = native.parse_imu_csv(path / f"imu_samples_{label}.csv")
             imu_times.append(t)
             imu_gyro.append(g)
             imu_accel.append(a)
@@ -403,9 +427,8 @@ def load_session(path, load_imu=True) -> SessionData:
 
 
 # ---------------------------------------------------------------------------
-# Writers of the session files (reference interfaces/ark/io/
-# SaveDeviceTrajectory.cpp:16-115); the output writers of the CLI
-# (open-loop trajectory, online calibration) come with the CLI
+# Writers (reference interfaces/ark/io/SaveDeviceTrajectory.cpp:16-115,
+# SaveOnlineCalib.cpp:23-64)
 # ---------------------------------------------------------------------------
 
 CLOSE_LOOP_COLUMNS = [
@@ -416,6 +439,17 @@ CLOSE_LOOP_COLUMNS = [
     "device_linear_velocity_z_device",
     "angular_velocity_x_device", "angular_velocity_y_device", "angular_velocity_z_device",
     "gravity_x_world", "gravity_y_world", "gravity_z_world", "quality_score",
+]
+
+
+OPEN_LOOP_COLUMNS = [
+    "tracking_timestamp_us", "utc_timestamp_ns", "session_uid",
+    "tx_odometry_device", "ty_odometry_device", "tz_odometry_device",
+    "qx_odometry_device", "qy_odometry_device", "qz_odometry_device", "qw_odometry_device",
+    "device_linear_velocity_x_odometry", "device_linear_velocity_y_odometry",
+    "device_linear_velocity_z_odometry",
+    "angular_velocity_x_device", "angular_velocity_y_device", "angular_velocity_z_device",
+    "gravity_x_odometry", "gravity_y_odometry", "gravity_z_odometry", "quality_score",
 ]
 
 
@@ -450,6 +484,37 @@ def save_close_loop_trajectory(path, sd: SessionData, pose_q, pose_t, vel, omega
                 f"{omega_dev[i,0]},{omega_dev[i,1]},{omega_dev[i,2]},"
                 f"{gravity[0]},{gravity[1]},{gravity[2]},{sd.traj_quality[i]}\n"
             )
+
+
+def save_open_loop_trajectory(path, sd: SessionData, pose_q, pose_t, vel, omega, gravity):
+    q_w_dev, t_w_dev, omega_dev = _device_states(sd, pose_q, pose_t, vel, omega, gravity)
+    bt = sd.t_bodyImu_device
+    qi, _ = _se3_inv(pose_q, pose_t)
+    # velocity of the device origin, in the odometry (world) frame
+    vel_dev = vel + _q_rot(qi, np.cross(omega, np.broadcast_to(bt, pose_t.shape)))
+    with open(path, "w") as f:
+        f.write(",".join(OPEN_LOOP_COLUMNS) + "\n")
+        for i in range(len(pose_q)):
+            q = q_w_dev[i]
+            f.write(
+                f"{sd.traj_timestamp_us[i]},{sd.traj_utc_ns[i]},{sd.traj_session_uid[i]},"
+                f"{t_w_dev[i,0]},{t_w_dev[i,1]},{t_w_dev[i,2]},"
+                f"{q[1]},{q[2]},{q[3]},{q[0]},"
+                f"{vel_dev[i,0]},{vel_dev[i,1]},{vel_dev[i,2]},"
+                f"{omega_dev[i,0]},{omega_dev[i,1]},{omega_dev[i,2]},"
+                f"{gravity[0]},{gravity[1]},{gravity[2]},{sd.traj_quality[i]}\n"
+            )
+
+
+def save_online_calibration(path, calib_states):
+    """Re-estimated per-rig calibration as JSON lines (SaveOnlineCalib.cpp:23-64)."""
+    with open(path, "w") as f:
+        for cs in calib_states:
+            f.write(json.dumps({
+                "tracking_timestamp_us": int(cs.timestamp_us),
+                "CameraCalibrations": [_camera_to_json(c) for c in cs.cameras],
+                "ImuCalibrations": [_imu_to_json(i) for i in cs.imus],
+            }) + "\n")
 
 
 def save_observations(path, point_id, timestamp_us, camera_index, uv, sqrt_h):

@@ -676,12 +676,17 @@ def _fused_visual(cfg, data):
     return cfg.kind == "visual" and cfg.block_info is not None
 
 
-def _fused_rs(cfg, data):
-    """Blocked rolling-shutter batch with pose + point (+ extr + intr) active:
-    the K7 linearizer (ops/rs_fused.py)."""
-    return (cfg.kind == "rs_visual" and cfg.block_info is not None
-            and cfg.active_groups is not None
-            and set(cfg.active_groups) in ({POINTS, RIG}, {POINTS, RIG, CAM_EXTR, CAM_INTR}))
+# the active groups a fused linearizer computes: pose + point, or pose +
+# point + extrinsics + intrinsics
+_FUSED_GROUPS = ({POINTS, RIG}, {POINTS, RIG, CAM_EXTR, CAM_INTR})
+
+
+def fused_linearizer(cfg) -> bool:
+    """Whether linearize_batch takes a fused kernel for cfg: K1 or K11 for a
+    blocked visual batch, K7 for a blocked rolling-shutter one, each with
+    pose + point (+ extr + intr) active."""
+    return (cfg.kind in ("visual", "rs_visual") and cfg.block_info is not None
+            and cfg.active_groups is not None and set(cfg.active_groups) in _FUSED_GROUPS)
 
 
 def residual_batch(cfg: BatchCfg, data, v: VariableTables):
@@ -724,40 +729,35 @@ def linearize_batch(cfg: BatchCfg, data, v: VariableTables, masks: Masks) -> Lin
 
     Tangents of groups not in cfg.active_groups are held at zero as constants
     (not differentiated), so constant variable groups cost nothing."""
-    if (_fused_visual(cfg, data) and cfg.active_groups is not None
-            and set(cfg.active_groups) == {POINTS, RIG}):
-        from ..ops import visual_fused
+    if not fused_linearizer(cfg):
+        return linearize_generic(cfg, data, v, masks)
+    if CAM_INTR in cfg.active_groups:
+        if cfg.kind == "visual":
+            from ..ops import visual_fused
 
-        res, valid, J_pt, J_r = visual_fused.linearize_visual_fused(
-            cfg.camera_kind, data, v, masks, cfg.block_info)
-        return Lin(res=res, valid=valid, groups=(POINTS, RIG),
-                   idx=(data["point"], data["rig"]), jac=(J_pt, J_r),
-                   ell=(None, None))
-    if (_fused_visual(cfg, data) and cfg.active_groups is not None
-            and set(cfg.active_groups) == {POINTS, RIG, CAM_EXTR, CAM_INTR}):
-        from ..ops import visual_fused
+            res, valid, J_pt, J_r, J_cal = visual_fused.linearize_visual_cal_fused(
+                cfg.camera_kind, data, v, masks, cfg.block_info)
+        else:
+            from ..ops import rs_fused
 
-        res, valid, J_pt, J_r, J_cal = visual_fused.linearize_visual_cal_fused(
-            cfg.camera_kind, data, v, masks, cfg.block_info)
+            res, valid, J_pt, J_r, J_cal = rs_fused.linearize_rs_fused(
+                cfg.camera_kind, data, v, masks, True)
         return Lin(res=res, valid=valid, groups=(POINTS, RIG, CAM_EXTR, CAM_INTR),
                    idx=(data["point"], data["rig"], data["extr"], data["intr"]),
                    jac=(J_pt, J_r, J_cal[:, 0:6], J_cal[:, 6:23]),
                    ell=(None, None, None, None))
-    if _fused_rs(cfg, data):
+    if cfg.kind == "visual":
+        from ..ops import visual_fused
+
+        res, valid, J_pt, J_r = visual_fused.linearize_visual_fused(
+            cfg.camera_kind, data, v, masks, cfg.block_info)
+    else:
         from ..ops import rs_fused
 
-        if CAM_INTR in cfg.active_groups:
-            res, valid, J_pt, J_r, J_cal = rs_fused.linearize_rs_fused(
-                cfg.camera_kind, data, v, masks, True)
-            return Lin(res=res, valid=valid, groups=(POINTS, RIG, CAM_EXTR, CAM_INTR),
-                       idx=(data["point"], data["rig"], data["extr"], data["intr"]),
-                       jac=(J_pt, J_r, J_cal[:, 0:6], J_cal[:, 6:23]),
-                       ell=(None, None, None, None))
         res, valid, J_pt, J_r = rs_fused.linearize_rs_fused(cfg.camera_kind, data, v, masks,
                                                              False)
-        return Lin(res=res, valid=valid, groups=(POINTS, RIG),
-                   idx=(data["point"], data["rig"]), jac=(J_pt, J_r), ell=(None, None))
-    return linearize_generic(cfg, data, v, masks)
+    return Lin(res=res, valid=valid, groups=(POINTS, RIG),
+               idx=(data["point"], data["rig"]), jac=(J_pt, J_r), ell=(None, None))
 
 
 def linearize_generic(cfg: BatchCfg, data, v: VariableTables, masks: Masks) -> Lin:
