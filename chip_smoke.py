@@ -29,10 +29,23 @@ Drives the port's four main paths through the entry points a user calls:
                (`profile_matvec.setup` / `check` / `profile`), held against
                rcs.matvec and timed component by component against the
                K12/K13 route;
+  cov          the covariance columns (`problem.covariance.rig_covariances`
+               and `calib_covariances("imu_calib")`, 400 PCG iterations as
+               the CLI's default) on the bias-only and full-sensor problems
+               after their main runs, with the counts set to 0 just before:
+               `cov:bias` 64 rigs (768 columns, chunks of 256) and every
+               calibration row through the column K4, `cov:full` 4 rigs and
+               the first window's 2 rows through the column K9 (K1 / K7, K2
+               / K8 and K3 in each prepare_system); every block symmetric
+               positive definite; a subset against the same calls in
+               float64 through the plain versions (COV_BOUNDS); PCG device
+               time an iteration; one chunk in turns against a loop over its
+               columns through the single-column kernel;
   cli          the command-line entry point `pipeline.cli.main` on the card
                (float32): `cli:golden` on the two committed sessions
                (tests/data/golden_session{,_full}) against their expected
-               outputs; `cli:full` on the full-sensor session directory
+               outputs, and again with --compute-covariances in float32 and
+               float64 (COV_CLI_BOUNDS); `cli:full` on the full-sensor session directory
                with readout and time offset estimated, 5 LM iterations,
                --recompute-preint, the calibration evaluation, simple stats,
                a JSONL monitor and a JSON report: every output written, one
@@ -63,7 +76,9 @@ Phases, one printed line each (per path):
                K13c on those rows (D 9, D 3) against the walk and
                index_add_, and on point refinement's tables (cli, D 13
                and D 1); K14a and K14b against index_add_ and
-               index_select by device time, in turns; K14a (point grid,
+               index_select by device time, in turns; the column K4 and K9
+               at 1, 8 and 256 columns, each column also against the
+               single-column kernel (bit-equal columns counted); K14a (point grid,
                D 9) and K14c (rig grid k 6) each in one device operation;
                K14a-e bit-equal across two calls; K5 with the L2 flushed
                before every timed call (its inputs fit the 50 MB L2)
@@ -102,19 +117,24 @@ JAXPKG = "visual_inertial_bundle_adjustment_tpu"
 # kernel wrapper name -> (K#, CUDA source, the TPU Pallas kernel it replaces, path)
 KERNELS = {
     "visual_linearize": ("K1", f"{PKG}/csrc/visual_linearize.cu",
-                         f"{JAXPKG}/ops/visual_fused.py:139", "bias+gs_cal+two_grid"),
-    "assemble_rig": ("K2", f"{PKG}/csrc/assemble_rig.cu", f"{JAXPKG}/ops/segments.py:840", "bias"),
+                         f"{JAXPKG}/ops/visual_fused.py:139", "bias+gs_cal+two_grid+cov"),
+    "assemble_rig": ("K2", f"{PKG}/csrc/assemble_rig.cu", f"{JAXPKG}/ops/segments.py:840",
+                     "bias+cov"),
     "precond_rig": ("K3", f"{PKG}/csrc/precond_rig.cu", f"{JAXPKG}/ops/segments.py:1861",
-                    "bias+full+gs_cal+cli"),
+                    "bias+full+gs_cal+cli+cov"),
     "schur_pcg": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347", "bias"),
+    "schur_pcg_cols": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347",
+                       "cov"),
     "schur_up": ("K5", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:725", "bias"),
     "schur_down": ("K6", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:586", "bias"),
     "rs_linearize": ("K7", f"{PKG}/csrc/rs_linearize.cu", f"{JAXPKG}/ops/rs_fused.py:131",
-                     "full+cli"),
+                     "full+cli+cov"),
     "assemble_cal": ("K8", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1674",
-                     "full+gs_cal+cli"),
+                     "full+gs_cal+cli+cov"),
     "schur_pcg_cal": ("K9", f"{PKG}/csrc/cal_segments.cu",
                       f"{JAXPKG}/ops/segments.py:1468,1519", "full+gs_cal+cli"),
+    "schur_pcg_cal_cols": ("K9", f"{PKG}/csrc/cal_segments.cu",
+                           f"{JAXPKG}/ops/segments.py:1468,1519", "cov"),
     "schur_down_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1005",
                        "full+gs_cal+cli"),
     "schur_up_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1146",
@@ -140,7 +160,7 @@ KERNELS = {
     "mv_scatter": ("K14e", f"{PKG}/csrc/tile_segments.cu", f"{JAXPKG}/ops/segments.py:249",
                    "profile"),
 }
-PATHS = ("bias", "full", "gs_cal", "two_grid", "profile", "cli")
+PATHS = ("bias", "full", "gs_cal", "two_grid", "profile", "cli", "cov")
 # the golden sessions' flags: a copy of tools_dev/gen_golden_session.py's
 # CLI_ARGS / CLI_ARGS_FULL (which imports JAX; a CPU test holds them equal)
 CLI_ARGS = [
@@ -160,14 +180,16 @@ TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 # they share with K6, K13a's and K13c's slot-major routes on landmark rows,
 # K8's window pass and its sum pass (which holds K2's landmark pass), the
 # instantiations per mode of K7, K1 and K11, K2's two passes, K6's rig-row
-# pass, K14b's flat gather, the tile pass of K14e, K14c and K14a), by the
-# names ptxas gives them
+# pass, K14b's flat gather, the tile pass of K14e, K14c and K14a, and the
+# column-batched K4 and K9 of the covariance columns), by the names ptxas
+# gives them
 NO_SPILL = ("pcg_down", "pcg_up", "pcg_cal_down", "pcg_cal_up", "point_range_sum",
             "jtu_slot_major", "reduce_gather4", "to_slot_major", "reduce_gather",
             "assemble_cal_window", "sum_cal_points", "rs_linearize_mode", "visual_linearize_mode",
             "visual_cal_linearize_mode", "assemble_rows_slots", "assemble_points",
             "schur_down_rows", "tile_gather_flat", "tile_scatter_staged", "tile_fused_staged",
-            "tile_reduce_split")
+            "tile_reduce_split", "pcg_down_cols", "pcg_up_cols", "point_range_sum_cols",
+            "pcg_cal_down_cols", "pcg_cal_up_cols", "pcg_cal_pair_cols", "sum_pair_cols")
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
 # kernel vs plain LM iteration, relative (see the consistency phases)
@@ -581,6 +603,7 @@ def lm_settings():
 
 
 def bias_only(dev, bench):
+    import numpy as np
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
@@ -669,8 +692,16 @@ def bias_only(dev, bench):
     settings = lm_settings()
     consistency("bias", problem, settings, TOL_ITER)
     phase_times("bias", problem, settings)
-    return run_main("bias", problem, settings,
-                    path_kernels("bias"))
+    launches = run_main("bias", problem, settings, path_kernels("bias"))
+    # the covariance columns on the state the LM run reached: 64 rigs spread
+    # over the session (768 columns; rig 0, which carries the gauge prior,
+    # left out: see cli_golden_covariances) and every IMU-calibration row
+    R = s.num_rigs
+    rigs = [int(r) for r in np.linspace(1, R - 1, 64).round()]
+    rows = list(range(problem.variables.imu_calib.shape[0]))
+    cov_launches = cov_path("bias", problem, dev, bench, rigs, rows, rigs[::16], rows[:2],
+                            COV_CHUNK)
+    return launches, cov_launches
 
 
 # ---------------------------------------------------------------------------
@@ -810,6 +841,8 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
 def full_sensor(dev, bench, session_dir, times):
     """The full-sensor path on the session directory written for it (kept
     for cli:full)."""
+    import numpy as np
+
     from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import AdapterOptions
 
@@ -845,8 +878,16 @@ def full_sensor(dev, bench, session_dir, times):
     settings = lm_settings()
     consistency("full", problem, settings, TOL_ITER)
     phase_times("full", problem, settings)
-    return run_main("full", problem, settings,
-                    path_kernels("full"))
+    launches = run_main("full", problem, settings, path_kernels("full"))
+    # the covariance columns: 4 rigs (48 columns) and the IMU-calibration
+    # rows of the first window (2 x 23 columns); the problem is the full
+    # one, only the columns are cut (to hold chip_smoke's time: 16 rigs and
+    # 4 windows took 161 s at 400 iterations, and the float64 reference 150)
+    R = v.pose_q.shape[0]
+    rigs = [int(r) for r in np.linspace(1, R - 1, 4).round()]
+    rows = list(range(adapter.num_imus))
+    cov_launches = cov_path("full", problem, dev, bench, rigs, rows, rigs[:1], rows[:1], 32)
+    return launches, cov_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1158,6 +1199,264 @@ def tile_profile(dev, bench, problem):
 
 
 # ---------------------------------------------------------------------------
+# cov: covariance columns (problem/covariance.py) through the column K4 / K9
+# ---------------------------------------------------------------------------
+
+COV_PCG_ITERATIONS = 400  # the CLI's --covariance-pcg-iterations default
+COV_CHUNK = 256  # covariance.solve_columns' chunk
+COV_COLS = (1, 8, COV_CHUNK)  # column counts the column kernels are compared at
+# float32 covariance blocks against the same call in float64 through the
+# plain versions, relative to each block's largest entry, by path and block
+# kind: ~10x PR 13's first measurements on an H100 (bias: rig 6.4e-8,
+# calibration 3.0e-5; full: rig 2.8e-7, calibration 1.3e-2, its 23-dim
+# IMU-calibration block unconverged after 400 iterations in either type)
+COV_BOUNDS = {"bias": {"rig": 1e-6, "cal": 3e-4}, "full": {"rig": 3e-6, "cal": 0.15}}
+COV_TURN_ITERATIONS = 5  # PCG iterations of the in-turns timing of one chunk
+# the golden sessions' covariance runs (2 LM iterations, as
+# tests/test_cli.py::test_cli_compute_covariances runs it, and 150 PCG
+# iterations), and the float32 run's blocks against a float64 run on the
+# card (relative to each block's largest entry; the two runs' LM steps end
+# at different points within float32's noise): ~10x PR 13's first
+# measurements (rig 1.9e-3 / 2.0e-4, calibration 2.4e-3 / 4.4e-3)
+COV_CLI_ARGS = ["--max-num-iterations", "2", "--compute-covariances",
+                "--covariance-pcg-iterations", "150"]
+COV_CLI_BOUNDS = {"rig": 2e-2, "cal": 5e-2}
+
+
+def problem_f64(problem):
+    """A float64 copy of a problem (the batches' layout and plans kept)."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.optimizer import Problem
+
+    p = Problem(problem.variables, problem.masks)
+    p.cfgs, p.datas = list(problem.cfgs), list(problem.datas)
+    return p.to(dtype=torch.float64)
+
+
+def cov_kernel_rows(bench, path, problem, dev):
+    """The column K4 (rig-only batch) or K9 (calibration-coupled batch) of
+    the problem's blocked batch against its float64 plain version at 1, 8
+    and 256 columns (rows `<kernel>(C=<C>)`, the 256-column one also as
+    `<kernel>`), each column also held against the single-column kernel
+    (bit-equal columns counted)."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+
+    v, masks, datas = problem.variables, problem.masks, tuple(problem.datas)
+    ks = problem._build()
+    lg = ks[0](datas, v, masks, None)
+    rs = rcs.with_damping(ks[6](datas, lg, v, masks), v, masks, 1e-4)
+    (b, _), = rcs._vis_batches(problem.active_cfgs, datas, lg)
+    k, n_real = b.rig_k, int(b.plan.rig_obs.shape[0])
+    R, n_c = v.pose_q.shape[0], v.cam_intr.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    index = [b.plan.rig, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr]
+    for C in COV_COLS:
+        x = torch.randn((R, k, C), generator=gen, device=dev)
+        if rcs._cal_fast(b):
+            name, kc, cp = "schur_pcg_cal_cols", b.J_cal.shape[1], b.cplan
+            xc = torch.randn((n_c, kc, C), generator=gen, device=dev)
+            args = (b.J, b.J_cal, b.J_pt, b.w, x, xc, rs.H_ll_inv, b.plan, cp)
+            fn, single = seg.seg_schur_pcg_cal_cols, seg.seg_schur_pcg_cal
+            cols = (4, 5)
+            read = [b.J, b.J_cal, b.J_pt, b.w, x, xc, rs.H_ll_inv] + index + [
+                cp.win, cp.rig_pair, cp.pair_ptr, cp.pair_obs, cp.pair_part, cp.win_pair]
+            labels, flops = ("y_r", "y_c"), (8 * k + 8 * kc + 24) * n_real * C
+        else:
+            name = "schur_pcg_cols"
+            args = (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan)
+            fn, single = seg.seg_schur_pcg_cols, seg.seg_schur_pcg
+            cols = (3,)
+            read = [b.J, b.J_pt, b.w, x, rs.H_ll_inv] + index + [b.plan.rig_ptr, b.plan.rig_obs]
+            labels, flops = ("y",), (8 * k + 30) * n_real * C
+        row = bench.compare(f"{name}(C={C})", fn, args, [(lb, TOL_SEG) for lb in labels], read,
+                            flops)
+        out = flat(fn(*args))
+        same, worst = 0, 0.0
+        for c in range(C):
+            col = [a[..., c].contiguous() if i in cols else a for i, a in enumerate(args)]
+            ones = flat(single(*col))
+            same += all(torch.equal(o[..., c], o1) for o, o1 in zip(out, ones))
+            worst = max([worst] + [rel_err(o[..., c], o1)[0] for o, o1 in zip(out, ones)])
+        row.update(columns=C, bit_equal_columns=same, rel_vs_single=worst,
+                   bound_share=row["bound_ms"] / row["device_ms"])
+        phase("kernels", f"{name}(C={C}) [{path}]: {same} of {C} columns bit-equal to the "
+              f"single-column kernel (worst rel {worst:.2e}); {row['device_ms'] / C:.4f} ms "
+              f"device a column; {row['bound_share']:.2f} of the bound")
+        if not worst <= TOL_SEG:
+            raise AssertionError(f"{name}(C={C}): columns differ from the single-column kernel "
+                                 f"by {worst:.2e}")
+        if C == COV_CHUNK:
+            bench.results[name] = dict(row)
+    del lg, rs, b
+
+
+def cov_blocks_check(tag, blocks):
+    """Every block finite, symmetric and positive definite."""
+    import numpy as np
+
+    for key, B in blocks.items():
+        if B.size == 0:
+            continue
+        if not np.isfinite(B).all():
+            raise AssertionError(f"{tag}: block {key} not finite")
+        if not np.array_equal(B, B.T):
+            raise AssertionError(f"{tag}: block {key} not symmetric")
+        ev = np.linalg.eigvalsh(B)
+        if not ev.min() > 0:
+            raise AssertionError(f"{tag}: block {key} eigenvalues down to {ev.min():.3e}")
+
+
+def cov_compare(tag, got, want, bounds):
+    """The worst block error (relative to the block's largest entry) and the
+    worst standard-deviation ratio |std / std64 - 1| of blocks against
+    their float64 counterparts; each kind of block ("rig", "cal": the keys'
+    first entries) within its bound."""
+    import numpy as np
+
+    errs, ratios, keys = [], [], [key for key, W in want.items() if W.size]
+    for key in keys:
+        G, W = got[key], want[key]
+        errs.append(float(np.abs(G - W).max() / np.abs(W).max()))
+        ratios.append(float(np.abs(np.sqrt(np.diag(G)) / np.sqrt(np.diag(W)) - 1.0).max()))
+    worst, ratio = max(errs), max(ratios)
+    by_kind = {}
+    for (kind, _), e in zip(keys, errs):
+        by_kind[kind] = max(by_kind.get(kind, 0.0), e)
+    phase(tag, "block errors (relative to the block's largest entry) and std ratios: "
+          + ", ".join(f"{kind} {i} {e:.2e} / {q:.2e}" for (kind, i), e, q in zip(keys, errs,
+                                                                                ratios)))
+    phase(tag, f"float32 vs float64 on {len(errs)} blocks: worst block error {worst:.3e} ("
+          + ", ".join(f"{k} {e:.3e} of {bounds[k]:g}" for k, e in by_kind.items())
+          + f"), worst std ratio {ratio:.3e}")
+    over = {k: e for k, e in by_kind.items() if not e <= bounds[k]}
+    if over:
+        raise AssertionError(f"{tag}: covariance blocks off the float64 run beyond their "
+                             f"bounds: {over}")
+    return worst, ratio
+
+
+def cov_path(path, problem, dev, bench, rigs, cal_rows, ref_rigs, ref_rows, turn_cols):
+    """The covariance columns on a problem after its LM run: the column
+    kernels' rows, then rig_covariances(rigs) and calib_covariances
+    ("imu_calib", cal_rows) at the CLI's 400 PCG iterations with the launch
+    counts set to 0 just before and read just after, blocks checked; PCG
+    device time an iteration; the float32 blocks of ref_rigs / ref_rows
+    against the same calls in float64 through the plain versions; one chunk
+    of `turn_cols` columns in turns against a loop over its columns through
+    the single-column kernel. Returns the launch counts."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import covariance as cov
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.structure import column
+
+    tag = f"cov:{path}"
+    cov_kernel_rows(bench, path, problem, dev)
+    torch.cuda.empty_cache()
+    kw = dict(pcg_iters=COV_PCG_ITERATIONS)
+    cal_dims = int(problem.masks.imu_calib[cal_rows].sum())
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.time()
+    blocks = cov.rig_covariances(problem, rigs, **kw)
+    torch.cuda.synchronize()
+    t_rig = time.time() - t0
+    t0 = time.time()
+    cal = cov.calib_covariances(problem, "imu_calib", cal_rows, **kw)
+    torch.cuda.synchronize()
+    t_cal = time.time() - t0
+    launches = _kernels.launch_counts()
+    for name, n, cols, t in (("rig_covariances", len(rigs), 12 * len(rigs), t_rig),
+                             ("calib_covariances", len(cal_rows), cal_dims, t_cal)):
+        chunks = -(-cols // COV_CHUNK)
+        phase(tag, f"{name}: {n} rows, {cols} columns in {chunks} chunks of up to "
+              f"{min(cols, COV_CHUNK)} (C), {COV_PCG_ITERATIONS} PCG iterations: {t:.2f} s, "
+              f"{cols / t:.1f} columns/s")
+    phase(tag, f"launches { {k: n for k, n in launches.items() if n} }")
+    cov_blocks_check(tag, blocks)
+    cov_blocks_check(tag, {r: B for r, (B, _) in cal.items()})
+
+    # PCG device time an iteration on one chunk (torch.profiler)
+    entries = [("rig", int(r), d) for r in rigs for d in range(12)][:COV_CHUNK]
+    with cov.with_gauge_prior(problem):
+        lg, rs = cov.prepare_system(problem, 1e-9)
+        v = problem.variables
+        bc = cov._unit_tangents(v, entries)
+        n_it = 10
+        rcs.pcg(rs, v, bc, 1, 1e-12)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            rcs.pcg(rs, v, bc, n_it, 1e-12)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = pm.device_kernels(prof.key_averages())
+        busy = sum(us for _, _, us in rows) / 1e3
+        top = sorted(rows, key=lambda r: -r[2])[:5]
+        phase(tag, f"PCG on {len(entries)} columns: {busy / n_it:.3f} ms device and "
+              f"{wall / n_it:.3f} ms wall an iteration (busy share {busy / wall:.2f}) | top: "
+              + ", ".join(f"{key[:40]} {us / 1e3 / n_it:.3f} ms x{n / n_it:g}"
+                          for key, n, us in top))
+
+        # one chunk in turns: the column kernels vs a loop over its columns
+        # through the single-column kernel, COV_TURN_ITERATIONS iterations each
+        bt = cov._unit_tangents(v, [("rig", int(r), d) for r in rigs
+                                    for d in range(12)][:turn_cols])
+
+        def cols_run():
+            rcs.pcg(rs, v, bt, COV_TURN_ITERATIONS, 1e-12)
+
+        def loop_run():
+            for c in range(turn_cols):
+                rcs.pcg(rs, v, column(bt, c), COV_TURN_ITERATIONS, 1e-12)
+
+        times = {"columns": [], "loop": []}
+        for key, fn in (("columns", cols_run), ("loop", loop_run), ("loop", loop_run),
+                        ("columns", cols_run)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+        rate = {key: turn_cols / statistics.mean(ts) for key, ts in times.items()}
+        phase(tag, f"one chunk of {turn_cols} columns at {COV_TURN_ITERATIONS} PCG iterations, "
+              f"in turns: column kernels {rate['columns']:.1f} columns/s ("
+              + " ".join(f"{x:.3f}" for x in times["columns"]) + " s), single-column loop "
+              f"{rate['loop']:.1f} columns/s (" + " ".join(f"{x:.3f}" for x in times["loop"])
+              + f" s): {rate['columns'] / rate['loop']:.1f}x")
+        del lg, rs, bc, bt
+    torch.cuda.empty_cache()
+
+    # the float64 reference through the plain versions on a subset
+    p64 = problem_f64(problem)
+    t0 = time.time()
+    with _kernels.plain_reference():
+        ref = cov.rig_covariances(p64, ref_rigs, **kw)
+        ref_cal = cov.calib_covariances(p64, "imu_calib", ref_rows, **kw)
+    torch.cuda.synchronize()
+    phase(tag, f"float64 plain reference on rigs {ref_rigs} and calibration rows {ref_rows} in "
+          f"{time.time() - t0:.1f} s")
+    del p64
+    torch.cuda.empty_cache()
+    want = {("rig", r): ref[r] for r in ref_rigs}
+    want.update({("cal", r): ref_cal[r][0] for r in ref_rows})
+    got = {("rig", r): blocks[r] for r in ref_rigs}
+    got.update({("cal", r): cal[r][0] for r in ref_rows})
+    worst, ratio = cov_compare(tag, got, want, COV_BOUNDS[path])
+    bench.results.setdefault("cov", {})[path] = dict(
+        rig_seconds=t_rig, rig_columns=12 * len(rigs), cal_seconds=t_cal, cal_columns=cal_dims,
+        worst_block_error=worst, worst_std_ratio=ratio, turn_columns_per_s=rate)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # cli: the command-line entry point on the golden sessions and the full session
 # ---------------------------------------------------------------------------
 
@@ -1180,7 +1479,7 @@ GOLDEN_BOUNDS = {
 }
 
 
-def run_cli(argv, dev, timings):
+def run_cli(argv, dev, timings, dtype=None):
     """pipeline.cli.main(argv) on dev with its printed lines captured:
     (exit code, the lines)."""
     import contextlib
@@ -1190,7 +1489,7 @@ def run_cli(argv, dev, timings):
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = cli.main(argv, device=dev, timings=timings)
+        rc = cli.main(argv, device=dev, dtype=dtype, timings=timings)
     return rc, out.getvalue().splitlines()
 
 
@@ -1276,6 +1575,78 @@ def cli_golden(dev, smi):
                   f"{held})")
             if not val <= bound32:
                 raise AssertionError(f"cli:golden {name}: {key} {val:.3e} > {bound32:g}")
+
+
+def read_covariances(out):
+    """A CLI run's covariance files: (timestamps, stds (R, 12), blocks (R, 12,
+    12)) of rig_covariances.csv and the records of
+    imu_calib_covariances.jsonl."""
+    import numpy as np
+
+    lines = open(f"{out}/rig_covariances.csv").read().splitlines()
+    rows = np.asarray([[float(x) for x in ln.split(",")] for ln in lines[1:]])
+    recs = [json.loads(ln) for ln in open(f"{out}/imu_calib_covariances.jsonl")]
+    return rows[:, 0], rows[:, 1:13], rows[:, 13:].reshape(-1, 12, 12), recs, len(lines)
+
+
+def cli_golden_covariances(dev):
+    """The two golden sessions through the CLI with --compute-covariances
+    (150 PCG iterations; the sessions are too small to block, so the generic
+    engine solves the columns, batched) on the card in float32, and again in
+    float64 through the plain versions: one row per rig after the header,
+    finite, symmetric blocks with std >= 0, one record per calibration row,
+    and the float32 blocks within COV_CLI_BOUNDS of the float64 ones. Rig
+    0's block is printed beside, not bounded: the gauge prior pins its
+    position and yaw at 1e-4 (1e4 sqrt-information against the others'
+    ~1e2), and float32 resolves the rest of that block only to tens of
+    percent (0.25 on the CPU)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+
+    for name, flags in (("golden_session", CLI_ARGS), ("golden_session_full", CLI_ARGS_FULL)):
+        base = f"{GOLDEN}/{name}"
+        R = sum(1 for _ in open(f"{base}/expected/closed_loop_framerate_trajectory.csv")) - 1
+        runs = {}
+        for dtype in (torch.float32, torch.float64):
+            with tempfile.TemporaryDirectory() as out:
+                timings = {}
+                plain = (_kernels.plain_reference() if dtype == torch.float64
+                         else contextlib.nullcontext())
+                with plain:
+                    rc, _ = run_cli(["-i", f"{base}/input", "-o", out, *flags, *COV_CLI_ARGS],
+                                    dev, timings, dtype)
+                if rc != 0:
+                    raise AssertionError(f"cli:golden {name} covariances: exit code {rc}")
+                runs[dtype] = (*read_covariances(out), timings)
+        ts, std, B, recs, n_lines, timings = runs[torch.float32]
+        ts64, _, B64, recs64, _, timings64 = runs[torch.float64]
+        if n_lines != 1 + R or not np.array_equal(ts, ts64):
+            raise AssertionError(f"cli:golden {name}: {n_lines} covariance lines for {R} rigs")
+        if not (np.isfinite(std).all() and np.isfinite(B).all() and (std >= 0).all()
+                and np.array_equal(B, np.swapaxes(B, 1, 2))):
+            raise AssertionError(f"cli:golden {name}: covariance rows not finite, symmetric "
+                                 "and std >= 0")
+        if not recs or len(recs) != len(recs64):
+            raise AssertionError(f"cli:golden {name}: {len(recs)} calibration records, float64 "
+                                 f"{len(recs64)}")
+        got = {("rig", r): B[r] for r in range(1, R)}
+        want = {("rig", r): B64[r] for r in range(1, R)}
+        for i, (a, e) in enumerate(zip(recs, recs64)):
+            if a["dims"] != e["dims"] or (a["window"], a["imu"]) != (e["window"], e["imu"]):
+                raise AssertionError(f"cli:golden {name}: calibration record {i} differs")
+            n = len(a["dims"])
+            got[("cal", i)] = np.asarray(a["cov"]).reshape(n, n)
+            want[("cal", i)] = np.asarray(e["cov"]).reshape(n, n)
+        phase("cli:golden", f"{name} covariances: {R} rig blocks ({12 * R} columns), "
+              f"{len(recs)} calibration records; covariances stage {timings['covariances']:.2f} s"
+              f" float32, {timings64['covariances']:.2f} s float64 (plain); the gauge rig 0's "
+              f"block {float(np.abs(B[0] - B64[0]).max() / np.abs(B64[0]).max()):.3e} off the "
+              "float64 run (not bounded)")
+        cov_compare(f"cli:golden {name}", got, want, COV_CLI_BOUNDS)
 
 
 def cli_argv(session_dir, out_dir, tmp):
@@ -1402,19 +1773,24 @@ def main():
           + ", ".join(NO_SPILL))
 
     bench = Bench()
-    launches = {"bias": bias_only(dev, bench)}
+    launches = {}
+    launches["bias"], cov_bias = bias_only(dev, bench)
     torch.cuda.empty_cache()
     launches.update(two_grid(dev, bench))
     torch.cuda.empty_cache()
     session, session_sec = session_600()
     with tempfile.TemporaryDirectory() as full_dir:
         times = {"session": session_sec, "write": write_600(session, full_dir, 0.03)}
-        launches["full"] = full_sensor(dev, bench, full_dir, times)
+        launches["full"], cov_full = full_sensor(dev, bench, full_dir, times)
+        # the cov path: its two runs' counts (each set to 0 just before it)
+        launches["cov"] = {k: cov_bias.get(k, 0) + cov_full.get(k, 0)
+                           for k in set(cov_bias) | set(cov_full)}
         torch.cuda.empty_cache()
         launches["gs_cal"] = gs_cal(dev, bench, session, session_sec)
         del session
         torch.cuda.empty_cache()
         cli_golden(dev, smi)
+        cli_golden_covariances(dev)
         launches["cli"] = cli_full(dev, full_dir, smi)
         torch.cuda.empty_cache()
         cli_refinement_rows(dev, bench, full_dir)

@@ -8,6 +8,10 @@ package's, in float64 on the CPU.
     --recompute-preint and with --trajectory-to-gt: the three output files
     agree (1e-5 absolute in every numeric column), the reports have the same
     keys and costs (1e-8 relative)
+  - --compute-covariances: both packages' CLIs on that session write
+    rig_covariances.csv and imu_calib_covariances.jsonl in one format, entry
+    by entry within 1e-6 (rig blocks) and 1e-4 (IMU calibration blocks) of
+    each block's largest entry
   - chip_smoke.py's copies of the golden flag lists equal the originals
 """
 
@@ -78,9 +82,13 @@ def test_bad_tokens_and_flags_raise():
     with pytest.raises(SystemExit, match="requires --gt-trajectory-base-name"):
         tcli.main(["-i", str(DATA / "golden_session/input"), "--trajectory-to-gt", "pose"],
                   device="cpu")
-    # covariances come with the covariance slice: refused before anything loads
-    with pytest.raises(NotImplementedError, match="covariance"):
-        tcli.main(["-i", "/nonexistent", "--compute-covariances"], device="cpu")
+    # --compute-covariances gets past the arguments and fails at loading the
+    # missing session as the JAX CLI does
+    argv = ["-i", "/nonexistent", "--compute-covariances"]
+    with pytest.raises(Exception) as jax_err:
+        jcli.main(argv)
+    with pytest.raises(type(jax_err.value), match="nonexistent"):
+        tcli.main(argv, device="cpu")
 
 
 def test_main_defaults_to_the_card():
@@ -211,3 +219,41 @@ def test_cli_main_matches_jax(session_dir, tmp_path, extra):
         assert abs(rep[0][key] - rep[1][key]) <= 1e-8 * abs(rep[1][key])
     for key in ("numIterations", "numTroubledSeqs", "largestTroubledSeq"):
         assert rep[0][key] == rep[1][key]
+
+
+def _cov_csv(path):
+    lines = path.read_text().splitlines()
+    return lines[0], np.asarray([[float(x) for x in ln.split(",")] for ln in lines[1:]])
+
+
+@pytest.mark.slow  # the JAX CLI compiles for ~2 min on the CPU
+def test_cli_covariances_match_jax(session_dir, tmp_path):
+    """tests/test_cli.py::test_cli_compute_covariances's run through both
+    CLIs: the same files and rows; every 12x12 block within 1e-6 of its
+    largest entry, every IMU calibration block within 1e-4 (measured 2.7e-5:
+    the two CLIs end their LM runs a rounding apart, and 150 PCG iterations
+    against the 1e4 gauge prior leave these columns short of convergence)."""
+    outs = {}
+    for name, run in (("jax", jcli.main), ("port", lambda a: tcli.main(a, device="cpu"))):
+        out = tmp_path / name
+        assert run(["-i", str(session_dir), "-o", str(out), "--calib-constant", "cam-all",
+                    "--imu-calib-estimation-options", "gyro-bias,accel-bias",
+                    "--max-num-iterations", "2", "--compute-covariances",
+                    "--covariance-pcg-iterations", "150"]) == 0
+        outs[name] = out
+    (head_p, rows_p), (head_j, rows_j) = (_cov_csv(outs[k] / "rig_covariances.csv")
+                                          for k in ("port", "jax"))
+    assert head_p == head_j and rows_p.shape == rows_j.shape
+    np.testing.assert_array_equal(rows_p[:, 0], rows_j[:, 0])
+    for a, e in zip(rows_p, rows_j):
+        scale = max(np.abs(e[13:]).max(), 1e-300)
+        assert np.abs(a[13:] - e[13:]).max() <= 1e-6 * scale
+        assert np.abs(a[1:13] - e[1:13]).max() <= 1e-6 * max(np.abs(e[1:13]).max(), 1e-300)
+    recs = [[json.loads(ln) for ln in (outs[k] / "imu_calib_covariances.jsonl").open()]
+            for k in ("port", "jax")]
+    assert len(recs[0]) == len(recs[1]) > 0
+    for a, e in zip(*recs):
+        assert a.keys() == e.keys()
+        assert (a["window"], a["imu"], a["dims"]) == (e["window"], e["imu"], e["dims"])
+        ca, ce = np.asarray(a["cov"]), np.asarray(e["cov"])
+        assert np.abs(ca - ce).max() <= 1e-4 * max(np.abs(ce).max(), 1e-300)

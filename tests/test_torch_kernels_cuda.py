@@ -48,6 +48,11 @@ and 23 on the full-sensor plans and on the made-up plan cut into chunks of
 K7 in each of its instantiations (camera model, Jacobian, calibration
 columns, masked or not); K1 (camera model, Jacobian, masked or not) and K11
 (camera model, masked or not) in each of theirs. Each repeats bit for bit.
+K4 and K9 on C right-hand sides (the covariance columns) run at 1, 8 and
+256 columns, at rig widths 6 and 9 (K9 also at window widths 6, 17 and 23),
+on the bias-only and full-sensor plans and on the made-up plan, against
+their plain versions and the single-column kernels on every column; each
+repeats bit for bit.
 """
 
 import functools
@@ -1196,3 +1201,90 @@ def _pcg_digests(dev):
 def test_schur_pcg_bits_unchanged(cuda_device):
     """K4 and K9 give the same bits as before K6 shared their landmark pass."""
     assert _pcg_digests(cuda_device) == PCG_DIGESTS
+
+
+# ---------------------------------------------------------------------------
+# K4 and K9 on C right-hand sides (the covariance columns)
+# ---------------------------------------------------------------------------
+
+COLS = (1, 8, 256)  # one column, one tile, the covariance chunk
+
+
+def _cols(shape, C, dev, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=shape + (C,))).to(device=dev, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", COLS)
+@pytest.mark.parametrize("plan_kind", ["bias", "edge"])
+@pytest.mark.parametrize("k", [6, 9])
+def test_schur_pcg_cols_kernel(k, plan_kind, C, cuda_device, monkeypatch):
+    """Column K4 on the bias-only plan and on the made-up plan at rig widths
+    6 and 9 and 1, 8 and 256 columns: one C entry a call, within 1e-5 of its
+    plain version in float64 and of the single-column K4 on every column,
+    the same bits every call."""
+    if plan_kind == "bias":
+        plan, a = _segment_inputs(cuda_device)
+        w = a["w"]
+    else:
+        plan, _, pad = _edge_plans(cuda_device)
+        rng = np.random.default_rng(149)
+        w = torch.from_numpy(rng.random(pad.shape[0]) * (1.0 - pad)).to(cuda_device,
+                                                                         torch.float32)
+    J_r, J_p, _, _, hinv = _schur_pcg_args(w, plan, k, cuda_device, 151 + k)
+    x = _cols((plan.n_rows, k), C, cuda_device, 157 + C)
+    names = _recording_launches(monkeypatch)
+    _kernels.reset_launch_counts()
+    out = tseg.seg_schur_pcg_cols(J_r, J_p, w, x, hinv, plan)
+    again = tseg.seg_schur_pcg_cols(J_r, J_p, w, x, hinv, plan)
+    with _kernels.plain_reference():
+        ref = tseg.seg_schur_pcg_cols(*_kernels.to_f64((J_r, J_p, w, x, hinv)), plan)
+    counts = _kernels.launch_counts()
+    assert counts["schur_pcg_cols"] == 2 and sum(counts.values()) == 2
+    assert names == ["viba_schur_pcg_cols"] * 2
+    assert out.shape == x.shape
+    single = torch.stack([tseg.seg_schur_pcg(J_r, J_p, w, x[..., c].contiguous(), hinv, plan)
+                          for c in range(C)], dim=-1)
+    _check((out, out), (ref, single), (1e-5, 1e-5))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", COLS)
+@pytest.mark.parametrize("kc", [6, 17, 23])
+@pytest.mark.parametrize("k", [6, 9])
+def test_schur_pcg_cal_cols_kernel(k, kc, C, cuda_device, monkeypatch):
+    """Column K9 on the full-sensor batch's plans at every rig and window
+    width and 1, 8 and 256 columns (and on the made-up plan at k 9, kc 23):
+    one C entry a call, within 1e-5 of its plain version in float64 and of
+    the single-column K9 on every column, the same bits every call."""
+    b, _ = _cal_inputs(cuda_device)
+    plans = [(b.w, b.plan, b.cplan)]
+    if (k, kc, C) == (9, 23, 8):
+        plan, cplan, pad = _edge_plans(cuda_device)
+        rng = np.random.default_rng(163)
+        plans.append((torch.from_numpy(rng.random(pad.shape[0]) * (1.0 - pad)).to(
+            cuda_device, torch.float32), plan, cplan))
+    for w, plan, cplan in plans:
+        J_r, J_c, J_p, _, _, _, hinv = _pcg_cal_args(w, plan, cplan, k, kc, cuda_device,
+                                                     167 + k + kc)
+        x_r = _cols((plan.n_rows, k), C, cuda_device, 173 + C)
+        x_c = _cols((cplan.n_rows, kc), C, cuda_device, 179 + C)
+        args = (J_r, J_c, J_p, w, x_r, x_c, hinv)
+        names = _recording_launches(monkeypatch)
+        _kernels.reset_launch_counts()
+        out = tseg.seg_schur_pcg_cal_cols(*args, plan, cplan)
+        again = tseg.seg_schur_pcg_cal_cols(*args, plan, cplan)
+        with _kernels.plain_reference():
+            ref = tseg.seg_schur_pcg_cal_cols(*_kernels.to_f64(args), plan, cplan)
+        counts = _kernels.launch_counts()
+        assert counts["schur_pcg_cal_cols"] == 2 and sum(counts.values()) == 2
+        assert names == ["viba_schur_pcg_cal_cols"] * 2
+        singles = [tseg.seg_schur_pcg_cal(J_r, J_c, J_p, w, x_r[..., c].contiguous(),
+                                          x_c[..., c].contiguous(), hinv, plan, cplan)
+                   for c in range(C)]
+        single = tuple(torch.stack(s, dim=-1) for s in zip(*singles))
+        _check(out + out, ref + single, (1e-5,) * 4)
+        for o, o2 in zip(out, again):
+            assert torch.equal(o, o2)

@@ -327,8 +327,11 @@ def _schur_pcg_flow(J_r, J_p, w, x, hinv, plan):
     return _segment_sums(contrib.T[plan.rig_obs.long()], plan.rig_ptr)
 
 
-@pytest.mark.parametrize("k", [6, 9])
-def test_schur_pcg_flow_matches_jax(k):
+def _schur_pcg_case(k, cols=None):
+    """K4's inputs on the bias-only batch (two rigs and two observed
+    landmarks left without slots: zero weights for the JAX entry, pads for
+    the port's plan), x (R, k) or, with `cols`, (R, k, cols); and the JAX
+    entry on one (R, k) table."""
     pj = jax_problem()
     (vi,) = [i for i, c in enumerate(pj.cfgs) if getattr(c, "block_info", None)]
     dj, info = pj.datas[vi], pj.cfgs[vi].block_info
@@ -336,26 +339,36 @@ def test_schur_pcg_flow_matches_jax(k):
     rig, point = np.asarray(dj["rig"]), np.asarray(dj["point"])
     pad = np.asarray(dj["_pad"]).copy()
     N = pad.shape[0]
-    # two rigs and two observed landmarks lose their slots: zero weights for
-    # the JAX entry, pads for the port's plan
     empty_rigs = np.unique(rig[pad < 0.5])[[1, -2]]
     empty_pts = np.unique(point[pad < 0.5])[[2, 7]]
     pad[np.isin(rig, empty_rigs) | np.isin(point, empty_pts)] = 1.0
     rng = np.random.default_rng(107 + k)
     A = rng.normal(size=(L, 3, 3))
     a = dict(J_r=rng.normal(size=(2, k, N)), J_p=rng.normal(size=(2, 3, N)),
-             w=rng.random(N) * (1.0 - pad), x=rng.normal(size=(R, k)),
+             w=rng.random(N) * (1.0 - pad),
+             x=rng.normal(size=(R, k) if cols is None else (R, k, cols)),
              hinv=A @ np.swapaxes(A, -1, -2) + np.eye(3))
-    J = {key: jnp.asarray(v) for key, v in a.items()}
-    want = np.asarray(jseg.seg_schur_pcg(
-        J["J_r"], J["J_p"], J["w"], dj["_rb_local"], dj["_rg_pt_local"], dj["_rg_hib"], J["x"],
-        J["hinv"], dj["_rb_base"], L, info.nt, info.ts, info.rb, info.prb2 // 128, info.nhg))
+
+    def jax_entry(x):
+        J = {key: jnp.asarray(v) for key, v in a.items()}
+        return np.asarray(jseg.seg_schur_pcg(
+            J["J_r"], J["J_p"], J["w"], dj["_rb_local"], dj["_rg_pt_local"], dj["_rg_hib"],
+            jnp.asarray(x), J["hinv"], dj["_rb_base"], L, info.nt, info.ts, info.rb,
+            info.prb2 // 128, info.nhg))
+
     arrays = trcs.segment_plan(rig, point, pad, R, L)
     plan = tseg.SegPlan(t(rig.astype(np.int32)), t(point.astype(np.int32)),
                         *(t(arrays[key]) for key in ("_rig_ptr", "_rig_obs", "_pt_ptr",
                                                      "_pt_obs", "_pt_pos")))
     assert np.all(np.diff(arrays["_rig_ptr"])[empty_rigs] == 0)
     assert np.all(np.diff(arrays["_pt_ptr"])[empty_pts] == 0)
+    return a, plan, jax_entry, empty_rigs
+
+
+@pytest.mark.parametrize("k", [6, 9])
+def test_schur_pcg_flow_matches_jax(k):
+    a, plan, jax_entry, empty_rigs = _schur_pcg_case(k)
+    want = jax_entry(a["x"])
     args = [t(v) for v in a.values()]
     assert np.abs(want).max() > 0 and np.all(want[empty_rigs] == 0)
     assert rel(_schur_pcg_flow(*args, plan).numpy(), want) < TOL
@@ -689,3 +702,94 @@ def test_full_block_layouts_match_tri_to_full(k):
     assert torch.equal(k3, want) and torch.equal(k8, want)
     if k == 3:
         assert torch.equal(tri[:, [0, 1, 2, 1, 3, 4, 2, 4, 5]].reshape(n, 3, 3), want)
+
+
+# ---------------------------------------------------------------------------
+# K4 and K9 on C right-hand sides (the covariance columns)
+# ---------------------------------------------------------------------------
+
+N_COLS = 11  # a full tile of COL_TILE = 8 columns and a ragged one
+
+
+def _cols_flow(flow, C):
+    """The column kernels' tile loop (csrc/schur.cu schur_pcg_cols,
+    csrc/cal_segments.cu pcg_cal_cols): COL_TILE columns a pass, the passes
+    of the single-column kernel run on every column of the tile, each
+    column summed in the single-column order; results stacked on a trailing
+    column axis."""
+    assert tseg.COL_TILE == 8
+    outs = []
+    for c0 in range(0, C, tseg.COL_TILE):
+        outs += [flow(c) for c in range(c0, min(C, c0 + tseg.COL_TILE))]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o, dim=-1) for o in zip(*outs))
+    return torch.stack(outs, dim=-1)
+
+
+@pytest.mark.parametrize("k", [6, 9])
+def test_schur_pcg_cols_flow_matches_jax(k):
+    """K4 on 11 columns: the kernel's tile loop and the plain column version
+    against the JAX entry seg_schur_pcg on each column, within 1e-9; the
+    plain column version bit-equal to the single-column one on each."""
+    a, plan, jax_entry, empty_rigs = _schur_pcg_case(k, cols=N_COLS)
+    want = np.stack([jax_entry(a["x"][..., c]) for c in range(N_COLS)], axis=-1)
+    J_r, J_p, w, x, hinv = (t(v) for v in a.values())
+    assert np.abs(want).max() > 0 and np.all(want[empty_rigs] == 0)
+    got = _cols_flow(lambda c: _schur_pcg_flow(J_r, J_p, w, x[..., c], hinv, plan), N_COLS)
+    assert rel(got.numpy(), want) < TOL
+    plain = tseg.seg_schur_pcg_cols(J_r, J_p, w, x, hinv, plan)
+    assert plain.shape == x.shape and rel(plain.numpy(), want) < TOL
+    for c in range(N_COLS):
+        assert torch.equal(plain[..., c], tseg.seg_schur_pcg(J_r, J_p, w, x[..., c], hinv, plan))
+    assert tseg.seg_schur_pcg_cols.launches == 0
+
+
+@pytest.mark.parametrize("kc", [6, 23])
+def test_pcg_cal_cols_flow_matches_jax(kc):
+    """K9 on 11 columns (rigs spanning both window rows): the kernel's tile
+    loop and the plain column version against the JAX entry
+    seg_schur_pcg_cal on each column, within 1e-9; the plain column version
+    bit-equal to the single-column one on each."""
+    pj, _ = jax_full()
+    (vi,) = [i for i, c in enumerate(pj.cfgs) if c.kind == "rs_visual"]
+    dj, info = pj.datas[vi], pj.cfgs[vi].block_info
+    v = pj.variables
+    R, L, n_c = v.pose_q.shape[0], v.points.shape[0], v.cam_intr.shape[0]
+    pad = np.asarray(dj["_pad"])
+    N = pad.shape[0]
+    cal_local = np.asarray(dj["_cb_local"]).copy()
+    cal_local[::3] = 1 - cal_local[::3]
+    rng = np.random.default_rng(83)
+    A = rng.normal(size=(L, 3, 3))
+    a = dict(J_r=rng.normal(size=(2, 9, N)), J_c=rng.normal(size=(2, kc, N)),
+             J_p=rng.normal(size=(2, 3, N)), w=rng.random(N) * (1.0 - pad),
+             x_r=rng.normal(size=(R, 9, N_COLS)), x_c=rng.normal(size=(n_c, kc, N_COLS)),
+             hinv=A @ np.swapaxes(A, -1, -2) + np.eye(3))
+    J = {k: jnp.asarray(x) for k, x in a.items()}
+    want = [np.stack(w, axis=-1) for w in zip(*(
+        [np.asarray(o) for o in jseg.seg_schur_pcg_cal(
+            J["J_r"], J["J_c"], J["J_p"], J["w"], dj["_rb_local"], jnp.asarray(cal_local),
+            dj["_rg_pt_local"], dj["_rg_hib"], J["x_r"][..., c], J["x_c"][..., c], J["hinv"],
+            dj["_rb_base"], dj["_cb_base"], L, info.nt, info.ts, info.rb, info.wb,
+            info.prb2 // 128, info.nhg)] for c in range(N_COLS)))]
+    p, _ = _full_pair()
+    data, _ = _blocked(p)
+    plan = trcs.plan_of(data)
+    win = cal_local.astype(np.int64)
+    arrays = {**tseg.cal_plan_arrays(win, pad, n_c),
+              **tseg.pair_plan_arrays(np.asarray(dj["rig"]), win, pad, R, n_c)}
+    cplan = tseg.CalPlan(torch.from_numpy(win.astype(np.int32)),
+                         *(torch.from_numpy(arrays["_cal_" + f]) for f in tseg.CalPlan._fields[1:]))
+    J_r, J_c, J_p, w, x_r, x_c, hinv = (t(x) for x in a.values())
+    got = _cols_flow(lambda c: _pcg_cal_flow(J_r, J_c, J_p, w, x_r[..., c], x_c[..., c], hinv,
+                                             plan, cplan), N_COLS)
+    plain = tseg.seg_schur_pcg_cal_cols(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
+    for g, pl, wj in zip(got, plain, want):
+        assert np.abs(wj).max() > 0
+        assert rel(g.numpy(), wj) < TOL
+        assert rel(pl.numpy(), wj) < TOL
+    for c in range(N_COLS):
+        single = tseg.seg_schur_pcg_cal(J_r, J_c, J_p, w, x_r[..., c], x_c[..., c], hinv, plan,
+                                        cplan)
+        for pl, s1 in zip(plain, single):
+            assert torch.equal(pl[..., c], s1)

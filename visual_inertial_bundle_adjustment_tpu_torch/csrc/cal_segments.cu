@@ -66,7 +66,21 @@
 //   window   each window row's pair partials summed in rig order.
 // The landmark solve is a global barrier between the passes, so J_r, J_c
 // and J_p are read twice (coalesced): ~600 B per slot at k 9, kc 23, no
-// staged wu and no window chunk lists. K10's passes below stay separate
+// staged wu and no window chunk lists.
+//
+// K9 on C right-hand sides (viba_schur_pcg_cal_cols, the covariance
+// columns: x_r (R, K, C), x_c (n_c, kc, C), y likewise) runs once per tile
+// of kColTile columns (pt_segments.cuh): the down pass and the landmark
+// pass as K4's columns do; the up pass keeps K x kColTile rig sums a warp
+// (each slot's J_r and J_c in registers for the tile's columns) and stores
+// each slot's du (a float2 a column) instead of summing the window side
+// too, whose kc x kColTile sums would not fit the registers;
+// then a warp per (rig, window row) pair sums J_c^T du over the pair, four
+// columns at a time, into its partial row; then each window row's partials
+// are summed in rig order. Every column is summed in the single-column
+// kernel's order. Bound: bytes — per column, (8K + 8kc + 24) x 2 / kColTile
+// B of J a slot, the 32 B of p and 16 B of du written and read back.
+// K10's passes below stay separate
 // (down_cal_rig stages wu, schur_down_points gathers it through the landmark
 // lists, the window rows reduce through chunks).
 #include "assemble_rig.cuh"
@@ -580,6 +594,228 @@ __global__ void __launch_bounds__(viba::kBlock) pcg_cal_up(
   }
 }
 
+// K9 columns, down: p[pt_pos[s] * CT + c] = J_p^T w (J_r x_r + J_c x_c),
+// CT consecutive threads a slot, one column each (as K4's columns)
+template <int K, int KC, int CT>
+__global__ void __launch_bounds__(256) pcg_cal_down_cols(
+    int n, int C, int c0, int ncol, const int* __restrict__ rig, const int* __restrict__ win,
+    const int* __restrict__ pt_pos, const float* __restrict__ J_r, const float* __restrict__ J_c,
+    const float* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ x_r,
+    const float* __restrict__ x_c, float4* __restrict__ p) {
+  const long t = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  const int s = static_cast<int>(t / CT), c = static_cast<int>(t % CT);
+  if (s >= n || c >= ncol) return;
+  const int pos = pt_pos[s];
+  if (pos < 0) return;
+  const float* xr = x_r + (long)K * C * rig[s] + c0 + c;
+  const float* xc = x_c + (long)KC * C * win[s] + c0 + c;
+  float u0 = 0.f, u1 = 0.f, v0 = 0.f, v1 = 0.f;
+#pragma unroll
+  for (int a = 0; a < K; ++a) {
+    const float xv = xr[(long)a * C];
+    u0 += J_r[a * (long)n + s] * xv;
+    u1 += J_r[(K + a) * (long)n + s] * xv;
+  }
+#pragma unroll 8
+  for (int a = 0; a < KC; ++a) {
+    const float xv = xc[(long)a * C];
+    v0 += J_c[a * (long)n + s] * xv;
+    v1 += J_c[(KC + a) * (long)n + s] * xv;
+  }
+  const float ws = w[s];
+  const float wu0 = (u0 + v0) * ws, wu1 = (u1 + v1) * ws;
+  float q[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    q[a] = J_p[a * (long)n + s] * wu0 + J_p[(3 + a) * (long)n + s] * wu1;
+  p[(long)pos * CT + c] = make_float4(q[0], q[1], q[2], 0.f);
+}
+
+// K9 columns, up: a warp per rig row over its (rig, window row) pairs;
+// du = w (J_r x_r + J_c x_c) - w J_p z[point] per slot and column, stored
+// at du[s * CT + c], and y_r[row, :, c0 + c] = sum J_r^T du
+template <int K, int KC, int CT>
+__global__ void __launch_bounds__(viba::kBlock) pcg_cal_up_cols(
+    int R, int n, int C, int c0, int ncol, const int* __restrict__ rig_pair,
+    const int* __restrict__ pair_ptr, const int* __restrict__ pair_obs,
+    const int* __restrict__ win, const int* __restrict__ point, const float* __restrict__ J_r,
+    const float* __restrict__ J_c, const float* __restrict__ J_p, const float* __restrict__ w,
+    const float* __restrict__ x_r, const float* __restrict__ x_c, const float* __restrict__ z,
+    float2* __restrict__ du, float* __restrict__ y_r) {
+  const int r = blockIdx.x * (viba::kBlock / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= R) return;  // the whole warp
+  const float* xr = x_r + (long)K * C * r + c0;
+  float acc[K * CT];
+#pragma unroll
+  for (int i = 0; i < K * CT; ++i) acc[i] = 0.f;
+  for (int q = rig_pair[r]; q < rig_pair[r + 1]; ++q) {
+    const int beg = pair_ptr[q], end = pair_ptr[q + 1];
+    const float* xc = x_c + (long)KC * C * win[pair_obs[beg]] + c0;
+    for (int j = beg + lane; j < end; j += 32) {
+      const int s = pair_obs[j];
+      float jr0[K], jr1[K], jc0[KC], jc1[KC];
+#pragma unroll
+      for (int a = 0; a < K; ++a) {
+        jr0[a] = J_r[a * (long)n + s];
+        jr1[a] = J_r[(K + a) * (long)n + s];
+      }
+#pragma unroll
+      for (int a = 0; a < KC; ++a) {
+        jc0[a] = J_c[a * (long)n + s];
+        jc1[a] = J_c[(KC + a) * (long)n + s];
+      }
+      const float ws = w[s];
+      const float* zp = z + 3 * (long)CT * point[s];
+      const float p0 = J_p[s], p1 = J_p[(long)n + s], p2 = J_p[2 * (long)n + s];
+      const float p3 = J_p[3 * (long)n + s], p4 = J_p[4 * (long)n + s];
+      const float p5 = J_p[5 * (long)n + s];
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        if (c < ncol) {
+          float u0 = 0.f, u1 = 0.f, v0 = 0.f, v1 = 0.f;
+#pragma unroll
+          for (int a = 0; a < K; ++a) {
+            const float xv = xr[(long)a * C + c];
+            u0 += jr0[a] * xv;
+            u1 += jr1[a] * xv;
+          }
+#pragma unroll
+          for (int a = 0; a < KC; ++a) {
+            const float xv = xc[(long)a * C + c];
+            v0 += jc0[a] * xv;
+            v1 += jc1[a] * xv;
+          }
+          const float z0 = zp[3 * c], z1 = zp[3 * c + 1], z2 = zp[3 * c + 2];
+          const float a0 = p0 * z0 + p1 * z1 + p2 * z2;
+          const float a1 = p3 * z0 + p4 * z1 + p5 * z2;
+          const float d0 = (u0 + v0) * ws - a0 * ws;
+          const float d1 = (u1 + v1) * ws - a1 * ws;
+          du[(long)s * CT + c] = make_float2(d0, d1);
+#pragma unroll
+          for (int a = 0; a < K; ++a) acc[c * K + a] += jr0[a] * d0 + jr1[a] * d1;
+        }
+      }
+    }
+  }
+  warp_sum<K * CT>(acc);
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      if (c < ncol) {
+#pragma unroll
+        for (int a = 0; a < K; ++a) y_r[((long)K * r + a) * C + c0 + c] = acc[c * K + a];
+      }
+    }
+  }
+}
+
+// K9 columns, window side: a warp per (rig, window row) pair, part[pair_part[q],
+// :, c] = sum over the pair's slots of J_c^T du[s, c], kColSub columns at a time
+constexpr int kColSub = 4;
+
+template <int KC, int CT>
+__global__ void __launch_bounds__(viba::kBlock) pcg_cal_pair_cols(
+    int n_pairs, int n, int ncol, const int* __restrict__ pair_ptr,
+    const int* __restrict__ pair_obs, const int* __restrict__ pair_part,
+    const float* __restrict__ J_c, const float2* __restrict__ du, float* __restrict__ part) {
+  const int q = blockIdx.x * (viba::kBlock / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (q >= n_pairs) return;  // the whole warp
+  const int beg = pair_ptr[q], end = pair_ptr[q + 1];
+  float* dst = part + (long)KC * CT * pair_part[q];
+#pragma unroll 1
+  for (int cs = 0; cs < ncol; cs += kColSub) {
+    float acc[KC * kColSub];
+#pragma unroll
+    for (int i = 0; i < KC * kColSub; ++i) acc[i] = 0.f;
+    for (int j = beg + lane; j < end; j += 32) {
+      const int s = pair_obs[j];
+      float2 d[kColSub];
+#pragma unroll
+      for (int c = 0; c < kColSub; ++c)
+        d[c] = cs + c < ncol ? du[(long)s * CT + cs + c] : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int a = 0; a < KC; ++a) {
+        const float jc0 = J_c[a * (long)n + s], jc1 = J_c[(KC + a) * (long)n + s];
+#pragma unroll
+        for (int c = 0; c < kColSub; ++c) acc[c * KC + a] += jc0 * d[c].x + jc1 * d[c].y;
+      }
+    }
+    warp_sum<KC * kColSub>(acc);
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < kColSub; ++c) {
+        if (cs + c < ncol) {
+#pragma unroll
+          for (int a = 0; a < KC; ++a) dst[(long)a * CT + cs + c] = acc[c * KC + a];
+        }
+      }
+    }
+  }
+}
+
+// K9 columns, window rows: y_c[row, a, c0 + c] = the row's pair partials
+// summed in order, one thread per (row, a, c)
+template <int KC, int CT>
+__global__ void __launch_bounds__(256) sum_pair_cols(int n_c, int C, int c0, int ncol,
+                                                     const int* __restrict__ win_pair,
+                                                     const float* __restrict__ part,
+                                                     float* __restrict__ y_c) {
+  const long idx = blockIdx.x * 256L + threadIdx.x;
+  if (idx >= (long)n_c * KC * ncol) return;
+  const int c = static_cast<int>(idx % ncol);
+  const int a = static_cast<int>((idx / ncol) % KC);
+  const int row = static_cast<int>(idx / ((long)ncol * KC));
+  float sum = 0.f;
+  for (int q = win_pair[row]; q < win_pair[row + 1]; ++q) sum += part[((long)KC * q + a) * CT + c];
+  y_c[((long)KC * row + a) * C + c0 + c] = sum;
+}
+
+template <int K, int KC>
+cudaError_t pcg_cal_cols(int R, int L, int n, int n_real, int n_c, int n_pairs, int C,
+                         const int* rig, const int* win, const int* point, const int* pt_pos,
+                         const int* pt_ptr, const int* rig_pair, const int* pair_ptr,
+                         const int* pair_obs, const int* pair_part, const int* win_pair,
+                         const float* J_r, const float* J_c, const float* J_p, const float* w,
+                         const float* x_r, const float* x_c, const float* hinv, float4* p,
+                         float* z, float2* du, float* part, float* y_r, float* y_c,
+                         cudaStream_t st) {
+  constexpr int CT = viba::kColTile;
+  for (int c0 = 0; c0 < C; c0 += CT) {
+    const int ncol = C - c0 < CT ? C - c0 : CT;
+    if (n_real > 0) {
+      pcg_cal_down_cols<K, KC, CT><<<static_cast<int>(((long)n * CT + 255) / 256), 256, 0, st>>>(
+          n, C, c0, ncol, rig, win, pt_pos, J_r, J_c, J_p, w, x_r, x_c, p);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    cudaError_t err = viba::launch_point_range_sum_cols<CT>(L, ncol, pt_ptr, p, hinv, z, st);
+    if (err != cudaSuccess) return err;
+    if (R > 0) {
+      pcg_cal_up_cols<K, KC, CT><<<viba::segment_blocks<32>(R), viba::kBlock, 0, st>>>(
+          R, n, C, c0, ncol, rig_pair, pair_ptr, pair_obs, win, point, J_r, J_c, J_p, w, x_r,
+          x_c, z, du, y_r);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    if (n_pairs > 0) {
+      pcg_cal_pair_cols<KC, CT><<<viba::segment_blocks<32>(n_pairs), viba::kBlock, 0, st>>>(
+          n_pairs, n, ncol, pair_ptr, pair_obs, pair_part, J_c, du, part);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    const long total = (long)n_c * KC * ncol;
+    if (total > 0) {
+      sum_pair_cols<KC, CT><<<static_cast<int>((total + 255) / 256), 256, 0, st>>>(
+          n_c, C, c0, ncol, win_pair, part, y_c);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
+}
+
 template <int K, int KC>
 cudaError_t pcg_cal(int R, int L, int n, int n_real, int n_c, const int* rig, const int* win,
                     const int* point, const int* pt_pos, const int* pt_ptr, const int* rig_pair,
@@ -752,4 +988,32 @@ extern "C" int viba_schur_pcg_cal(int R, int L, int n, int n_real, int k, int kc
   if (k == 9) return VIBA_DISPATCH_KC(kc, VIBA_PCG(9, 6), VIBA_PCG(9, 17), VIBA_PCG(9, 23));
   return static_cast<int>(cudaErrorInvalidValue);
 #undef VIBA_PCG
+}
+
+extern "C" int viba_schur_pcg_cal_cols(int R, int L, int n, int n_real, int k, int kc, int n_c,
+                                       int n_pairs, int C, const int* rig, const int* win,
+                                       const int* point, const int* pt_pos, const int* pt_ptr,
+                                       const int* rig_pair, const int* pair_ptr,
+                                       const int* pair_obs, const int* pair_part,
+                                       const int* win_pair, const float* J_r, const float* J_c,
+                                       const float* J_p, const float* w, const float* x_r,
+                                       const float* x_c, const float* hinv, float* p, float* z,
+                                       float* du, float* part, float* y_r, float* y_c,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float4* p4 = reinterpret_cast<float4*>(p);
+  float2* du2 = reinterpret_cast<float2*>(du);
+#define VIBA_PCG_COLS(K, KC)                                                                  \
+  static_cast<int>(pcg_cal_cols<K, KC>(R, L, n, n_real, n_c, n_pairs, C, rig, win, point,     \
+                                       pt_pos, pt_ptr, rig_pair, pair_ptr, pair_obs,          \
+                                       pair_part, win_pair, J_r, J_c, J_p, w, x_r, x_c, hinv, \
+                                       p4, z, du2, part, y_r, y_c, st))
+  if (k == 6) {
+    return VIBA_DISPATCH_KC(kc, VIBA_PCG_COLS(6, 6), VIBA_PCG_COLS(6, 17), VIBA_PCG_COLS(6, 23));
+  }
+  if (k == 9) {
+    return VIBA_DISPATCH_KC(kc, VIBA_PCG_COLS(9, 6), VIBA_PCG_COLS(9, 17), VIBA_PCG_COLS(9, 23));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+#undef VIBA_PCG_COLS
 }

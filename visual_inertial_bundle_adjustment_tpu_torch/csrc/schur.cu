@@ -42,6 +42,20 @@
 // are read twice (coalesced): no memset, no staged wu, no host work between
 // the passes. Bound: bytes — ~2 x (8K + 24 + 12) B per real slot plus the
 // 16 B of p written and read back.
+//
+// K4 on C right-hand sides (viba_schur_pcg_cols, the covariance columns:
+// x and y are (R, K, C), one row's C values of a component contiguous) runs
+// the same three passes once per tile of kColTile columns
+// (pt_segments.cuh): the down pass, kColTile threads a slot (one column
+// each, so a warp's x loads and p stores are contiguous runs), stores
+// p[pt_pos[s] * kColTile + c]; the landmark pass sums each column and
+// writes z (L, kColTile, 3); the up pass keeps K x kColTile sums a rig row,
+// each thread loading its slot's J once a tile. Every column is summed in
+// the single-column kernel's order. The tile bounds the staged p at
+// n_real x 128 B (50 MB at the bias headline) where one float4 a slot and
+// column would take n_real x C x 16 B (1.6 GB at C = 256). Bound: bytes —
+// per column, 2 x (8K + 36) / kColTile B of J a slot, the 32 B of p written
+// and read back, and 12 B of z read.
 #include "pt_segments.cuh"
 #include "tile_reduce.cuh"
 
@@ -200,6 +214,121 @@ __global__ void __launch_bounds__(viba::kBlock) pcg_up(
       });
 }
 
+// K4 columns, down: p[pt_pos[s] * CT + c] = J_p^T w J_r x[rig[s], :, c0 + c];
+// CT consecutive threads per slot, one column each, so a warp's x loads and
+// its float4 stores of p are contiguous runs (the slot's J loads broadcast)
+template <int K, int CT>
+__global__ void __launch_bounds__(256) pcg_down_cols(int n, int C, int c0, int ncol,
+                                                     const int* __restrict__ rig,
+                                                     const int* __restrict__ pt_pos,
+                                                     const float* __restrict__ J_r,
+                                                     const float* __restrict__ J_p,
+                                                     const float* __restrict__ w,
+                                                     const float* __restrict__ x,
+                                                     float4* __restrict__ p) {
+  const long t = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  const int s = static_cast<int>(t / CT), c = static_cast<int>(t % CT);
+  if (s >= n || c >= ncol) return;
+  const int pos = pt_pos[s];
+  if (pos < 0) return;
+  const float* xr = x + (long)K * C * rig[s] + c0 + c;
+  float u0 = 0.f, u1 = 0.f;
+#pragma unroll
+  for (int a = 0; a < K; ++a) {
+    const float xv = xr[(long)a * C];
+    u0 += J_r[a * (long)n + s] * xv;
+    u1 += J_r[(K + a) * (long)n + s] * xv;
+  }
+  const float ws = w[s];
+  const float wu0 = u0 * ws, wu1 = u1 * ws;
+  float q[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    q[a] = J_p[a * (long)n + s] * wu0 + J_p[(3 + a) * (long)n + s] * wu1;
+  p[(long)pos * CT + c] = make_float4(q[0], q[1], q[2], 0.f);
+}
+
+// K4 columns, up: per rig row and column, du = w J_r x - w J_p z[point],
+// y[row, :, c0 + c] = sum J_r^T du
+template <int K, int CT>
+__global__ void __launch_bounds__(viba::kBlock) pcg_up_cols(
+    int R, int n, int C, int c0, int ncol, const int* __restrict__ rig_ptr,
+    const int* __restrict__ rig_obs, const int* __restrict__ point,
+    const float* __restrict__ J_r, const float* __restrict__ J_p, const float* __restrict__ w,
+    const float* __restrict__ x, const float* __restrict__ z, float* __restrict__ y) {
+  const int row = blockIdx.x;  // one rig row per block (kRowGroup == kBlock)
+  const float* xr = x + (long)K * C * (row < R ? row : 0) + c0;
+  viba::reduce_segments<kRowGroup, K * CT>(
+      blockIdx.x, R, rig_ptr, rig_obs,
+      [&](int s, float(&acc)[K * CT]) {
+        float j0[K], j1[K];
+#pragma unroll
+        for (int a = 0; a < K; ++a) {
+          j0[a] = J_r[a * (long)n + s];
+          j1[a] = J_r[(K + a) * (long)n + s];
+        }
+        float jp[6];
+#pragma unroll
+        for (int a = 0; a < 6; ++a) jp[a] = J_p[a * (long)n + s];
+        const float ws = w[s];
+        const float* zp = z + 3 * (long)CT * point[s];
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          if (c < ncol) {
+            float u0 = 0.f, u1 = 0.f;
+#pragma unroll
+            for (int a = 0; a < K; ++a) {
+              const float xv = xr[(long)a * C + c];
+              u0 += j0[a] * xv;
+              u1 += j1[a] * xv;
+            }
+            const float z0 = zp[3 * c], z1 = zp[3 * c + 1], z2 = zp[3 * c + 2];
+            const float a0 = jp[0] * z0 + jp[1] * z1 + jp[2] * z2;
+            const float a1 = jp[3] * z0 + jp[4] * z1 + jp[5] * z2;
+            const float d0 = u0 * ws - a0 * ws, d1 = u1 * ws - a1 * ws;
+#pragma unroll
+            for (int a = 0; a < K; ++a) acc[c * K + a] += j0[a] * d0 + j1[a] * d1;
+          }
+        }
+      },
+      [&](int r, float(&acc)[K * CT]) {
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          if (c < ncol) {
+#pragma unroll
+            for (int a = 0; a < K; ++a) y[((long)K * r + a) * C + c0 + c] = acc[c * K + a];
+          }
+        }
+      });
+}
+
+template <int K>
+cudaError_t schur_pcg_cols(int R, int L, int n, int n_real, int C, const int* rig,
+                           const int* point, const int* pt_pos, const int* pt_ptr,
+                           const int* rig_ptr, const int* rig_obs, const float* J_r,
+                           const float* J_p, const float* w, const float* x, const float* hinv,
+                           float4* p, float* z, float* y, cudaStream_t st) {
+  constexpr int CT = viba::kColTile;
+  for (int c0 = 0; c0 < C; c0 += CT) {
+    const int ncol = C - c0 < CT ? C - c0 : CT;
+    if (n_real > 0) {
+      pcg_down_cols<K, CT><<<static_cast<int>(((long)n * CT + 255) / 256), 256, 0, st>>>(
+          n, C, c0, ncol, rig, pt_pos, J_r, J_p, w, x, p);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    cudaError_t err = viba::launch_point_range_sum_cols<CT>(L, ncol, pt_ptr, p, hinv, z, st);
+    if (err != cudaSuccess) return err;
+    if (R > 0) {
+      pcg_up_cols<K, CT><<<viba::segment_blocks<kRowGroup>(R), viba::kBlock, 0, st>>>(
+          R, n, C, c0, ncol, rig_ptr, rig_obs, point, J_r, J_p, w, x, z, y);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
+}
+
 template <int K>
 cudaError_t schur_pcg(int R, int L, int n, int n_real, const int* rig, const int* point,
                       const int* pt_pos, const int* pt_ptr, const int* rig_ptr,
@@ -292,6 +421,27 @@ extern "C" int viba_schur_pcg(int R, int L, int n, int n_real, int k, const int*
   if (k == 9) {
     return static_cast<int>(schur_pcg<9>(R, L, n, n_real, rig, point, pt_pos, pt_ptr,
                                          rig_ptr, rig_obs, J_r, J_p, w, x, hinv, p4, z, y, st));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int viba_schur_pcg_cols(int R, int L, int n, int n_real, int k, int C,
+                                   const int* rig, const int* point, const int* pt_pos,
+                                   const int* pt_ptr, const int* rig_ptr, const int* rig_obs,
+                                   const float* J_r, const float* J_p, const float* w,
+                                   const float* x, const float* hinv, float* p, float* z,
+                                   float* y, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float4* p4 = reinterpret_cast<float4*>(p);
+  if (k == 6) {
+    return static_cast<int>(schur_pcg_cols<6>(R, L, n, n_real, C, rig, point, pt_pos, pt_ptr,
+                                              rig_ptr, rig_obs, J_r, J_p, w, x, hinv, p4, z, y,
+                                              st));
+  }
+  if (k == 9) {
+    return static_cast<int>(schur_pcg_cols<9>(R, L, n, n_real, C, rig, point, pt_pos, pt_ptr,
+                                              rig_ptr, rig_obs, J_r, J_p, w, x, hinv, p4, z, y,
+                                              st));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -263,3 +263,12 @@ def s2_boxplus(vec, radius, step):
     basis = s2_ortho(vec)  # (..., 2, 3)
     moved = vec + (basis * (factor[..., None] * step)[..., :, None]).sum(-2)
     return moved / torch.linalg.vector_norm(moved, dim=-1, keepdim=True) * radius
+
+
+def s2_boxminus(vec, base, radius):
+    """Inverse of s2_boxplus (reference Variable.h:201-208)."""
+    dv = (vec / torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
+          - base / torch.linalg.vector_norm(base, dim=-1, keepdim=True))
+    angle = 2.0 * torch.arcsin(torch.clamp(_safe_vecnorm(dv) * 0.5, 0.0, 1.0))
+    factor = 1.0 / torch.cos(angle)
+    return factor[..., None] * _mv3(s2_ortho(base), dv) * radius

@@ -18,6 +18,8 @@ landmark rows and, for calibration-coupled batches, calibration-window rows:
   seg_schur_down_cal  K6 with u = J_r x_r[rig] + J_c x_c[win]: y_r, y_c, t (K10)
   seg_schur_up_cal    K5 into rig and window rows (K10)
   seg_schur_pcg_cal   K4's function over rig and window columns (K9)
+  seg_schur_pcg_cols      K4 on C right-hand sides, x (R, k, C)
+  seg_schur_pcg_cal_cols  K9 on C right-hand sides, x_r (R, k, C), x_c (n_c, kc, C)
   seg_mv_fused_table    wu = w (J x[row]), y[row] = sum J^T wu, J read once (K12)
   seg_mv_scatter_table  y[row] = sum J^T u (K13a)
   seg_mv_gather_table   u = J x[row] (K13b)
@@ -100,6 +102,8 @@ import torch
 from . import _kernels
 
 CHUNK = 1024  # window-row slots per partial sum (cal kernels)
+# right-hand sides a pass of the column kernels (csrc/pt_segments.cuh kColTile)
+COL_TILE = 8
 # calibration column splits of J_c by its width kc, in cal_groups order:
 # cam extr and cam intr (6 | 17), or one of them alone
 CAL_SPLITS = {23: (6, 17), 6: (6,), 17: (17,)}
@@ -707,6 +711,139 @@ def seg_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cplan: Ca
     out = _launch_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
     seg_schur_pcg_cal.launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4 / K9 on C right-hand sides (the covariance columns)
+# ---------------------------------------------------------------------------
+
+# float64 elements a temporary of the plain column versions may take on the
+# card (2 GB): the columns run in groups that fit
+_PLAIN_COLS_ELEMS = 1 << 28
+
+
+def _rows_sum_cols(contrib, idx, n_rows):
+    """contrib (C, D, N) summed into (C, n_rows, D) rows by idx (N,), each
+    column as _rows_sum sums it."""
+    C, D, N = contrib.shape
+    out = torch.zeros((n_rows, C * D), dtype=contrib.dtype, device=contrib.device)
+    out.index_add_(0, idx, contrib.permute(2, 0, 1).reshape(N, C * D))
+    return out.reshape(n_rows, C, D).transpose(0, 1)
+
+
+def _gather_cols(x, idx):
+    """x (rows, k, C) at rows idx (N,) as (C, k, N)."""
+    return x.permute(2, 0, 1).index_select(1, idx).transpose(1, 2)
+
+
+def _schur_pcg_cols_plain(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
+    """The plain K4 (J_c None) or K9 composition of seg_schur_pcg /
+    seg_schur_pcg_cal with the columns carried through as a leading axis:
+    every product and sum of a column runs as in the single-column version
+    (the same bits on the CPU). Returns y_r (R, k, C) and y_c (n_c, kc, C)
+    or None."""
+    C = x_r.shape[-1]
+    width = max(J_r.shape[1], 3 if J_c is None else J_c.shape[1])
+    group = max(1, _PLAIN_COLS_ELEMS // max(J_r.shape[0] * width * J_r.shape[-1], 1))
+    if C > group:
+        outs = [_schur_pcg_cols_plain(J_r, J_c, J_p, w, x_r[..., c:c + group],
+                                      None if x_c is None else x_c[..., c:c + group], hinv,
+                                      plan, cplan) for c in range(0, C, group)]
+        return (torch.cat([o[0] for o in outs], dim=-1),
+                None if J_c is None else torch.cat([o[1] for o in outs], dim=-1))
+    u = (J_r[None] * _gather_cols(x_r, plan.rig)[:, None]).sum(2)  # (C, d, N)
+    if J_c is not None:
+        u = u + (J_c[None] * _gather_cols(x_c, cplan.win)[:, None]).sum(2)
+    wu = u * w
+    t = _rows_sum_cols((J_p[None] * wu[:, :, None]).sum(1), plan.point, plan.n_pts)
+    z = (hinv[None] * t[:, :, None, :]).sum(-1)  # (C, L, 3)
+    zg = z.index_select(1, plan.point).transpose(1, 2)  # (C, 3, N)
+    du = wu - (J_p[None] * zg[:, None]).sum(2) * w
+    y_r = _rows_sum_cols((J_r[None] * du[:, :, None]).sum(1), plan.rig, plan.n_rows)
+    y_c = None
+    if J_c is not None:
+        y_c = _rows_sum_cols((J_c[None] * du[:, :, None]).sum(1), cplan.win,
+                             cplan.n_rows).permute(1, 2, 0)
+    return y_r.permute(1, 2, 0), y_c
+
+
+def _cols_arg(x, name, rows, k):
+    C = x.shape[-1] if x.ndim == 3 else 0
+    _kernels.check(x, name, torch.float32, (rows, k, C))
+    if C == 0:
+        raise ValueError(f"{name}: expected at least one column")
+    return C, x.data_ptr()
+
+
+@_kernels.register("schur_pcg_cols")
+def seg_schur_pcg_cols(J_r, J_p, w, x_table, hinv, plan: SegPlan):
+    """K4 on C right-hand sides: y (R, k, C), column c the y of
+    seg_schur_pcg on x_table[..., c]. On the card one entry
+    (csrc/schur.cu viba_schur_pcg_cols) that runs K4's three passes once per
+    tile of COL_TILE columns, each slot's J read once a tile."""
+    if not _kernels.on_card(w):
+        return _schur_pcg_cols_plain(J_r, None, J_p, w, x_table, None, hinv, plan, None)[0]
+    n, k, jargs = _jac_args(J_r, J_p, w)
+    R, L = plan.n_rows, plan.n_pts
+    C, x_ptr = _cols_arg(x_table, "x_table", R, k)
+    n_real = plan.pt_obs.shape[0]
+    ck = _kernels.check
+    p = _empty((max(n_real, 1), COL_TILE, 4), w)  # COL_TILE float4s a slot, point-sorted
+    z = _empty((max(L, 1), COL_TILE, 3), w)
+    y = _empty((R, k, C), w)
+    _kernels.launch("viba_schur_pcg_cols", R, L, n, n_real, k, C,
+                    ck(plan.rig, "rig", torch.int32, (n,)),
+                    ck(plan.point, "point", torch.int32, (n,)),
+                    ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
+                    ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
+                    ck(plan.rig_ptr, "rig_ptr", torch.int32, (R + 1,)),
+                    ck(plan.rig_obs, "rig_obs", torch.int32, (n_real,)), *jargs, x_ptr,
+                    ck(hinv, "hinv", torch.float32, (L, 3, 3)), p.data_ptr(), z.data_ptr(),
+                    y.data_ptr())
+    seg_schur_pcg_cols.launches += 1
+    return y
+
+
+@_kernels.register("schur_pcg_cal_cols")
+def seg_schur_pcg_cal_cols(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cplan: CalPlan):
+    """K9 on C right-hand sides: (y_r (R, k, C), y_c (n_c, kc, C)), column c
+    the result of seg_schur_pcg_cal on column c of x_r and x_c. On the card
+    one entry (csrc/cal_segments.cu viba_schur_pcg_cal_cols) that runs per
+    tile of COL_TILE columns: the down and landmark passes, the rig rows'
+    up pass (staging each slot's du), the (rig, window row) pairs' J_c^T du
+    and the window rows' sums."""
+    if not _kernels.on_card(w):
+        return _schur_pcg_cols_plain(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
+    n, k, _ = _jac_args(J_r, J_p, w)
+    R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
+    kc = J_c.shape[1]
+    C, xr_ptr = _cols_arg(x_r, "x_r", R, k)
+    C_c, xc_ptr = _cols_arg(x_c, "x_c", n_c, kc)
+    if C_c != C:
+        raise ValueError(f"x_c: {C_c} columns, x_r {C}")
+    n_real, n_pairs = plan.pt_obs.shape[0], cplan.n_pairs
+    ck = _kernels.check
+    p = _empty((max(n_real, 1), COL_TILE, 4), w)
+    z = _empty((max(L, 1), COL_TILE, 3), w)
+    du = _empty((max(n, 1), COL_TILE, 2), w)
+    part = _empty((max(n_pairs, 1), kc, COL_TILE), w)
+    y_r, y_c = _empty((R, k, C), w), _empty((n_c, kc, C), w)
+    _kernels.launch("viba_schur_pcg_cal_cols", R, L, n, n_real, k, kc, n_c, n_pairs, C,
+                    ck(plan.rig, "rig", torch.int32, (n,)), ck(cplan.win, "win", torch.int32, (n,)),
+                    ck(plan.point, "point", torch.int32, (n,)),
+                    ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
+                    ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
+                    ck(cplan.rig_pair, "rig_pair", torch.int32, (R + 1,)),
+                    ck(cplan.pair_ptr, "pair_ptr", torch.int32),
+                    ck(cplan.pair_obs, "pair_obs", torch.int32, (n_real,)),
+                    ck(cplan.pair_part, "pair_part", torch.int32, (n_pairs,)),
+                    ck(cplan.win_pair, "win_pair", torch.int32, (n_c + 1,)),
+                    ck(J_r, "J_r", torch.float32, (2, k, n)), _jc_arg(J_c, n),
+                    ck(J_p, "J_p", torch.float32, (2, 3, n)), ck(w, "w", torch.float32, (n,)),
+                    xr_ptr, xc_ptr, ck(hinv, "hinv", torch.float32, (L, 3, 3)), p.data_ptr(),
+                    z.data_ptr(), du.data_ptr(), part.data_ptr(), y_r.data_ptr(), y_c.data_ptr())
+    seg_schur_pcg_cal_cols.launches += 1
+    return y_r, y_c
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,10 @@ mini-DSL with `-` negation for calibration subsets
 It runs on the first CUDA card (float32) unless `main` is given another
 device (`device="cpu"` runs in float64, as the tests do). Before point
 refinement the problem is blocked (`Problem._build`), so refinement and
-the LM loop run on the blocked batches and the card's kernels. Not here yet:
---compute-covariances (problem/covariance.py comes with the covariance slice
-of the port; the flag raises before anything is loaded).
+the LM loop run on the blocked batches and the card's kernels.
+--compute-covariances writes the per-rig and per-window IMU-calibration
+covariances after the trajectories (write_covariances: one linearization,
+the columns solved in column-batched PCG chunks, problem/covariance.py).
 """
 
 from __future__ import annotations
@@ -233,12 +234,8 @@ def main(argv=None, *, device=None, dtype=None, timings=None):
     `timings` receives the host seconds of each stage (synchronized with
     the device): load, adapter, blocking, refine_points, recompute_preint
     and rs_tables (one per pre-step), lm_iterations (one per iteration, its
-    pre-step included), writers."""
+    pre-step included), writers, and covariances with --compute-covariances."""
     args = build_arg_parser().parse_args(argv)
-    if args.compute_covariances:
-        raise NotImplementedError(
-            "--compute-covariances needs problem/covariance.py, which the covariance slice of "
-            "the port brings")
 
     from ..problem.optimizer import LMSettings, optimize, pick_solver
     from . import session_data as sio
@@ -396,8 +393,15 @@ def main(argv=None, *, device=None, dtype=None, timings=None):
         ]:
             writer(outdir / fn, sd_out, *states)
         save_online_calib_states(outdir / "online_calibration.jsonl", adapter)
+        lap("writers", t_stage)
+        if args.compute_covariances:
+            t_stage = time.perf_counter()
+            log("Computing covariances (one linearization, column-batched PCG)...")
+            write_covariances(outdir, adapter, problem, pcg_iters=args.covariance_pcg_iterations)
+            lap("covariances", t_stage)
         log(f"outputs written to {outdir}")
-    lap("writers", t_stage)
+    else:
+        lap("writers", t_stage)
     log("stage times (s): " + ", ".join(
         f"{k} {sum(val) if isinstance(val, list) else val:.3f}"
         + (f" ({len(val)})" if isinstance(val, list) else "") for k, val in stages.items()))
@@ -415,6 +419,43 @@ def main(argv=None, *, device=None, dtype=None, timings=None):
             json.dump(report, f, indent=1)
 
     return 0
+
+
+def write_covariances(outdir, adapter, problem, pcg_iters=400):
+    """Per-rig 12x12 joint covariances + per-window IMU calib covariances.
+
+    Reference SingleSessionProblem::computeCovariances (.cpp:66-138): gauge
+    fixed by a position+yaw prior on the first rig, one linearization for all
+    requested blocks. rig_covariances.csv rows: timestamp, the 12 tangent
+    stddevs, then the row-major 12x12 block; imu_calib_covariances.jsonl: one
+    record per (window, imu) with enabled dims + block."""
+    from ..problem import covariance as cov
+
+    rigs = list(range(adapter.R))
+    blocks = cov.rig_covariances(problem, rigs, pcg_iters=pcg_iters)
+    with open(outdir / "rig_covariances.csv", "w") as f:
+        f.write("tracking_timestamp_us,"
+                + ",".join(f"std_{i}" for i in range(12)) + ","
+                + ",".join(f"cov_{i}_{j}" for i in range(12) for j in range(12))
+                + "\n")
+        for r in rigs:
+            B = blocks[r]
+            std = np.sqrt(np.maximum(np.diag(B), 0.0))
+            f.write(f"{int(adapter.rig_ts_us[r])},"
+                    + ",".join(f"{x:.9g}" for x in std) + ","
+                    + ",".join(f"{x:.9g}" for x in B.reshape(-1)) + "\n")
+    if bool(problem.masks.imu_calib.any()):
+        rows = list(range(problem.variables.imu_calib.shape[0]))
+        cblocks = cov.calib_covariances(problem, "imu_calib", rows, pcg_iters=pcg_iters)
+        with open(outdir / "imu_calib_covariances.jsonl", "w") as f:
+            for row in rows:
+                B, dims = cblocks[row]
+                f.write(json.dumps({
+                    "window": row // max(adapter.num_imus, 1),
+                    "imu": row % max(adapter.num_imus, 1),
+                    "dims": dims,
+                    "cov": np.asarray(B).reshape(-1).tolist(),
+                }) + "\n")
 
 
 def save_online_calib_states(path, adapter):

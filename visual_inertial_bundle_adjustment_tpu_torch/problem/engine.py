@@ -26,8 +26,8 @@ import torch
 
 from ..ops import losses
 from . import factors as fct
-from .structure import (Masks, Tangent, VariableTables, pack_blocks, pack_info, pack_t, t_dot,
-                        t_sub, unpack_t, zero_tangent)
+from .structure import (Masks, Tangent, VariableTables, has_columns, pack_blocks, pack_info,
+                        pack_t, t_dot, t_sub, unpack_t, zero_tangent)
 
 
 class LinearizedGraph(NamedTuple):
@@ -52,6 +52,21 @@ def _batch_cost_terms(cfg: fct.BatchCfg, res, valid, axis=-1):
 
 def _count(mask):
     return mask.sum().to(torch.int64)
+
+
+def prune_cfgs(cfgs, masks: Masks):
+    """Set static active_groups from the given masks: Problem._build's
+    constant-group pruning, for direct linearize callers (the covariance
+    and condensed-factor paths). A fully-masked group's Jacobians are exact
+    zeros, so dropping the group skips its AD columns and its matvec
+    traffic."""
+    import dataclasses
+
+    active = {g: bool(getattr(masks, g).any()) for g in fct.GROUP_DIMS}
+    return tuple(
+        dataclasses.replace(c, active_groups=tuple(
+            g for g, _ in fct.REGISTRY[c.kind]["tangents"] if active[g]))
+        for c in cfgs)
 
 
 def linearize(cfgs, datas, v: VariableTables, masks: Masks, alive: tuple | None = None):
@@ -474,8 +489,27 @@ def _w_y(lg, v, yl):
     return Tangent(**y)
 
 
+def map_columns(fn, x: Tangent, group: int | None = None) -> Tangent:
+    """A Tangent -> Tangent function of one column applied to every column
+    of x (trailing column axis): torch.vmap over a copy with the columns
+    leading, so every column's sums run as in a single-column call (the same
+    bits on the CPU); `group` columns a vmap at most (bounds the batched
+    temporaries)."""
+    C = x.gravity.shape[-1]
+    group = C if group is None else max(1, min(group, C))
+    outs = []
+    for c in range(0, C, group):
+        y = torch.vmap(fn)(Tangent(*(a[..., c:c + group].movedim(-1, 0).contiguous()
+                                     for a in x)))
+        outs.append(Tangent(*(a.movedim(0, -1) for a in y)))
+    return outs[0] if len(outs) == 1 else Tangent(*(torch.cat(a, dim=-1) for a in zip(*outs)))
+
+
 def reduced_matvec(lg, v, rs: ReducedSystem, x: Tangent) -> Tangent:
-    """S x = (H_rr + damping) x - W H_ll^-1 W^T x."""
+    """S x = (H_rr + damping) x - W H_ll^-1 W^T x (x with or without
+    columns)."""
+    if has_columns(x):
+        return map_columns(lambda xc: reduced_matvec(lg, v, rs, xc), x)
     hx, _ = _hmatvec(lg, v, x, torch.zeros_like(v.points))
     # damping on reduced diagonal: diag*(1+lam)+lam => +lam*diag.x + lam*x
     damped = Tangent(*(h + rs.lam * (d * xv) + rs.lam * xv
@@ -497,47 +531,73 @@ def back_substitute(lg, v, rs: ReducedSystem, x_r: Tangent, b_l):
 def packed_pcg(mv, precond_inv, b: Tangent, max_iters: int, rel_tol):
     """Packed-state PCG (reference PCG.cpp:15-97) of the operator `mv`
     (Tangent -> Tangent) with block-Jacobi inverse blocks `precond_inv` (or
-    None: identity). The state runs packed into one (nb, K) array.
+    None: identity).
 
     Runs exactly `max_iters` iterations with no host synchronization; the
     stop test rr > rel_tol^2 |b|^2 (checked before each iteration, as the
     JAX package's while_loop does) is an on-device mask that freezes x, r, p
-    once met. Returns (x, rel, iters) with rel and iters as 0-d tensors."""
+    once met. Returns (x, rel, iters) with rel and iters as 0-d tensors.
+
+    A right-hand side with columns (structure.has_columns: every field with
+    a trailing axis of C columns) solves each column as its own system, one
+    `mv` call on all of them an iteration; rel and iters are then (C,).
+    Every column keeps its own dot products, alpha, beta, stop mask and
+    iteration count. The state runs packed as (C, nb, K) (C = 1 without
+    columns), so each column's dots and preconditioner sums reduce a
+    contiguous row in the single-column order: a column's trajectory is
+    that of its single-column solve (bit-equal on the CPU when `mv` is
+    column-exact)."""
+    cols = has_columns(b)
     counts, dims, K = pack_info(b)
-    bp = pack_t(b, counts, dims, K)
+
+    def pack(t):
+        if cols:
+            return pack_t(t, counts, dims, K).permute(2, 0, 1).contiguous()
+        return pack_t(t, counts, dims, K)[None]
+
+    def unpack(xp):
+        return unpack_t(xp.permute(1, 2, 0) if cols else xp[0], counts, dims, K)
+
+    def dot(a, c):
+        return (a * c).reshape(a.shape[0], -1).sum(-1)  # (C,)
+
+    def col(s):
+        return s[:, None, None]
+
+    bp = pack(b)
     Pm = pack_blocks(precond_inv, counts, dims, K) if precond_inv is not None else None
 
     def prec(rp):
-        return rp if Pm is None else (Pm * rp[:, None, :]).sum(-1)
+        return rp if Pm is None else (Pm[None] * rp[:, :, None, :]).sum(-1)
 
     tol2 = float(rel_tol) ** 2
     x = torch.zeros_like(bp)
     r = bp
     p = prec(bp)
-    rz = (bp * p).sum()
-    b_norm2 = (bp * bp).sum()
+    rz = dot(bp, p)
+    b_norm2 = dot(bp, bp)
     rr = b_norm2
-    iters = torch.zeros((), dtype=torch.int64, device=bp.device)
+    iters = torch.zeros(bp.shape[:1], dtype=torch.int64, device=bp.device)
     for _ in range(max_iters):
         active = rr > tol2 * b_norm2
-        Ap = pack_t(mv(unpack_t(p, counts, dims, K)), counts, dims, K)
-        pAp = (p * Ap).sum()
+        Ap = pack(mv(unpack(p)))
+        pAp = dot(p, Ap)
         alpha = rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp)
-        x_n = x + alpha * p
-        r_n = r - alpha * Ap
+        x_n = x + col(alpha) * p
+        r_n = r - col(alpha) * Ap
         z_n = prec(r_n)
-        rz_n = (r_n * z_n).sum()
-        rr_n = (r_n * r_n).sum()
+        rz_n = dot(r_n, z_n)
+        rr_n = dot(r_n, r_n)
         beta = rz_n / torch.where(rz == 0, torch.ones_like(rz), rz)
-        p_n = z_n + beta * p
-        x = torch.where(active, x_n, x)
-        r = torch.where(active, r_n, r)
-        p = torch.where(active, p_n, p)
+        p_n = z_n + col(beta) * p
+        x = torch.where(col(active), x_n, x)
+        r = torch.where(col(active), r_n, r)
+        p = torch.where(col(active), p_n, p)
         rz = torch.where(active, rz_n, rz)
         rr = torch.where(active, rr_n, rr)
         iters = iters + active.to(torch.int64)
     rel = torch.sqrt(rr / torch.where(b_norm2 == 0, torch.ones_like(b_norm2), b_norm2))
-    return unpack_t(x, counts, dims, K), rel, iters
+    return (unpack(x), rel, iters) if cols else (unpack(x), rel[0], iters[0])
 
 
 def pcg_solve(lg, v, rs: ReducedSystem, b: Tangent, max_iters: int, rel_tol):

@@ -9,8 +9,9 @@ the JAX package):
   - SecondaryImuInertialFactor InertialFactor.cpp:131-305
   - OmegaPriorFactor           viba/problem/OmegaPriorFactor.cpp:16-62
   - RandomWalkFactor           viba/problem/RandomWalkFactor.cpp:16-168
-  - PriorFactor (factory calibration priors) PriorFactor.cpp:17-176
-`pose_prior`, `position_yaw_prior` and `base_map_visual` are not ported yet.
+  - PriorFactor (factory calibration priors, the pose prior and the
+    position + yaw gauge prior of problem/covariance.py) PriorFactor.cpp:17-176
+`base_map_visual` (multi-session base maps) is not ported yet.
 
 Each kind's residual is a pure function of the tangents of the variables it
 touches, evaluated at the current linearization point; the generic
@@ -536,6 +537,31 @@ def _se3_prior_local(ts, ar, cfg):
     return res, (res, _ok(res))
 
 
+def _pose_prior_local(ts, ar, cfg):
+    (xi_rig,) = ts
+    Tq, Tt = _se3_at(ar["pose_q"], ar["pose_t"], xi_rig[POSE])
+    res = _mvec(ar["sqrt_h"], lie.se3_boxminus((Tq, Tt), (ar["ref_q"], ar["ref_t"])))
+    return res, (res, _ok(res))
+
+
+def _position_yaw_prior_local(ts, ar, cfg):
+    """Gauge prior: position + yaw about gravity (PriorFactor.cpp:17-32)."""
+    (xi_rig,) = ts
+    Tq, Tt = _se3_at(ar["pose_q"], ar["pose_t"], xi_rig[POSE])
+    d = lie.se3_boxminus((Tq, Tt), (ar["ref_q"], ar["ref_t"]))
+    yaw = (d[3:6] * ar["grav_dir"]).sum()
+    res = torch.cat([d[0:3] * ar["sqrt_h_pos"], yaw[None] * ar["sqrt_h_yaw"]])
+    return res, (res, _ok(res))
+
+
+def _position_yaw_prior_args(v, d):
+    g = v.gravity / torch.linalg.vector_norm(v.gravity)
+    return {"pose_q": _take(v.pose_q, d["rig"]), "pose_t": _take(v.pose_t, d["rig"]),
+            "ref_q": d["ref_q"], "ref_t": d["ref_t"],
+            "grav_dir": g.expand(d["rig"].shape[0], 3),
+            "sqrt_h_pos": d["sqrt_h_pos"], "sqrt_h_yaw": d["sqrt_h_yaw"]}
+
+
 def _rw_pair_args(table_getter):
     def fn(v, d):
         tab = table_getter(v)
@@ -629,6 +655,21 @@ REGISTRY: dict[str, dict[str, Any]] = {
         tangents=[(IMU_EXTR, "prev"), (IMU_EXTR, "next")],
         optional=False,
         res_dim=6,
+    ),
+    "pose_prior": dict(
+        local=_pose_prior_local,
+        args=lambda v, d: {"pose_q": _take(v.pose_q, d["rig"]), "pose_t": _take(v.pose_t, d["rig"]),
+                           "ref_q": d["ref_q"], "ref_t": d["ref_t"], "sqrt_h": d["sqrt_h"]},
+        tangents=[(RIG, "rig")],
+        optional=False,
+        res_dim=6,
+    ),
+    "position_yaw_prior": dict(
+        local=_position_yaw_prior_local,
+        args=_position_yaw_prior_args,
+        tangents=[(RIG, "rig")],
+        optional=False,
+        res_dim=4,
     ),
     "imu_calib_prior": dict(
         local=_imu_calib_prior_local,

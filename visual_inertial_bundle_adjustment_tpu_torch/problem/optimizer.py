@@ -92,14 +92,18 @@ class Summary:
 class Problem:
     """A factor graph: variable tables + masks + factor batches (reference
     SingleSessionProblem + Optimizer ownership of stores, Optimizer.h:332-335).
-    Batches with zero factors are dropped."""
+    Batches with zero factors are dropped. `use_blocked_engine = False`
+    keeps _build from blocking the visual batches (the JAX package's switch,
+    its optimizer.py:144): the generic engine then solves the problem."""
 
     def __init__(self, variables: VariableTables, masks: Masks):
         self.variables = variables
         self.masks = masks
         self.cfgs: list = []
         self.datas: list = []
+        self.use_blocked_engine = True
         self._kernels = None
+        self.active_cfgs = None
 
     def add_batch(self, cfg, data):
         n = 0
@@ -111,7 +115,19 @@ class Problem:
             return
         self.cfgs.append(cfg)
         self.datas.append(data)
+        self._invalidate()
+
+    def pop_batch(self):
+        """Remove the last batch (covariance.with_gauge_prior's prior)."""
+        self.cfgs.pop()
+        self.datas.pop()
+        self._invalidate()
+
+    def _invalidate(self):
+        """Drop the iteration callables and resolved cfgs: the next _build
+        re-resolves them and adds the transpose plans of new batches."""
         self._kernels = None
+        self.active_cfgs = None
 
     def to(self, device=None, dtype=None):
         """Move every table and batch to `device`, floats to `dtype` (a
@@ -136,7 +152,8 @@ class Problem:
         k_cost, k_grad, k_retract, k_assemble, k_step)."""
         if self._kernels is not None:
             return self._kernels
-        rcs.finalize_blocks(self)
+        if self.use_blocked_engine:
+            rcs.finalize_blocks(self)
         # no blocked batch: the generic Schur-reduced engine solves the
         # problem (the JAX package's choice, its optimizer.py:182-212)
         blocked = any(c.block_info is not None for c in self.cfgs)

@@ -50,8 +50,8 @@ import torch
 from ..ops import segments as seg
 from . import engine
 from . import factors as fct
-from .structure import (Masks, Tangent, pack_info, pack_t, t_dot, t_sub,
-                        unpack_t, zero_tangent)
+from .structure import (Masks, Tangent, column, has_columns, pack_info, pack_t, stack_columns,
+                        t_dot, t_sub, unpack_t, zero_tangent)
 
 VISUAL_KINDS = ("visual", "rs_visual")
 
@@ -61,8 +61,9 @@ RIG_COLS = {"visual": 6, "rs_visual": 9}
 
 
 def _padk(y, k):
-    """(n, k) rig-column result back to the full 12-column tangent layout."""
-    return torch.nn.functional.pad(y, (0, 12 - k)) if k < 12 else y
+    """(n, k) rig-column result (or (n, k, C) with columns) back to the full
+    12-column tangent layout."""
+    return torch.nn.functional.pad(y, (0, 0) * (y.ndim - 2) + (0, 12 - k)) if k < 12 else y
 
 
 def _padkk(B, k):
@@ -512,9 +513,20 @@ def build_rest_stacks(rest, v):
     return tuple(stacks)
 
 
+# elements of the batched products of one vmap over columns (1 GB in float32)
+_COLUMN_GROUP_ELEMS = 1 << 28
+
+
 def rest_hmatvec(stacks, v, x: Tangent) -> Tangent:
     """H_rest x via the stacked operands (engine._hmatvec over the rest
-    graph's reduced groups, up to summation order)."""
+    graph's reduced groups, up to summation order); x with or without
+    columns."""
+    if has_columns(x):
+        # a stack's (S, d, K, N) products run once a column: vmap groups of
+        # columns whose products stay within _COLUMN_GROUP_ELEMS elements
+        size = max([st.J.numel() for st in stacks] + [1])
+        return engine.map_columns(lambda xc: rest_hmatvec(stacks, v, xc), x,
+                                  group=_COLUMN_GROUP_ELEMS // size)
     counts, dims, K = pack_info(x)
     nb = sum(counts)
     xp = pack_t(x, counts, dims, K)
@@ -843,17 +855,30 @@ def _matvec_factor_sums(rs: RcsSystem, v, x: Tangent) -> Tangent:
     (the bench shapes) runs as K4 or K9; otherwise the batches sum their down
     passes before the landmark solve and subtract their up passes after: a
     general-path batch whose only group is the rig goes down through K12
-    (J read once), any other through _vis_u / _vis_scatter."""
+    (J read once), any other through _vis_u / _vis_scatter.
+
+    x with columns (covariance columns, structure.has_columns): the
+    single-pass route runs the column-batched K4 or K9 once for all of them
+    (and the rest graph batched over them); every other route (the general
+    two-grid path, several visual batches, point-coupled small batches)
+    runs its kernels column by column."""
+    single = len(rs.vis) == 1 and not rs.rest_pt.lins and _single_pass(rs.vis[0])
+    cols = has_columns(x)
+    if cols and not single:
+        return stack_columns([_matvec_factor_sums(rs, v, column(x, c))
+                              for c in range(x.gravity.shape[-1])])
     hx = rest_hmatvec(rs.rest_stacks, v, x)
-    if len(rs.vis) == 1 and not rs.rest_pt.lins and _single_pass(rs.vis[0]):
+    if single:
         b = rs.vis[0]
         x_r = x.rig[:, :b.rig_k].contiguous()
         if _cal_fast(b):
-            y_r, y_c = seg.seg_schur_pcg_cal(b.J, b.J_cal, b.J_pt, b.w, x_r, _cal_table(b, x),
-                                             rs.H_ll_inv, b.plan, b.cplan)
+            pcg_cal = seg.seg_schur_pcg_cal_cols if cols else seg.seg_schur_pcg_cal
+            y_r, y_c = pcg_cal(b.J, b.J_cal, b.J_pt, b.w, x_r, _cal_table(b, x), rs.H_ll_inv,
+                               b.plan, b.cplan)
             hx = _cal_scatter_back(b, hx, y_c)
         else:
-            y_r = seg.seg_schur_pcg(b.J, b.J_pt, b.w, x_r, rs.H_ll_inv, b.plan)
+            pcg = seg.seg_schur_pcg_cols if cols else seg.seg_schur_pcg
+            y_r = pcg(b.J, b.J_pt, b.w, x_r, rs.H_ll_inv, b.plan)
         return hx._replace(rig=hx.rig + _padk(y_r, b.rig_k))
     t = torch.zeros_like(v.points)
     for b in rs.vis:
@@ -880,15 +905,17 @@ def _matvec_factor_sums(rs: RcsSystem, v, x: Tangent) -> Tangent:
 
 
 def matvec(rs: RcsSystem, v, x: Tangent) -> Tangent:
-    """S x = (H_rr + damping) x - W H_ll^-1 W^T x."""
+    """S x = (H_rr + damping) x - W H_ll^-1 W^T x; x with or without
+    columns."""
     S = _matvec_factor_sums(rs, v, x)
-    return Tangent(*(h + rs.lam * (d * xv) + rs.lam * xv
-                     for h, d, xv in zip(S, rs.diag_r, x)))
+    return Tangent(*(h + rs.lam * (d.reshape(d.shape + (1,) * (xv.ndim - d.ndim)) * xv)
+                     + rs.lam * xv for h, d, xv in zip(S, rs.diag_r, x)))
 
 
 def pcg(rs: RcsSystem, v, b: Tangent, max_iters: int, rel_tol):
     """Packed-state PCG on the reduced system (engine.packed_pcg: a fixed
-    count of iterations, the stop test an on-device mask)."""
+    count of iterations, the stop test an on-device mask); b with columns
+    solves them together (engine.packed_pcg_columns)."""
     return engine.packed_pcg(lambda x: matvec(rs, v, x), rs.precond_inv, b, max_iters, rel_tol)
 
 

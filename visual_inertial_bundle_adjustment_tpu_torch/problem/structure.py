@@ -136,6 +136,26 @@ def retract(v: VariableTables, t: Tangent, points_step, m: Masks) -> VariableTab
     )
 
 
+def apply_world_transformation(v: VariableTables, Tq, Tt) -> VariableTables:
+    """Rigidly move the world frame: (Tq, Tt) = T_newWorld_oldWorld.
+
+    Reference SingleSessionProblem::applyWorldTransformation
+    (viba/problem/SingleSessionProblem.cpp:523-538): points -> T * p,
+    T_bodyImu_world -> T_bodyImu_world * T^-1, velocities and gravity rotate.
+    """
+    Tq = torch.as_tensor(Tq, dtype=v.pose_q.dtype, device=v.pose_q.device)
+    Tt = torch.as_tensor(Tt, dtype=v.pose_t.dtype, device=v.pose_t.device)
+    inv_q, inv_t = lie.se3_inverse((Tq, Tt))
+    pq, pt = lie.se3_mul((v.pose_q, v.pose_t), (inv_q[None], inv_t[None]))
+    return v._replace(
+        pose_q=lie.quat_normalize(pq),
+        pose_t=pt,
+        vel=lie.quat_rotate(Tq[None], v.vel),
+        points=lie.se3_apply((Tq[None], Tt[None]), v.points),
+        gravity=lie.quat_rotate(Tq, v.gravity),
+    )
+
+
 def step_to_var_ratios(v: VariableTables, t: Tangent, points_step):
     """|step| / |variable| statistics used by the variables-tolerance stop
     (Variable.h:104-110): SE3: max(|w|_inf, |v|_inf / (1 + |t|_inf));
@@ -185,13 +205,20 @@ def t_dot(a, b):
 
 # --- packed reduced-state layout: one (nb, K) tensor whose rows partition
 # the groups, columns padded to the widest tangent dim; pads stay exactly
-# zero end to end, so each PCG dot/axpy is one op ---
+# zero end to end, so each PCG dot/axpy is one op. A tangent of C columns
+# (every field with a trailing column axis: rig (R, 12, C), gravity (2, C))
+# packs the same way into (nb, K, C) ---
+
+
+def has_columns(t: Tangent) -> bool:
+    """Whether the tangent carries a trailing column axis."""
+    return t.gravity.ndim == 2
 
 
 def pack_info(t: Tangent):
     counts, dims = [], []
-    for a in t:
-        if a.ndim == 1:  # gravity
+    for f, a in zip(Tangent._fields, t):
+        if f == "gravity":
             counts.append(1)
             dims.append(a.shape[0])
         else:
@@ -202,10 +229,10 @@ def pack_info(t: Tangent):
 
 def pack_t(t: Tangent, counts, dims, K):
     parts = []
-    for a, dim in zip(t, dims):
-        if a.ndim == 1:
-            a = a[None, :]
-        parts.append(torch.nn.functional.pad(a, (0, K - dim)))
+    for f, a, dim in zip(Tangent._fields, t, dims):
+        if f == "gravity":
+            a = a[None]
+        parts.append(torch.nn.functional.pad(a, (0, 0) * (a.ndim - 2) + (0, K - dim)))
     return torch.cat(parts, dim=0)
 
 
@@ -217,6 +244,16 @@ def unpack_t(x, counts, dims, K):
         out[f] = a[0] if f == "gravity" else a
         off += n
     return Tangent(**out)
+
+
+def column(t: Tangent, c: int) -> Tangent:
+    """Column c of a tangent with columns."""
+    return Tangent(*(a[..., c] for a in t))
+
+
+def stack_columns(ts) -> Tangent:
+    """Tangents stacked along a trailing column axis."""
+    return Tangent(*(torch.stack(a, dim=-1) for a in zip(*ts)))
 
 
 def pack_blocks(p: Tangent, counts, dims, K):
