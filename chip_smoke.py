@@ -41,12 +41,32 @@ Drives the port's four main paths through the entry points a user calls:
                float64 through the plain versions (COV_BOUNDS); PCG device
                time an iteration; one chunk in turns against a loop over its
                columns through the single-column kernel;
+  multi        the full-sensor and gs_cal recordings of the 600 s session
+               merged (`pipeline.multi_session.merge_sessions` of the two
+               unblocked adapter problems): every landmark both adapters
+               kept matched by its generated point id, gravity shared, and
+               a base map (`make_base_map_batch`: constant keyrigs at the
+               ground-truth camera poses of every 10th rig of the first
+               recording, its observations there, factory intrinsics) as a
+               point-coupled small batch; both blocked batches
+               calibration-coupled single-pass, so the PCG takes the
+               two-pass route: K10's down (with y) and up once per batch
+               and matvec (2 x 40 launches each in one PCG, counted), K9
+               never; K10 at these shapes against its plain version; the
+               consistency, phases and 5 LM iterations as on the other
+               paths; peak device memory over the phase (K1 residual-only,
+               K3, K7, K8, K10, K11);
+  tools        on the host beside the multi path: a tracks CSV cut from
+               the full-sensor directory's session_observations.csv (2.27M
+               rows), `python -m ...tools.save_observations` on it with the
+               closed-loop trajectory (stage seconds, rows kept), then
+               load_session of its directory;
   cli          the command-line entry point `pipeline.cli.main` on the card
                (float32): `cli:golden` on the two committed sessions
                (tests/data/golden_session{,_full}) against their expected
                outputs, and again with --compute-covariances in float32 and
                float64 (COV_CLI_BOUNDS); `cli:full` on the full-sensor session directory
-               with readout and time offset estimated, 5 LM iterations,
+               with readout and time offset estimated, 3 LM iterations,
                --recompute-preint, the calibration evaluation, simple stats,
                a JSONL monitor and a JSON report: every output written, one
                row or record per rig, one monitor record per iteration, the
@@ -106,6 +126,7 @@ from __future__ import annotations
 
 import json
 import math
+import resource
 import statistics
 import subprocess
 import sys
@@ -117,30 +138,30 @@ JAXPKG = "visual_inertial_bundle_adjustment_tpu"
 # kernel wrapper name -> (K#, CUDA source, the TPU Pallas kernel it replaces, path)
 KERNELS = {
     "visual_linearize": ("K1", f"{PKG}/csrc/visual_linearize.cu",
-                         f"{JAXPKG}/ops/visual_fused.py:139", "bias+gs_cal+two_grid+cov"),
+                         f"{JAXPKG}/ops/visual_fused.py:139", "bias+gs_cal+two_grid+cov+multi"),
     "assemble_rig": ("K2", f"{PKG}/csrc/assemble_rig.cu", f"{JAXPKG}/ops/segments.py:840",
                      "bias+cov"),
     "precond_rig": ("K3", f"{PKG}/csrc/precond_rig.cu", f"{JAXPKG}/ops/segments.py:1861",
-                    "bias+full+gs_cal+cli+cov"),
+                    "bias+full+gs_cal+cli+cov+multi"),
     "schur_pcg": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347", "bias"),
     "schur_pcg_cols": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347",
                        "cov"),
     "schur_up": ("K5", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:725", "bias"),
     "schur_down": ("K6", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:586", "bias"),
     "rs_linearize": ("K7", f"{PKG}/csrc/rs_linearize.cu", f"{JAXPKG}/ops/rs_fused.py:131",
-                     "full+cli+cov"),
+                     "full+cli+cov+multi"),
     "assemble_cal": ("K8", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1674",
-                     "full+gs_cal+cli+cov"),
+                     "full+gs_cal+cli+cov+multi"),
     "schur_pcg_cal": ("K9", f"{PKG}/csrc/cal_segments.cu",
                       f"{JAXPKG}/ops/segments.py:1468,1519", "full+gs_cal+cli"),
     "schur_pcg_cal_cols": ("K9", f"{PKG}/csrc/cal_segments.cu",
                            f"{JAXPKG}/ops/segments.py:1468,1519", "cov"),
     "schur_down_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1005",
-                       "full+gs_cal+cli"),
+                       "full+gs_cal+cli+multi"),
     "schur_up_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1146",
-                     "full+gs_cal+cli"),
+                     "full+gs_cal+cli+multi"),
     "visual_cal_linearize": ("K11", f"{PKG}/csrc/visual_cal_linearize.cu",
-                             f"{JAXPKG}/ops/visual_fused.py:347", "gs_cal"),
+                             f"{JAXPKG}/ops/visual_fused.py:347", "gs_cal+multi"),
     "mv_fused_table": ("K12", f"{PKG}/csrc/table_segments.cu", f"{JAXPKG}/ops/segments.py:304",
                        "two_grid"),
     "mv_scatter_table": ("K13a", f"{PKG}/csrc/table_segments.cu",
@@ -160,7 +181,7 @@ KERNELS = {
     "mv_scatter": ("K14e", f"{PKG}/csrc/tile_segments.cu", f"{JAXPKG}/ops/segments.py:249",
                    "profile"),
 }
-PATHS = ("bias", "full", "gs_cal", "two_grid", "profile", "cli", "cov")
+PATHS = ("bias", "full", "gs_cal", "two_grid", "profile", "cli", "cov", "multi")
 # the golden sessions' flags: a copy of tools_dev/gen_golden_session.py's
 # CLI_ARGS / CLI_ARGS_FULL (which imports JAX; a CPU test holds them equal)
 CLI_ARGS = [
@@ -198,6 +219,10 @@ TOL_ITER = 1e-3
 TOL_PROFILE = 1e-5
 COND_MAX = 1e4  # landmarks whose step float32 resolves (see consistency)
 LM_ITERATIONS = 5
+# cli:full's LM iterations, cut from LM_ITERATIONS to hold chip_smoke's time
+# once the multi path joined (direct mode: 500 PCG iterations an attempt,
+# ~10 s an iteration)
+CLI_FULL_ITERATIONS = 3
 PCG_ITERATIONS = 40
 # one NVIDIA H100 SXM: HBM rate; float32 outside the tensor cores and
 # float64 (NVIDIA's data sheet) for the two linearization kernels, which
@@ -730,11 +755,9 @@ def write_600(session, path, readout_time_sec):
     return time.time() - t0
 
 
-def adapter_problem(path, dev, session_dir, times, options):
-    """load_session -> SessionAdapter.build -> blocking of a session
-    directory; prints the path's problem line (with the stage seconds in
-    `times`) and returns (problem, adapter, index of the blocked visual
-    batch)."""
+def adapter_build(dev, session_dir, times, options):
+    """load_session -> SessionAdapter.build of a session directory, the
+    stage seconds into `times`; returns the unblocked (problem, adapter)."""
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline import session_data as sio
@@ -749,6 +772,14 @@ def adapter_problem(path, dev, session_dir, times, options):
     torch.cuda.synchronize()
     times["adapter"] = time.time() - t0
     times.update({f"  {k}": val for k, val in adapter.timings.items()})
+    return problem, adapter
+
+
+def adapter_problem(path, dev, session_dir, times, options):
+    """adapter_build, then the blocking of the problem; prints the path's
+    problem line (with the stage seconds in `times`) and returns (problem,
+    adapter, index of the blocked visual batch)."""
+    problem, adapter = adapter_build(dev, session_dir, times, options)
     t0 = time.time()
     problem._build()
     times["blocking"] = time.time() - t0
@@ -824,11 +855,23 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
     phase("kernels", f"schur_pcg_cal{suffix}: two-pass floor {row9['two_pass_floor_ms']:.4f} ms")
     if ops_new > 4:
         raise AssertionError(f"schur_pcg_cal{suffix}: {ops_new} device operations per call")
+    k10_rows(bench, b, x, xc, zl, suffix)
+
+
+def k10_rows(bench, b, x, xc, zl, suffix):
+    """K10 on a calibration-coupled batch against its float64 plain
+    version: the down pass with y (the two-pass PCG matvec), as
+    rcs.w_transpose_x calls it (t = W^T x alone) and the up pass."""
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+
+    k, kc, n_real = b.rig_k, b.J_cal.shape[1], int(b.plan.rig_obs.shape[0])
+    plan, cplan = walk_plan(b.plan), list(b.cplan)[:4]
+    jread = [b.J, b.J_pt, b.J_cal, b.w]
+    seg_tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
     bench.compare(f"schur_down_cal{suffix}", seg.seg_schur_down_cal,
                   (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan),
                   seg_tol("y_r", "y_c", "t", "wu"), jread + [x, xc] + plan + cplan,
                   (8 * k + 8 * kc + 16) * n_real)
-    # as the main path calls it (rcs.w_transpose_x): t = W^T x alone
     bench.compare(f"schur_down_cal{suffix}(want_y=False)", seg.seg_schur_down_cal,
                   (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan, False),
                   seg_tol("t", "wu"), jread + [x, xc] + plan + cplan[:1],
@@ -895,15 +938,16 @@ def full_sensor(dev, bench, session_dir, times):
 # ---------------------------------------------------------------------------
 
 
-def gs_cal(dev, bench, session, session_sec):
+def gs_cal(dev, bench, session, session_sec, gs_dir):
+    """The global-shutter calibration path on a session directory written
+    into gs_dir (kept for the multi path)."""
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import AdapterOptions
 
-    with tempfile.TemporaryDirectory() as tmp:
-        times = {"session": session_sec, "write": write_600(session, tmp, None)}
-        problem, adapter, vi = adapter_problem("gs_cal", dev, tmp, times, AdapterOptions())
+    times = {"session": session_sec, "write": write_600(session, gs_dir, None)}
+    problem, adapter, vi = adapter_problem("gs_cal", dev, gs_dir, times, AdapterOptions())
     kinds = [c.kind for c in problem.cfgs]
     if "rs_visual" in kinds or any("rs_tables" in d for d in problem.datas):
         raise AssertionError(f"gs_cal: rolling-shutter batch or tables in {kinds}")
@@ -943,6 +987,256 @@ def gs_cal(dev, bench, session, session_sec):
     phase_times("gs_cal", problem, settings)
     return run_main("gs_cal", problem, settings,
                     path_kernels("gs_cal"))
+
+
+# ---------------------------------------------------------------------------
+# multi-session path: the full-sensor and gs_cal recordings merged (K1
+# residual-only, K3, K7, K8, K10 down with y and up in the PCG, K11)
+# ---------------------------------------------------------------------------
+
+MULTI_BASE_MAP_EVERY = 10  # base-map keyrigs: every 10th rig of session A (1 Hz)
+
+
+def landmark_ids(adapter):
+    """Generated point id of each landmark row of an adapter's problem: the
+    sorted unique ids of the observations it kept (at rig timestamps, in
+    tracks of >= 3; adapter.py's landmark rows)."""
+    import numpy as np
+
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import triangulation as tri
+
+    sd = adapter.sd
+    pos = np.clip(np.searchsorted(adapter.rig_ts_us, sd.obs_timestamp_us), 0, adapter.R - 1)
+    pid = sd.obs_point_id[adapter.rig_ts_us[pos] == sd.obs_timestamp_us]
+    uniq, counts = np.unique(pid, return_counts=True)
+    return uniq[counts >= tri.MIN_INLIER_OBS]
+
+
+def base_map(session, adapter, ids_a, point_map, dev, dtype=None):
+    """The base-map batch: constant keyrigs at the ground-truth camera poses
+    of every MULTI_BASE_MAP_EVERY-th rig of session A, carrying session A's
+    observations there (its kept landmarks, mapped through point_map), the
+    factory intrinsics, sqrt_h from the observations, Fisheye624; float32
+    unless `dtype` says otherwise. Returns ((cfg, data), keyrigs)."""
+    import numpy as np
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import camera as cam_ops
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import lie
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import multi_session as ms
+
+    sd = adapter.sd
+    rig_ts = adapter.rig_ts_us[::MULTI_BASE_MAP_EVERY]
+    sel = np.isin(sd.obs_timestamp_us, rig_ts) & np.isin(sd.obs_point_id, ids_a)
+    pid, cam = sd.obs_point_id[sel], sd.obs_camera_index[sel].astype(np.int64)
+    gt = np.searchsorted(np.round(session.rig_times * 1e6).astype(np.int64),
+                         sd.obs_timestamp_us[sel])
+    qcb = torch.from_numpy(np.stack([session.cam_extr[c][0] for c in range(session.num_cameras)]))
+    tcb = torch.from_numpy(np.stack([session.cam_extr[c][1] for c in range(session.num_cameras)]))
+    q_bw, t_bw = torch.from_numpy(session.gt_pose_q[gt]), torch.from_numpy(session.gt_pose_t[gt])
+    q_cw = lie.quat_mul(qcb[cam], q_bw)
+    t_cw = tcb[cam] + lie.quat_rotate(qcb[cam], t_bw)
+    intr = np.stack([sd.factory.cameras[f].params for f in adapter.cam_to_factory])
+    rows = point_map[np.searchsorted(ids_a, pid)]  # session A's rows are offset 0
+    batch = ms.make_base_map_batch(rows, q_cw, t_cw, intr[cam], sd.obs_uv[sel],
+                                   sd.obs_sqrt_h[sel], cam_ops.KIND_FISHEYE624, device=dev,
+                                   dtype=dtype or torch.float32)
+    return batch, len(rig_ts)
+
+
+def route_of(b):
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+
+    if rcs._rig_only_fast(b):
+        return "rig-only single-pass"
+    return "calibration-coupled single-pass" if rcs._cal_fast(b) else "general"
+
+
+def multi_session(dev, bench, session, full_dir, gs_dir):
+    """The two 600 s recordings (full sensor, rolling shutter; gs_cal,
+    global shutter) merged by pipeline.multi_session.merge_sessions: their
+    landmarks matched by generated point id, gravity shared, a base map of
+    constant keyrigs; shapes, matches and the route of each blocked batch,
+    the PCG's K10 launches, K10 at these shapes, consistency, phases and 5
+    LM iterations; peak device memory over the phase."""
+    import numpy as np
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import multi_session as ms
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import AdapterOptions
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import engine, rcs
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.structure import t_sub
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, problems, adapters = {}, [], []
+    for tag, path, options in (
+            ("A", full_dir, AdapterOptions(estimate_readout=True, estimate_cam_time_offset=True)),
+            ("B", gs_dir, AdapterOptions())):
+        t_s = {}
+        p, a = adapter_build(dev, path, t_s, options)
+        times.update({f"{tag} {k}": t_s[k] for k in ("load", "adapter")})
+        problems.append(p)
+        adapters.append(a)
+    ids_a, ids_b = (landmark_ids(a) for a in adapters)
+    if (len(ids_a), len(ids_b)) != tuple(p.variables.points.shape[0] for p in problems):
+        raise AssertionError("multi: landmark ids do not match the adapters' landmark rows")
+    common, rows_a, rows_b = np.intersect1d(ids_a, ids_b, return_indices=True)
+    matches = [(0, int(i), 1, int(j)) for i, j in zip(rows_a, rows_b)]
+    t0 = time.time()
+    pre = ms.merge_sessions(problems, point_matches=matches)
+    times["merge"] = time.time() - t0
+    bm, n_key = base_map(session, adapters[0], ids_a, pre.point_map, dev)
+    t0 = time.time()
+    merged = ms.merge_sessions(problems, point_matches=matches, extra_batches=[bm])
+    times["merge with the base map"] = time.time() - t0
+    del pre, problems
+    problem = merged.problem
+    v = problem.variables
+    t0 = time.time()
+    ks = problem._build()
+    torch.cuda.synchronize()
+    times["blocking"] = time.time() - t0
+    R, L, n_c = v.pose_q.shape[0], v.points.shape[0], v.cam_intr.shape[0]
+    if L != len(ids_a) + len(ids_b) - len(common):
+        raise AssertionError(f"multi: L {L} after merging {len(common)} of "
+                             f"{len(ids_a)} + {len(ids_b)} landmarks")
+    datas, masks = tuple(problem.datas), problem.masks
+    lg = ks[0](datas, v, masks, None)
+    asm = ks[6](datas, lg, v, masks)
+    settings = lm_settings()
+    rs = rcs.with_damping(asm, v, masks, settings.damping)
+    vis = rcs._vis_batches(problem.active_cfgs, datas, lg)
+    small = [c.kind for c in problem.cfgs if c.block_info is None]
+    lines = []
+    for (b, _), cfg in zip(vis, [c for c in problem.active_cfgs if c.block_info is not None]):
+        info = b.info
+        lines.append(f"{cfg.kind}: N={int(b.plan.rig_obs.shape[0])} (padded {info.nt * info.ts}) "
+                     f"nt={info.nt} rb={info.rb} wb={info.wb} prb2={info.prb2} nhg={info.nhg} "
+                     f"rig_k={b.rig_k} kc={0 if b.J_cal is None else b.J_cal.shape[1]} route "
+                     f"{route_of(b)}")
+    two_pass = not (len(rs.vis) == 1 and not rs.rest_pt.lins and rcs._single_pass(rs.vis[0]))
+    by_kind = {}
+    for c, cost_f in zip(problem.cfgs, lg.stored_cost):
+        by_kind[c.kind] = by_kind.get(c.kind, 0.0) + float(cost_f.double().sum())
+    phase("multi:problem", f"R={R} L={L} n_c={n_c} | matches {len(matches)} of {len(ids_a)} / "
+          f"{len(ids_b)} landmarks | base map {n_key} keyrigs, {bm[1]['point'].shape[0]} "
+          f"observations | blocked: " + "; ".join(lines) + f" | {len(small)} small batches "
+          f"{small} | PCG route {'two-pass' if two_pass else 'single-pass'} | initial cost "
+          f"{float(lg.cost):.6g}, by kind: " + ", ".join(f"{k} {c:.4g}" for k, c in by_kind.items())
+          + " | "
+          + " ".join(f"{k} {val:.1f} s" for k, val in times.items()))
+    if not two_pass or len(vis) != 2:
+        raise AssertionError("multi: the PCG does not take the two-pass route over two batches")
+    # the PCG loop alone: each calibration-coupled batch's K10 down (with
+    # y) and up once a matvec, the fused K9 never
+    b_rhs = t_sub(asm.g_r, rcs.w_y(rs, v, engine._chol_solve(rs.H_ll_inv, asm.g_l)))
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    rcs.pcg(rs, v, b_rhs, PCG_ITERATIONS, settings.pcg_tol)
+    torch.cuda.synchronize()
+    pcg_counts = {k: n for k, n in _kernels.launch_counts().items() if n}
+    n_cal = sum(rcs._cal_fast(b) for b, _ in vis)
+    phase("multi:pcg", f"launches in one {PCG_ITERATIONS}-iteration PCG: {pcg_counts}")
+    want = n_cal * PCG_ITERATIONS
+    if (pcg_counts.get("schur_down_cal", 0) != want or pcg_counts.get("schur_up_cal", 0) != want
+            or pcg_counts.get("schur_pcg_cal", 0) or pcg_counts.get("schur_pcg", 0)):
+        raise AssertionError(f"multi: PCG launches {pcg_counts}, not K10 down and up "
+                             f"{n_cal} x {PCG_ITERATIONS} each and no fused matvec")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    zl = torch.randn((L, 3), generator=gen, device=dev)
+    for b, _ in vis:
+        if rcs._cal_fast(b):
+            x = torch.randn((R, b.rig_k), generator=gen, device=dev)
+            xc = torch.randn((n_c, b.J_cal.shape[1]), generator=gen, device=dev)
+            k10_rows(bench, b, x, xc, zl, f"(multi,k={b.rig_k})")
+    del lg, asm, rs, vis, b_rhs
+    consistency("multi", problem, settings, TOL_ITER)
+    phase_times("multi", problem, settings)
+    launches = run_main("multi", problem, settings, path_kernels("multi"))
+    phase("multi:memory", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved, over "
+          "the phase (builds, merge, blocking, kernel checks, consistency, phases, main)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# preprocessing tool on the host: tools.save_observations at the full size
+# ---------------------------------------------------------------------------
+
+
+def tools_start(full_dir, tmp):
+    """A tracks CSV (point_id, capture_timestamp_ns, camera_index, x, y) cut
+    from the full-sensor directory's session_observations.csv, then
+    `python -m ...tools.save_observations` on it with the closed-loop
+    trajectory, started in the background; returns (process, tracks rows,
+    seconds to cut them, output directory)."""
+    import pathlib
+
+    t0 = time.time()
+    n = 0
+    with open(f"{full_dir}/session_observations.csv") as f, open(f"{tmp}/tracks.csv", "w") as g:
+        f.readline()
+        g.write("point_id,capture_timestamp_ns,camera_index,x,y\n")
+        for line in f:
+            g.write(",".join(line.split(",", 5)[:5]) + "\n")
+            n += 1
+    cut_sec = time.time() - t0
+    info = json.load(open(f"{full_dir}/vrs_source_info.json"))
+    out = f"{tmp}/prep"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.tools.save_observations",
+         "--trajectory", f"{full_dir}/closed_loop_framerate_trajectory.csv",
+         "--tracks-csv", f"{tmp}/tracks.csv", "--output", out,
+         "--camera-ids", ",".join(info["camera_ids"]), "--imu-ids", ",".join(info["imu_ids"])],
+        cwd=str(pathlib.Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, n, cut_sec, out
+
+
+def tools_finish(full_dir, started):
+    """Waits for the tool, prints its stage lines and the rows kept, then
+    load_session of its directory (with the calibration and IMU files a
+    VRS's process_vrs gives, copied from the session): the observations
+    load, each kept track has >= 3 of them on keyframe times, and their
+    times come back 1000x too small (the tool writes microseconds under
+    the _ns header, as the reference's does; ROADMAP C)."""
+    import shutil
+
+    import numpy as np
+
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import session_data as sio
+
+    proc, n_tracks, cut_sec, out = started
+    r0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    stdout, _ = proc.communicate(timeout=900)
+    r1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    cpu = r1.ru_utime + r1.ru_stime - r0.ru_utime - r0.ru_stime
+    for ln in stdout.splitlines():
+        phase("tools", ln)
+    if proc.returncode != 0:
+        raise AssertionError(f"tools: save_observations exit code {proc.returncode}")
+    for fn in ("factory_calibration.json", "online_calibration.jsonl"):
+        shutil.copy(f"{full_dir}/{fn}", f"{out}/{fn}")
+    info = json.load(open(f"{out}/vrs_source_info.json"))
+    for label in info["imu_ids"]:
+        shutil.copy(f"{full_dir}/imu_samples_{label}.csv", f"{out}/imu_samples_{label}.csv")
+    t0 = time.time()
+    sd = sio.load_session(out)
+    load_sec = time.time() - t0
+    n_kept = len(sd.obs_point_id)
+    _, counts = np.unique(sd.obs_point_id, return_counts=True)
+    on_frames = np.isin(sd.obs_timestamp_us * 1000, sd.traj_timestamp_us)
+    as_read = np.isin(sd.obs_timestamp_us[sd.obs_timestamp_us > 0], sd.traj_timestamp_us)
+    phase("tools", f"tracks CSV {n_tracks} rows cut in {cut_sec:.1f} s; save_observations "
+          f"{cpu:.1f} s of CPU (in the background of the multi path); kept {n_kept} observations "
+          f"({n_kept / n_tracks:.3f}), {len(counts)} tracks; load_session of its directory "
+          f"{load_sec:.1f} s: {int(on_frames.sum())} observations on a trajectory frame at 1000x "
+          f"their loaded time, {int(as_read.sum())} as loaded (after t = 0)")
+    if not (0 < n_kept < n_tracks and counts.min() >= 3 and on_frames.all()):
+        raise AssertionError(f"tools: {n_kept} of {n_tracks} rows kept, shortest track "
+                             f"{counts.min()}, {int((~on_frames).sum())} off the frames")
 
 
 # ---------------------------------------------------------------------------
@@ -1652,7 +1946,7 @@ def cli_golden_covariances(dev):
 def cli_argv(session_dir, out_dir, tmp):
     """cli:full's command line."""
     return ["-i", session_dir, "-o", out_dir, "--estimate-readout-time",
-            "--estimate-time-offset", "--max-num-iterations", str(LM_ITERATIONS),
+            "--estimate-time-offset", "--max-num-iterations", str(CLI_FULL_ITERATIONS),
             "--recompute-preint", "--eval-calib-vs-factory", "--simple-stats",
             "--monitor-jsonl", f"{tmp}/monitor.jsonl", "--json-report", f"{tmp}/report.json"]
 
@@ -1687,8 +1981,8 @@ def cli_refinement_rows(dev, bench, session_dir):
 
 
 def cli_full(dev, session_dir, smi):
-    """pipeline.cli.main on the full-sensor session directory, 5 LM
-    iterations with every report on, the launch counts set to 0 just before
+    """pipeline.cli.main on the full-sensor session directory,
+    CLI_FULL_ITERATIONS LM iterations with every report on, the launch counts set to 0 just before
     and read just after; returns the counts."""
     import numpy as np
     import torch
@@ -1779,14 +2073,26 @@ def main():
     launches.update(two_grid(dev, bench))
     torch.cuda.empty_cache()
     session, session_sec = session_600()
-    with tempfile.TemporaryDirectory() as full_dir:
+    with tempfile.TemporaryDirectory() as full_dir, tempfile.TemporaryDirectory() as gs_dir, \
+            tempfile.TemporaryDirectory() as tools_dir:
         times = {"session": session_sec, "write": write_600(session, full_dir, 0.03)}
         launches["full"], cov_full = full_sensor(dev, bench, full_dir, times)
         # the cov path: its two runs' counts (each set to 0 just before it)
         launches["cov"] = {k: cov_bias.get(k, 0) + cov_full.get(k, 0)
                            for k in set(cov_bias) | set(cov_full)}
         torch.cuda.empty_cache()
-        launches["gs_cal"] = gs_cal(dev, bench, session, session_sec)
+        launches["gs_cal"] = gs_cal(dev, bench, session, session_sec, gs_dir)
+        torch.cuda.empty_cache()
+        # the preprocessing tool runs on the host while the merged sessions
+        # run on the card
+        started = tools_start(full_dir, tools_dir)
+        try:
+            launches["multi"] = multi_session(dev, bench, session, full_dir, gs_dir)
+        except BaseException:
+            started[0].kill()
+            started[0].wait()
+            raise
+        tools_finish(full_dir, started)
         del session
         torch.cuda.empty_cache()
         cli_golden(dev, smi)

@@ -260,7 +260,7 @@ def port_gs_from_jax(use_detector_bias=False, dtype=F64, device="cpu"):
                                       dtype=dtype)
 
 
-def port_gs_built(use_detector_bias=False, device="cpu", dtype=F64):
+def port_gs_built(use_detector_bias=False, device="cpu", dtype=F64, blocked=True):
     """(problem, adapter) built by the port's own pipeline (no JAX) on the
     global-shutter session, blocked like jax_gs()."""
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline import session_data as tsd
@@ -272,8 +272,38 @@ def port_gs_built(use_detector_bias=False, device="cpu", dtype=F64):
                              AdapterOptions(use_detector_bias=use_detector_bias), log=None,
                              device=device, dtype=dtype)
     p = adapter.build()
-    trcs.finalize_blocks(p, **FULL_BLOCKS)
+    if blocked:
+        trcs.finalize_blocks(p, **FULL_BLOCKS)
     return p, adapter
+
+
+@functools.lru_cache(maxsize=None)
+def port_full_session():
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic import SyntheticSession
+
+    return SyntheticSession(**FULL_SESSION)
+
+
+def port_merge_inputs(device="cpu", dtype=F64):
+    """The tiny full-sensor (rolling shutter) and global-shutter sessions,
+    built unblocked by the port's adapter, with what chip_smoke's multi path
+    merges its 600 s recordings with (its `landmark_ids` and `base_map`):
+    every landmark matched by generated point id, and a base map of
+    constant keyrigs at every 10th rig of the first. Returns (problems,
+    matches, base-map batch, base-map keyrigs)."""
+    import chip_smoke
+
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline import multi_session as tms
+
+    pa, aa = port_full_built(device, dtype, blocked=False)
+    pb, ab = port_gs_built(device=device, dtype=dtype, blocked=False)
+    ids_a, ids_b = chip_smoke.landmark_ids(aa), chip_smoke.landmark_ids(ab)
+    _, rows_a, rows_b = np.intersect1d(ids_a, ids_b, return_indices=True)
+    matches = [(0, int(i), 1, int(j)) for i, j in zip(rows_a, rows_b)]
+    pre = tms.merge_sessions([pa, pb], point_matches=matches)
+    bm, n_key = chip_smoke.base_map(port_full_session(), aa, ids_a, pre.point_map, device,
+                                    dtype)
+    return [pa, pb], matches, bm, n_key
 
 
 @pytest.fixture

@@ -52,7 +52,12 @@ K4 and K9 on C right-hand sides (the covariance columns) run at 1, 8 and
 256 columns, at rig widths 6 and 9 (K9 also at window widths 6, 17 and 23),
 on the bias-only and full-sensor plans and on the made-up plan, against
 their plain versions and the single-column kernels on every column; each
-repeats bit for bit.
+repeats bit for bit. The tiny rolling-shutter and global-shutter recordings
+merged by pipeline/multi_session.py (chip_smoke's multi path at the tiny
+size): the merge on the card equals the merge of float64 CPU copies (tables
+exact, landmarks 1e-6), and one LM attempt of the merged problem with its
+base map runs K10's down and up in the two-pass PCG, repeats bit for bit
+and agrees with the plain versions within 1e-3 in new cost and |step|.
 """
 
 import functools
@@ -63,13 +68,14 @@ import pytest
 import torch
 from _torch_port_fixtures import cuda_device  # noqa: F401  (fixture)
 from _torch_port_fixtures import (BUILD, TWO_GRID_BLOCKS, port_blocked_problem, port_full_built,
-                                  port_gs_built, port_session, rel)
+                                  port_gs_built, port_merge_inputs, port_session, rel)
 from torch.overrides import TorchFunctionMode
 
 from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
 from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
 from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as tseg
 from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
+from visual_inertial_bundle_adjustment_tpu_torch.pipeline import multi_session as tms
 from visual_inertial_bundle_adjustment_tpu_torch.problem import optimizer as topt
 from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs as trcs
 from visual_inertial_bundle_adjustment_tpu_torch.problem import structure as tst
@@ -1288,3 +1294,81 @@ def test_schur_pcg_cal_cols_kernel(k, kc, C, cuda_device, monkeypatch):
         _check(out + out, ref + single, (1e-5,) * 4)
         for o, o2 in zip(out, again):
             assert torch.equal(o, o2)
+
+
+# ---------------------------------------------------------------------------
+# multi-session: the tiny rolling- and global-shutter recordings merged
+# (chip_smoke's multi path at the tiny size): K10 in the two-pass PCG
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu_f64(p):
+    """A float64 CPU copy of a problem (the original untouched)."""
+    q = topt.Problem(p.variables, p.masks)
+    q.cfgs, q.datas = list(p.cfgs), list(p.datas)
+    return q.to("cpu", torch.float64)
+
+
+@pytest.mark.cuda
+def test_merge_on_card_equals_the_cpu_merge(cuda_device):
+    """merge_sessions of the card problems (float32) against the same merge
+    of their float64 CPU copies: every table and index array exact (the
+    float32 values), the merged landmarks within 1e-6 (both average on the
+    host in float64; the card's result is rounded to float32)."""
+    problems, matches, (cfg, bm), _ = port_merge_inputs(cuda_device, torch.float32)
+    card = tms.merge_sessions(problems, point_matches=matches, extra_batches=[(cfg, bm)])
+    cpu = tms.merge_sessions(
+        [_on_cpu_f64(p) for p in problems], point_matches=matches, extra_batches=[(cfg, {
+            k: a.to("cpu", torch.float64) if a.is_floating_point() else a.cpu()
+            for k, a in bm.items()})])
+    pc, pp = card.problem, cpu.problem
+    assert len(matches) == pp.variables.points.shape[0]
+    np.testing.assert_array_equal(card.point_map, cpu.point_map)
+    assert card.rig_offset == cpu.rig_offset and card.point_offset == cpu.point_offset
+    for tables in ("variables", "masks"):
+        for f in getattr(pp, tables)._fields:
+            a, b = getattr(getattr(pc, tables), f), getattr(getattr(pp, tables), f)
+            assert a.device.type == "cuda" and a.dtype == torch.float32, (tables, f)
+            if (tables, f) == ("variables", "points"):
+                assert rel(a.cpu().double().numpy(), b.numpy()) <= 1e-6
+            else:
+                assert torch.equal(a.cpu(), b.float()), (tables, f)
+    assert [c.kind for c in pc.cfgs] == [c.kind for c in pp.cfgs]
+    for c, dc, dp in zip(pc.cfgs, pc.datas, pp.datas):
+        assert set(dc) == set(dp), c.kind
+        for k, a in dp.items():
+            if isinstance(a, torch.Tensor):
+                b = dc[k].cpu()
+                assert torch.equal(b, a.float() if a.is_floating_point() else a), (c.kind, k)
+
+
+@pytest.mark.cuda
+def test_merged_two_pass_attempt_kernels_match_plain(cuda_device):
+    """The merged problem with its base map, blocked with ts = 64 (both
+    batches calibration-coupled single-pass, so the PCG takes the two-pass
+    route): one LM attempt through the kernels twice, bit-equal, with K10's
+    down and up launched 2 x 40 times in the PCG and K9 never, and within
+    1e-3 of the plain versions' attempt in new cost and |step|."""
+    import chip_smoke
+
+    problems, matches, bm, _ = port_merge_inputs(cuda_device, torch.float32)
+    p = tms.merge_sessions(problems, point_matches=matches, extra_batches=[bm]).problem
+    trcs.finalize_blocks(p, ts=64)
+    settings = chip_smoke.lm_settings()
+    _kernels.reset_launch_counts()
+    one = chip_smoke.lm_iteration(p, settings)
+    counts = _kernels.launch_counts()
+    two = chip_smoke.lm_iteration(p, settings)
+    with _kernels.plain_reference():
+        ref = chip_smoke.lm_iteration(p, settings)
+    assert sum(c.block_info is not None for c in p.cfgs) == 2
+    assert counts["schur_pcg_cal"] == 0 and counts["schur_pcg"] == 0
+    # per batch: 40 PCG matvecs, and the right-hand side (up) or the
+    # back-substitution (down, t alone)
+    assert counts["schur_down_cal"] == counts["schur_up_cal"] == 2 * (40 + 1)
+    assert counts["rs_linearize"] and counts["visual_cal_linearize"]
+    assert one[0] == two[0] and one[1] == two[1] and torch.equal(one[4], two[4])
+    assert all(torch.equal(a, b) for a, b in zip(one[3], two[3]))
+    assert math.isfinite(one[0])
+    assert abs(one[0] - ref[0]) <= 1e-3 * abs(ref[0])
+    assert abs(one[1] - ref[1]) <= 1e-3 * abs(ref[1])

@@ -14,6 +14,11 @@ Two Levenberg-Marquardt paths are ported:
     session -> `pipeline.synthetic_io.write_session_dir` ->
     `pipeline.session_data.load_session` ->
     `pipeline.adapter.SessionAdapter(...).build()` -> `optimize` (K3, K7-K10).
+
+Beside them: the global-shutter calibration and general two-grid routes,
+the CLI (`pipeline.cli`), covariances (`problem.covariance`), multi-session
+problems (`pipeline.multi_session.merge_sessions`, the base-map factor)
+and the preprocessing tools (`tools.save_observations`, `tools.process_vrs`).
 """
 
 __version__ = "0.1.0"

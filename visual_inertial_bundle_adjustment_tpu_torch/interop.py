@@ -8,7 +8,8 @@ blocked batch keeps its slot order, calibration-window plan and point-sorted
 second grid, and gets the port's reduction plans: the rig and landmark
 lists with each slot's point-sorted position, the chunked window rows and
 (rig, window row) pairs and, for the general (two-grid) path, the chunked
-camera and detector-bias rows.
+camera and detector-bias rows. A merged multi-session problem hands over
+like any other (its `base_map_visual` batch: index and float arrays only).
 """
 
 from __future__ import annotations

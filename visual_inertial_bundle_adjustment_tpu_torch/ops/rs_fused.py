@@ -72,8 +72,11 @@ def rs_linearize(camera_kind, data, v, masks, with_jac, with_cal):
     n = data["rig"].shape[0]
     R, L = v.pose_q.shape[0], v.points.shape[0]
     n_c, n_e = v.cam_intr.shape[0], v.cam_extr_q.shape[0]
+    # the tables are read by rs_row, one row per rig of the session that
+    # made them: a merged multi-session problem keeps each session's own
+    # (pipeline/multi_session.py), fewer rows than the merged rigs
     tab = data["rs_tables"]
-    K = tab.dt.shape[1]
+    n_rs, K = tab.dt.shape
     kw = dict(dtype=f32, device=v.points.device)
     res = torch.empty((2, n), **kw)
     valid = torch.empty((n,), **kw)
@@ -103,11 +106,12 @@ def rs_linearize(camera_kind, data, v, masks, with_jac, with_cal):
         ck(masks.points, "pt_mask", f32, (L, 3)) if use_masks else None,
         ck(masks.cam_intr, "intr_mask", f32, (n_c, cam_ops.MAX_PARAMS)) if use_masks else None,
         ck(masks.cam_extr, "extr_mask", f32, (n_e, 6)) if use_masks else None,
-        ck(tab.dt, "rs_dt", f32, (R, K)), ck(tab.q, "rs_q", f32, (R, K, 4)),
-        ck(tab.dP, "rs_dP", f32, (R, K, 3)), ck(tab.dV, "rs_dV", f32, (R, K, 3)),
-        ck(tab.i_gyro, "rs_i_gyro", f32, (R, K, 3)),
-        ck(tab.i_accel, "rs_i_accel", f32, (R, K, 3)),
-        ck(tab.i_dvel, "rs_i_dvel", f32, (R, K, 3)), ck(count, "rs_count", torch.int64, (R,)),
+        ck(tab.dt, "rs_dt", f32, (n_rs, K)), ck(tab.q, "rs_q", f32, (n_rs, K, 4)),
+        ck(tab.dP, "rs_dP", f32, (n_rs, K, 3)), ck(tab.dV, "rs_dV", f32, (n_rs, K, 3)),
+        ck(tab.i_gyro, "rs_i_gyro", f32, (n_rs, K, 3)),
+        ck(tab.i_accel, "rs_i_accel", f32, (n_rs, K, 3)),
+        ck(tab.i_dvel, "rs_i_dvel", f32, (n_rs, K, 3)),
+        ck(count, "rs_count", torch.int64, (n_rs,)),
         ck(tab.gravity_w, "rs_gravity", f32, (3,)),
         res.data_ptr(), valid.data_ptr(), opt(J_pt), opt(J_r), opt(J_cal),
     )

@@ -11,7 +11,10 @@ the JAX package):
   - RandomWalkFactor           viba/problem/RandomWalkFactor.cpp:16-168
   - PriorFactor (factory calibration priors, the pose prior and the
     position + yaw gauge prior of problem/covariance.py) PriorFactor.cpp:17-176
-`base_map_visual` (multi-session base maps) is not ported yet.
+  - BaseMapVisualFactor (multi-session base maps, pipeline/multi_session.py)
+    BaseMapVisualFactor.{h,cpp}: a reprojection into a constant keyrig,
+    linearized by the generic path and never blocked (rcs.VISUAL_KINDS
+    leaves it out), so it reaches the solver as a point-coupled small batch
 
 Each kind's residual is a pure function of the tangents of the variables it
 touches, evaluated at the current linearization point; the generic
@@ -339,6 +342,34 @@ def _rs_visual_args(v: VariableTables, d):
 
 
 # ---------------------------------------------------------------------------
+# Base-map visual factor: reprojection into a CONSTANT keyrig; only the
+# landmark is a variable (multi-session mode, BaseMapVisualFactor.{h,cpp})
+# fields: point (N,) int32; q_cw/t_cw (N,4)/(N,3) T_cam_world (frozen);
+#   intr (N, >=15) frozen intrinsics; obs_uv (N,2); sqrt_h (N,2,2)
+# ---------------------------------------------------------------------------
+
+
+def _base_map_visual_local(ts, ar, cfg):
+    (xi_pt,) = ts
+    pt = ar["pt"] + xi_pt
+    p_cam = lie.quat_rotate(ar["q_cw"], pt) + ar["t_cw"]
+    uv, valid = cam_ops.project(cfg.camera_kind, ar["intr"], p_cam)
+    res = _mvec(ar["sqrt_h"], uv - ar["obs_uv"])
+    return res, (res, valid)
+
+
+def _base_map_visual_args(v: VariableTables, d):
+    return {
+        "pt": _take(v.points, d["point"]),
+        "q_cw": d["q_cw"],
+        "t_cw": d["t_cw"],
+        "intr": d["intr"],
+        "obs_uv": d["obs_uv"],
+        "sqrt_h": d["sqrt_h"],
+    }
+
+
+# ---------------------------------------------------------------------------
 # Inertial factor, body IMU (imu 0), InertialFactor.cpp:19-127
 # fields: prev_rig, next_rig, calib (N,) int32;
 #   preint_q (N,4), preint_dv (N,3), preint_dp (N,3), preint_dt (N,),
@@ -603,6 +634,13 @@ REGISTRY: dict[str, dict[str, Any]] = {
         local=_rs_visual_local,
         args=_rs_visual_args,
         tangents=[(POINTS, "point"), (RIG, "rig"), (CAM_EXTR, "extr"), (CAM_INTR, "intr")],
+        optional=True,
+        res_dim=2,
+    ),
+    "base_map_visual": dict(
+        local=_base_map_visual_local,
+        args=_base_map_visual_args,
+        tangents=[(POINTS, "point")],
         optional=True,
         res_dim=2,
     ),
