@@ -39,8 +39,10 @@ Drives the port's four main paths through the entry points a user calls:
                / K8 and K3 in each prepare_system); every block symmetric
                positive definite; a subset against the same calls in
                float64 through the plain versions (COV_BOUNDS); PCG device
-               time an iteration; one chunk in turns against a loop over its
-               columns through the single-column kernel;
+               time an iteration, split into the column kernel and the
+               rest; peak device memory beside the point-sorted records';
+               one chunk in turns against a loop over its columns through
+               the single-column kernel;
   multi        the full-sensor and gs_cal recordings of the 600 s session
                merged (`pipeline.multi_session.merge_sessions` of the two
                unblocked adapter problems): every landmark both adapters
@@ -97,8 +99,11 @@ Phases, one printed line each (per path):
                index_add_, and on point refinement's tables (cli, D 13
                and D 1); K14a and K14b against index_add_ and
                index_select by device time, in turns; the column K4 and K9
-               at 1, 8 and 256 columns, each column also against the
-               single-column kernel (bit-equal columns counted); K14a (point grid,
+               over their point-sorted records at 1, 8, 48 and 256
+               columns, each column also against the single-column kernel
+               (bit-equal columns counted), in turns with the tiled design
+               they replaced, their device operations a call the same at
+               every C; K14a (point grid,
                D 9) and K14c (rig grid k 6) each in one device operation;
                K14a-e bit-equal across two calls; K5 with the L2 flushed
                before every timed call (its inputs fit the 50 MB L2)
@@ -202,7 +207,8 @@ TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 # K8's window pass and its sum pass (which holds K2's landmark pass), the
 # instantiations per mode of K7, K1 and K11, K2's two passes, K6's rig-row
 # pass, K14b's flat gather, the tile pass of K14e, K14c and K14a, and the
-# column-batched K4 and K9 of the covariance columns), by the names ptxas
+# column-batched K4 and K9 of the covariance columns: their fused landmark
+# and rig passes and the tiled design those replaced), by the names ptxas
 # gives them
 NO_SPILL = ("pcg_down", "pcg_up", "pcg_cal_down", "pcg_cal_up", "point_range_sum",
             "jtu_slot_major", "reduce_gather4", "to_slot_major", "reduce_gather",
@@ -210,7 +216,8 @@ NO_SPILL = ("pcg_down", "pcg_up", "pcg_cal_down", "pcg_cal_up", "point_range_sum
             "visual_cal_linearize_mode", "assemble_rows_slots", "assemble_points",
             "schur_down_rows", "tile_gather_flat", "tile_scatter_staged", "tile_fused_staged",
             "tile_reduce_split", "pcg_down_cols", "pcg_up_cols", "point_range_sum_cols",
-            "pcg_cal_down_cols", "pcg_cal_up_cols", "pcg_cal_pair_cols", "sum_pair_cols")
+            "pcg_cal_down_cols", "pcg_cal_up_cols", "pcg_cal_pair_cols", "sum_pair_cols",
+            "point_pass_cols", "rig_row_pass_cols", "rig_pair_pass_cols", "rig_split_pass_cols")
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
 # kernel vs plain LM iteration, relative (see the consistency phases)
@@ -1498,7 +1505,9 @@ def tile_profile(dev, bench, problem):
 
 COV_PCG_ITERATIONS = 400  # the CLI's --covariance-pcg-iterations default
 COV_CHUNK = 256  # covariance.solve_columns' chunk
-COV_COLS = (1, 8, COV_CHUNK)  # column counts the column kernels are compared at
+# column counts the column kernels are compared at: one column, a tile of
+# the tiled design, cov:full's chunk, the chunk
+COV_COLS = (1, 8, 48, COV_CHUNK)
 # float32 covariance blocks against the same call in float64 through the
 # plain versions, relative to each block's largest entry, by path and block
 # kind: ~10x PR 13's first measurements on an H100 (bias: rig 6.4e-8,
@@ -1530,10 +1539,16 @@ def problem_f64(problem):
 
 def cov_kernel_rows(bench, path, problem, dev):
     """The column K4 (rig-only batch) or K9 (calibration-coupled batch) of
-    the problem's blocked batch against its float64 plain version at 1, 8
-    and 256 columns (rows `<kernel>(C=<C>)`, the 256-column one also as
-    `<kernel>`), each column also held against the single-column kernel
-    (bit-equal columns counted)."""
+    the problem's blocked batch over its point-sorted records (made once;
+    their size printed beside the longest rig row, pair and landmark)
+    against its float64 plain version at 1, 8, 48 and 256 columns (rows
+    `<kernel>(C=<C>)`, the 256-column one also as `<kernel>`), each column
+    also held against the single-column kernel (bit-equal columns counted);
+    at each C the fused design and the tiled one it replaced (entry
+    "tiles") in turns: device time and operations a call (torch.profiler),
+    event time, share of the bound, time a column. The fused design's
+    operations a call must not grow with C."""
+    import numpy as np
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
@@ -1546,46 +1561,85 @@ def cov_kernel_rows(bench, path, problem, dev):
     (b, _), = rcs._vis_batches(problem.active_cfgs, datas, lg)
     k, n_real = b.rig_k, int(b.plan.rig_obs.shape[0])
     R, n_c = v.pose_q.shape[0], v.cam_intr.shape[0]
+    cal = rcs._cal_fast(b)
+    rec = seg.point_sorted_records(b.J, b.J_pt, b.w, b.plan, b.J_cal if cal else None,
+                                   b.cplan if cal else None)
+    name = "schur_pcg_cal_cols" if cal else "schur_pcg_cols"
+
+    def longest(ptr):
+        d = np.diff(ptr.cpu().numpy())
+        return f"{d.max()} (mean {d.mean():.0f})"
+
+    rec_mb = nbytes(rec.rec, rec.rig_pos) / 1e6
+    phase("kernels", f"{name} [{path}]: point-sorted records {rec_mb:.1f} MB ({n_real} slots x "
+          f"{rec.rec.shape[1]} floats + rig-side order); longest rig row {longest(b.plan.rig_ptr)}, "
+          + (f"(rig, window row) pair {longest(b.cplan.pair_ptr)}, " if cal else "")
+          + f"landmark {longest(b.plan.pt_ptr)} slots")
     gen = torch.Generator(device=dev).manual_seed(1)
-    index = [b.plan.rig, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr]
+    index = [b.plan.rig_ptr, b.plan.pt_ptr, rec.rig_pos]
+    ops = {}
     for C in COV_COLS:
         x = torch.randn((R, k, C), generator=gen, device=dev)
-        if rcs._cal_fast(b):
-            name, kc, cp = "schur_pcg_cal_cols", b.J_cal.shape[1], b.cplan
+        if cal:
+            kc, cp = b.J_cal.shape[1], b.cplan
             xc = torch.randn((n_c, kc, C), generator=gen, device=dev)
             args = (b.J, b.J_cal, b.J_pt, b.w, x, xc, rs.H_ll_inv, b.plan, cp)
             fn, single = seg.seg_schur_pcg_cal_cols, seg.seg_schur_pcg_cal
             cols = (4, 5)
             read = [b.J, b.J_cal, b.J_pt, b.w, x, xc, rs.H_ll_inv] + index + [
-                cp.win, cp.rig_pair, cp.pair_ptr, cp.pair_obs, cp.pair_part, cp.win_pair]
+                cp.rig_pair, cp.pair_ptr, cp.pair_part, cp.win_pair]
             labels, flops = ("y_r", "y_c"), (8 * k + 8 * kc + 24) * n_real * C
         else:
-            name = "schur_pcg_cols"
             args = (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan)
             fn, single = seg.seg_schur_pcg_cols, seg.seg_schur_pcg
             cols = (3,)
-            read = [b.J, b.J_pt, b.w, x, rs.H_ll_inv] + index + [b.plan.rig_ptr, b.plan.rig_obs]
+            read = [b.J, b.J_pt, b.w, x, rs.H_ll_inv] + index
             labels, flops = ("y",), (8 * k + 30) * n_real * C
-        row = bench.compare(f"{name}(C={C})", fn, args, [(lb, TOL_SEG) for lb in labels], read,
-                            flops)
-        out = flat(fn(*args))
+
+        def fused(*a):
+            return fn(*a, rec=rec)
+
+        def tiles(*a):
+            return fn(*a, entry="tiles")
+
+        row = bench.compare(f"{name}(C={C})", fused, args, [(lb, TOL_SEG) for lb in labels],
+                            read, flops)
+        out = flat(fused(*args))
         same, worst = 0, 0.0
         for c in range(C):
             col = [a[..., c].contiguous() if i in cols else a for i, a in enumerate(args)]
             ones = flat(single(*col))
             same += all(torch.equal(o[..., c], o1) for o, o1 in zip(out, ones))
             worst = max([worst] + [rel_err(o[..., c], o1)[0] for o, o1 in zip(out, ones)])
+        turns = in_turns([lambda: fused(*args), lambda: tiles(*args)])
+        (dev_f, ops_f, _), (dev_t, ops_t, _) = turns
+        ev = {"fused": [], "tiles": []}
+        for key in ("fused", "tiles", "tiles", "fused"):
+            f = fused if key == "fused" else tiles
+            ev[key].append(cuda_time(lambda: f(*args), reps=10, warmup=2))
+        ev_f, ev_t = min(ev["fused"]), min(ev["tiles"])
         row.update(columns=C, bit_equal_columns=same, rel_vs_single=worst,
-                   bound_share=row["bound_ms"] / row["device_ms"])
-        phase("kernels", f"{name}(C={C}) [{path}]: {same} of {C} columns bit-equal to the "
-              f"single-column kernel (worst rel {worst:.2e}); {row['device_ms'] / C:.4f} ms "
-              f"device a column; {row['bound_share']:.2f} of the bound")
+                   bound_share=row["bound_ms"] / dev_f, turn_device_ms=dev_f,
+                   turn_device_ops=ops_f, turn_ms=ev_f, tiles_device_ms=dev_t,
+                   tiles_device_ops=ops_t, tiles_ms=ev_t, ms_per_column=dev_f / C,
+                   records_mb=rec_mb)
+        phase("kernels", f"{name}(C={C}) [{path}]: fused {dev_f:.4f} ms device in {ops_f:g} ops "
+              f"(events {ev_f:.4f} ms), tiled design {dev_t:.4f} ms device in {ops_t:g} ops "
+              f"(events {ev_t:.4f} ms), in turns: {dev_t / dev_f:.2f}x; "
+              f"{dev_f / C:.4f} ms device a column; {row['bound_share']:.3f} of the bound "
+              f"{row['bound_ms']:.4f} ms; {same} of {C} columns bit-equal to the single-column "
+              f"kernel (worst rel {worst:.2e})")
         if not worst <= TOL_SEG:
             raise AssertionError(f"{name}(C={C}): columns differ from the single-column kernel "
                                  f"by {worst:.2e}")
+        ops[C] = ops_f
         if C == COV_CHUNK:
             bench.results[name] = dict(row)
-    del lg, rs, b
+    phase("kernels", f"{name} [{path}]: device operations a call at C = "
+          + ", ".join(f"{C}: {n:g}" for C, n in ops.items()))
+    if len(set(ops.values())) != 1:
+        raise AssertionError(f"{name}: device operations a call grow with the columns: {ops}")
+    del lg, rs, b, rec
 
 
 def cov_blocks_check(tag, blocks):
@@ -1656,6 +1710,7 @@ def cov_path(path, problem, dev, bench, rigs, cal_rows, ref_rigs, ref_rows, turn
     kw = dict(pcg_iters=COV_PCG_ITERATIONS)
     cal_dims = int(problem.masks.imu_calib[cal_rows].sum())
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launch_counts()
     t0 = time.time()
     blocks = cov.rig_covariances(problem, rigs, **kw)
@@ -1666,6 +1721,7 @@ def cov_path(path, problem, dev, bench, rigs, cal_rows, ref_rigs, ref_rows, turn
     torch.cuda.synchronize()
     t_cal = time.time() - t0
     launches = _kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
     for name, n, cols, t in (("rig_covariances", len(rigs), 12 * len(rigs), t_rig),
                              ("calib_covariances", len(cal_rows), cal_dims, t_cal)):
         chunks = -(-cols // COV_CHUNK)
@@ -1694,10 +1750,20 @@ def cov_path(path, problem, dev, bench, rigs, cal_rows, ref_rigs, ref_rows, turn
         rows = pm.device_kernels(prof.key_averages())
         busy = sum(us for _, _, us in rows) / 1e3
         top = sorted(rows, key=lambda r: -r[2])[:5]
+        # the column kernel's passes (the landmark and rig passes, K9's
+        # window sums) and the rest of the iteration (the rest graph's
+        # batched products, the PCG's vector work)
+        col_ms = sum(us for key, _, us in rows
+                     if "pass_cols" in key or "sum_partials" in key) / 1e3
+        (b,) = rs.vis
+        rec_mb = nbytes(b.rec.rec, b.rec.rig_pos) / 1e6
         phase(tag, f"PCG on {len(entries)} columns: {busy / n_it:.3f} ms device and "
-              f"{wall / n_it:.3f} ms wall an iteration (busy share {busy / wall:.2f}) | top: "
+              f"{wall / n_it:.3f} ms wall an iteration (busy share {busy / wall:.2f}): column "
+              f"kernel {col_ms / n_it:.3f} ms, the rest {(busy - col_ms) / n_it:.3f} ms | top: "
               + ", ".join(f"{key[:40]} {us / 1e3 / n_it:.3f} ms x{n / n_it:g}"
                           for key, n, us in top))
+        phase(tag, f"peak device memory over the covariance runs {peak:.2f} GB, of it the "
+              f"point-sorted records {rec_mb:.1f} MB")
 
         # one chunk in turns: the column kernels vs a loop over its columns
         # through the single-column kernel, COV_TURN_ITERATIONS iterations each
@@ -1725,7 +1791,7 @@ def cov_path(path, problem, dev, bench, rigs, cal_rows, ref_rigs, ref_rows, turn
               + " ".join(f"{x:.3f}" for x in times["columns"]) + " s), single-column loop "
               f"{rate['loop']:.1f} columns/s (" + " ".join(f"{x:.3f}" for x in times["loop"])
               + f" s): {rate['columns'] / rate['loop']:.1f}x")
-        del lg, rs, bc, bt
+        del lg, rs, bc, bt, b
     torch.cuda.empty_cache()
 
     # the float64 reference through the plain versions on a subset
@@ -1746,7 +1812,9 @@ def cov_path(path, problem, dev, bench, rigs, cal_rows, ref_rigs, ref_rows, turn
     worst, ratio = cov_compare(tag, got, want, COV_BOUNDS[path])
     bench.results.setdefault("cov", {})[path] = dict(
         rig_seconds=t_rig, rig_columns=12 * len(rigs), cal_seconds=t_cal, cal_columns=cal_dims,
-        worst_block_error=worst, worst_std_ratio=ratio, turn_columns_per_s=rate)
+        worst_block_error=worst, worst_std_ratio=ratio, turn_columns_per_s=rate,
+        pcg_iteration_device_ms=busy / n_it, pcg_iteration_column_kernel_ms=col_ms / n_it,
+        peak_gb=peak, records_mb=rec_mb)
     return launches
 
 

@@ -48,11 +48,14 @@ and 23 on the full-sensor plans and on the made-up plan cut into chunks of
 K7 in each of its instantiations (camera model, Jacobian, calibration
 columns, masked or not); K1 (camera model, Jacobian, masked or not) and K11
 (camera model, masked or not) in each of theirs. Each repeats bit for bit.
-K4 and K9 on C right-hand sides (the covariance columns) run at 1, 8 and
-256 columns, at rig widths 6 and 9 (K9 also at window widths 6, 17 and 23),
-on the bias-only and full-sensor plans and on the made-up plan, against
-their plain versions and the single-column kernels on every column; each
-repeats bit for bit. The tiny rolling-shutter and global-shutter recordings
+K4 and K9 on C right-hand sides (the covariance columns) run at 1, 8, 37,
+48 and 256 columns, at rig widths 6 and 9 (K9 also at window widths 6, 17
+and 23), on the bias-only and full-sensor plans and on the made-up plan,
+against their plain versions and the single-column kernels on every
+column; each repeats bit for bit, and agrees within 1e-5 with the tiled
+design it replaced; rig rows of 3,000 and 9,000 slots on one window row
+and a landmark of 3,000 slots (the rig passes' chunks of their
+shared-memory tiles, a lane class split across chunks). The tiny rolling-shutter and global-shutter recordings
 merged by pipeline/multi_session.py (chip_smoke's multi path at the tiny
 size): the merge on the card equals the merge of float64 CPU copies (tables
 exact, landmarks 1e-6), and one LM attempt of the merged problem with its
@@ -1213,12 +1216,19 @@ def test_schur_pcg_bits_unchanged(cuda_device):
 # K4 and K9 on C right-hand sides (the covariance columns)
 # ---------------------------------------------------------------------------
 
-COLS = (1, 8, 256)  # one column, one tile, the covariance chunk
+# one column; a tile of the tiled design; a ragged tile of 32 columns; the
+# full-sensor covariance chunk (two tiles, the second half used); the chunk
+COLS = (1, 8, 37, 48, 256)
 
 
 def _cols(shape, C, dev, seed):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.normal(size=shape + (C,))).to(device=dev, dtype=torch.float32)
+
+
+def _edge_w(pad, dev, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.random(pad.shape[0]) * (1.0 - pad)).to(dev, torch.float32)
 
 
 @pytest.mark.cuda
@@ -1227,22 +1237,22 @@ def _cols(shape, C, dev, seed):
 @pytest.mark.parametrize("k", [6, 9])
 def test_schur_pcg_cols_kernel(k, plan_kind, C, cuda_device, monkeypatch):
     """Column K4 on the bias-only plan and on the made-up plan at rig widths
-    6 and 9 and 1, 8 and 256 columns: one C entry a call, within 1e-5 of its
-    plain version in float64 and of the single-column K4 on every column,
-    the same bits every call."""
+    6 and 9 and 1, 8, 37, 48 and 256 columns, over records made once: one C
+    entry a call, within 1e-5 of its plain version in float64 and of the
+    single-column K4 on every column, the same bits every call and without
+    the records handed in."""
     if plan_kind == "bias":
         plan, a = _segment_inputs(cuda_device)
         w = a["w"]
     else:
         plan, _, pad = _edge_plans(cuda_device)
-        rng = np.random.default_rng(149)
-        w = torch.from_numpy(rng.random(pad.shape[0]) * (1.0 - pad)).to(cuda_device,
-                                                                         torch.float32)
+        w = _edge_w(pad, cuda_device, 149)
     J_r, J_p, _, _, hinv = _schur_pcg_args(w, plan, k, cuda_device, 151 + k)
     x = _cols((plan.n_rows, k), C, cuda_device, 157 + C)
+    rec = tseg.point_sorted_records(J_r, J_p, w, plan)
     names = _recording_launches(monkeypatch)
     _kernels.reset_launch_counts()
-    out = tseg.seg_schur_pcg_cols(J_r, J_p, w, x, hinv, plan)
+    out = tseg.seg_schur_pcg_cols(J_r, J_p, w, x, hinv, plan, rec)
     again = tseg.seg_schur_pcg_cols(J_r, J_p, w, x, hinv, plan)
     with _kernels.plain_reference():
         ref = tseg.seg_schur_pcg_cols(*_kernels.to_f64((J_r, J_p, w, x, hinv)), plan)
@@ -1262,25 +1272,26 @@ def test_schur_pcg_cols_kernel(k, plan_kind, C, cuda_device, monkeypatch):
 @pytest.mark.parametrize("k", [6, 9])
 def test_schur_pcg_cal_cols_kernel(k, kc, C, cuda_device, monkeypatch):
     """Column K9 on the full-sensor batch's plans at every rig and window
-    width and 1, 8 and 256 columns (and on the made-up plan at k 9, kc 23):
-    one C entry a call, within 1e-5 of its plain version in float64 and of
-    the single-column K9 on every column, the same bits every call."""
+    width and 1, 8, 37, 48 and 256 columns (and on the made-up plan, rigs on
+    three window rows, at k 9, kc 23), over records made once: one C entry a
+    call, within 1e-5 of its plain version in float64 and of the
+    single-column K9 on every column, the same bits every call and without
+    the records handed in."""
     b, _ = _cal_inputs(cuda_device)
     plans = [(b.w, b.plan, b.cplan)]
-    if (k, kc, C) == (9, 23, 8):
+    if (k, kc) == (9, 23) and C in (8, 48):
         plan, cplan, pad = _edge_plans(cuda_device)
-        rng = np.random.default_rng(163)
-        plans.append((torch.from_numpy(rng.random(pad.shape[0]) * (1.0 - pad)).to(
-            cuda_device, torch.float32), plan, cplan))
+        plans.append((_edge_w(pad, cuda_device, 163), plan, cplan))
     for w, plan, cplan in plans:
         J_r, J_c, J_p, _, _, _, hinv = _pcg_cal_args(w, plan, cplan, k, kc, cuda_device,
                                                      167 + k + kc)
         x_r = _cols((plan.n_rows, k), C, cuda_device, 173 + C)
         x_c = _cols((cplan.n_rows, kc), C, cuda_device, 179 + C)
         args = (J_r, J_c, J_p, w, x_r, x_c, hinv)
+        rec = tseg.point_sorted_records(J_r, J_p, w, plan, J_c, cplan)
         names = _recording_launches(monkeypatch)
         _kernels.reset_launch_counts()
-        out = tseg.seg_schur_pcg_cal_cols(*args, plan, cplan)
+        out = tseg.seg_schur_pcg_cal_cols(*args, plan, cplan, rec)
         again = tseg.seg_schur_pcg_cal_cols(*args, plan, cplan)
         with _kernels.plain_reference():
             ref = tseg.seg_schur_pcg_cal_cols(*_kernels.to_f64(args), plan, cplan)
@@ -1294,6 +1305,99 @@ def test_schur_pcg_cal_cols_kernel(k, kc, C, cuda_device, monkeypatch):
         _check(out + out, ref + single, (1e-5,) * 4)
         for o, o2 in zip(out, again):
             assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 48])
+@pytest.mark.parametrize("kernel", ["K4", "K9"])
+def test_cols_fused_matches_tiled_design(kernel, C, cuda_device):
+    """The fused column K4 / K9 and the tiled design it replaced
+    (entry="tiles") on the bias-only / full-sensor plans agree within 1e-5
+    on every column; the plain version of either entry is the same."""
+    if kernel == "K4":
+        plan, a = _segment_inputs(cuda_device)
+        J_r, J_p, w, _, hinv = _schur_pcg_args(a["w"], plan, 6, cuda_device, 191)
+        args = (J_r, J_p, w, _cols((plan.n_rows, 6), C, cuda_device, 193), hinv, plan)
+        fn = tseg.seg_schur_pcg_cols
+    else:
+        b, _ = _cal_inputs(cuda_device)
+        J_r, J_c, J_p, w, _, _, hinv = _pcg_cal_args(b.w, b.plan, b.cplan, 9, 23, cuda_device,
+                                                     197)
+        args = (J_r, J_c, J_p, w, _cols((b.plan.n_rows, 9), C, cuda_device, 199),
+                _cols((b.cplan.n_rows, 23), C, cuda_device, 211), hinv, b.plan, b.cplan)
+        fn = tseg.seg_schur_pcg_cal_cols
+    def outs(o):
+        return o if isinstance(o, tuple) else (o,)
+
+    for f, t in zip(outs(fn(*args)), outs(fn(*args, entry="tiles"))):
+        torch.cuda.synchronize()
+        for c in range(C):
+            assert rel(f[..., c].cpu().numpy(), t[..., c].cpu().numpy()) <= 1e-5
+    with pytest.raises(ValueError, match="entry"):
+        fn(*args, entry="tile")
+
+
+def _long_plans(dev, pair_slots):
+    """Plans of a made-up batch whose rig 1 holds `pair_slots` slots on one
+    window row (many chunks of the fused column kernels' rig-pass tiles:
+    96 to 512 entries) and whose landmark 0 holds 3,000 slots, beside short
+    rigs and landmarks; tiles of 1,000 slots, the last 10 of each pads."""
+    rng = np.random.default_rng(227)
+    R, L, n_c = 4, 50, 2
+    n_real = pair_slots + 1500
+    n_tiles = -(-n_real // 990)
+    n = 1000 * n_tiles
+    pad = np.zeros(n)
+    pad.reshape(n_tiles, 1000)[:, 990:] = 1.0
+    real = np.nonzero(pad < 0.5)[0]
+    rig = np.zeros(n, np.int64)
+    rig_real = np.concatenate([np.zeros(500, np.int64), np.ones(pair_slots, np.int64),
+                               rng.integers(2, R, size=len(real) - 500 - pair_slots)])
+    rig[real] = np.sort(rig_real)
+    rig[pad > 0.5] = np.maximum.accumulate(rig)[pad > 0.5]
+    point = rng.integers(1, L, size=n)
+    point[real[rng.permutation(len(real))[:3000]]] = 0
+    win = np.where(rig == 1, 1, rng.integers(0, n_c, size=n))
+    arrays = trcs.segment_plan(rig, point, pad, R, L)
+    cal = {**tseg.cal_plan_arrays(win, pad, n_c), **tseg.pair_plan_arrays(rig, win, pad, R, n_c)}
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
+
+    plan = tseg.SegPlan(i32(rig), i32(point), *(i32(arrays[k]) for k in (
+        "_rig_ptr", "_rig_obs", "_pt_ptr", "_pt_obs", "_pt_pos")))
+    cplan = tseg.CalPlan(i32(win), *(i32(cal["_cal_" + f]) for f in tseg.CalPlan._fields[1:]))
+    assert np.diff(cal["_cal_pair_ptr"]).max() == pair_slots
+    assert np.diff(arrays["_pt_ptr"])[0] == 3000
+    return plan, cplan, pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair_slots", [3000, 9000])
+@pytest.mark.parametrize("C", [1, 8, 48])
+def test_cols_long_rows(C, pair_slots, cuda_device):
+    """A rig row of 3,000 or 9,000 slots on one window row (many chunks of
+    the rig passes' shared-memory tiles, a lane class's slots split across
+    them) and a landmark of 3,000 slots: the fused column K9 and K4 within
+    1e-5 of the single-column kernels on every column, the same bits every
+    call."""
+    plan, cplan, pad = _long_plans(cuda_device, pair_slots)
+    w = _edge_w(pad, cuda_device, 229)
+    J_r, J_c, J_p, _, _, _, hinv = _pcg_cal_args(w, plan, cplan, 9, 23, cuda_device, 233)
+    x_r = _cols((plan.n_rows, 9), C, cuda_device, 239)
+    x_c = _cols((cplan.n_rows, 23), C, cuda_device, 241)
+    args9 = (J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
+    out = tseg.seg_schur_pcg_cal_cols(*args9)
+    y4 = tseg.seg_schur_pcg_cols(J_r, J_p, w, x_r, hinv, plan)
+    for o, o2 in zip(out + (y4,), tseg.seg_schur_pcg_cal_cols(*args9)
+                     + (tseg.seg_schur_pcg_cols(J_r, J_p, w, x_r, hinv, plan),)):
+        assert torch.equal(o, o2)
+    for c in range(C):
+        one = tseg.seg_schur_pcg_cal(J_r, J_c, J_p, w, x_r[..., c].contiguous(),
+                                     x_c[..., c].contiguous(), hinv, plan, cplan)
+        _check((out[0][..., c], out[1][..., c]), one, (1e-5, 1e-5))
+        _check((y4[..., c],), (tseg.seg_schur_pcg(J_r, J_p, w, x_r[..., c].contiguous(), hinv,
+                                                   plan),), (1e-5,))
 
 
 # ---------------------------------------------------------------------------

@@ -708,35 +708,128 @@ def test_full_block_layouts_match_tri_to_full(k):
 # K4 and K9 on C right-hand sides (the covariance columns)
 # ---------------------------------------------------------------------------
 
-N_COLS = 11  # a full tile of COL_TILE = 8 columns and a ragged one
+N_COLS = 11  # columns of the flow cases: one ragged tile of 32
 
 
-def _cols_flow(flow, C):
-    """The column kernels' tile loop (csrc/schur.cu schur_pcg_cols,
-    csrc/cal_segments.cu pcg_cal_cols): COL_TILE columns a pass, the passes
-    of the single-column kernel run on every column of the tile, each
-    column summed in the single-column order; results stacked on a trailing
-    column axis."""
-    assert tseg.COL_TILE == 8
-    outs = []
-    for c0 in range(0, C, tseg.COL_TILE):
-        outs += [flow(c) for c in range(c0, min(C, c0 + tseg.COL_TILE))]
-    if isinstance(outs[0], tuple):
-        return tuple(torch.stack(o, dim=-1) for o in zip(*outs))
-    return torch.stack(outs, dim=-1)
+def _records(J_r, J_p, w, plan, J_c=None, cplan=None):
+    """The point-sorted copy the column kernels read (the fields of
+    segments.point_sorted_records, float64): record j is real slot
+    plan.pt_obs[j], pads excluded."""
+    real = plan.pt_obs.long()
+    rec = {"J_r": J_r[:, :, real], "J_p": J_p[:, :, real], "w": w[real],
+           "rig": plan.rig.long()[real], "point": plan.point.long()[real]}
+    if J_c is not None:
+        rec.update(J_c=J_c[:, :, real], win=cplan.win.long()[real])
+    return rec
+
+
+def _at(rec, pos):
+    return {key: val[..., pos] for key, val in rec.items()}
+
+
+def _u_cols(rec, x_r, x_c=None):
+    """(2, n, C): J_r x_r[rig] (+ J_c x_c[win]) of each record, every column."""
+    u = (rec["J_r"][..., None] * x_r[rec["rig"]].permute(1, 0, 2)[None]).sum(1)
+    if x_c is not None:
+        u = u + (rec["J_c"][..., None] * x_c[rec["win"]].permute(1, 0, 2)[None]).sum(1)
+    return u
+
+
+def _point_pass_cols(rec, pt_ptr, x_r, hinv, x_c=None):
+    """The landmark pass (csrc/pt_segments.cuh point_pass_cols): for every
+    column, q = J_p^T w u of each record, each landmark's contiguous range of
+    records summed in the 16-lane group's order (_group_sums), z (L, 3, C) =
+    H_ll^-1 t. Nothing per (slot, column) is kept past the sums."""
+    wu = _u_cols(rec, x_r, x_c) * rec["w"][None, :, None]
+    q = (rec["J_p"][..., None] * wu[:, None]).sum(0)  # (3, n, C)
+    n, C = q.shape[1], q.shape[2]
+    t_l = _group_sums(q.permute(1, 0, 2).reshape(n, 3 * C), pt_ptr, 16).reshape(-1, 3, C)
+    return (hinv[:, :, :, None] * t_l[:, None]).sum(2)
+
+
+def _du_cols(rec, x_r, z, x_c=None):
+    """(2, n, C): w u - w J_p z[point] of each record, every column."""
+    zg = z[rec["point"]].permute(1, 0, 2)  # (3, n, C)
+    a = (rec["J_p"][..., None] * zg[None]).sum(1)
+    w = rec["w"][None, :, None]
+    return _u_cols(rec, x_r, x_c) * w - a * w
+
+
+def _schur_pcg_cols_flow(J_r, J_p, w, x, hinv, plan):
+    """The column K4's two launches as torch ops: the landmark pass over the
+    point-sorted records, then each rig row's records (through pt_pos, in
+    the row's slot order) with du for every column and J_r^T du summed in
+    the 128-thread group's order (csrc/schur.cu rig_pass_cols)."""
+    rec = _records(J_r, J_p, w, plan)
+    z = _point_pass_cols(rec, plan.pt_ptr, x, hinv)
+    row = _at(rec, plan.pt_pos.long()[plan.rig_obs.long()])
+    du = _du_cols(row, x, z)
+    contrib = (row["J_r"][..., None] * du[:, None]).sum(0)  # (k, n, C)
+    k, n, C = contrib.shape
+    return _group_sums(contrib.permute(1, 0, 2).reshape(n, k * C), plan.rig_ptr,
+                       128).reshape(-1, k, C)
+
+
+def _pair_lane_sums(vals, rig_pair, pair_ptr):
+    """Each rig row's sum of vals (n_real, D) in pair order, as the
+    single-column K9's warp takes it: lane i sums the entries i, i + 32, ...
+    of each of the row's pairs, carrying its partial across the pairs, then
+    the warp's xor butterfly."""
+    out = []
+    for r in range(len(rig_pair) - 1):
+        acc = vals.new_zeros((32, vals.shape[1]))
+        for q in range(int(rig_pair[r]), int(rig_pair[r + 1])):
+            a, b = int(pair_ptr[q]), int(pair_ptr[q + 1])
+            for j in range(a, b):
+                acc[(j - a) % 32] += vals[j]
+        off = 16
+        while off:
+            acc = acc + acc[torch.arange(32) ^ off]
+            off //= 2
+        out.append(acc[0])
+    return torch.stack(out)
+
+
+def _pcg_cal_cols_flow(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
+    """The column K9's three launches as torch ops: the landmark pass; each
+    rig row's records in (rig, window row) pair order with du for every
+    column, J_r^T du summed in the warp's order across the row's pairs and
+    J_c^T du per pair (csrc/cal_segments.cu cal_rig_pass_cols); each window
+    row's pair partials summed in rig order (sum_partials)."""
+    rec = _records(J_r, J_p, w, plan, J_c, cplan)
+    z = _point_pass_cols(rec, plan.pt_ptr, x_r, hinv, x_c)
+    row = _at(rec, plan.pt_pos.long()[cplan.pair_obs.long()])
+    du = _du_cols(row, x_r, z, x_c)
+    n, C = du.shape[1], du.shape[2]
+    k, kc = J_r.shape[1], J_c.shape[1]
+    c_r = (row["J_r"][..., None] * du[:, None]).sum(0).permute(1, 0, 2).reshape(n, k * C)
+    c_c = (row["J_c"][..., None] * du[:, None]).sum(0).permute(1, 0, 2).reshape(n, kc * C)
+    y_r = _pair_lane_sums(c_r, cplan.rig_pair.tolist(), cplan.pair_ptr.tolist())
+    part = torch.empty_like(_group_sums(c_c, cplan.pair_ptr, 32))
+    part[cplan.pair_part.long()] = _group_sums(c_c, cplan.pair_ptr, 32)
+    wp = cplan.win_pair.tolist()
+    y_c = []
+    for a, b in zip(wp[:-1], wp[1:]):
+        total = part.new_zeros(kc * C)
+        for q in range(a, b):
+            total = total + part[q]
+        y_c.append(total)
+    return y_r.reshape(-1, k, C), torch.stack(y_c).reshape(-1, kc, C)
 
 
 @pytest.mark.parametrize("k", [6, 9])
 def test_schur_pcg_cols_flow_matches_jax(k):
-    """K4 on 11 columns: the kernel's tile loop and the plain column version
-    against the JAX entry seg_schur_pcg on each column, within 1e-9; the
-    plain column version bit-equal to the single-column one on each."""
+    """K4 on 11 columns: the column kernel's flow (point-sorted records, the
+    fused landmark pass, the rig rows' 128-thread order) and the plain
+    column version against the JAX entry seg_schur_pcg on each column,
+    within 1e-9; the plain column version bit-equal to the single-column
+    one on each."""
     a, plan, jax_entry, empty_rigs = _schur_pcg_case(k, cols=N_COLS)
     want = np.stack([jax_entry(a["x"][..., c]) for c in range(N_COLS)], axis=-1)
     J_r, J_p, w, x, hinv = (t(v) for v in a.values())
     assert np.abs(want).max() > 0 and np.all(want[empty_rigs] == 0)
-    got = _cols_flow(lambda c: _schur_pcg_flow(J_r, J_p, w, x[..., c], hinv, plan), N_COLS)
-    assert rel(got.numpy(), want) < TOL
+    got = _schur_pcg_cols_flow(J_r, J_p, w, x, hinv, plan)
+    assert got.shape == x.shape and rel(got.numpy(), want) < TOL
     plain = tseg.seg_schur_pcg_cols(J_r, J_p, w, x, hinv, plan)
     assert plain.shape == x.shape and rel(plain.numpy(), want) < TOL
     for c in range(N_COLS):
@@ -746,10 +839,12 @@ def test_schur_pcg_cols_flow_matches_jax(k):
 
 @pytest.mark.parametrize("kc", [6, 23])
 def test_pcg_cal_cols_flow_matches_jax(kc):
-    """K9 on 11 columns (rigs spanning both window rows): the kernel's tile
-    loop and the plain column version against the JAX entry
-    seg_schur_pcg_cal on each column, within 1e-9; the plain column version
-    bit-equal to the single-column one on each."""
+    """K9 on 11 columns (rigs spanning both window rows): the column
+    kernel's flow (point-sorted records, the fused landmark pass, the rig
+    rows' pairs in the warp's order, the window rows' sums) and the plain
+    column version against the JAX entry seg_schur_pcg_cal on each column,
+    within 1e-9; the plain column version bit-equal to the single-column
+    one on each."""
     pj, _ = jax_full()
     (vi,) = [i for i, c in enumerate(pj.cfgs) if c.kind == "rs_visual"]
     dj, info = pj.datas[vi], pj.cfgs[vi].block_info
@@ -781,8 +876,8 @@ def test_pcg_cal_cols_flow_matches_jax(kc):
     cplan = tseg.CalPlan(torch.from_numpy(win.astype(np.int32)),
                          *(torch.from_numpy(arrays["_cal_" + f]) for f in tseg.CalPlan._fields[1:]))
     J_r, J_c, J_p, w, x_r, x_c, hinv = (t(x) for x in a.values())
-    got = _cols_flow(lambda c: _pcg_cal_flow(J_r, J_c, J_p, w, x_r[..., c], x_c[..., c], hinv,
-                                             plan, cplan), N_COLS)
+    assert np.any(np.diff(cplan.rig_pair.numpy()) > 1)
+    got = _pcg_cal_cols_flow(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
     plain = tseg.seg_schur_pcg_cal_cols(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
     for g, pl, wj in zip(got, plain, want):
         assert np.abs(wj).max() > 0
@@ -793,3 +888,236 @@ def test_pcg_cal_cols_flow_matches_jax(kc):
                                         cplan)
         for pl, s1 in zip(plain, single):
             assert torch.equal(pl[..., c], s1)
+
+
+@pytest.mark.parametrize("problem", ["bias", "full_sensor"])
+def test_point_sorted_records_are_the_slots_in_point_order(problem):
+    """segments.point_sorted_records on the tiny bias-only and full-sensor
+    batches (float32, random J and weights): record j holds real slot
+    pt_obs[j]'s Jacobian columns as (row 0, row 1) pairs, w, and its rig,
+    window and point rows as int32 bits, in rec_layout's places, zeros in
+    the padding; no pad slot appears; rig_pos names each slot's record in
+    the rig pass's order (rig_obs, or pair_obs with a window plan);
+    rig_sorted holds, and fails once a landmark's list is reversed."""
+    p = port_full_built()[0] if problem == "full_sensor" else port_blocked_problem()
+    data, info = _blocked(p)
+    plan = trcs.plan_of(data)
+    cplan = trcs.cal_plan_of(data, info) if problem == "full_sensor" else None
+    n = data["_pad"].shape[0]
+    rng = np.random.default_rng(251)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.normal(size=shape)).float()
+
+    k, kc = 9, (23 if cplan is not None else 0)
+    J_r, J_p, w = f32(2, k, n), f32(2, 3, n), torch.from_numpy(rng.random(n)).float()
+    J_c = f32(2, kc, n) if kc else None
+    rec = tseg.point_sorted_records(J_r, J_p, w, plan, J_c, cplan)
+    lay = tseg.rec_layout(k, kc)
+    real = plan.pt_obs.long()
+    pad = data["_pad"].numpy() > 0.5
+    assert not pad[real.numpy()].any() and len(real) == int((~pad).sum())
+    assert rec.rec.shape == (len(real), lay["floats"]) and lay["floats"] % 4 == 0
+    assert (rec.k, rec.kc) == (k, kc)
+    r = rec.rec
+    for name, J, width in (("jr", J_r, k), ("jc", J_c, kc), ("jp", J_p, 3)):
+        for a in range(width):
+            for d in range(2):
+                assert torch.equal(r[:, lay[name] + 2 * a + d], J[d, a, real])
+    assert torch.equal(r[:, lay["w"]], w[real])
+    ints = r[:, lay["rig"]:lay["point"] + 1].contiguous().view(torch.int32)
+    win = cplan.win if cplan is not None else torch.zeros_like(plan.rig)
+    for i, rows in enumerate((plan.rig, win, plan.point)):
+        assert torch.equal(ints[:, i], rows[real])
+    assert not r[:, lay["point"] + 1:].any()
+    order = plan.rig_obs if cplan is None else cplan.pair_obs
+    assert torch.equal(rec.rig_pos, plan.pt_pos[order.long()])
+    assert torch.equal(real[rec.rig_pos.long()], order.long())
+    # the blocked batches keep each landmark's slots in rig order; a plan
+    # whose landmark lists run against it is flagged
+    assert rec.rig_sorted
+    ptr = plan.pt_ptr.tolist()
+    a, b = next((a, b) for a, b in zip(ptr[:-1], ptr[1:])
+                if len(set(plan.rig[plan.pt_obs[a:b].long()].tolist())) > 1)
+    obs = plan.pt_obs.clone()
+    obs[a:b] = obs[a:b].flip(0)
+    assert not tseg.point_sorted_records(J_r, J_p, w, plan._replace(pt_obs=obs), J_c,
+                                         cplan).rig_sorted
+    with pytest.raises(ValueError, match="float32"):
+        tseg.point_sorted_records(J_r.double(), J_p.double(), w.double(), plan)
+
+
+def _butterfly(parts):
+    """group_sum's xor butterfly over len(parts) lanes (float32): lane 0's
+    total."""
+    acc = list(parts)
+    off = len(acc) // 2
+    while off:
+        acc = [np.float32(acc[i] + acc[i ^ off]) for i in range(len(acc))]
+        off //= 2
+    return acc[0]
+
+
+def _rev(k, bits):
+    return int(format(k, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _leaf_tree(G, P, vals, chunk):
+    """The rig passes' in-thread order for a G-lane group at P physical lanes
+    (csrc/pt_segments.cuh entry_slot, LeafTree): physical lane phi takes the
+    classes phi + P m, m < M = G / P, depth first (m = rev(k)), each class's
+    slots t = 0 .. T - 1 in order; the steps s = k T + t run in chunks of
+    `chunk` steps, a class's partial carried across a chunk's end, merged
+    like a binary counter when its last step is done; then the butterfly
+    over the P lanes."""
+    M, n = G // P, len(vals)
+    bits = M.bit_length() - 1
+    T = -(-n // G)
+    totals = []
+    for phi in range(P):
+        st, acc, total = [None] * max(bits, 1), np.float32(0.0), np.float32(0.0)
+        for s0 in range(0, M * T, chunk):
+            s1 = min(M * T, s0 + chunk)
+            for k in range(M):
+                ta, tb = max(0, s0 - k * T), min(T, s1 - k * T)
+                if ta >= tb:
+                    continue
+                cls = phi + P * _rev(k, bits)
+                if ta == 0:
+                    acc = np.float32(0.0)
+                for t_ in range(ta, tb):
+                    if cls + G * t_ < n:
+                        acc = np.float32(acc + vals[cls + G * t_])
+                if tb == T:
+                    v, lvl = acc, 0
+                    while lvl < bits and (k >> lvl) & 1:
+                        v = np.float32(st[lvl] + v)
+                        lvl += 1
+                    if lvl < bits:
+                        st[lvl] = v
+                    total = v
+        totals.append(total)
+    return _butterfly(totals)
+
+
+def _class_registers(G, P, vals):
+    """The landmark pass's in-thread order (csrc/pt_segments.cuh
+    point_pass_cols): physical lane phi walks its slots in order, class
+    phi + P m in accumulator m; the M accumulators merge in the butterfly's
+    tree (m and m + h, h = M / 2 .. 1), then the butterfly over the P
+    lanes."""
+    M = G // P
+    totals = []
+    for phi in range(P):
+        acc = [np.float32(0.0)] * M
+        for j in range(phi, len(vals), P):
+            m = (j // P) % M
+            acc[m] = np.float32(acc[m] + vals[j])
+        h = M // 2
+        while h:
+            acc = [np.float32(acc[m] + acc[m + h]) for m in range(h)] + acc[h:]
+            h //= 2
+        totals.append(acc[0])
+    return _butterfly(totals)
+
+
+@pytest.mark.parametrize("G,P", [(16, 16), (16, 2), (16, 1), (32, 32), (32, 4), (32, 1)])
+def test_in_thread_orders_keep_the_butterfly_bits(G, P):
+    """The orders the column kernels sum in one thread give the bits of
+    group_sum's butterfly over the same lane classes, in float32: the rig
+    passes' depth-first merge (LeafTree) with the steps in one chunk or cut
+    into chunks of 1, 3 and 7 steps (a class's slots split across chunks),
+    and the landmark pass's class accumulators, for segments of 0 to 300
+    entries."""
+    rng = np.random.default_rng(G * 100 + P)
+    for n in (0, 1, 5, G, 3 * G + 7, 300):
+        vals = (rng.normal(size=n) * 10.0 ** rng.integers(-3, 4, size=n)).astype(np.float32)
+        parts = []
+        for cls in range(G):
+            s_ = np.float32(0.0)
+            for j in range(cls, n, G):
+                s_ = np.float32(s_ + vals[j])
+            parts.append(s_)
+        want = _butterfly(parts).tobytes()
+        for chunk in (1, 3, 7, 10 ** 6):
+            assert _leaf_tree(G, P, vals, chunk).tobytes() == want, (n, chunk)
+        if G == 16:
+            assert _class_registers(G, P, vals).tobytes() == want, n
+
+
+# (the rig pass's single-column warps, entries a chunk) by kernel and
+# columns a tile (csrc/schur.cu RowCols, csrc/cal_segments.cu CalCols)
+_CHUNK_SHAPES = {("K4", 32): (4, 256), ("K4", 8): (4, 256), ("K4", 1): (4, 256),
+                 ("K9", 32): (1, 96), ("K9", 8): (1, 192), ("K9", 1): (1, 256)}
+
+
+@pytest.mark.parametrize("kernel,W", sorted(_CHUNK_SHAPES))
+def test_rig_pass_chunks_cover_each_slot_once(kernel, W):
+    """The column rig passes' chunks (csrc/pt_segments.cuh entry_slot): for
+    segments of 1 to 20,000 slots, each chunk's entries e = ((s - s0) NWG +
+    wg) P + phi fit its tile, name every slot of the segment once over the
+    chunks, and the phase-2 walk of warp-group wg and lane phi finds each of
+    its class's slots t at the entry the chunk staged it in."""
+    NWG, SE = _CHUNK_SHAPES[(kernel, W)]
+    P, M = 32 // W, W
+    bits = M.bit_length() - 1
+    NS = SE // (NWG * P)
+    assert NS >= 1
+    for n in (1, 31, 33, 200, 291, 3000, 20000):
+        T = -(-n // (32 * NWG))
+        seen = {}
+        for s0 in range(0, M * T, NS):
+            s1 = min(M * T, s0 + NS)
+            n_e = (s1 - s0) * NWG * P
+            assert n_e <= SE
+            for e in range(n_e):
+                phi, wg, s_ = e % P, (e // P) % NWG, s0 + e // (P * NWG)
+                k, t_ = divmod(s_, T)
+                i = 32 * wg + phi + P * _rev(k, bits) + 32 * NWG * t_
+                if i < n:
+                    assert i not in seen
+                    seen[i] = (s0, e)
+            for wg in range(NWG):
+                for phi in range(P):
+                    for k in range(M):
+                        cls = 32 * wg + phi + P * _rev(k, bits)
+                        for t_ in range(max(0, s0 - k * T), min(T, s1 - k * T)):
+                            if cls + 32 * NWG * t_ < n:
+                                e = ((k * T + t_ - s0) * NWG + wg) * P + phi
+                                assert seen[cls + 32 * NWG * t_] == (s0, e)
+        assert sorted(seen) == list(range(n))
+
+
+def _split_tree(parts):
+    """The column K9's rig pass at 32 columns (csrc/cal_segments.cu
+    rig_split_pass_cols): warp w holds the classes w + 8 j, merged in the
+    warp (j and j + 2, then the two), then the warps' subtrees (w and w + 4,
+    w and w + 2, w and w + 1)."""
+    sub = [np.float32(np.float32(parts[w] + parts[w + 16])
+                      + np.float32(parts[w + 8] + parts[w + 24])) for w in range(8)]
+    pair = [np.float32(sub[w] + sub[w + 4]) for w in range(4)]
+    quad = [np.float32(pair[w] + pair[w + 2]) for w in range(2)]
+    return np.float32(quad[0] + quad[1])
+
+
+def test_split_rig_pass_keeps_the_butterfly_bits():
+    """The class split of the column K9's rig pass (warp w: classes w + 8 j)
+    gives the bits of the single-column warp's butterfly over the 32 class
+    partials, in float32; its chunk entries e = (s - s0) 8 + w name every
+    slot of a pair once for pairs of 1 to 20,000 slots and 16 steps a
+    chunk."""
+    rng = np.random.default_rng(263)
+    for _ in range(50):
+        parts = (rng.normal(size=32) * 10.0 ** rng.integers(-4, 5, size=32)).astype(np.float32)
+        assert _split_tree(parts).tobytes() == _butterfly(list(parts)).tobytes()
+    for n in (1, 31, 33, 291, 3000, 20000):
+        T, seen = -(-n // 32), set()
+        for s0 in range(0, 4 * T, 16):
+            for e in range((min(4 * T, s0 + 16) - s0) * 8):
+                w, s_ = e % 8, s0 + e // 8
+                k, t_ = divmod(s_, T)
+                i = w + 8 * _rev(k, 2) + 32 * t_
+                if i < n:
+                    assert i not in seen
+                    seen.add(i)
+        assert seen == set(range(n))

@@ -44,18 +44,36 @@
 // 16 B of p written and read back.
 //
 // K4 on C right-hand sides (viba_schur_pcg_cols, the covariance columns:
-// x and y are (R, K, C), one row's C values of a component contiguous) runs
-// the same three passes once per tile of kColTile columns
-// (pt_segments.cuh): the down pass, kColTile threads a slot (one column
-// each, so a warp's x loads and p stores are contiguous runs), stores
+// x and y are (R, K, C), one row's C values of a component contiguous) is
+// two launches over the point-sorted slot records of the reduced system
+// (pt_segments.cuh SlotRec, made once per system), each reading a slot's
+// record once for a tile of W columns (32; 8 up to 8 columns; 1 for one)
+// and writing nothing per (slot, column):
+//   points   point_pass_cols (pt_segments.cuh): the down pass fused into
+//            the landmark sums, z (L, 3, C) = H_ll^-1 W^T x;
+//   rig      rig_row_pass_cols, four warps per (rig row, tile): the row's
+//            records staged in shared memory a chunk at a time, each lane
+//            computes du = w J_r x - w J_p z[point] for its slots and column
+//            in registers and sums y = J_r^T du.
+// Each column is summed in the single-column up pass's order: the 128
+// lane classes of the row (slots i = cls, cls + 128, ... of the row's run)
+// summed in order, each warp's 32 classes in the xor butterfly's tree, the
+// four warps' totals in order. Warp wg takes the classes of the
+// single-column group's warp wg; at W = 32 a lane runs all 32 of them for
+// its column (depth first, LeafTree), at W = 1 the lanes are the classes,
+// as in pcg_up. So every column has the single-column kernel's bits.
+// Bound: operations — (8K + 30) FMA-equivalents a slot and column over the
+// two passes.
+//
+// The tiled design it replaced (viba_schur_pcg_cols_tiles), kept as the
+// yardstick until the next change to these kernels, runs the same three
+// passes once per tile of kColTile columns (pt_segments.cuh): the down
+// pass, kColTile threads a slot (one column each), stores
 // p[pt_pos[s] * kColTile + c]; the landmark pass sums each column and
-// writes z (L, kColTile, 3); the up pass keeps K x kColTile sums a rig row,
-// each thread loading its slot's J once a tile. Every column is summed in
-// the single-column kernel's order. The tile bounds the staged p at
-// n_real x 128 B (50 MB at the bias headline) where one float4 a slot and
-// column would take n_real x C x 16 B (1.6 GB at C = 256). Bound: bytes —
-// per column, 2 x (8K + 36) / kColTile B of J a slot, the 32 B of p written
-// and read back, and 12 B of z read.
+// writes z (L, kColTile, 3); the up pass keeps K x kColTile sums a rig
+// row, each thread loading its slot's J once a tile. Bound: bytes — per
+// column, 2 x (8K + 36) / kColTile B of J a slot, the 32 B of
+// p written and read back, and 12 B of z read.
 #include "pt_segments.cuh"
 #include "tile_reduce.cuh"
 
@@ -329,6 +347,146 @@ cudaError_t schur_pcg_cols(int R, int L, int n, int n_real, int C, const int* ri
   return cudaSuccess;
 }
 
+// K4 columns, rig pass: shapes of a block per (rig row, tile of W columns)
+template <int K, int W>
+struct RowCols {
+  static constexpr int NWG = kRowGroup / 32;  // the single-column group's warps
+  static constexpr int P = 32 / W, M = W, LOGM = viba::log2i(M);
+  static constexpr int RF = viba::SlotRec<K, 0>::floats;
+  static constexpr int SE = 256;               // entries a chunk
+  static constexpr int NS = SE / (NWG * P);    // steps a chunk
+  // staged records, each warp-group's totals
+  static constexpr int smem_bytes = SE * RF * 4 + NWG * K * 32 * 4;
+};
+
+// K4 columns, rig pass: a block of four warps per (rig row, tile of W
+// columns), warp wg the single-column group's warp wg. The row's slots run
+// in chunks (pt_segments.cuh entry_slot), their records staged in shared
+// memory; lane (column, phi) takes its M classes of warp-group wg depth
+// first (LeafTree, across chunks), computing each slot's du for its column
+// in registers (w J_r x_r - w J_p z[point], as the single-column up pass)
+// and adding J_r^T du, the butterfly over the P physical lanes, then the
+// four warp-groups' totals in order.
+template <int K, int W>
+__global__ void __launch_bounds__(128) rig_row_pass_cols(int C, int n_tiles,
+                                                         const int* __restrict__ rig_ptr,
+                                                         const int* __restrict__ rig_pos,
+                                                         const float* __restrict__ rec,
+                                                         const float* __restrict__ x_r,
+                                                         const float* __restrict__ z,
+                                                         float* __restrict__ y) {
+  using S = RowCols<K, W>;
+  using Rec = viba::SlotRec<K, 0>;
+  constexpr int NWG = S::NWG, P = S::P, M = S::M, LOGM = S::LOGM, RF = S::RF;
+  extern __shared__ float4 smem4[];
+  float* rec_s = reinterpret_cast<float*>(smem4);  // (SE, RF)
+  float* e_s = rec_s + S::SE * RF;                 // (NWG, K, 32 lanes)
+  const int row = blockIdx.x / n_tiles, tile = blockIdx.x % n_tiles;
+  const int wg = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int phi = lane % P, c_tile = tile * W + lane / P;
+  const bool live = c_tile < C;
+  const int c = live ? c_tile : 0;  // the loads of a lane past C stay in bounds
+  float xr[K];
+#pragma unroll
+  for (int a = 0; a < K; ++a) xr[a] = live ? x_r[((long)K * row + a) * C + c] : 0.f;
+  const int beg = rig_ptr[row], n_r = rig_ptr[row + 1] - beg;
+  const int T = (n_r + 32 * NWG - 1) / (32 * NWG);
+  viba::LeafTree<M, K> tree;
+  float acc[K], e[K];
+#pragma unroll
+  for (int a = 0; a < K; ++a) acc[a] = e[a] = 0.f;
+  for (int s0 = 0; s0 < M * T; s0 += S::NS) {
+    const int s1 = min(M * T, s0 + S::NS), n_e = (s1 - s0) * NWG * P;
+    viba::stage_records<NWG, P, LOGM, RF>(rec_s, rec, rig_pos + beg, n_r, n_e, s0, T);
+#pragma unroll 1
+    for (int k = max(0, s0 / T); k < M && k * T < s1; ++k) {
+      const int ta = max(0, s0 - k * T), tb = min(T, s1 - k * T);
+      if (ta == 0) {
+#pragma unroll
+        for (int a = 0; a < K; ++a) acc[a] = 0.f;
+      }
+      const int cls = 32 * wg + phi + P * viba::rev_rt<LOGM>(k);
+#pragma unroll 2
+      for (int t = ta; t < tb && cls + 32 * NWG * t < n_r; ++t) {
+        const float* r = rec_s + (((k * T + t - s0) * NWG + wg) * P + phi) * RF;
+        float j[Rec::nj];
+        viba::load_j<K, 0>(r, j);
+        const viba::RecTail tl = viba::load_tail<K, 0>(r);
+        float u0 = 0.f, u1 = 0.f;
+#pragma unroll
+        for (int a = 0; a < K; ++a) {
+          u0 += j[2 * a] * xr[a];
+          u1 += j[2 * a + 1] * xr[a];
+        }
+        const float* zp = z + 3L * C * tl.point + c;
+        const float z0 = zp[0], z1 = zp[C], z2 = zp[2L * C];
+        const float a0 = tl.p[0] * z0 + tl.p[2] * z1 + tl.p[4] * z2;
+        const float a1 = tl.p[1] * z0 + tl.p[3] * z1 + tl.p[5] * z2;
+        const float d0 = u0 * tl.w - a0 * tl.w, d1 = u1 * tl.w - a1 * tl.w;
+#pragma unroll
+        for (int a = 0; a < K; ++a) acc[a] += j[2 * a] * d0 + j[2 * a + 1] * d1;
+      }
+      if (tb == T) {
+        tree.push(k, acc);
+        if (k == M - 1) {
+#pragma unroll
+          for (int a = 0; a < K; ++a) e[a] = acc[a];
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int off = P / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int a = 0; a < K; ++a) e[a] += __shfl_xor_sync(0xffffffffu, e[a], off);
+  }
+#pragma unroll
+  for (int a = 0; a < K; ++a) e_s[(wg * K + a) * 32 + lane] = e[a];
+  __syncthreads();
+  if (wg == 0 && live && phi == 0) {
+#pragma unroll
+    for (int a = 0; a < K; ++a) {
+      float total = e_s[a * 32 + lane];
+#pragma unroll
+      for (int w2 = 1; w2 < NWG; ++w2) total = total + e_s[(w2 * K + a) * 32 + lane];
+      y[((long)K * row + a) * C + c] = total;
+    }
+  }
+}
+
+template <int K, int W>
+cudaError_t launch_rig_row_pass(int R, int C, const int* rig_ptr, const int* rig_pos,
+                                const float* rec, const float* x, const float* z, float* y,
+                                cudaStream_t st) {
+  constexpr int smem = RowCols<K, W>::smem_bytes;
+  cudaError_t err = cudaFuncSetAttribute(rig_row_pass_cols<K, W>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (C + W - 1) / W;
+  rig_row_pass_cols<K, W><<<R * n_tiles, 32 * RowCols<K, W>::NWG, smem, st>>>(
+      C, n_tiles, rig_ptr, rig_pos, rec, x, z, y);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t schur_pcg_cols_fused(int R, int L, int C, int rig_sorted, const int* rig_ptr,
+                                 const int* rig_pos, const int* pt_ptr, const float* rec,
+                                 const float* x, const float* hinv, float* z, float* y,
+                                 cudaStream_t st) {
+  cudaError_t err = viba::launch_point_pass_cols<K, 0>(L, C, rig_sorted, pt_ptr, rec, x, nullptr,
+                                                       hinv, z, st);
+  if (err != cudaSuccess || R <= 0) return err;
+  switch (viba::col_width(C)) {
+    case 1:
+      return launch_rig_row_pass<K, 1>(R, C, rig_ptr, rig_pos, rec, x, z, y, st);
+    case 8:
+      return launch_rig_row_pass<K, 8>(R, C, rig_ptr, rig_pos, rec, x, z, y, st);
+    default:
+      return launch_rig_row_pass<K, 32>(R, C, rig_ptr, rig_pos, rec, x, z, y, st);
+  }
+}
+
 template <int K>
 cudaError_t schur_pcg(int R, int L, int n, int n_real, const int* rig, const int* point,
                       const int* pt_pos, const int* pt_ptr, const int* rig_ptr,
@@ -425,12 +583,28 @@ extern "C" int viba_schur_pcg(int R, int L, int n, int n_real, int k, const int*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int viba_schur_pcg_cols(int R, int L, int n, int n_real, int k, int C,
-                                   const int* rig, const int* point, const int* pt_pos,
-                                   const int* pt_ptr, const int* rig_ptr, const int* rig_obs,
-                                   const float* J_r, const float* J_p, const float* w,
-                                   const float* x, const float* hinv, float* p, float* z,
+extern "C" int viba_schur_pcg_cols(int R, int L, int k, int C, int rig_sorted,
+                                   const int* rig_ptr, const int* rig_pos, const int* pt_ptr,
+                                   const float* rec, const float* x, const float* hinv, float* z,
                                    float* y, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k == 6) {
+    return static_cast<int>(schur_pcg_cols_fused<6>(R, L, C, rig_sorted, rig_ptr, rig_pos, pt_ptr,
+                                                    rec, x, hinv, z, y, st));
+  }
+  if (k == 9) {
+    return static_cast<int>(schur_pcg_cols_fused<9>(R, L, C, rig_sorted, rig_ptr, rig_pos, pt_ptr,
+                                                    rec, x, hinv, z, y, st));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int viba_schur_pcg_cols_tiles(int R, int L, int n, int n_real, int k, int C,
+                                         const int* rig, const int* point, const int* pt_pos,
+                                         const int* pt_ptr, const int* rig_ptr,
+                                         const int* rig_obs, const float* J_r, const float* J_p,
+                                         const float* w, const float* x, const float* hinv,
+                                         float* p, float* z, float* y, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float4* p4 = reinterpret_cast<float4*>(p);
   if (k == 6) {

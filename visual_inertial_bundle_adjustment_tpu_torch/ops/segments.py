@@ -86,6 +86,20 @@ positions, sqrt(w) J_p and sqrt(w) res (robust weights, w >= 0), and a
 contrib slot-major, coalesced, and each gathers a slot's values as one or
 two sectors of that copy.
 
+The column K4 and K9 (the covariance columns, C right-hand sides in one
+call) run over a point-sorted copy of the batch's slot data instead,
+PtRecords, made once per reduced system (point_sorted_records; rcs.
+with_column_records): one record per real slot at its point-sorted
+position, each Jacobian column as its two residual rows, then w and the
+slot's rig, window and point rows. A landmark pass fuses the down pass into
+the landmark sums (z = H_ll^-1 W^T x for every column); a rig pass computes
+each slot's du for its column in registers (K4; K9 at 32 columns, its lane
+classes split over a block's warps) or into a shared-memory tile (K9 at 1
+or 8 columns) and sums the rig rows (and K9's (rig, window row) pairs);
+K9's window rows then sum their pair partials. Each pass reads a record once for a tile of 32
+columns, and nothing is stored per (slot, column); every column is summed
+in the single-column kernel's order, so each column has its bits.
+
 The plain PyTorch versions below compute the same functions with
 `index_add_` over the global rig/point/window index (or tile row) of each
 slot; CPU tensors take them. Nothing that a CUDA tensor reaches sums with
@@ -102,8 +116,10 @@ import torch
 from . import _kernels
 
 CHUNK = 1024  # window-row slots per partial sum (cal kernels)
-# right-hand sides a pass of the column kernels (csrc/pt_segments.cuh kColTile)
+# right-hand sides a pass of the tiled column kernels, entry "tiles"
+# (csrc/pt_segments.cuh kColTile)
 COL_TILE = 8
+COL_ENTRIES = ("fused", "tiles")
 # calibration column splits of J_c by its width kc, in cal_groups order:
 # cam extr and cam intr (6 | 17), or one of them alone
 CAL_SPLITS = {23: (6, 17), 6: (6,), 17: (17,)}
@@ -767,6 +783,85 @@ def _schur_pcg_cols_plain(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
     return y_r.permute(1, 2, 0), y_c
 
 
+def rec_layout(k, kc=0):
+    """Float offsets of a slot record (csrc/pt_segments.cuh SlotRec): J_r
+    then J_c column by column as (row 0, row 1) pairs, padded to whole
+    float4s (the J block), then J_p's pairs, w, and the rig, window and point
+    rows as int32 bits; `floats` the record's length, whole float4s."""
+    nj = (2 * (k + kc) + 3) // 4 * 4
+    return {"jr": 0, "jc": 2 * k, "jp": nj, "w": nj + 6, "rig": nj + 7, "win": nj + 8,
+            "point": nj + 9, "floats": nj + 12}
+
+
+class PtRecords(NamedTuple):
+    """The point-sorted slot records of one batch for the column kernels
+    (made once per reduced system: J is constant over its PCG)."""
+
+    rec: torch.Tensor  # (n_real, rec_layout(k, kc)["floats"]) float32
+    # (n_real,) int32 the record of each slot in the order the rig pass
+    # walks them: plan.rig_obs (K4) or cplan.pair_obs (K9)
+    rig_pos: torch.Tensor
+    k: int
+    kc: int
+    # each landmark's records in rig order (then its first and last hold its
+    # least and largest rig): the landmark pass may stage x_r by rig windows
+    rig_sorted: bool
+
+
+def _pairs(J, idx):
+    """J (2, m, N) at slots idx as (len(idx), 2m): (J[0, a], J[1, a]) a column."""
+    return J.index_select(2, idx).permute(2, 1, 0).reshape(idx.shape[0], -1)
+
+
+def point_sorted_records(J_r, J_p, w, plan: SegPlan, J_c=None, cplan: CalPlan | None = None):
+    """PtRecords of a batch: record j is real slot plan.pt_obs[j] (rec_layout;
+    the window row 0 without J_c). float32 only (the card's type: the rows
+    are stored as int32 bits)."""
+    if J_r.dtype != torch.float32:
+        raise ValueError(f"point_sorted_records: float32 Jacobians, got {J_r.dtype}")
+    real = plan.pt_obs.long()
+    k, kc = J_r.shape[1], 0 if J_c is None else J_c.shape[1]
+    lay = rec_layout(k, kc)
+    rec = J_r.new_zeros((real.shape[0], lay["floats"]))
+    rec[:, :2 * k] = _pairs(J_r, real)
+    if kc:
+        rec[:, lay["jc"]:lay["jc"] + 2 * kc] = _pairs(J_c, real)
+    rec[:, lay["jp"]:lay["jp"] + 6] = _pairs(J_p, real)
+    rec[:, lay["w"]] = w.index_select(0, real)
+    win = (torch.zeros_like(plan.rig) if cplan is None else cplan.win).index_select(0, real)
+    rows = torch.stack([plan.rig.index_select(0, real), win, plan.point.index_select(0, real)], 1)
+    rec[:, lay["rig"]:lay["point"] + 1] = rows.to(torch.int32).view(torch.float32)
+    order = plan.rig_obs if cplan is None else cplan.pair_obs
+    rig_pos = plan.pt_pos.index_select(0, order.long()).to(torch.int32)
+    rig = rows[:, 0].long()
+    first = torch.zeros_like(rig, dtype=torch.bool)
+    first[plan.pt_ptr[:-1][plan.pt_ptr[:-1] < rig.shape[0]].long()] = True
+    rig_sorted = bool(((rig[1:] >= rig[:-1]) | first[1:]).all()) if rig.shape[0] > 1 else True
+    return PtRecords(rec, rig_pos, k, kc, rig_sorted)
+
+
+def _rec_args(rec, J_r, J_p, w, plan, J_c=None, cplan=None):
+    """The pointers of the records' rig-side order and of the records, and
+    their rig_sorted flag, the records made here when the caller has
+    none."""
+    if rec is None:
+        rec = point_sorted_records(J_r, J_p, w, plan, J_c, cplan)
+    k, kc = J_r.shape[1], 0 if J_c is None else J_c.shape[1]
+    if (rec.k, rec.kc) != (k, kc):
+        raise ValueError(f"rec: records of (k, kc) = {(rec.k, rec.kc)}, batch {(k, kc)}")
+    n_real = plan.pt_obs.shape[0]
+    ck = _kernels.check
+    return (ck(rec.rig_pos, "rig_pos", torch.int32, (n_real,)),
+            ck(rec.rec, "rec", torch.float32, (n_real, rec_layout(k, kc)["floats"])),
+            int(rec.rig_sorted))
+
+
+def _entry_arg(entry):
+    if entry not in COL_ENTRIES:
+        raise ValueError(f"entry: one of {COL_ENTRIES}, got {entry!r}")
+    return entry
+
+
 def _cols_arg(x, name, rows, k):
     C = x.shape[-1] if x.ndim == 3 else 0
     _kernels.check(x, name, torch.float32, (rows, k, C))
@@ -776,11 +871,15 @@ def _cols_arg(x, name, rows, k):
 
 
 @_kernels.register("schur_pcg_cols")
-def seg_schur_pcg_cols(J_r, J_p, w, x_table, hinv, plan: SegPlan):
+def seg_schur_pcg_cols(J_r, J_p, w, x_table, hinv, plan: SegPlan, rec: PtRecords | None = None,
+                       entry="fused"):
     """K4 on C right-hand sides: y (R, k, C), column c the y of
-    seg_schur_pcg on x_table[..., c]. On the card one entry
-    (csrc/schur.cu viba_schur_pcg_cols) that runs K4's three passes once per
-    tile of COL_TILE columns, each slot's J read once a tile."""
+    seg_schur_pcg on x_table[..., c]. On the card one entry of two launches
+    (csrc/schur.cu viba_schur_pcg_cols) over the point-sorted records `rec`
+    (point_sorted_records; made here when None): the landmark pass, then
+    the rig rows, each record read once a tile of 32 columns. entry="tiles"
+    runs the tiled design it replaced (K4's three passes once per tile of
+    COL_TILE columns), kept as its yardstick. The CPU path ignores both."""
     if not _kernels.on_card(w):
         return _schur_pcg_cols_plain(J_r, None, J_p, w, x_table, None, hinv, plan, None)[0]
     n, k, jargs = _jac_args(J_r, J_p, w)
@@ -788,30 +887,41 @@ def seg_schur_pcg_cols(J_r, J_p, w, x_table, hinv, plan: SegPlan):
     C, x_ptr = _cols_arg(x_table, "x_table", R, k)
     n_real = plan.pt_obs.shape[0]
     ck = _kernels.check
-    p = _empty((max(n_real, 1), COL_TILE, 4), w)  # COL_TILE float4s a slot, point-sorted
-    z = _empty((max(L, 1), COL_TILE, 3), w)
     y = _empty((R, k, C), w)
-    _kernels.launch("viba_schur_pcg_cols", R, L, n, n_real, k, C,
-                    ck(plan.rig, "rig", torch.int32, (n,)),
-                    ck(plan.point, "point", torch.int32, (n,)),
-                    ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
-                    ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
-                    ck(plan.rig_ptr, "rig_ptr", torch.int32, (R + 1,)),
-                    ck(plan.rig_obs, "rig_obs", torch.int32, (n_real,)), *jargs, x_ptr,
-                    ck(hinv, "hinv", torch.float32, (L, 3, 3)), p.data_ptr(), z.data_ptr(),
-                    y.data_ptr())
+    if _entry_arg(entry) == "fused":
+        z = _empty((max(L, 1), 3, C), w)
+        rig_pos, rec_ptr, rig_sorted = _rec_args(rec, J_r, J_p, w, plan)
+        _kernels.launch("viba_schur_pcg_cols", R, L, k, C, rig_sorted,
+                        ck(plan.rig_ptr, "rig_ptr", torch.int32, (R + 1,)), rig_pos,
+                        ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)), rec_ptr, x_ptr,
+                        ck(hinv, "hinv", torch.float32, (L, 3, 3)), z.data_ptr(), y.data_ptr())
+    else:
+        p = _empty((max(n_real, 1), COL_TILE, 4), w)  # COL_TILE float4s a slot, point-sorted
+        z = _empty((max(L, 1), COL_TILE, 3), w)
+        _kernels.launch("viba_schur_pcg_cols_tiles", R, L, n, n_real, k, C,
+                        ck(plan.rig, "rig", torch.int32, (n,)),
+                        ck(plan.point, "point", torch.int32, (n,)),
+                        ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
+                        ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
+                        ck(plan.rig_ptr, "rig_ptr", torch.int32, (R + 1,)),
+                        ck(plan.rig_obs, "rig_obs", torch.int32, (n_real,)), *jargs, x_ptr,
+                        ck(hinv, "hinv", torch.float32, (L, 3, 3)), p.data_ptr(), z.data_ptr(),
+                        y.data_ptr())
     seg_schur_pcg_cols.launches += 1
     return y
 
 
 @_kernels.register("schur_pcg_cal_cols")
-def seg_schur_pcg_cal_cols(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cplan: CalPlan):
+def seg_schur_pcg_cal_cols(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cplan: CalPlan,
+                           rec: PtRecords | None = None, entry="fused"):
     """K9 on C right-hand sides: (y_r (R, k, C), y_c (n_c, kc, C)), column c
     the result of seg_schur_pcg_cal on column c of x_r and x_c. On the card
-    one entry (csrc/cal_segments.cu viba_schur_pcg_cal_cols) that runs per
-    tile of COL_TILE columns: the down and landmark passes, the rig rows'
-    up pass (staging each slot's du), the (rig, window row) pairs' J_c^T du
-    and the window rows' sums."""
+    one entry of three launches (csrc/cal_segments.cu
+    viba_schur_pcg_cal_cols) over the point-sorted records `rec`
+    (point_sorted_records; made here when None): the landmark pass; the rig
+    rows with one window partial per (rig, window row) pair; the window
+    rows' sums. entry="tiles" runs the tiled design it replaced, per tile
+    of COL_TILE columns, kept as its yardstick. The CPU path ignores both."""
     if not _kernels.on_card(w):
         return _schur_pcg_cols_plain(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
     n, k, _ = _jac_args(J_r, J_p, w)
@@ -823,25 +933,37 @@ def seg_schur_pcg_cal_cols(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cpla
         raise ValueError(f"x_c: {C_c} columns, x_r {C}")
     n_real, n_pairs = plan.pt_obs.shape[0], cplan.n_pairs
     ck = _kernels.check
-    p = _empty((max(n_real, 1), COL_TILE, 4), w)
-    z = _empty((max(L, 1), COL_TILE, 3), w)
-    du = _empty((max(n, 1), COL_TILE, 2), w)
-    part = _empty((max(n_pairs, 1), kc, COL_TILE), w)
     y_r, y_c = _empty((R, k, C), w), _empty((n_c, kc, C), w)
-    _kernels.launch("viba_schur_pcg_cal_cols", R, L, n, n_real, k, kc, n_c, n_pairs, C,
-                    ck(plan.rig, "rig", torch.int32, (n,)), ck(cplan.win, "win", torch.int32, (n,)),
-                    ck(plan.point, "point", torch.int32, (n,)),
-                    ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
-                    ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
-                    ck(cplan.rig_pair, "rig_pair", torch.int32, (R + 1,)),
-                    ck(cplan.pair_ptr, "pair_ptr", torch.int32),
-                    ck(cplan.pair_obs, "pair_obs", torch.int32, (n_real,)),
-                    ck(cplan.pair_part, "pair_part", torch.int32, (n_pairs,)),
-                    ck(cplan.win_pair, "win_pair", torch.int32, (n_c + 1,)),
-                    ck(J_r, "J_r", torch.float32, (2, k, n)), _jc_arg(J_c, n),
-                    ck(J_p, "J_p", torch.float32, (2, 3, n)), ck(w, "w", torch.float32, (n,)),
-                    xr_ptr, xc_ptr, ck(hinv, "hinv", torch.float32, (L, 3, 3)), p.data_ptr(),
-                    z.data_ptr(), du.data_ptr(), part.data_ptr(), y_r.data_ptr(), y_c.data_ptr())
+    rig_pair = ck(cplan.rig_pair, "rig_pair", torch.int32, (R + 1,))
+    pair_ptr = ck(cplan.pair_ptr, "pair_ptr", torch.int32)
+    pair_part = ck(cplan.pair_part, "pair_part", torch.int32, (n_pairs,))
+    win_pair = ck(cplan.win_pair, "win_pair", torch.int32, (n_c + 1,))
+    if _entry_arg(entry) == "fused":
+        z = _empty((max(L, 1), 3, C), w)
+        part = _empty((max(n_pairs, 1), kc, C), w)
+        rig_pos, rec_ptr, rig_sorted = _rec_args(rec, J_r, J_p, w, plan, J_c, cplan)
+        _kernels.launch("viba_schur_pcg_cal_cols", R, L, k, kc, n_c, C, rig_sorted, rig_pair,
+                        pair_ptr, pair_part, win_pair, rig_pos,
+                        ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)), rec_ptr, xr_ptr,
+                        xc_ptr, ck(hinv, "hinv", torch.float32, (L, 3, 3)), z.data_ptr(),
+                        part.data_ptr(), y_r.data_ptr(), y_c.data_ptr())
+    else:
+        p = _empty((max(n_real, 1), COL_TILE, 4), w)
+        z = _empty((max(L, 1), COL_TILE, 3), w)
+        du = _empty((max(n, 1), COL_TILE, 2), w)
+        part = _empty((max(n_pairs, 1), kc, COL_TILE), w)
+        _kernels.launch("viba_schur_pcg_cal_cols_tiles", R, L, n, n_real, k, kc, n_c, n_pairs, C,
+                        ck(plan.rig, "rig", torch.int32, (n,)),
+                        ck(cplan.win, "win", torch.int32, (n,)),
+                        ck(plan.point, "point", torch.int32, (n,)),
+                        ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
+                        ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)), rig_pair, pair_ptr,
+                        ck(cplan.pair_obs, "pair_obs", torch.int32, (n_real,)), pair_part,
+                        win_pair, ck(J_r, "J_r", torch.float32, (2, k, n)), _jc_arg(J_c, n),
+                        ck(J_p, "J_p", torch.float32, (2, 3, n)), ck(w, "w", torch.float32, (n,)),
+                        xr_ptr, xc_ptr, ck(hinv, "hinv", torch.float32, (L, 3, 3)),
+                        p.data_ptr(), z.data_ptr(), du.data_ptr(), part.data_ptr(),
+                        y_r.data_ptr(), y_c.data_ptr())
     seg_schur_pcg_cal_cols.launches += 1
     return y_r, y_c
 

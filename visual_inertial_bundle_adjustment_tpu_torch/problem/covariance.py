@@ -13,8 +13,10 @@ The columns of a chunk solve together: the right-hand side carries a
 trailing column axis (structure.has_columns) through engine.packed_pcg, so
 one PCG iteration serves every column of the chunk. On the blocked engine a
 single-pass visual batch runs the column-batched K4 or K9
-(ops/segments.py seg_schur_pcg_cols / seg_schur_pcg_cal_cols), J read once a
-tile of columns; the generic engine batches its matvec over the columns.
+(ops/segments.py seg_schur_pcg_cols / seg_schur_pcg_cal_cols) over the
+batch's point-sorted slot records, made once in prepare_system
+(rcs.with_column_records), each record read once a pass for a tile of 32
+columns; the generic engine batches its matvec over the columns.
 (The JAX package scans the columns one after another on its blocked engine
 and vmaps PCG on its generic one.) Every column still runs its own PCG: its
 own dots, step sizes, stop mask and iteration count.
@@ -87,7 +89,8 @@ def prepare_system(problem, lam=1e-9):
     cfgs = engine.prune_cfgs(tuple(problem.cfgs), masks)
     lg = engine.linearize(cfgs, datas, v, masks)
     if any(c.block_info is not None for c in cfgs):
-        return lg, rcs.with_damping(rcs.assemble(cfgs, datas, lg, v, masks), v, masks, lam)
+        rs = rcs.with_damping(rcs.assemble(cfgs, datas, lg, v, masks), v, masks, lam)
+        return lg, rcs.with_column_records(rs)
     return lg, engine.build_reduced_system(lg, v, masks, lam)
 
 
@@ -101,7 +104,8 @@ def solve_columns(problem, entries, lam=1e-9, pcg_iters=800, pcg_tol=1e-12, syst
 
     One linearization for ALL columns; they solve in chunks of `chunk`
     columns, each chunk one column-batched PCG (memory: chunk x the reduced
-    state, and on the blocked engine the column kernels' tile scratch).
+    state, and on the blocked engine the column kernels' z and window
+    partials, chunk x (3 a landmark + kc a (rig, window row) pair)).
     Returns a Tangent whose fields carry a trailing axis of K = len(entries)
     columns (rig (R, 12, K), gravity (2, K))."""
     v = problem.variables

@@ -47,6 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import _kernels
 from ..ops import segments as seg
 from . import engine
 from . import factors as fct
@@ -344,6 +345,9 @@ class VisBatch(NamedTuple):
     idx: tuple = ()
     jac: tuple = ()
     rows: tuple = ()
+    # the point-sorted slot records of the column kernels (single-pass
+    # batches on the card, with_column_records), or None
+    rec: seg.PtRecords | None = None
 
 
 def _rig_only_fast(b: VisBatch):
@@ -430,6 +434,21 @@ def _vis_batches(cfgs, datas, lg):
             cplan=cplan if fold else None,
             groups=tuple(groups), idx=tuple(idx), jac=tuple(jac), rows=tuple(rows)), lin))
     return out
+
+
+def with_column_records(rs):
+    """The system with the point-sorted slot records (seg.point_sorted_records)
+    of its single-pass visual batch made once, for the column kernels that
+    every PCG iteration of a covariance chunk calls (J is constant over the
+    system's solves). Only on the card: the CPU path ignores them."""
+    if not (len(rs.vis) == 1 and not rs.rest_pt.lins and _single_pass(rs.vis[0])):
+        return rs
+    b = rs.vis[0]
+    if not _kernels.on_card(b.w) or b.rec is not None:
+        return rs
+    rec = seg.point_sorted_records(b.J, b.J_pt, b.w, b.plan, b.J_cal if _cal_fast(b) else None,
+                                   b.cplan if _cal_fast(b) else None)
+    return rs._replace(vis=(b._replace(rec=rec),))
 
 
 def _cal_table(b: VisBatch, x: Tangent):
@@ -872,13 +891,15 @@ def _matvec_factor_sums(rs: RcsSystem, v, x: Tangent) -> Tangent:
         b = rs.vis[0]
         x_r = x.rig[:, :b.rig_k].contiguous()
         if _cal_fast(b):
-            pcg_cal = seg.seg_schur_pcg_cal_cols if cols else seg.seg_schur_pcg_cal
-            y_r, y_c = pcg_cal(b.J, b.J_cal, b.J_pt, b.w, x_r, _cal_table(b, x), rs.H_ll_inv,
-                               b.plan, b.cplan)
+            args = (b.J, b.J_cal, b.J_pt, b.w, x_r, _cal_table(b, x), rs.H_ll_inv, b.plan,
+                     b.cplan)
+            y_r, y_c = (seg.seg_schur_pcg_cal_cols(*args, rec=b.rec) if cols
+                        else seg.seg_schur_pcg_cal(*args))
             hx = _cal_scatter_back(b, hx, y_c)
         else:
-            pcg = seg.seg_schur_pcg_cols if cols else seg.seg_schur_pcg
-            y_r = pcg(b.J, b.J_pt, b.w, x_r, rs.H_ll_inv, b.plan)
+            args = (b.J, b.J_pt, b.w, x_r, rs.H_ll_inv, b.plan)
+            y_r = (seg.seg_schur_pcg_cols(*args, rec=b.rec) if cols
+                   else seg.seg_schur_pcg(*args))
         return hx._replace(rig=hx.rig + _padk(y_r, b.rig_k))
     t = torch.zeros_like(v.points)
     for b in rs.vis:
