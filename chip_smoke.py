@@ -53,8 +53,9 @@ Drives the port's four main paths through the entry points a user calls:
                point-coupled small batch; both blocked batches
                calibration-coupled single-pass, so the PCG takes the
                two-pass route: K10's down (with y) and up once per batch
-               and matvec (2 x 40 launches each in one PCG, counted), K9
-               never; K10 at these shapes against its plain version; the
+               and matvec (2 x 40 launches each in one PCG, counted; the
+               PCG's device time), K9 never; K10 at these shapes against
+               its plain version; the
                consistency, phases and 5 LM iterations as on the other
                paths; peak device memory over the phase (K1 residual-only,
                K3, K7, K8, K10, K11);
@@ -97,16 +98,18 @@ Phases, one printed line each (per path):
                two-grid landmark rows against the walk on the same rows;
                K13c on those rows (D 9, D 3) against the walk and
                index_add_, and on point refinement's tables (cli, D 13
-               and D 1); K14a and K14b against index_add_ and
-               index_select by device time, in turns; the column K4 and K9
+               and D 1); a library call's device time read in turns with
+               its kernel (K13c, K14a, K14b); the column K4 and K9
                over their point-sorted records at 1, 8, 48 and 256
                columns, each column also against the single-column kernel
-               (bit-equal columns counted), in turns with the tiled design
-               they replaced, their device operations a call the same at
-               every C; K14a (point grid,
+               (bit-equal columns counted), their device operations a call
+               the same at every C; K14a (point grid,
                D 9) and K14c (rig grid k 6) each in one device operation;
-               K14a-e bit-equal across two calls; K5 with the L2 flushed
-               before every timed call (its inputs fit the 50 MB L2)
+               K14a-e bit-equal across two calls; K10's down pass (with y
+               and t alone) and up pass and K5 bit-equal across two calls
+               in at most 3 / 2 / 2 / 1 device operations; K5 with the L2
+               flushed before every timed call (its inputs fit the 50 MB
+               L2)
   consistency  one LM iteration through the kernels vs the plain versions,
                from the initial state: new cost, reduced step and the step of
                the well-conditioned landmarks; and the kernel-path attempt run
@@ -206,18 +209,17 @@ TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 # they share with K6, K13a's and K13c's slot-major routes on landmark rows,
 # K8's window pass and its sum pass (which holds K2's landmark pass), the
 # instantiations per mode of K7, K1 and K11, K2's two passes, K6's rig-row
-# pass, K14b's flat gather, the tile pass of K14e, K14c and K14a, and the
-# column-batched K4 and K9 of the covariance columns: their fused landmark
-# and rig passes and the tiled design those replaced), by the names ptxas
-# gives them
+# pass, K14b's flat gather, the tile pass of K14e, K14c and K14a, the
+# column-batched K4 and K9 of the covariance columns (their fused landmark
+# and rig passes), K10's rig-pair pass and its second launch, and K5), by
+# the names ptxas gives them
 NO_SPILL = ("pcg_down", "pcg_up", "pcg_cal_down", "pcg_cal_up", "point_range_sum",
             "jtu_slot_major", "reduce_gather4", "to_slot_major", "reduce_gather",
             "assemble_cal_window", "sum_cal_points", "rs_linearize_mode", "visual_linearize_mode",
             "visual_cal_linearize_mode", "assemble_rows_slots", "assemble_points",
             "schur_down_rows", "tile_gather_flat", "tile_scatter_staged", "tile_fused_staged",
-            "tile_reduce_split", "pcg_down_cols", "pcg_up_cols", "point_range_sum_cols",
-            "pcg_cal_down_cols", "pcg_cal_up_cols", "pcg_cal_pair_cols", "sum_pair_cols",
-            "point_pass_cols", "rig_row_pass_cols", "rig_pair_pass_cols", "rig_split_pass_cols")
+            "tile_reduce_split", "point_pass_cols", "rig_row_pass_cols", "rig_pair_pass_cols",
+            "rig_split_pass_cols", "cal_pair_pass", "cal_down_sums", "schur_up_rows")
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
 # kernel vs plain LM iteration, relative (see the consistency phases)
@@ -320,12 +322,26 @@ def nbytes(*xs):
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 
 
-def l2_flush():
-    """A callable that evicts the L2: an in-place add over a 256 MB buffer."""
+def l2_flush(clean=False):
+    """A callable that evicts the L2: an in-place add over a 256 MB buffer,
+    which leaves its lines dirty in the L2 (written back to device memory
+    while the next kernel reads, as the LM path's kernels leave theirs),
+    or, clean, a sum over it, which leaves them clean."""
     import torch
 
     buf = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
-    return lambda: buf.add_(1.0)
+    return (lambda: buf.sum()) if clean else (lambda: buf.add_(1.0))
+
+
+def flushed_device_ms(fn, pre):
+    """{kernel: (launches, device ms) per call} of fn with pre() (an L2
+    flush) before every call, the flush's own kernels left out."""
+    from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
+
+    flush_keys = {key for key, _, _ in pm.device_rows(pre)}
+    per = pm.per_call([pm.device_rows(lambda: (pre(), fn())) for _ in range(pm.SESSIONS)],
+                      pm.DEVICE_REPS)
+    return {key: val for key, val in per.items() if key not in flush_keys}
 
 
 def flat(out):
@@ -352,10 +368,13 @@ class Bench:
         float32, the type the main path runs. `read` lists the tensors the
         function reads (each counted once; a (tensor, share) pair counts that
         share of its bytes), `flops` its arithmetic, `library` one PyTorch
-        call computing the same function (timed, used nowhere). flush: the L2
+        call computing the same function (timed by events and, in turns with
+        the kernel, by device time; used nowhere). flush: the L2
         is flushed before every timed call (outside the events; the flush's
         own kernel is left out of the device time), for a kernel whose
-        inputs the L2 would otherwise hold across the calls."""
+        inputs the L2 would otherwise hold across the calls; its device time
+        is read again with the L2 flushed clean (no write-back of the
+        flush's dirty lines in the kernel's time)."""
         from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
         import torch
 
@@ -375,15 +394,15 @@ class Bench:
             plain_ms = cuda_time(lambda: fn(*args), reps=5, warmup=1, pre=pre)
         library_ms = (cuda_time(library, reps=5, warmup=1, pre=pre) if library is not None
                       else None)
+        lib_dev = clean_ms = None
         if flush:
-            from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
-
-            flush_keys = {key for key, _, _ in pm.device_rows(pre)}
-            per = pm.per_call([pm.device_rows(lambda: (pre(), fn(*args)))
-                               for _ in range(pm.SESSIONS)], pm.DEVICE_REPS)
-            per = {key: val for key, val in per.items() if key not in flush_keys}
+            per = flushed_device_ms(lambda: fn(*args), pre)
             dev_ms, dev_ops = sum(t for _, t in per.values()), sum(n for n, _ in per.values())
             dev_kern = {key: t for key, (_, t) in per.items()}
+            clean = flushed_device_ms(lambda: fn(*args), l2_flush(clean=True))
+            clean_ms = sum(t for _, t in clean.values())
+        elif library is not None:  # the library call's device time, read in turns
+            (dev_ms, dev_ops, dev_kern), (lib_dev, _, _) = in_turns([lambda: fn(*args), library])
         else:
             (dev_ms, dev_ops, dev_kern), = in_turns([lambda: fn(*args)])
         copies = [key for key in dev_kern if "Memcpy" in key]
@@ -398,10 +417,17 @@ class Bench:
               f"{dev_ops:g} ops | bound {bound_ms:.4f} ms ({bound_by}) | {dev_ms / bound_ms:.1f}x "
               "bound by device time"
               + (f" | library {library_ms:.4f} ms" if library is not None else "")
+              + (f" (device {lib_dev:.4f} ms in turns)" if lib_dev is not None else "")
+              + (f" | device {clean_ms:.4f} ms with the L2 flushed clean ({bound_ms / clean_ms:.3f}"
+                 " of the bound)" if clean_ms is not None else "")
               + " | kernels: " + ", ".join(f"{key[:40]} {t:.4f}" for key, t in dev_kern.items()))
         row = dict(max_abs_err=max(d for _, _, d in errs), ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, device_ms=dev_ms,
                    device_ops=dev_ops, device_kernels=dev_kern)
+        if lib_dev is not None:
+            row["library_device_ms"] = lib_dev
+        if clean_ms is not None:
+            row["device_ms_clean_flush"] = clean_ms
         self.results[name] = row
         return row
 
@@ -695,9 +721,11 @@ def bias_only(dev, bench):
     # their landmark index, z, and writes y. Called once a solve, after the
     # preconditioner: its 30 MB would sit in the L2 across repeated calls
     real = n_real / b.J.shape[-1]
-    bench.compare("schur_up", seg.seg_schur_up, (b.J, b.J_pt, b.w, zl, b.plan), [("y", TOL_SEG)],
-                  [(b.J, real), (b.J_pt, real), (b.w, real), (b.plan.point, real), zl,
-                   b.plan.rig_ptr, b.plan.rig_obs], (4 * k + 14) * n_real, flush=True)
+    args5 = (b.J, b.J_pt, b.w, zl, b.plan)
+    row5 = bench.compare("schur_up", seg.seg_schur_up, args5, [("y", TOL_SEG)],
+                         [(b.J, real), (b.J_pt, real), (b.w, real), (b.plan.point, real), zl,
+                          b.plan.rig_ptr, b.plan.rig_obs], (4 * k + 14) * n_real, flush=True)
+    check_repeat_and_ops("schur_up", row5, seg.seg_schur_up, args5, 1)
     args4 = (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan)
     index4 = [b.plan.rig, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, b.plan.rig_ptr,
               b.plan.rig_obs]
@@ -868,24 +896,42 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
 def k10_rows(bench, b, x, xc, zl, suffix):
     """K10 on a calibration-coupled batch against its float64 plain
     version: the down pass with y (the two-pass PCG matvec), as
-    rcs.w_transpose_x calls it (t = W^T x alone) and the up pass."""
+    rcs.w_transpose_x calls it (t = W^T x alone) and the up pass; each
+    repeats bit for bit, within its device operations a call. Each bound
+    counts J_r, J_c, J_p and w, the walking plans' index arrays and x or z
+    read once and the outputs written once, whichever lists the design
+    reads."""
     from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
 
     k, kc, n_real = b.rig_k, b.J_cal.shape[1], int(b.plan.rig_obs.shape[0])
     plan, cplan = walk_plan(b.plan), list(b.cplan)[:4]
     jread = [b.J, b.J_pt, b.J_cal, b.w]
     seg_tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
-    bench.compare(f"schur_down_cal{suffix}", seg.seg_schur_down_cal,
-                  (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan),
-                  seg_tol("y_r", "y_c", "t", "wu"), jread + [x, xc] + plan + cplan,
-                  (8 * k + 8 * kc + 16) * n_real)
-    bench.compare(f"schur_down_cal{suffix}(want_y=False)", seg.seg_schur_down_cal,
-                  (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan, False),
-                  seg_tol("t", "wu"), jread + [x, xc] + plan + cplan[:1],
-                  (4 * k + 4 * kc + 16) * n_real)
-    bench.compare(f"schur_up_cal{suffix}", seg.seg_schur_up_cal,
-                  (b.J, b.J_cal, b.J_pt, b.w, zl, b.plan, b.cplan), seg_tol("y_r", "y_c"),
-                  jread + [zl] + plan + cplan, (4 * k + 4 * kc + 14) * n_real)
+    rows = (
+        (f"schur_down_cal{suffix}", seg.seg_schur_down_cal,
+         (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan), seg_tol("y_r", "y_c", "t"),
+         jread + [x, xc] + plan + cplan, (8 * k + 8 * kc + 16) * n_real, 3),
+        (f"schur_down_cal{suffix}(want_y=False)", seg.seg_schur_down_cal,
+         (b.J, b.J_cal, b.J_pt, b.w, x, xc, b.plan, b.cplan, False), seg_tol("t"),
+         jread + [x, xc] + plan + cplan[:1], (4 * k + 4 * kc + 16) * n_real, 2),
+        (f"schur_up_cal{suffix}", seg.seg_schur_up_cal,
+         (b.J, b.J_cal, b.J_pt, b.w, zl, b.plan, b.cplan), seg_tol("y_r", "y_c"),
+         jread + [zl] + plan + cplan, (4 * k + 4 * kc + 14) * n_real, 2))
+    for name, fn, args, tols, read, flops, max_ops in rows:
+        row = bench.compare(name, fn, args, tols, read, flops)
+        check_repeat_and_ops(name, row, fn, args, max_ops)
+
+
+def check_repeat_and_ops(name, row, fn, args, max_ops):
+    """A kernel's outputs bit-equal over two calls, and at most max_ops
+    device operations a call."""
+    import torch
+
+    one, two = flat(fn(*args)), flat(fn(*args))
+    if not all(torch.equal(a, c) for a, c in zip(one, two)):
+        raise AssertionError(f"{name}: two calls differ")
+    if row["device_ops"] > max_ops:
+        raise AssertionError(f"{name}: {row['device_ops']} device operations per call")
 
 
 def full_sensor(dev, bench, session_dir, times):
@@ -1059,6 +1105,27 @@ def route_of(b):
     return "calibration-coupled single-pass" if rcs._cal_fast(b) else "general"
 
 
+def pcg_device(rs, v, b_rhs, settings):
+    """One PCG_ITERATIONS-iteration PCG under torch.profiler: (device ms,
+    device operations, the five kernels that take the most time)."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+
+    rcs.pcg(rs, v, b_rhs, PCG_ITERATIONS, settings.pcg_tol)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        rcs.pcg(rs, v, b_rhs, PCG_ITERATIONS, settings.pcg_tol)
+        torch.cuda.synchronize()
+    rows = pm.device_kernels(prof.key_averages())
+    if not rows:
+        raise AssertionError("multi: the profiler recorded no device time in the PCG")
+    return (sum(us for _, _, us in rows) / 1e3, sum(n for _, n, _ in rows),
+            sorted(rows, key=lambda r: -r[2])[:5])
+
+
 def multi_session(dev, bench, session, full_dir, gs_dir):
     """The two 600 s recordings (full sensor, rolling shutter; gs_cal,
     global shutter) merged by pipeline.multi_session.merge_sessions: their
@@ -1151,6 +1218,13 @@ def multi_session(dev, bench, session, full_dir, gs_dir):
             or pcg_counts.get("schur_pcg_cal", 0) or pcg_counts.get("schur_pcg", 0)):
         raise AssertionError(f"multi: PCG launches {pcg_counts}, not K10 down and up "
                              f"{n_cal} x {PCG_ITERATIONS} each and no fused matvec")
+    # the PCG's device time (the least of two profiled runs)
+    runs = [pcg_device(rs, v, b_rhs, settings) for _ in range(2)]
+    ms, n_ops, top = min(runs, key=lambda r: r[0])
+    phase("multi:pcg", f"one {PCG_ITERATIONS}-iteration PCG {ms:.2f} ms device in {n_ops} ops "
+          "(runs " + " ".join(f"{r[0]:.2f}" for r in runs) + ") | top: "
+          + ", ".join(f"{k[:40]} {us / 1e3:.2f} ms x{n}" for k, n, us in top))
+    bench.results.setdefault("multi", {}).update(pcg_device_ms=ms, pcg_device_ops=n_ops)
     gen = torch.Generator(device=dev).manual_seed(0)
     zl = torch.randn((L, 3), generator=gen, device=dev)
     for b, _ in vis:
@@ -1506,7 +1580,7 @@ def tile_profile(dev, bench, problem):
 COV_PCG_ITERATIONS = 400  # the CLI's --covariance-pcg-iterations default
 COV_CHUNK = 256  # covariance.solve_columns' chunk
 # column counts the column kernels are compared at: one column, a tile of
-# the tiled design, cov:full's chunk, the chunk
+# 8 columns, cov:full's chunk, the chunk
 COV_COLS = (1, 8, 48, COV_CHUNK)
 # float32 covariance blocks against the same call in float64 through the
 # plain versions, relative to each block's largest entry, by path and block
@@ -1544,10 +1618,9 @@ def cov_kernel_rows(bench, path, problem, dev):
     against its float64 plain version at 1, 8, 48 and 256 columns (rows
     `<kernel>(C=<C>)`, the 256-column one also as `<kernel>`), each column
     also held against the single-column kernel (bit-equal columns counted);
-    at each C the fused design and the tiled one it replaced (entry
-    "tiles") in turns: device time and operations a call (torch.profiler),
-    event time, share of the bound, time a column. The fused design's
-    operations a call must not grow with C."""
+    device time and operations a call (torch.profiler), event time, share
+    of the bound, time a column. Its operations a call must not grow with
+    C."""
     import numpy as np
     import torch
 
@@ -1599,9 +1672,6 @@ def cov_kernel_rows(bench, path, problem, dev):
         def fused(*a):
             return fn(*a, rec=rec)
 
-        def tiles(*a):
-            return fn(*a, entry="tiles")
-
         row = bench.compare(f"{name}(C={C})", fused, args, [(lb, TOL_SEG) for lb in labels],
                             read, flops)
         out = flat(fused(*args))
@@ -1611,24 +1681,14 @@ def cov_kernel_rows(bench, path, problem, dev):
             ones = flat(single(*col))
             same += all(torch.equal(o[..., c], o1) for o, o1 in zip(out, ones))
             worst = max([worst] + [rel_err(o[..., c], o1)[0] for o, o1 in zip(out, ones)])
-        turns = in_turns([lambda: fused(*args), lambda: tiles(*args)])
-        (dev_f, ops_f, _), (dev_t, ops_t, _) = turns
-        ev = {"fused": [], "tiles": []}
-        for key in ("fused", "tiles", "tiles", "fused"):
-            f = fused if key == "fused" else tiles
-            ev[key].append(cuda_time(lambda: f(*args), reps=10, warmup=2))
-        ev_f, ev_t = min(ev["fused"]), min(ev["tiles"])
+        dev_f, ops_f = row["device_ms"], row["device_ops"]
         row.update(columns=C, bit_equal_columns=same, rel_vs_single=worst,
-                   bound_share=row["bound_ms"] / dev_f, turn_device_ms=dev_f,
-                   turn_device_ops=ops_f, turn_ms=ev_f, tiles_device_ms=dev_t,
-                   tiles_device_ops=ops_t, tiles_ms=ev_t, ms_per_column=dev_f / C,
+                   bound_share=row["bound_ms"] / dev_f, ms_per_column=dev_f / C,
                    records_mb=rec_mb)
-        phase("kernels", f"{name}(C={C}) [{path}]: fused {dev_f:.4f} ms device in {ops_f:g} ops "
-              f"(events {ev_f:.4f} ms), tiled design {dev_t:.4f} ms device in {ops_t:g} ops "
-              f"(events {ev_t:.4f} ms), in turns: {dev_t / dev_f:.2f}x; "
-              f"{dev_f / C:.4f} ms device a column; {row['bound_share']:.3f} of the bound "
-              f"{row['bound_ms']:.4f} ms; {same} of {C} columns bit-equal to the single-column "
-              f"kernel (worst rel {worst:.2e})")
+        phase("kernels", f"{name}(C={C}) [{path}]: {dev_f:.4f} ms device in {ops_f:g} ops "
+              f"(events {row['ms']:.4f} ms); {dev_f / C:.4f} ms device a column; "
+              f"{row['bound_share']:.3f} of the bound {row['bound_ms']:.4f} ms; {same} of {C} "
+              f"columns bit-equal to the single-column kernel (worst rel {worst:.2e})")
         if not worst <= TOL_SEG:
             raise AssertionError(f"{name}(C={C}): columns differ from the single-column kernel "
                                  f"by {worst:.2e}")

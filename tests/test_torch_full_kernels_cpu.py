@@ -200,7 +200,7 @@ def _port_seg(name, a, plan, cplan):
                                                                    cplan)
         return (g_r, d_r, g_c, d_c, *blocks, g_l, H)
     if name == "schur_down_cal":
-        return tseg.seg_schur_down_cal(J, Jc, Jp, w, x, xc, plan, cplan)[:3]
+        return tseg.seg_schur_down_cal(J, Jc, Jp, w, x, xc, plan, cplan)
     if name == "schur_up_cal":
         return tseg.seg_schur_up_cal(J, Jc, Jp, w, z, plan, cplan)
     if name == "schur_pcg_cal":

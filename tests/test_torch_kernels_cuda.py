@@ -52,8 +52,7 @@ K4 and K9 on C right-hand sides (the covariance columns) run at 1, 8, 37,
 48 and 256 columns, at rig widths 6 and 9 (K9 also at window widths 6, 17
 and 23), on the bias-only and full-sensor plans and on the made-up plan,
 against their plain versions and the single-column kernels on every
-column; each repeats bit for bit, and agrees within 1e-5 with the tiled
-design it replaced; rig rows of 3,000 and 9,000 slots on one window row
+column; each repeats bit for bit; rig rows of 3,000 and 9,000 slots on one window row
 and a landmark of 3,000 slots (the rig passes' chunks of their
 shared-memory tiles, a lane class split across chunks). The tiny rolling-shutter and global-shutter recordings
 merged by pipeline/multi_session.py (chip_smoke's multi path at the tiny
@@ -61,6 +60,12 @@ size): the merge on the card equals the merge of float64 CPU copies (tables
 exact, landmarks 1e-6), and one LM attempt of the merged problem with its
 base map runs K10's down and up in the two-pass PCG, repeats bit for bit
 and agrees with the plain versions within 1e-3 in new cost and |step|.
+K10's down pass (with y and t alone) and up pass, and K5, on the
+full-sensor, global-shutter and merged batches' plans (the merged ones
+with a third of each batch's slots moved to the next window row, so that
+rigs span two): within 1e-5 of their plain versions, the same bits every
+call, at most 3 / 2 / 2 / 1 device operations a call (torch.profiler); K5
+also on the made-up plan, zeros for its rig without slots.
 """
 
 import functools
@@ -1307,36 +1312,6 @@ def test_schur_pcg_cal_cols_kernel(k, kc, C, cuda_device, monkeypatch):
             assert torch.equal(o, o2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("C", [1, 48])
-@pytest.mark.parametrize("kernel", ["K4", "K9"])
-def test_cols_fused_matches_tiled_design(kernel, C, cuda_device):
-    """The fused column K4 / K9 and the tiled design it replaced
-    (entry="tiles") on the bias-only / full-sensor plans agree within 1e-5
-    on every column; the plain version of either entry is the same."""
-    if kernel == "K4":
-        plan, a = _segment_inputs(cuda_device)
-        J_r, J_p, w, _, hinv = _schur_pcg_args(a["w"], plan, 6, cuda_device, 191)
-        args = (J_r, J_p, w, _cols((plan.n_rows, 6), C, cuda_device, 193), hinv, plan)
-        fn = tseg.seg_schur_pcg_cols
-    else:
-        b, _ = _cal_inputs(cuda_device)
-        J_r, J_c, J_p, w, _, _, hinv = _pcg_cal_args(b.w, b.plan, b.cplan, 9, 23, cuda_device,
-                                                     197)
-        args = (J_r, J_c, J_p, w, _cols((b.plan.n_rows, 9), C, cuda_device, 199),
-                _cols((b.cplan.n_rows, 23), C, cuda_device, 211), hinv, b.plan, b.cplan)
-        fn = tseg.seg_schur_pcg_cal_cols
-    def outs(o):
-        return o if isinstance(o, tuple) else (o,)
-
-    for f, t in zip(outs(fn(*args)), outs(fn(*args, entry="tiles"))):
-        torch.cuda.synchronize()
-        for c in range(C):
-            assert rel(f[..., c].cpu().numpy(), t[..., c].cpu().numpy()) <= 1e-5
-    with pytest.raises(ValueError, match="entry"):
-        fn(*args, entry="tile")
-
-
 def _long_plans(dev, pair_slots):
     """Plans of a made-up batch whose rig 1 holds `pair_slots` slots on one
     window row (many chunks of the fused column kernels' rig-pass tiles:
@@ -1476,3 +1451,122 @@ def test_merged_two_pass_attempt_kernels_match_plain(cuda_device):
     assert math.isfinite(one[0])
     assert abs(one[0] - ref[0]) <= 1e-3 * abs(ref[0])
     assert abs(one[1] - ref[1]) <= 1e-3 * abs(ref[1])
+
+
+# ---------------------------------------------------------------------------
+# K10 on the rig-pair plans, K5 batched: every calibration-coupled plan
+# ---------------------------------------------------------------------------
+
+# device operations a call at most: K10's down pass with y and with t
+# alone, its up pass, K5
+K10_K5_OPS = {"down": 3, "down_t": 2, "up": 2, "k5": 1}
+K10_K5_ENTRIES = {"down": ("schur_down_cal", "viba_schur_down_cal"),
+                  "down_t": ("schur_down_cal", "viba_schur_down_cal"),
+                  "up": ("schur_up_cal", "viba_schur_up_cal"), "k5": ("schur_up", "viba_schur_up")}
+
+
+def _spanning(cplan, plan, dev):
+    """cplan with a third of the batch's real slots moved to the next window
+    row, its chunk and pair plans built again: rigs span two window rows."""
+    n_c = cplan.n_rows
+    rig, win = plan.rig.cpu().numpy(), cplan.win.cpu().numpy().copy()
+    pad = np.ones(rig.shape[0])
+    pad[plan.pt_obs.cpu().numpy()] = 0.0
+    moved = np.nonzero(pad < 0.5)[0][::3]
+    win[moved] = (win[moved] + 1) % n_c
+    cal = {**tseg.cal_plan_arrays(win, pad, n_c),
+           **tseg.pair_plan_arrays(rig, win, pad, plan.n_rows, n_c)}
+    assert np.diff(cal["_cal_rig_pair"]).max() > 1
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
+
+    return tseg.CalPlan(i32(win), *(i32(cal["_cal_" + f]) for f in tseg.CalPlan._fields[1:]))
+
+
+def _cal_plans(kind, dev):
+    """[(w, plan, cplan, k, kc)] of the blocked calibration-coupled batches
+    of the full-sensor problem, the global-shutter one, or the merged
+    recordings with their base map (blocked with ts = 64), the last with
+    rigs spanning two window rows."""
+    if kind == "merged":
+        problems, matches, bm, _ = port_merge_inputs(dev, torch.float32)
+        p = tms.merge_sessions(problems, point_matches=matches, extra_batches=[bm]).problem
+        trcs.finalize_blocks(p, ts=64)
+    else:
+        p = (port_full_built if kind == "full" else port_gs_built)(device=dev,
+                                                                  dtype=torch.float32)[0]
+    ks = p._build()
+    datas = tuple(p.datas)
+    lg = ks[0](datas, p.variables, p.masks, None)
+    out = []
+    for b, _ in trcs._vis_batches(p.active_cfgs, datas, lg):
+        assert trcs._cal_fast(b)
+        cplan = _spanning(b.cplan, b.plan, dev) if kind == "merged" else b.cplan
+        out.append((b.w, b.plan, cplan, b.rig_k, b.J_cal.shape[1]))
+    assert len(out) == (2 if kind == "merged" else 1)
+    return out
+
+
+def _k10_k5(which, J_r, J_c, J_p, w, x_r, x_c, z, plan, cplan):
+    if which == "k5":
+        return (tseg.seg_schur_up(J_r, J_p, w, z, plan),)
+    if which == "up":
+        return tseg.seg_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan)
+    return tseg.seg_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, which == "down")
+
+
+def _device_ops(fn):
+    """Device operations a call of fn (torch.profiler, two sessions)."""
+    from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
+
+    return pm.in_turns([fn])[0][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(K10_K5_OPS))
+@pytest.mark.parametrize("plan_kind", ["full", "gs_cal", "merged"])
+def test_k10_k5_kernels_every_plan(plan_kind, which, cuda_device, monkeypatch):
+    """K10's down pass (with y, "down"; t alone, "down_t"), its up pass and
+    K5 on the full-sensor, global-shutter and merged batches' plans: one C
+    entry a call, within 1e-5 of the plain version in float64, the same
+    bits every call, at most K10_K5_OPS device operations a call."""
+    wrapper, entry = K10_K5_ENTRIES[which]
+    names = _recording_launches(monkeypatch)
+    for w, plan, cplan, k, kc in _cal_plans(plan_kind, cuda_device):
+        J_r, J_c, J_p, _, x_r, x_c, _ = _pcg_cal_args(w, plan, cplan, k, kc, cuda_device,
+                                                      257 + k + kc)
+        z = _cols((plan.n_pts,), 3, cuda_device, 263)
+        args = (J_r, J_c, J_p, w, x_r, x_c, z, plan, cplan)
+        names.clear()
+        _kernels.reset_launch_counts()
+        out = [o for o in _k10_k5(which, *args) if o is not None]
+        again = [o for o in _k10_k5(which, *args) if o is not None]
+        with _kernels.plain_reference():
+            ref = [o for o in _k10_k5(which, *_kernels.to_f64(args)) if o is not None]
+        counts = _kernels.launch_counts()
+        assert counts[wrapper] == 2 and sum(counts.values()) == 2
+        assert names == [entry] * 2
+        assert len(out) == len(ref) == {"down": 3, "down_t": 1, "up": 2, "k5": 1}[which]
+        _check(out, ref, (1e-5,) * len(out))
+        for o, o2 in zip(out, again):
+            assert torch.equal(o, o2)
+        assert _device_ops(lambda: _k10_k5(which, *args)) <= K10_K5_OPS[which]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [6, 9])
+def test_schur_up_kernel_edge_plan(k, cuda_device, monkeypatch):
+    """K5 on the made-up plan (pads, an empty rig, landmarks of one slot and
+    of none) at rig widths 6 and 9: within 1e-5 of its plain version in
+    float64, zeros for the rig without slots, the same bits every call."""
+    plan, _, pad = _edge_plans(cuda_device)
+    w = _edge_w(pad, cuda_device, 269)
+    J_r, J_p, _, _, _ = _schur_pcg_args(w, plan, k, cuda_device, 271 + k)
+    z = _cols((plan.n_pts,), 3, cuda_device, 277)
+    out = tseg.seg_schur_up(J_r, J_p, w, z, plan)
+    again = tseg.seg_schur_up(J_r, J_p, w, z, plan)
+    with _kernels.plain_reference():
+        ref = tseg.seg_schur_up(*_kernels.to_f64((J_r, J_p, w, z)), plan)
+    _check((out,), (ref,), (1e-5,))
+    assert torch.equal(out, again) and float(out[2].abs().max()) == 0.0

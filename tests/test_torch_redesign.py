@@ -1,5 +1,5 @@
-"""The plans and the data flow of the redesigned K2, K4, K6, K8, K9, K13a and
-K13c, on the CPU.
+"""The plans and the data flow of the redesigned K2, K4, K5, K6, K8, K9, K10,
+K13a and K13c, on the CPU.
 
 K4 (the bias-only PCG matvec) and K9 (the calibration PCG matvec) go on the
 card through each slot's point-sorted position `_pt_pos`
@@ -54,7 +54,16 @@ against their plain versions); here:
     16-thread groups' range sums without the 3x3 solve; with y, the rig
     rows' group sums) equals seg_schur_down, both JAX entries on their XLA
     branches in float64 within 1e-10, on the bias-only batch at rig widths
-    6 and 9 with two rigs and two landmarks left without slots.
+    6 and 9 with two rigs and two landmarks left without slots;
+  * K10's (the down pass with y and with t alone, the up pass: wu in
+    registers, p at the point-sorted positions and the 16-lane landmark
+    sums; the rig-pair pass's y_r in the order of a rig row's 128-thread
+    group across its pairs, one window partial per pair, each window row's
+    partials summed in rig order) equals seg_schur_down_cal / seg_schur_up_cal on the
+    full-sensor batch at kc 6, 17 and 23 with rigs spanning both window
+    rows, and K5's (each rig row's 128-thread group sums) equals
+    seg_schur_up on the bias-only batch at rig widths 6 and 9 with two
+    rigs and two landmarks left without slots, in float64 within 1e-9.
 """
 
 import functools
@@ -235,8 +244,12 @@ def _pcg_cal_flow(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
     return y_r, _segment_sums(part, cplan.win_pair)
 
 
-@pytest.mark.parametrize("kc", [6, 17, 23])
-def test_pcg_cal_flow_matches_jax(kc):
+def _full_cal_case(kc, seed):
+    """The full-sensor batch with a third of its slots moved to the other
+    window row (rigs spanning both): the JAX entries' layout arguments, the
+    port's plan and pair plan over the moved rows, and random J blocks (rig
+    width 9, window width kc), weights, tables x_r, x_c, z and SPD
+    landmark-block inverses from a numpy seed."""
     pj, _ = jax_full()
     (vi,) = [i for i, c in enumerate(pj.cfgs) if c.kind == "rs_visual"]
     dj, info = pj.datas[vi], pj.cfgs[vi].block_info
@@ -247,17 +260,12 @@ def test_pcg_cal_flow_matches_jax(kc):
     cal_local = np.asarray(dj["_cb_local"]).copy()
     assert n_c == 2 and not np.asarray(dj["_cb_base"]).any()
     cal_local[::3] = 1 - cal_local[::3]  # rigs spanning both window rows
-    rng = np.random.default_rng(79)
+    rng = np.random.default_rng(seed)
     A = rng.normal(size=(L, 3, 3))
     a = dict(J_r=rng.normal(size=(2, 9, N)), J_c=rng.normal(size=(2, kc, N)),
              J_p=rng.normal(size=(2, 3, N)), w=rng.random(N) * (1.0 - pad),
              x_r=rng.normal(size=(R, 9)), x_c=rng.normal(size=(n_c, kc)),
-             hinv=A @ np.swapaxes(A, -1, -2) + np.eye(3))
-    J = {k: jnp.asarray(x) for k, x in a.items()}
-    want = jseg.seg_schur_pcg_cal(
-        J["J_r"], J["J_c"], J["J_p"], J["w"], dj["_rb_local"], jnp.asarray(cal_local),
-        dj["_rg_pt_local"], dj["_rg_hib"], J["x_r"], J["x_c"], J["hinv"], dj["_rb_base"],
-        dj["_cb_base"], L, info.nt, info.ts, info.rb, info.wb, info.prb2 // 128, info.nhg)
+             hinv=A @ np.swapaxes(A, -1, -2) + np.eye(3), z=rng.normal(size=(L, 3)))
     p, _ = _full_pair()
     data, _ = _blocked(p)
     plan = trcs.plan_of(data)
@@ -267,13 +275,109 @@ def test_pcg_cal_flow_matches_jax(kc):
     cplan = tseg.CalPlan(torch.from_numpy(win.astype(np.int32)),
                          *(torch.from_numpy(arrays["_cal_" + f]) for f in tseg.CalPlan._fields[1:]))
     assert np.any(np.diff(cplan.rig_pair.numpy()) > 1)
-    args = {k: t(x) for k, x in a.items()}
-    got = _pcg_cal_flow(*args.values(), plan, cplan)
-    plain = tseg.seg_schur_pcg_cal(*args.values(), plan, cplan)
+    j = dict(loc=(dj["_rb_local"], jnp.asarray(cal_local), dj["_rg_pt_local"], dj["_rg_hib"]),
+             bases=(dj["_rb_base"], dj["_cb_base"]),
+             geo=(info.nt, info.ts, info.rb, info.wb, info.prb2 // 128, info.nhg), R=R, L=L,
+             n_c=n_c)
+    return j, plan, cplan, a
+
+
+@pytest.mark.parametrize("kc", [6, 17, 23])
+def test_pcg_cal_flow_matches_jax(kc):
+    j, plan, cplan, a = _full_cal_case(kc, 79)
+    names = ("J_r", "J_c", "J_p", "w", "x_r", "x_c", "hinv")
+    J = {k: jnp.asarray(a[k]) for k in names}
+    want = jseg.seg_schur_pcg_cal(
+        J["J_r"], J["J_c"], J["J_p"], J["w"], *j["loc"], J["x_r"], J["x_c"], J["hinv"],
+        *j["bases"], j["L"], *j["geo"])
+    args = [t(a[k]) for k in names]
+    got = _pcg_cal_flow(*args, plan, cplan)
+    plain = tseg.seg_schur_pcg_cal(*args, plan, cplan)
     for g, pl, wj in zip(got, plain, want):
         assert np.abs(np.asarray(wj)).max() > 0
         assert rel(g.numpy(), wj) < TOL
         assert rel(pl.numpy(), wj) < TOL
+
+
+def _win_pair_sums(part, win_pair):
+    """Each window row's pair partials (rows of part, D) summed in rig
+    order (tile_reduce.cuh sum_partials)."""
+    wp = win_pair.tolist()
+    out = []
+    for a, b in zip(wp[:-1], wp[1:]):
+        total = part.new_zeros(part.shape[1])
+        for q in range(a, b):
+            total = total + part[q]
+        out.append(total)
+    return torch.stack(out)
+
+
+def _pair_pass_sums(J_r, J_c, wu, cplan):
+    """K10's rig-pair pass (csrc/cal_segments.cu cal_pair_pass: a 128-thread
+    group a rig row) on a per-slot wu (2, N): each rig row's slots in
+    (rig, window row) pair order, J_r^T wu summed in the group's order
+    across the row's pairs (y_r) and J_c^T wu per pair (its partial row),
+    then each window row's partials summed in rig order (y_c)."""
+    s = cplan.pair_obs.long()
+    c_r = (J_r * wu[:, None]).sum(0).T[s]
+    c_c = (J_c * wu[:, None]).sum(0).T[s]
+    y_r = _pair_lane_sums(c_r, cplan.rig_pair.tolist(), cplan.pair_ptr.tolist(), 128)
+    part = c_c.new_zeros((cplan.n_pairs, c_c.shape[1]))
+    part[cplan.pair_part.long()] = _group_sums(c_c, cplan.pair_ptr, 128)
+    return y_r, _win_pair_sums(part, cplan.win_pair)
+
+
+def _schur_down_cal_flow(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
+    """K10's down pass as torch ops: wu = w (J_r x_r[rig] + J_c x_c[win]),
+    p = J_p^T wu at each real slot's point-sorted position, each landmark's
+    contiguous range summed by a 16-lane group (t); with y, the rig-pair
+    pass's sums of the same wu (y_r, y_c)."""
+    wu = ((J_r * x_r[plan.rig.long()].T[None]).sum(1)
+          + (J_c * x_c[cplan.win.long()].T[None]).sum(1)) * w[None]
+    t_l = _group_sums(_to_sorted((J_p * wu[:, None]).sum(0), plan), plan.pt_ptr, 16)
+    if not want_y:
+        return None, None, t_l
+    return (*_pair_pass_sums(J_r, J_c, wu, cplan), t_l)
+
+
+@pytest.mark.parametrize("want_y", [True, False])
+@pytest.mark.parametrize("kc", [6, 17, 23])
+def test_schur_down_cal_flow_matches_jax(kc, want_y):
+    """K10's down flow and its plain version, (y_r, y_c, t) or (None, None,
+    t), equal the JAX entry seg_schur_down_cal on its XLA branch (f64, 1e-9)
+    with rigs spanning both window rows."""
+    j, plan, cplan, a = _full_cal_case(kc, 229 + kc)
+    names = ("J_r", "J_c", "J_p", "w", "x_r", "x_c")
+    J = {k: jnp.asarray(a[k]) for k in names}
+    want = jseg.seg_schur_down_cal(J["J_r"], J["J_c"], J["J_p"], J["w"], *j["loc"], J["x_r"],
+                                   J["x_c"], *j["bases"], j["L"], *j["geo"])
+    args = [t(a[k]) for k in names]
+    got = _schur_down_cal_flow(*args, plan, cplan, want_y)
+    plain = tseg.seg_schur_down_cal(*args, plan, cplan, want_y)
+    assert len(got) == len(plain) == 3
+    assert (got[0] is None) == (plain[1] is None) == (not want_y)
+    for g, pl, wj in list(zip(got, plain, want))[0 if want_y else 2:]:
+        assert np.abs(np.asarray(wj)).max() > 0
+        assert rel(g.numpy(), wj) < TOL and rel(pl.numpy(), wj) < TOL
+
+
+@pytest.mark.parametrize("kc", [6, 17, 23])
+def test_schur_up_cal_flow_matches_jax(kc):
+    """K10's up flow (w J_p z[point] a slot, the rig-pair pass's sums) and
+    its plain version equal the JAX entry seg_schur_up_cal on its XLA
+    branch (f64, 1e-9) with rigs spanning both window rows."""
+    j, plan, cplan, a = _full_cal_case(kc, 233 + kc)
+    names = ("J_r", "J_c", "J_p", "w", "z")
+    J = {k: jnp.asarray(a[k]) for k in names}
+    want = jseg.seg_schur_up_cal(J["J_r"], J["J_c"], J["J_p"], J["w"], *j["loc"], J["z"],
+                                 *j["bases"], *j["geo"], j["R"], j["n_c"])
+    J_r, J_c, J_p, w, z = (t(a[k]) for k in names)
+    wu = (J_p * z[plan.point.long()].T[None]).sum(1) * w[None]
+    got = _pair_pass_sums(J_r, J_c, wu, cplan)
+    plain = tseg.seg_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan)
+    for g, pl, wj in zip(got, plain, want):
+        assert np.abs(np.asarray(wj)).max() > 0
+        assert rel(g.numpy(), wj) < TOL and rel(pl.numpy(), wj) < TOL
 
 
 def test_per_call_counts_missed_launches():
@@ -476,7 +580,7 @@ def _bias_case(seed, k, names):
     empty_pts = np.unique(point[pad < 0.5])[[2, 7]]
     pad[np.isin(rig, empty_rigs) | np.isin(point, empty_pts)] = 1.0
     rng = np.random.default_rng(seed)
-    shapes = dict(J_r=(2, k, N), J_p=(2, 3, N), res=(2, N), x=(R, k))
+    shapes = dict(J_r=(2, k, N), J_p=(2, 3, N), res=(2, N), x=(R, k), z=(L, 3))
     a = {nm: rng.random(N) * (1.0 - pad) if nm == "w" else rng.normal(size=shapes[nm])
          for nm in names}
     arrays = trcs.segment_plan(rig, point, pad, R, L)
@@ -523,6 +627,30 @@ def test_schur_down_flow_matches_jax(k, want_y):
         assert np.abs(wj).max() > 0
         assert rel(g.numpy(), wj) < 1e-10 and rel(pl.numpy(), wj) < 1e-10
     assert np.all(got[1].numpy()[empty_pts] == 0)
+
+
+def _schur_up_flow(J_r, J_p, w, z, plan):
+    """K5 as torch ops: d = w J_p z[point] a slot, J_r^T d summed per rig
+    row in the 128-thread group's order (thread i takes the row's slots i,
+    i + 128, ... in order, its batches of loads changing nothing in it)."""
+    d = (J_p * z[plan.point.long()].T[None]).sum(1) * w[None]
+    return _group_sums((J_r * d[:, None]).sum(0).T[plan.rig_obs.long()], plan.rig_ptr, 128)
+
+
+@pytest.mark.parametrize("k", [6, 9])
+def test_schur_up_flow_matches_jax(k):
+    """K5's flow and its plain version equal the JAX entry seg_schur_up on
+    its XLA branch (f64, 1e-9); the rigs without slots come out zero."""
+    j, plan, a, empty_rigs, _ = _bias_case(227 + k, k, ("J_r", "J_p", "w", "z"))
+    J = {key: jnp.asarray(v) for key, v in a.items()}
+    want = np.asarray(jseg.seg_schur_up(J["J_r"], J["J_p"], J["w"], *j["loc"], J["z"], j["base"],
+                                        *j["geo"], j["R"]))
+    args = [t(v) for v in a.values()]
+    got = _schur_up_flow(*args, plan)
+    plain = tseg.seg_schur_up(*args, plan)
+    assert np.abs(want).max() > 0 and np.all(want[empty_rigs] == 0)
+    assert rel(got.numpy(), want) < TOL and rel(plain.numpy(), want) < TOL
+    assert np.all(got.numpy()[empty_rigs] == 0)
 
 
 @pytest.mark.parametrize("kernel", ["schur_pcg", "mv_scatter_table"])
@@ -770,23 +898,28 @@ def _schur_pcg_cols_flow(J_r, J_p, w, x, hinv, plan):
                        128).reshape(-1, k, C)
 
 
-def _pair_lane_sums(vals, rig_pair, pair_ptr):
-    """Each rig row's sum of vals (n_real, D) in pair order, as the
-    single-column K9's warp takes it: lane i sums the entries i, i + 32, ...
-    of each of the row's pairs, carrying its partial across the pairs, then
-    the warp's xor butterfly."""
+def _pair_lane_sums(vals, rig_pair, pair_ptr, lanes=32):
+    """Each rig row's sum of vals (n_real, D) in pair order, as a group of
+    `lanes` threads takes it (the single-column K9's warp; K10's warp or
+    128-thread group): lane i sums the entries i, i + lanes, ... of each of
+    the row's pairs, carrying its partial across the pairs, then each
+    warp's xor butterfly and the warps' totals in order."""
     out = []
     for r in range(len(rig_pair) - 1):
-        acc = vals.new_zeros((32, vals.shape[1]))
+        acc = vals.new_zeros((lanes, vals.shape[1]))
         for q in range(int(rig_pair[r]), int(rig_pair[r + 1])):
             a, b = int(pair_ptr[q]), int(pair_ptr[q + 1])
             for j in range(a, b):
-                acc[(j - a) % 32] += vals[j]
+                acc[(j - a) % lanes] += vals[j]
+        acc = acc.reshape(lanes // 32, 32, -1)
         off = 16
         while off:
-            acc = acc + acc[torch.arange(32) ^ off]
+            acc = acc + acc[:, torch.arange(32) ^ off]
             off //= 2
-        out.append(acc[0])
+        total = acc[0, 0]
+        for wi in range(1, lanes // 32):
+            total = total + acc[wi, 0]
+        out.append(total)
     return torch.stack(out)
 
 
@@ -807,14 +940,7 @@ def _pcg_cal_cols_flow(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
     y_r = _pair_lane_sums(c_r, cplan.rig_pair.tolist(), cplan.pair_ptr.tolist())
     part = torch.empty_like(_group_sums(c_c, cplan.pair_ptr, 32))
     part[cplan.pair_part.long()] = _group_sums(c_c, cplan.pair_ptr, 32)
-    wp = cplan.win_pair.tolist()
-    y_c = []
-    for a, b in zip(wp[:-1], wp[1:]):
-        total = part.new_zeros(kc * C)
-        for q in range(a, b):
-            total = total + part[q]
-        y_c.append(total)
-    return y_r.reshape(-1, k, C), torch.stack(y_c).reshape(-1, kc, C)
+    return y_r.reshape(-1, k, C), _win_pair_sums(part, cplan.win_pair).reshape(-1, kc, C)
 
 
 @pytest.mark.parametrize("k", [6, 9])

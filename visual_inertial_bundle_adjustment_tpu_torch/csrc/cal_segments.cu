@@ -11,12 +11,14 @@
 // _up_du_cal_kernel (:1519) (K9, the PCG matvec, entry viba_schur_pcg_cal
 // below).
 //
-// Rig rows (~300 observations) and landmark rows (~30) keep K2-K6's
-// group-per-row scheme (tile_reduce.cuh). Window rows are few and long (120
-// rows of ~15k observations at the full-sensor size): one group per row would
-// leave most of the card idle, so each row's slot list is cut into chunks of
-// at most CHUNK slots (ops/segments.py) whose partial rows a second pass sums
-// in chunk order. Deterministic, no atomics.
+// Window rows are few and long (120 rows of ~15k observations at the
+// full-sensor size): one group per row would leave most of the card idle.
+// K8 cuts each row's slot list into chunks of at most CHUNK slots
+// (ops/segments.py) whose partial rows a second pass sums in chunk order;
+// K9 and K10 walk each rig row's (rig, window row) pairs and write one
+// partial row a pair, which a second pass sums in rig order. Landmark rows
+// (~30 observations) are summed over each slot's point-sorted position
+// (pt_segments.cuh). Deterministic, no atomics.
 //
 // K8 (viba_assemble_cal) is three launches: K2's first (assemble_rig.cuh: the
 // rig rows, and each slot's landmark-side sector at its point-sorted
@@ -104,21 +106,30 @@
 // order. Bound: operations — (8K + 8kc + 24) FMA-equivalents a slot and
 // column.
 //
-// The tiled design it replaced (viba_schur_pcg_cal_cols_tiles), kept as the
-// yardstick until the next change to these kernels, runs once per tile of
-// kColTile columns (pt_segments.cuh): the down pass and the landmark
-// pass as K4's tiles do; the up pass keeps K x kColTile rig sums a warp
-// (each slot's J_r and J_c in registers for the tile's columns) and stores
-// each slot's du (a float2 a column) instead of summing the window side
-// too, whose kc x kColTile sums would not fit the registers;
-// then a warp per (rig, window row) pair sums J_c^T du over the pair, four
-// columns at a time, into its partial row; then each window row's partials
-// are summed in rig order. Bound: bytes — per column, (8K + 8kc + 24) x 2 /
-// kColTile B of J a slot, the 32 B of p and 16 B of du written and read
-// back.
-// K10's passes below stay separate
-// (down_cal_rig stages wu, schur_down_points gathers it through the landmark
-// lists, the window rows reduce through chunks).
+// K10 (viba_schur_down_cal, viba_schur_up_cal), the Schur right-hand
+// side, back-substitution and two-pass PCG matvec of a batch that the
+// fused K9 does not take, reads each slot's J once a call, on the plans K9
+// uses (pt_pos; the (rig, window row) pairs), and stores nothing per slot
+// but the landmark side's 16 B:
+//   down, t only (want_y false: rcs.w_transpose_x)   K9's pcg_cal_down (p =
+//            J_p^T wu at p[pt_pos[s]]), then point_range_sum without the
+//            3x3 solve: 2 launches;
+//   down with y   cal_pair_pass<kDown>: a 128-thread group per rig row over
+//            its pairs, x_r and the pair's x_c in registers; per slot wu =
+//            w (J_r x_r + J_c x_c) from one read of J_r, J_c, J_p and w, p
+//            stored at p[pt_pos[s]], y_r = sum J_r^T wu in registers, one
+//            partial row of J_c^T wu a pair; then cal_down_sums, one launch
+//            of the landmarks' sums of p (t) and the window rows' sums of
+//            their pair partials (y_c): 2 launches;
+//   up       cal_pair_pass<!kDown>: the same walk with wu = w J_p z[point]
+//            in registers, then sum_partials over the pairs: 2 launches.
+// A warp per rig row, pcg_cal_up's walk, left each lane ~9 slots of a rig
+// one after another: the pass took 0.2818 / 0.2456 ms up / down with y at
+// full against 0.2030 / 0.2034 for the group (chip_smoke on one H100,
+// PERF.md).
+// Bound: bytes — J_r, J_c, J_p and w of each real slot, the indices, x or
+// z read once, the outputs written once; the down pass's p (16 B a slot)
+// written and read back is its only staging.
 #include "assemble_rig.cuh"
 #include "pt_segments.cuh"
 #include "tile_reduce.cuh"
@@ -127,12 +138,8 @@ extern "C" int viba_assemble_rows_slots(int R, int n, int k, const int* rig_ptr,
                                         const int* rig_obs, const int* pt_pos, const float* J_r,
                                         const float* J_p, const float* w, const float* res,
                                         float* g_r, float* diag_r, float* q, void* stream);
-extern "C" int viba_schur_down_points(int L, int n, const int* pt_ptr, const int* pt_obs,
-                                      const float* J_p, const float* wu, float* t, void* stream);
 
 namespace {
-
-using viba::kRowGroup;
 
 // the window columns of a batch: cam extr (KE = 6 or 0) then cam intr
 // (KI = 17 or 0), as the batch's cal_groups fold them (kc = 6, 17 or 23)
@@ -401,116 +408,6 @@ __global__ void __launch_bounds__(256) sum_cal_points(
   *dst = sum;
 }
 
-// K9/K10 window pass: chunk partials of J_c^T u for a staged 2-row u
-template <int KC>
-__global__ void __launch_bounds__(viba::kBlock) cal_partials(
-    int n_chunks, int n, const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_obs,
-    const float* __restrict__ J_c, const float* __restrict__ u, float* __restrict__ part) {
-  viba::reduce_segments<kRowGroup, KC>(
-      blockIdx.x, n_chunks, chunk_ptr, chunk_obs,
-      [&](int s, float(&acc)[KC]) {
-        const float u0 = u[s], u1 = u[n + s];
-#pragma unroll
-        for (int c = 0; c < KC; ++c)
-          acc[c] += J_c[c * (long)n + s] * u0 + J_c[(KC + c) * (long)n + s] * u1;
-      },
-      [&](int ch, float(&acc)[KC]) {
-#pragma unroll
-        for (int c = 0; c < KC; ++c) part[KC * (long)ch + c] = acc[c];
-      });
-}
-
-template <int KC>
-cudaError_t launch_rows(int n_rows, int n_chunks, int n, const int* chunk_ptr,
-                        const int* chunk_obs, const int* row_chunk, const float* J_c,
-                        const float* u, float* part, float* out, cudaStream_t st) {
-  if (n_chunks > 0) {
-    cal_partials<KC><<<n_chunks, viba::kBlock, 0, st>>>(n_chunks, n, chunk_ptr, chunk_obs, J_c,
-                                                        u, part);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return viba::launch_sum_partials(n_rows, KC, row_chunk, part, out, st);
-}
-
-// K10 down, rig pass: wu = w (J_r x_r[rig] + J_c x_c[win]) for every
-// real slot and, if want_y, y_r = sum J_r^T wu
-template <int K, int KC>
-__global__ void __launch_bounds__(viba::kBlock) down_cal_rig(
-    int R, int n, int want_y, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
-    const int* __restrict__ win, const float* __restrict__ J_r, const float* __restrict__ J_c,
-    const float* __restrict__ w, const float* __restrict__ x_r, const float* __restrict__ x_c,
-    float* __restrict__ y_r, float* __restrict__ wu) {
-  const int row = blockIdx.x;
-  float xr[K];
-#pragma unroll
-  for (int c = 0; c < K; ++c) xr[c] = row < R ? x_r[K * (long)row + c] : 0.f;
-  viba::reduce_segments<kRowGroup, K>(
-      blockIdx.x, R, rig_ptr, rig_obs,
-      [&](int s, float(&acc)[K]) {
-        float j0[K], j1[K], u0 = 0.f, u1 = 0.f;
-#pragma unroll
-        for (int c = 0; c < K; ++c) {
-          j0[c] = J_r[c * (long)n + s];
-          j1[c] = J_r[(K + c) * (long)n + s];
-          u0 += j0[c] * xr[c];
-          u1 += j1[c] * xr[c];
-        }
-        const float* xc = x_c + KC * (long)win[s];
-        float v0 = 0.f, v1 = 0.f;
-#pragma unroll
-        for (int c = 0; c < KC; ++c) {
-          const float xv = xc[c];
-          v0 += J_c[c * (long)n + s] * xv;
-          v1 += J_c[(KC + c) * (long)n + s] * xv;
-        }
-        const float ws = w[s];
-        const float wu0 = (u0 + v0) * ws, wu1 = (u1 + v1) * ws;
-        wu[s] = wu0;
-        wu[n + s] = wu1;
-        if (want_y) {
-#pragma unroll
-          for (int c = 0; c < K; ++c) acc[c] += j0[c] * wu0 + j1[c] * wu1;
-        }
-      },
-      [&](int r, float(&acc)[K]) {
-        if (want_y) {
-#pragma unroll
-          for (int c = 0; c < K; ++c) y_r[K * (long)r + c] = acc[c];
-        }
-      });
-}
-
-// K10 up, rig pass: du = w J_p z[pt], stored for the window pass, and
-// y_r = sum J_r^T du
-template <int K>
-__global__ void __launch_bounds__(viba::kBlock) up_cal_rig(
-    int R, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
-    const int* __restrict__ point, const float* __restrict__ J_r,
-    const float* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ z,
-    float* __restrict__ du, float* __restrict__ y_r) {
-  viba::reduce_segments<kRowGroup, K>(
-      blockIdx.x, R, rig_ptr, rig_obs,
-      [&](int s, float(&acc)[K]) {
-        const float* zp = z + 3 * (long)point[s];
-        const float z0 = zp[0], z1 = zp[1], z2 = zp[2];
-        const float u0 = J_p[s] * z0 + J_p[(long)n + s] * z1 + J_p[2 * (long)n + s] * z2;
-        const float u1 =
-            J_p[3 * (long)n + s] * z0 + J_p[4 * (long)n + s] * z1 + J_p[5 * (long)n + s] * z2;
-        const float ws = w[s];
-        const float d0 = u0 * ws, d1 = u1 * ws;
-        du[s] = d0;
-        du[n + s] = d1;
-#pragma unroll
-        for (int c = 0; c < K; ++c)
-          acc[c] += J_r[c * (long)n + s] * d0 + J_r[(K + c) * (long)n + s] * d1;
-      },
-      [&](int r, float(&acc)[K]) {
-#pragma unroll
-        for (int c = 0; c < K; ++c) y_r[K * (long)r + c] = acc[c];
-      });
-}
-
 // K9 down: p[pt_pos[s]] = J_p^T w (J_r x_r[rig] + J_c x_c[win]) per real slot
 template <int K, int KC>
 __global__ void __launch_bounds__(256) pcg_cal_down(
@@ -626,226 +523,165 @@ __global__ void __launch_bounds__(viba::kBlock) pcg_cal_up(
   }
 }
 
-// K9 columns, down: p[pt_pos[s] * CT + c] = J_p^T w (J_r x_r + J_c x_c),
-// CT consecutive threads a slot, one column each (as K4's columns)
-template <int K, int KC, int CT>
-__global__ void __launch_bounds__(256) pcg_cal_down_cols(
-    int n, int C, int c0, int ncol, const int* __restrict__ rig, const int* __restrict__ win,
-    const int* __restrict__ pt_pos, const float* __restrict__ J_r, const float* __restrict__ J_c,
-    const float* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ x_r,
-    const float* __restrict__ x_c, float4* __restrict__ p) {
-  const long t = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  const int s = static_cast<int>(t / CT), c = static_cast<int>(t % CT);
-  if (s >= n || c >= ncol) return;
-  const int pos = pt_pos[s];
-  if (pos < 0) return;
-  const float* xr = x_r + (long)K * C * rig[s] + c0 + c;
-  const float* xc = x_c + (long)KC * C * win[s] + c0 + c;
-  float u0 = 0.f, u1 = 0.f, v0 = 0.f, v1 = 0.f;
-#pragma unroll
-  for (int a = 0; a < K; ++a) {
-    const float xv = xr[(long)a * C];
-    u0 += J_r[a * (long)n + s] * xv;
-    u1 += J_r[(K + a) * (long)n + s] * xv;
-  }
-#pragma unroll 8
-  for (int a = 0; a < KC; ++a) {
-    const float xv = xc[(long)a * C];
-    v0 += J_c[a * (long)n + s] * xv;
-    v1 += J_c[(KC + a) * (long)n + s] * xv;
-  }
-  const float ws = w[s];
-  const float wu0 = (u0 + v0) * ws, wu1 = (u1 + v1) * ws;
-  float q[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    q[a] = J_p[a * (long)n + s] * wu0 + J_p[(3 + a) * (long)n + s] * wu1;
-  p[(long)pos * CT + c] = make_float4(q[0], q[1], q[2], 0.f);
-}
-
-// K9 columns, up: a warp per rig row over its (rig, window row) pairs;
-// du = w (J_r x_r + J_c x_c) - w J_p z[point] per slot and column, stored
-// at du[s * CT + c], and y_r[row, :, c0 + c] = sum J_r^T du
-template <int K, int KC, int CT>
-__global__ void __launch_bounds__(viba::kBlock) pcg_cal_up_cols(
-    int R, int n, int C, int c0, int ncol, const int* __restrict__ rig_pair,
-    const int* __restrict__ pair_ptr, const int* __restrict__ pair_obs,
-    const int* __restrict__ win, const int* __restrict__ point, const float* __restrict__ J_r,
+// K10 down with y (kDown) and up: a 128-thread group per rig row over the
+// row's (rig, window row) pairs (pcg_cal_up's walk).
+// A slot's wu: down, w (J_r x_r + J_c x_c[win]) with x_r and the pair's
+// x_c in registers, and p[pt_pos[s]] = J_p^T wu stored for the landmark
+// sums (idx = pt_pos); up, w J_p z[point] (idx = point). Thread l sums
+// J_r^T wu over the slots l, l + 128, ... of each of the rig's pairs in
+// pair order (y_r after the group's sum: the butterfly, then the warps in
+// order) and J_c^T wu over those of one pair (the pair's partial row after
+// the group's sum).
+template <int K, int KC, bool kDown>
+__global__ void __launch_bounds__(viba::kBlock) cal_pair_pass(
+    int n, const int* __restrict__ rig_pair, const int* __restrict__ pair_ptr,
+    const int* __restrict__ pair_obs, const int* __restrict__ pair_part,
+    const int* __restrict__ win, const int* __restrict__ idx, const float* __restrict__ J_r,
     const float* __restrict__ J_c, const float* __restrict__ J_p, const float* __restrict__ w,
     const float* __restrict__ x_r, const float* __restrict__ x_c, const float* __restrict__ z,
-    float2* __restrict__ du, float* __restrict__ y_r) {
-  const int r = blockIdx.x * (viba::kBlock / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= R) return;  // the whole warp
-  const float* xr = x_r + (long)K * C * r + c0;
-  float acc[K * CT];
+    float4* __restrict__ p, float* __restrict__ part, float* __restrict__ y_r) {
+  constexpr int G = viba::kBlock;  // one rig row a block
+  __shared__ float smem[(G / 32) * (K > KC ? K : KC)];
+  const int r = blockIdx.x, lane = threadIdx.x;
+  float xr[kDown ? K : 1], acc_r[K];
 #pragma unroll
-  for (int i = 0; i < K * CT; ++i) acc[i] = 0.f;
+  for (int c = 0; c < K; ++c) {
+    if constexpr (kDown) xr[c] = x_r[K * (long)r + c];
+    acc_r[c] = 0.f;
+  }
   for (int q = rig_pair[r]; q < rig_pair[r + 1]; ++q) {
     const int beg = pair_ptr[q], end = pair_ptr[q + 1];
-    const float* xc = x_c + (long)KC * C * win[pair_obs[beg]] + c0;
-    for (int j = beg + lane; j < end; j += 32) {
+    float xc[kDown ? KC : 1], acc_c[KC];
+#pragma unroll
+    for (int c = 0; c < KC; ++c) acc_c[c] = 0.f;
+    if constexpr (kDown) {
+      const float* xcp = x_c + KC * (long)win[pair_obs[beg]];
+#pragma unroll
+      for (int c = 0; c < KC; ++c) xc[c] = xcp[c];
+    }
+    for (int j = beg + lane; j < end; j += G) {
       const int s = pair_obs[j];
-      float jr0[K], jr1[K], jc0[KC], jc1[KC];
-#pragma unroll
-      for (int a = 0; a < K; ++a) {
-        jr0[a] = J_r[a * (long)n + s];
-        jr1[a] = J_r[(K + a) * (long)n + s];
-      }
-#pragma unroll
-      for (int a = 0; a < KC; ++a) {
-        jc0[a] = J_c[a * (long)n + s];
-        jc1[a] = J_c[(KC + a) * (long)n + s];
-      }
       const float ws = w[s];
-      const float* zp = z + 3 * (long)CT * point[s];
-      const float p0 = J_p[s], p1 = J_p[(long)n + s], p2 = J_p[2 * (long)n + s];
-      const float p3 = J_p[3 * (long)n + s], p4 = J_p[4 * (long)n + s];
-      const float p5 = J_p[5 * (long)n + s];
+      if constexpr (kDown) {
+        float jr0[K], jr1[K], jc0[KC], jc1[KC];
+        float u0 = 0.f, u1 = 0.f, v0 = 0.f, v1 = 0.f;
 #pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        if (c < ncol) {
-          float u0 = 0.f, u1 = 0.f, v0 = 0.f, v1 = 0.f;
-#pragma unroll
-          for (int a = 0; a < K; ++a) {
-            const float xv = xr[(long)a * C + c];
-            u0 += jr0[a] * xv;
-            u1 += jr1[a] * xv;
-          }
-#pragma unroll
-          for (int a = 0; a < KC; ++a) {
-            const float xv = xc[(long)a * C + c];
-            v0 += jc0[a] * xv;
-            v1 += jc1[a] * xv;
-          }
-          const float z0 = zp[3 * c], z1 = zp[3 * c + 1], z2 = zp[3 * c + 2];
-          const float a0 = p0 * z0 + p1 * z1 + p2 * z2;
-          const float a1 = p3 * z0 + p4 * z1 + p5 * z2;
-          const float d0 = (u0 + v0) * ws - a0 * ws;
-          const float d1 = (u1 + v1) * ws - a1 * ws;
-          du[(long)s * CT + c] = make_float2(d0, d1);
-#pragma unroll
-          for (int a = 0; a < K; ++a) acc[c * K + a] += jr0[a] * d0 + jr1[a] * d1;
+        for (int c = 0; c < K; ++c) {
+          jr0[c] = J_r[c * (long)n + s];
+          jr1[c] = J_r[(K + c) * (long)n + s];
+          u0 += jr0[c] * xr[c];
+          u1 += jr1[c] * xr[c];
         }
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          jc0[c] = J_c[c * (long)n + s];
+          jc1[c] = J_c[(KC + c) * (long)n + s];
+          v0 += jc0[c] * xc[c];
+          v1 += jc1[c] * xc[c];
+        }
+        const float wu0 = (u0 + v0) * ws, wu1 = (u1 + v1) * ws;
+        float q3[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          q3[c] = J_p[c * (long)n + s] * wu0 + J_p[(3 + c) * (long)n + s] * wu1;
+        p[idx[s]] = make_float4(q3[0], q3[1], q3[2], 0.f);
+#pragma unroll
+        for (int c = 0; c < K; ++c) acc_r[c] += jr0[c] * wu0 + jr1[c] * wu1;
+#pragma unroll
+        for (int c = 0; c < KC; ++c) acc_c[c] += jc0[c] * wu0 + jc1[c] * wu1;
+      } else {
+        const float* zp = z + 3 * (long)idx[s];
+        const float z0 = zp[0], z1 = zp[1], z2 = zp[2];
+        const float a0 = J_p[s] * z0 + J_p[(long)n + s] * z1 + J_p[2 * (long)n + s] * z2;
+        const float a1 =
+            J_p[3 * (long)n + s] * z0 + J_p[4 * (long)n + s] * z1 + J_p[5 * (long)n + s] * z2;
+        const float d0 = a0 * ws, d1 = a1 * ws;
+#pragma unroll
+        for (int c = 0; c < K; ++c)
+          acc_r[c] += J_r[c * (long)n + s] * d0 + J_r[(K + c) * (long)n + s] * d1;
+#pragma unroll
+        for (int c = 0; c < KC; ++c)
+          acc_c[c] += J_c[c * (long)n + s] * d0 + J_c[(KC + c) * (long)n + s] * d1;
       }
     }
+    viba::group_sum<G, KC>(acc_c, smem);
+    if (lane == 0) {
+      float* dst = part + KC * (long)pair_part[q];
+#pragma unroll
+      for (int c = 0; c < KC; ++c) dst[c] = acc_c[c];
+    }
+    __syncthreads();  // smem is read before the next sum
   }
-  warp_sum<K * CT>(acc);
+  viba::group_sum<G, K>(acc_r, smem);
   if (lane == 0) {
 #pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      if (c < ncol) {
-#pragma unroll
-        for (int a = 0; a < K; ++a) y_r[((long)K * r + a) * C + c0 + c] = acc[c * K + a];
-      }
-    }
+    for (int c = 0; c < K; ++c) y_r[K * (long)r + c] = acc_r[c];
   }
 }
 
-// K9 columns, window side: a warp per (rig, window row) pair, part[pair_part[q],
-// :, c] = sum over the pair's slots of J_c^T du[s, c], kColSub columns at a time
-constexpr int kColSub = 4;
-
-template <int KC, int CT>
-__global__ void __launch_bounds__(viba::kBlock) pcg_cal_pair_cols(
-    int n_pairs, int n, int ncol, const int* __restrict__ pair_ptr,
-    const int* __restrict__ pair_obs, const int* __restrict__ pair_part,
-    const float* __restrict__ J_c, const float2* __restrict__ du, float* __restrict__ part) {
-  const int q = blockIdx.x * (viba::kBlock / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (q >= n_pairs) return;  // the whole warp
-  const int beg = pair_ptr[q], end = pair_ptr[q + 1];
-  float* dst = part + (long)KC * CT * pair_part[q];
-#pragma unroll 1
-  for (int cs = 0; cs < ncol; cs += kColSub) {
-    float acc[KC * kColSub];
-#pragma unroll
-    for (int i = 0; i < KC * kColSub; ++i) acc[i] = 0.f;
-    for (int j = beg + lane; j < end; j += 32) {
-      const int s = pair_obs[j];
-      float2 d[kColSub];
-#pragma unroll
-      for (int c = 0; c < kColSub; ++c)
-        d[c] = cs + c < ncol ? du[(long)s * CT + cs + c] : make_float2(0.f, 0.f);
-#pragma unroll
-      for (int a = 0; a < KC; ++a) {
-        const float jc0 = J_c[a * (long)n + s], jc1 = J_c[(KC + a) * (long)n + s];
-#pragma unroll
-        for (int c = 0; c < kColSub; ++c) acc[c * KC + a] += jc0 * d[c].x + jc1 * d[c].y;
-      }
-    }
-    warp_sum<KC * kColSub>(acc);
-    if (lane == 0) {
-#pragma unroll
-      for (int c = 0; c < kColSub; ++c) {
-        if (cs + c < ncol) {
-#pragma unroll
-          for (int a = 0; a < KC; ++a) dst[(long)a * CT + cs + c] = acc[c * KC + a];
-        }
-      }
-    }
+// K10 down with y, second launch: blocks [0, n_sum) the window rows' sums
+// of their pair partials in rig order (y_c, a thread an entry), blocks
+// [n_sum, ...) each landmark's contiguous range of p (t, a 16-lane group)
+__global__ void __launch_bounds__(viba::kBlock) cal_down_sums(
+    int n_c, int kc, int n_sum, const int* __restrict__ win_pair, const float* __restrict__ part,
+    float* __restrict__ y_c, int L, const int* __restrict__ pt_ptr, const float4* __restrict__ p,
+    float* __restrict__ t) {
+  constexpr int G = viba::kPointGroup;
+  if (static_cast<int>(blockIdx.x) < n_sum) {  // the whole block
+    viba::sum_partials_entry(blockIdx.x * (long)viba::kBlock + threadIdx.x, n_c, kc, win_pair,
+                             part, y_c);
+    return;
   }
-}
-
-// K9 columns, window rows: y_c[row, a, c0 + c] = the row's pair partials
-// summed in order, one thread per (row, a, c)
-template <int KC, int CT>
-__global__ void __launch_bounds__(256) sum_pair_cols(int n_c, int C, int c0, int ncol,
-                                                     const int* __restrict__ win_pair,
-                                                     const float* __restrict__ part,
-                                                     float* __restrict__ y_c) {
-  const long idx = blockIdx.x * 256L + threadIdx.x;
-  if (idx >= (long)n_c * KC * ncol) return;
-  const int c = static_cast<int>(idx % ncol);
-  const int a = static_cast<int>((idx / ncol) % KC);
-  const int row = static_cast<int>(idx / ((long)ncol * KC));
-  float sum = 0.f;
-  for (int q = win_pair[row]; q < win_pair[row + 1]; ++q) sum += part[((long)KC * q + a) * CT + c];
-  y_c[((long)KC * row + a) * C + c0 + c] = sum;
+  viba::point_range_row<G, false>((blockIdx.x - n_sum) * (viba::kBlock / G) + threadIdx.x / G,
+                                  threadIdx.x % G, L, pt_ptr, p, nullptr, t);
 }
 
 template <int K, int KC>
-cudaError_t pcg_cal_cols(int R, int L, int n, int n_real, int n_c, int n_pairs, int C,
-                         const int* rig, const int* win, const int* point, const int* pt_pos,
-                         const int* pt_ptr, const int* rig_pair, const int* pair_ptr,
-                         const int* pair_obs, const int* pair_part, const int* win_pair,
-                         const float* J_r, const float* J_c, const float* J_p, const float* w,
-                         const float* x_r, const float* x_c, const float* hinv, float4* p,
-                         float* z, float2* du, float* part, float* y_r, float* y_c,
-                         cudaStream_t st) {
-  constexpr int CT = viba::kColTile;
-  for (int c0 = 0; c0 < C; c0 += CT) {
-    const int ncol = C - c0 < CT ? C - c0 : CT;
+cudaError_t down_cal(int R, int L, int n, int n_real, int n_c, int want_y, const int* rig,
+                     const int* win, const int* pt_pos, const int* pt_ptr, const int* rig_pair,
+                     const int* pair_ptr, const int* pair_obs, const int* pair_part,
+                     const int* win_pair, const float* J_r, const float* J_c, const float* J_p,
+                     const float* w, const float* x_r, const float* x_c, float4* p, float* part,
+                     float* y_r, float* y_c, float* t, cudaStream_t st) {
+  if (!want_y) {
     if (n_real > 0) {
-      pcg_cal_down_cols<K, KC, CT><<<static_cast<int>(((long)n * CT + 255) / 256), 256, 0, st>>>(
-          n, C, c0, ncol, rig, win, pt_pos, J_r, J_c, J_p, w, x_r, x_c, p);
+      pcg_cal_down<K, KC><<<(n + 255) / 256, 256, 0, st>>>(n, rig, win, pt_pos, J_r, J_c, J_p, w,
+                                                           x_r, x_c, p);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
-    cudaError_t err = viba::launch_point_range_sum_cols<CT>(L, ncol, pt_ptr, p, hinv, z, st);
-    if (err != cudaSuccess) return err;
-    if (R > 0) {
-      pcg_cal_up_cols<K, KC, CT><<<viba::segment_blocks<32>(R), viba::kBlock, 0, st>>>(
-          R, n, C, c0, ncol, rig_pair, pair_ptr, pair_obs, win, point, J_r, J_c, J_p, w, x_r,
-          x_c, z, du, y_r);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    if (n_pairs > 0) {
-      pcg_cal_pair_cols<KC, CT><<<viba::segment_blocks<32>(n_pairs), viba::kBlock, 0, st>>>(
-          n_pairs, n, ncol, pair_ptr, pair_obs, pair_part, J_c, du, part);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    const long total = (long)n_c * KC * ncol;
-    if (total > 0) {
-      sum_pair_cols<KC, CT><<<static_cast<int>((total + 255) / 256), 256, 0, st>>>(
-          n_c, C, c0, ncol, win_pair, part, y_c);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
+    return viba::launch_point_sums(L, pt_ptr, p, t, st);
   }
-  return cudaSuccess;
+  if (R > 0) {
+    cal_pair_pass<K, KC, true><<<R, viba::kBlock, 0, st>>>(
+        n, rig_pair, pair_ptr, pair_obs, pair_part, win, pt_pos, J_r, J_c, J_p, w, x_r, x_c,
+        nullptr, p, part, y_r);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int n_sum = static_cast<int>(((long)n_c * KC + viba::kBlock - 1) / viba::kBlock);
+  const int grid = n_sum + (L > 0 ? viba::segment_blocks<viba::kPointGroup>(L) : 0);
+  if (grid > 0) {
+    cal_down_sums<<<grid, viba::kBlock, 0, st>>>(n_c, KC, n_sum, win_pair, part, y_c, L, pt_ptr,
+                                                 p, t);
+  }
+  return cudaGetLastError();
+}
+
+template <int K, int KC>
+cudaError_t up_cal(int R, int n, int n_c, const int* rig_pair, const int* pair_ptr,
+                   const int* pair_obs, const int* pair_part, const int* win_pair,
+                   const int* point, const float* J_r, const float* J_c, const float* J_p,
+                   const float* w, const float* z, float* part, float* y_r, float* y_c,
+                   cudaStream_t st) {
+  if (R > 0) {
+    cal_pair_pass<K, KC, false><<<R, viba::kBlock, 0, st>>>(
+        n, rig_pair, pair_ptr, pair_obs, pair_part, nullptr, point, J_r, J_c, J_p, w, nullptr,
+        nullptr, z, nullptr, part, y_r);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return viba::launch_sum_partials(n_c, KC, win_pair, part, y_c, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -1346,34 +1182,6 @@ int assemble_cal(int L, int n, int n_c, int n_chunks, const int* pt_ptr, const i
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KC>
-int down_cal(int R, int L, int n, int k, int n_c, int n_chunks, int want_y, const int* rig_ptr,
-             const int* rig_obs, const int* pt_ptr, const int* pt_obs, const int* win,
-             const int* chunk_ptr, const int* chunk_obs, const int* row_chunk, const float* J_r,
-             const float* J_p, const float* w, const float* J_c, const float* x_r,
-             const float* x_c, float* y_r, float* y_c, float* part, float* t, float* wu,
-             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R > 0) {
-    const int grid = viba::segment_blocks<kRowGroup>(R);
-    if (k == 6) {
-      down_cal_rig<6, KC><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, win,
-                                                         J_r, J_c, w, x_r, x_c, y_r, wu);
-    } else if (k == 9) {
-      down_cal_rig<9, KC><<<grid, viba::kBlock, 0, st>>>(R, n, want_y, rig_ptr, rig_obs, win,
-                                                         J_r, J_c, w, x_r, x_c, y_r, wu);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int rc = viba_schur_down_points(L, n, pt_ptr, pt_obs, J_p, wu, t, stream);
-  if (rc != 0 || !want_y) return rc;
-  return static_cast<int>(launch_rows<KC>(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk,
-                                          J_c, wu, part, y_c, st));
-}
-
 }  // namespace
 
 // dispatch on the window column count kc: cam extr (6), cam intr (17) or both (23)
@@ -1402,48 +1210,38 @@ extern "C" int viba_assemble_cal(int R, int L, int n, int k, int kc, int n_c, in
 #undef VIBA_ASM
 }
 
-extern "C" int viba_schur_down_cal(int R, int L, int n, int k, int kc, int n_c, int n_chunks,
-                                   int want_y, const int* rig_ptr, const int* rig_obs,
-                                   const int* pt_ptr, const int* pt_obs, const int* win,
-                                   const int* chunk_ptr, const int* chunk_obs,
-                                   const int* row_chunk, const float* J_r, const float* J_p,
-                                   const float* w, const float* J_c, const float* x_r,
-                                   const float* x_c, float* y_r, float* y_c, float* part,
-                                   float* t, float* wu, void* stream) {
-#define VIBA_DOWN(KC)                                                                       \
-  down_cal<KC>(R, L, n, k, n_c, n_chunks, want_y, rig_ptr, rig_obs, pt_ptr, pt_obs, win,     \
-               chunk_ptr, chunk_obs, row_chunk, J_r, J_p, w, J_c, x_r, x_c, y_r, y_c, part, t, \
-               wu, stream)
-  return VIBA_DISPATCH_KC(kc, VIBA_DOWN(6), VIBA_DOWN(17), VIBA_DOWN(23));
+extern "C" int viba_schur_down_cal(int R, int L, int n, int n_real, int k, int kc, int n_c,
+                                   int want_y, const int* rig, const int* win, const int* pt_pos,
+                                   const int* pt_ptr, const int* rig_pair, const int* pair_ptr,
+                                   const int* pair_obs, const int* pair_part, const int* win_pair,
+                                   const float* J_r, const float* J_c, const float* J_p,
+                                   const float* w, const float* x_r, const float* x_c, float* p,
+                                   float* part, float* y_r, float* y_c, float* t, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float4* p4 = reinterpret_cast<float4*>(p);
+#define VIBA_DOWN(K, KC)                                                                       \
+  static_cast<int>(down_cal<K, KC>(R, L, n, n_real, n_c, want_y, rig, win, pt_pos, pt_ptr,     \
+                                   rig_pair, pair_ptr, pair_obs, pair_part, win_pair, J_r, J_c, \
+                                   J_p, w, x_r, x_c, p4, part, y_r, y_c, t, st))
+  if (k == 6) return VIBA_DISPATCH_KC(kc, VIBA_DOWN(6, 6), VIBA_DOWN(6, 17), VIBA_DOWN(6, 23));
+  if (k == 9) return VIBA_DISPATCH_KC(kc, VIBA_DOWN(9, 6), VIBA_DOWN(9, 17), VIBA_DOWN(9, 23));
+  return static_cast<int>(cudaErrorInvalidValue);
 #undef VIBA_DOWN
 }
 
-extern "C" int viba_schur_up_cal(int R, int n, int k, int kc, int n_c, int n_chunks,
-                                 const int* rig_ptr, const int* rig_obs, const int* point,
-                                 const int* chunk_ptr, const int* chunk_obs, const int* row_chunk,
-                                 const float* J_r, const float* J_p, const float* w,
-                                 const float* J_c, const float* z, float* du, float* part,
-                                 float* y_r, float* y_c, void* stream) {
-  if (kc != 6 && kc != 17 && kc != 23) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int viba_schur_up_cal(int R, int n, int k, int kc, int n_c, const int* rig_pair,
+                                 const int* pair_ptr, const int* pair_obs, const int* pair_part,
+                                 const int* win_pair, const int* point, const float* J_r,
+                                 const float* J_c, const float* J_p, const float* w,
+                                 const float* z, float* part, float* y_r, float* y_c,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R > 0) {
-    const int grid = viba::segment_blocks<kRowGroup>(R);
-    if (k == 6) {
-      up_cal_rig<6><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w,
-                                                   z, du, y_r);
-    } else if (k == 9) {
-      up_cal_rig<9><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w,
-                                                   z, du, y_r);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-#define VIBA_UP(KC)                                                                       \
-  static_cast<int>(launch_rows<KC>(n_c, n_chunks, n, chunk_ptr, chunk_obs, row_chunk, J_c, du, \
-                                   part, y_c, st))
-  return VIBA_DISPATCH_KC(kc, VIBA_UP(6), VIBA_UP(17), VIBA_UP(23));
+#define VIBA_UP(K, KC)                                                                        \
+  static_cast<int>(up_cal<K, KC>(R, n, n_c, rig_pair, pair_ptr, pair_obs, pair_part, win_pair, \
+                                 point, J_r, J_c, J_p, w, z, part, y_r, y_c, st))
+  if (k == 6) return VIBA_DISPATCH_KC(kc, VIBA_UP(6, 6), VIBA_UP(6, 17), VIBA_UP(6, 23));
+  if (k == 9) return VIBA_DISPATCH_KC(kc, VIBA_UP(9, 6), VIBA_UP(9, 17), VIBA_UP(9, 23));
+  return static_cast<int>(cudaErrorInvalidValue);
 #undef VIBA_UP
 }
 
@@ -1479,34 +1277,6 @@ extern "C" int viba_schur_pcg_cal_cols(int R, int L, int k, int kc, int n_c, int
   static_cast<int>(pcg_cal_cols_fused<K, KC>(R, L, n_c, C, rig_sorted, rig_pair, pair_ptr,   \
                                              pair_part, win_pair, rig_pos, pt_ptr, rec, x_r,    \
                                              x_c, hinv, z, part, y_r, y_c, st))
-  if (k == 6) {
-    return VIBA_DISPATCH_KC(kc, VIBA_PCG_COLS(6, 6), VIBA_PCG_COLS(6, 17), VIBA_PCG_COLS(6, 23));
-  }
-  if (k == 9) {
-    return VIBA_DISPATCH_KC(kc, VIBA_PCG_COLS(9, 6), VIBA_PCG_COLS(9, 17), VIBA_PCG_COLS(9, 23));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-#undef VIBA_PCG_COLS
-}
-
-extern "C" int viba_schur_pcg_cal_cols_tiles(int R, int L, int n, int n_real, int k, int kc,
-                                             int n_c, int n_pairs, int C, const int* rig,
-                                             const int* win, const int* point, const int* pt_pos,
-                                             const int* pt_ptr, const int* rig_pair,
-                                             const int* pair_ptr, const int* pair_obs,
-                                             const int* pair_part, const int* win_pair,
-                                             const float* J_r, const float* J_c, const float* J_p,
-                                             const float* w, const float* x_r, const float* x_c,
-                                             const float* hinv, float* p, float* z, float* du,
-                                             float* part, float* y_r, float* y_c, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float4* p4 = reinterpret_cast<float4*>(p);
-  float2* du2 = reinterpret_cast<float2*>(du);
-#define VIBA_PCG_COLS(K, KC)                                                                  \
-  static_cast<int>(pcg_cal_cols<K, KC>(R, L, n, n_real, n_c, n_pairs, C, rig, win, point,     \
-                                       pt_pos, pt_ptr, rig_pair, pair_ptr, pair_obs,          \
-                                       pair_part, win_pair, J_r, J_c, J_p, w, x_r, x_c, hinv, \
-                                       p4, z, du2, part, y_r, y_c, st))
   if (k == 6) {
     return VIBA_DISPATCH_KC(kc, VIBA_PCG_COLS(6, 6), VIBA_PCG_COLS(6, 17), VIBA_PCG_COLS(6, 23));
   }

@@ -1,5 +1,5 @@
 // The landmark pass of the point-sorted routes: K4 and K6 (schur.cu), K9
-// (cal_segments.cu).
+// and K10 (cal_segments.cu).
 //
 // Walking a landmark's CSR list reads the rig-ordered slot arrays at
 // scattered slots, one 32-byte sector per float. The point-sorted routes
@@ -11,7 +11,7 @@
 // [pt_ptr[l], pt_ptr[l + 1]) of that table. This pass sums each range: a
 // 16-thread group per landmark, lanes strided, a fixed butterfly at the end
 // (deterministic, no atomics), then z = H_ll^-1[l] t with the landmark's
-// 3x3 inverse (K4, K9) or z = t (K6: kSolve false). A landmark without
+// 3x3 inverse (K4, K9) or z = t (K6, K10: kSolve false). A landmark without
 // slots gets z = 0. Bound: bytes — 16 B read per real slot, 36 B of hinv
 // and 12 B of z per landmark. (K2's landmark pass, assemble_rig.cuh, sums
 // 32-byte sectors at the same positions.)
@@ -44,11 +44,6 @@
 #include "tile_reduce.cuh"
 
 namespace viba {
-
-// right-hand sides a pass of the tiled column K4 and K9, the design the
-// fused one replaced, kept as its yardstick (ops/segments.py COL_TILE;
-// entry "tiles"): the staged p is n_real x kColTile float4s
-constexpr int kColTile = 8;
 
 // ---------------------------------------------------------------------------
 // Tree-ordered sums in one thread, and the point-sorted slot records
@@ -518,13 +513,15 @@ __device__ __forceinline__ void stage_records(float* rec_s, const float* __restr
   __syncthreads();
 }
 
+// Landmark l's contiguous range of p summed by the G lanes of its group
+// (lane-strided, then the butterfly), z[l] = H_ll^-1[l] t or t; every lane
+// of the group takes part, a landmark l >= L with an empty range.
 template <int G, bool kSolve>
-__global__ void __launch_bounds__(kBlock) point_range_sum(int L, const int* __restrict__ pt_ptr,
-                                                          const float4* __restrict__ p,
-                                                          const float* __restrict__ hinv,
-                                                          float* __restrict__ z) {
-  const int l = blockIdx.x * (kBlock / G) + threadIdx.x / G;
-  const int lane = threadIdx.x % G;
+__device__ __forceinline__ void point_range_row(int l, int lane, int L,
+                                                const int* __restrict__ pt_ptr,
+                                                const float4* __restrict__ p,
+                                                const float* __restrict__ hinv,
+                                                float* __restrict__ z) {
   const bool live = l < L;
   const int beg = live ? pt_ptr[l] : 0, end = live ? pt_ptr[l + 1] : 0;
   float t[3] = {0.f, 0.f, 0.f};
@@ -548,57 +545,13 @@ __global__ void __launch_bounds__(kBlock) point_range_sum(int L, const int* __re
   }
 }
 
-template <int G, int CT>
-__global__ void __launch_bounds__(kBlock) point_range_sum_cols(int L, int ncol,
-                                                               const int* __restrict__ pt_ptr,
-                                                               const float4* __restrict__ p,
-                                                               const float* __restrict__ hinv,
-                                                               float* __restrict__ z) {
-  const int l = blockIdx.x * (kBlock / G) + threadIdx.x / G;
-  const int lane = threadIdx.x % G;
-  const bool live = l < L;
-  const int beg = live ? pt_ptr[l] : 0, end = live ? pt_ptr[l + 1] : 0;
-  float t[3 * CT];
-#pragma unroll
-  for (int i = 0; i < 3 * CT; ++i) t[i] = 0.f;
-  for (int j = beg + lane; j < end; j += G) {
-    const float4* q = p + (long)j * CT;
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      if (c < ncol) {
-        const float4 v = q[c];
-        t[3 * c] += v.x;
-        t[3 * c + 1] += v.y;
-        t[3 * c + 2] += v.z;
-      }
-    }
-  }
-  group_sum<G, 3 * CT>(t, nullptr);
-  if (live && lane == 0) {
-    const float* h = hinv + 9 * (long)l;
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      if (c < ncol) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          z[3 * ((long)l * CT + c) + i] =
-              h[3 * i] * t[3 * c] + h[3 * i + 1] * t[3 * c + 1] + h[3 * i + 2] * t[3 * c + 2];
-      }
-    }
-  }
-}
-
-// z (L, CT, 3) = H_ll^-1 times the landmark sums of the point-sorted p, for
-// the first ncol of a tile of CT columns
-template <int CT>
-inline cudaError_t launch_point_range_sum_cols(int L, int ncol, const int* pt_ptr,
-                                               const float4* p, const float* hinv, float* z,
-                                               cudaStream_t st) {
-  if (L > 0) {
-    point_range_sum_cols<kPointGroup, CT>
-        <<<segment_blocks<kPointGroup>(L), kBlock, 0, st>>>(L, ncol, pt_ptr, p, hinv, z);
-  }
-  return cudaGetLastError();
+template <int G, bool kSolve>
+__global__ void __launch_bounds__(kBlock) point_range_sum(int L, const int* __restrict__ pt_ptr,
+                                                          const float4* __restrict__ p,
+                                                          const float* __restrict__ hinv,
+                                                          float* __restrict__ z) {
+  point_range_row<G, kSolve>(blockIdx.x * (kBlock / G) + threadIdx.x / G, threadIdx.x % G, L,
+                             pt_ptr, p, hinv, z);
 }
 
 // z (L, 3) = H_ll^-1 (L, 3, 3) times the landmark sums of the point-sorted p

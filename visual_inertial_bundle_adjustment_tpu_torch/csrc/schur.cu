@@ -1,7 +1,7 @@
 // K6 / K5 / K4: the Schur-complement matvec passes of a rig-only batch.
 //
 // schur_down replaces _schur_down_kernel (JAX ops/segments.py:586);
-// schur_up replaces _schur_up_kernel (:725). K4, the PCG matvec
+// schur_up_rows replaces _schur_up_kernel (:725). K4, the PCG matvec
 // y = J_r^T w J_r x - W H_ll^-1 W^T x (entry seg_schur_pcg :1387, Pallas
 // bodies _down_light_kernel :1318 and _up_du_kernel :1347), is
 // viba_schur_pcg below.
@@ -18,11 +18,20 @@
 // then point_range_sum without the 3x3 solve: t = the sum of each
 // landmark's contiguous range of p. Bound: bytes — J_r (8K B), J_p (24 B),
 // w, rig or the row lists and pt_pos read once per slot, p (16 B) written
-// and read once. schur_down_points (a 16-thread group per landmark
-// gathering J_p and a staged wu through its list) is K10's landmark pass
-// (cal_segments.cu).
-// schur_up (K5), a 128-thread group per rig row:
-//   y = sum J_r^T w J_p z[pt]  (= W z).
+// and read once.
+//
+// K5, y = sum J_r^T w J_p z[pt] (= W z) per rig row, is one launch,
+// schur_up_rows: a 128-thread group per rig row (its slots a contiguous
+// run of the row's list), each thread taking its slots in batches of
+// kUpBatch with every load of a batch issued before its first product, so
+// that a row's ~330 slots (the bias headline's 1,200 rows) are one round of
+// dependent loads (list, then J, w and the landmark index, then z) and not
+// three; each thread sums its slots in order, then the group's butterfly
+// and its warps in order. (A warp per row took 0.029 ms against 0.014 for
+// K4's up pass on the H100: too few warps for the card.) Bound: bytes —
+// J_r, J_p, w and the landmark index of each real slot, the rig lists and
+// z read once, y written once; the L2 holds all of it across repeated
+// calls, so it is timed with the L2 flushed.
 // K = rig_k (6 or 9) is a template parameter.
 //
 // K4 is one entry of three launches around each slot's point-sorted
@@ -64,22 +73,12 @@
 // as in pcg_up. So every column has the single-column kernel's bits.
 // Bound: operations — (8K + 30) FMA-equivalents a slot and column over the
 // two passes.
-//
-// The tiled design it replaced (viba_schur_pcg_cols_tiles), kept as the
-// yardstick until the next change to these kernels, runs the same three
-// passes once per tile of kColTile columns (pt_segments.cuh): the down
-// pass, kColTile threads a slot (one column each), stores
-// p[pt_pos[s] * kColTile + c]; the landmark pass sums each column and
-// writes z (L, kColTile, 3); the up pass keeps K x kColTile sums a rig
-// row, each thread loading its slot's J once a tile. Bound: bytes — per
-// column, 2 x (8K + 36) / kColTile B of J a slot, the 32 B of
-// p written and read back, and 12 B of z read.
+
 #include "pt_segments.cuh"
 #include "tile_reduce.cuh"
 
 namespace {
 
-using viba::kPointGroup;
 using viba::kRowGroup;
 
 // K6 with y: per rig row, y = sum J_r^T wu; p[pt_pos[s]] = J_p^T wu per slot
@@ -120,47 +119,63 @@ __global__ void __launch_bounds__(viba::kBlock) schur_down_rows(
       });
 }
 
-__global__ void __launch_bounds__(viba::kBlock) schur_down_points(
-    int L, int n, const int* __restrict__ pt_ptr, const int* __restrict__ pt_obs,
-    const float* __restrict__ J_p, const float* __restrict__ wu, float* __restrict__ t) {
-  viba::reduce_segments<kPointGroup, 3>(
-      blockIdx.x, L, pt_ptr, pt_obs,
-      [&](int s, float(&acc)[3]) {
-        const float wu0 = wu[s], wu1 = wu[n + s];
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          acc[c] += J_p[c * (long)n + s] * wu0 + J_p[(3 + c) * (long)n + s] * wu1;
-      },
-      [&](int p, float(&acc)[3]) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) t[3 * (long)p + c] = acc[c];
-      });
-}
+// K5: per rig row, y = sum J_r^T w J_p z[point] (see the file's head)
+constexpr int kUpBatch = 4;
 
 template <int K>
-__global__ void __launch_bounds__(viba::kBlock) schur_up(
+__global__ void __launch_bounds__(viba::kBlock) schur_up_rows(
     int R, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
-    const int* __restrict__ point, const float* __restrict__ J_r,
-    const float* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ z,
-    float* __restrict__ y) {
-  viba::reduce_segments<kRowGroup, K>(
-      blockIdx.x, R, rig_ptr, rig_obs,
-      [&](int s, float(&acc)[K]) {
-        const float* zp = z + 3 * (long)point[s];
-        const float z0 = zp[0], z1 = zp[1], z2 = zp[2];
-        const float u0 = J_p[s] * z0 + J_p[(long)n + s] * z1 + J_p[2 * (long)n + s] * z2;
-        const float u1 =
-            J_p[3 * (long)n + s] * z0 + J_p[4 * (long)n + s] * z1 + J_p[5 * (long)n + s] * z2;
-        const float ws = w[s];
-        const float d0 = u0 * ws, d1 = u1 * ws;
+    const int* __restrict__ point, const float* __restrict__ J_r, const float* __restrict__ J_p,
+    const float* __restrict__ w, const float* __restrict__ z, float* __restrict__ y) {
+  constexpr int G = kRowGroup, B = kUpBatch;
+  static_assert(G == viba::kBlock, "one rig row a block");
+  __shared__ float smem[(G / 32) * K];
+  const int row = blockIdx.x, lane = threadIdx.x;
+  const int beg = rig_ptr[row], end = rig_ptr[row + 1];
+  float acc[K];
 #pragma unroll
-        for (int c = 0; c < K; ++c)
-          acc[c] += J_r[c * (long)n + s] * d0 + J_r[(K + c) * (long)n + s] * d1;
-      },
-      [&](int r, float(&acc)[K]) {
+  for (int c = 0; c < K; ++c) acc[c] = 0.f;
+  for (int j0 = beg + lane; j0 < end; j0 += B * G) {
+    // a slot past the row's end repeats slot j0 and adds nothing
+    int s[B];
+    bool ok[B];
 #pragma unroll
-        for (int c = 0; c < K; ++c) y[K * (long)r + c] = acc[c];
-      });
+    for (int b = 0; b < B; ++b) {
+      ok[b] = j0 + b * G < end;
+      s[b] = rig_obs[ok[b] ? j0 + b * G : j0];
+    }
+    int pt[B];
+    float ws[B], jp[B][6], jr[B][2 * K], zz[B][3];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      pt[b] = point[s[b]];
+      ws[b] = w[s[b]];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) jp[b][c] = J_p[c * (long)n + s[b]];
+#pragma unroll
+      for (int c = 0; c < 2 * K; ++c) jr[b][c] = J_r[c * (long)n + s[b]];
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) zz[b][c] = z[3 * (long)pt[b] + c];
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      if (ok[b]) {
+        const float u0 = jp[b][0] * zz[b][0] + jp[b][1] * zz[b][1] + jp[b][2] * zz[b][2];
+        const float u1 = jp[b][3] * zz[b][0] + jp[b][4] * zz[b][1] + jp[b][5] * zz[b][2];
+        const float d0 = u0 * ws[b], d1 = u1 * ws[b];
+#pragma unroll
+        for (int c = 0; c < K; ++c) acc[c] += jr[b][c] * d0 + jr[b][K + c] * d1;
+      }
+    }
+  }
+  viba::group_sum<G, K>(acc, smem);
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) y[K * (long)row + c] = acc[c];
+  }
 }
 
 // K4 down: p[pt_pos[s]] = J_p^T w J_r x[rig[s]] per real slot
@@ -230,121 +245,6 @@ __global__ void __launch_bounds__(viba::kBlock) pcg_up(
 #pragma unroll
         for (int c = 0; c < K; ++c) y[K * (long)r + c] = acc[c];
       });
-}
-
-// K4 columns, down: p[pt_pos[s] * CT + c] = J_p^T w J_r x[rig[s], :, c0 + c];
-// CT consecutive threads per slot, one column each, so a warp's x loads and
-// its float4 stores of p are contiguous runs (the slot's J loads broadcast)
-template <int K, int CT>
-__global__ void __launch_bounds__(256) pcg_down_cols(int n, int C, int c0, int ncol,
-                                                     const int* __restrict__ rig,
-                                                     const int* __restrict__ pt_pos,
-                                                     const float* __restrict__ J_r,
-                                                     const float* __restrict__ J_p,
-                                                     const float* __restrict__ w,
-                                                     const float* __restrict__ x,
-                                                     float4* __restrict__ p) {
-  const long t = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  const int s = static_cast<int>(t / CT), c = static_cast<int>(t % CT);
-  if (s >= n || c >= ncol) return;
-  const int pos = pt_pos[s];
-  if (pos < 0) return;
-  const float* xr = x + (long)K * C * rig[s] + c0 + c;
-  float u0 = 0.f, u1 = 0.f;
-#pragma unroll
-  for (int a = 0; a < K; ++a) {
-    const float xv = xr[(long)a * C];
-    u0 += J_r[a * (long)n + s] * xv;
-    u1 += J_r[(K + a) * (long)n + s] * xv;
-  }
-  const float ws = w[s];
-  const float wu0 = u0 * ws, wu1 = u1 * ws;
-  float q[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    q[a] = J_p[a * (long)n + s] * wu0 + J_p[(3 + a) * (long)n + s] * wu1;
-  p[(long)pos * CT + c] = make_float4(q[0], q[1], q[2], 0.f);
-}
-
-// K4 columns, up: per rig row and column, du = w J_r x - w J_p z[point],
-// y[row, :, c0 + c] = sum J_r^T du
-template <int K, int CT>
-__global__ void __launch_bounds__(viba::kBlock) pcg_up_cols(
-    int R, int n, int C, int c0, int ncol, const int* __restrict__ rig_ptr,
-    const int* __restrict__ rig_obs, const int* __restrict__ point,
-    const float* __restrict__ J_r, const float* __restrict__ J_p, const float* __restrict__ w,
-    const float* __restrict__ x, const float* __restrict__ z, float* __restrict__ y) {
-  const int row = blockIdx.x;  // one rig row per block (kRowGroup == kBlock)
-  const float* xr = x + (long)K * C * (row < R ? row : 0) + c0;
-  viba::reduce_segments<kRowGroup, K * CT>(
-      blockIdx.x, R, rig_ptr, rig_obs,
-      [&](int s, float(&acc)[K * CT]) {
-        float j0[K], j1[K];
-#pragma unroll
-        for (int a = 0; a < K; ++a) {
-          j0[a] = J_r[a * (long)n + s];
-          j1[a] = J_r[(K + a) * (long)n + s];
-        }
-        float jp[6];
-#pragma unroll
-        for (int a = 0; a < 6; ++a) jp[a] = J_p[a * (long)n + s];
-        const float ws = w[s];
-        const float* zp = z + 3 * (long)CT * point[s];
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          if (c < ncol) {
-            float u0 = 0.f, u1 = 0.f;
-#pragma unroll
-            for (int a = 0; a < K; ++a) {
-              const float xv = xr[(long)a * C + c];
-              u0 += j0[a] * xv;
-              u1 += j1[a] * xv;
-            }
-            const float z0 = zp[3 * c], z1 = zp[3 * c + 1], z2 = zp[3 * c + 2];
-            const float a0 = jp[0] * z0 + jp[1] * z1 + jp[2] * z2;
-            const float a1 = jp[3] * z0 + jp[4] * z1 + jp[5] * z2;
-            const float d0 = u0 * ws - a0 * ws, d1 = u1 * ws - a1 * ws;
-#pragma unroll
-            for (int a = 0; a < K; ++a) acc[c * K + a] += j0[a] * d0 + j1[a] * d1;
-          }
-        }
-      },
-      [&](int r, float(&acc)[K * CT]) {
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          if (c < ncol) {
-#pragma unroll
-            for (int a = 0; a < K; ++a) y[((long)K * r + a) * C + c0 + c] = acc[c * K + a];
-          }
-        }
-      });
-}
-
-template <int K>
-cudaError_t schur_pcg_cols(int R, int L, int n, int n_real, int C, const int* rig,
-                           const int* point, const int* pt_pos, const int* pt_ptr,
-                           const int* rig_ptr, const int* rig_obs, const float* J_r,
-                           const float* J_p, const float* w, const float* x, const float* hinv,
-                           float4* p, float* z, float* y, cudaStream_t st) {
-  constexpr int CT = viba::kColTile;
-  for (int c0 = 0; c0 < C; c0 += CT) {
-    const int ncol = C - c0 < CT ? C - c0 : CT;
-    if (n_real > 0) {
-      pcg_down_cols<K, CT><<<static_cast<int>(((long)n * CT + 255) / 256), 256, 0, st>>>(
-          n, C, c0, ncol, rig, pt_pos, J_r, J_p, w, x, p);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    cudaError_t err = viba::launch_point_range_sum_cols<CT>(L, ncol, pt_ptr, p, hinv, z, st);
-    if (err != cudaSuccess) return err;
-    if (R > 0) {
-      pcg_up_cols<K, CT><<<viba::segment_blocks<kRowGroup>(R), viba::kBlock, 0, st>>>(
-          R, n, C, c0, ncol, rig_ptr, rig_obs, point, J_r, J_p, w, x, z, y);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-  }
-  return cudaSuccess;
 }
 
 // K4 columns, rig pass: shapes of a block per (rig row, tile of W columns)
@@ -507,15 +407,6 @@ cudaError_t schur_pcg(int R, int L, int n, int n_real, const int* rig, const int
 
 }  // namespace
 
-extern "C" int viba_schur_down_points(int L, int n, const int* pt_ptr, const int* pt_obs,
-                                      const float* J_p, const float* wu, float* t,
-                                      void* stream) {
-  if (L <= 0) return 0;
-  schur_down_points<<<viba::segment_blocks<kPointGroup>(L), viba::kBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(L, n, pt_ptr, pt_obs, J_p, wu, t);
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int viba_schur_down(int R, int L, int n, int n_real, int k, int want_y,
                                const int* rig, const int* pt_pos, const int* pt_ptr,
                                const int* rig_ptr, const int* rig_obs, const float* J_r,
@@ -550,14 +441,13 @@ extern "C" int viba_schur_up(int R, int n, int k, const int* rig_ptr, const int*
                              const int* point, const float* J_r, const float* J_p,
                              const float* w, const float* z, float* y, void* stream) {
   if (R <= 0) return 0;
-  const int grid = viba::segment_blocks<kRowGroup>(R);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k == 6) {
-    schur_up<6><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w, z,
-                                               y);
+    schur_up_rows<6><<<R, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w, z,
+                                                 y);
   } else if (k == 9) {
-    schur_up<9><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w, z,
-                                               y);
+    schur_up_rows<9><<<R, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w, z,
+                                                 y);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -595,27 +485,6 @@ extern "C" int viba_schur_pcg_cols(int R, int L, int k, int C, int rig_sorted,
   if (k == 9) {
     return static_cast<int>(schur_pcg_cols_fused<9>(R, L, C, rig_sorted, rig_ptr, rig_pos, pt_ptr,
                                                     rec, x, hinv, z, y, st));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int viba_schur_pcg_cols_tiles(int R, int L, int n, int n_real, int k, int C,
-                                         const int* rig, const int* point, const int* pt_pos,
-                                         const int* pt_ptr, const int* rig_ptr,
-                                         const int* rig_obs, const float* J_r, const float* J_p,
-                                         const float* w, const float* x, const float* hinv,
-                                         float* p, float* z, float* y, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float4* p4 = reinterpret_cast<float4*>(p);
-  if (k == 6) {
-    return static_cast<int>(schur_pcg_cols<6>(R, L, n, n_real, C, rig, point, pt_pos, pt_ptr,
-                                              rig_ptr, rig_obs, J_r, J_p, w, x, hinv, p4, z, y,
-                                              st));
-  }
-  if (k == 9) {
-    return static_cast<int>(schur_pcg_cols<9>(R, L, n, n_real, C, rig, point, pt_pos, pt_ptr,
-                                              rig_ptr, rig_obs, J_r, J_p, w, x, hinv, p4, z, y,
-                                              st));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -79,18 +79,25 @@ __device__ __forceinline__ void reduce_segments(int block, int n_seg, const int*
 
 // Second pass of a chunked reduction (rows too long for one group are cut
 // into chunks, one segment each): out[row, e] = the sum of the row's chunk
-// partials part[chunk, e], in chunk order. One thread per output entry.
-template <int kThreads>
-__global__ void __launch_bounds__(kThreads) sum_partials(int n_rows, int D,
-                                                         const int* __restrict__ row_chunk,
-                                                         const float* __restrict__ part,
-                                                         float* __restrict__ out) {
-  const long idx = blockIdx.x * (long)blockDim.x + threadIdx.x;
+// partials part[chunk, e], in chunk order. One thread per output entry idx.
+__device__ __forceinline__ void sum_partials_entry(long idx, int n_rows, int D,
+                                                   const int* __restrict__ row_chunk,
+                                                   const float* __restrict__ part,
+                                                   float* __restrict__ out) {
   if (idx >= (long)n_rows * D) return;
   const int row = static_cast<int>(idx / D), e = static_cast<int>(idx % D);
   float s = 0.f;
   for (int ch = row_chunk[row]; ch < row_chunk[row + 1]; ++ch) s += part[(long)D * ch + e];
   out[idx] = s;
+}
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads) sum_partials(int n_rows, int D,
+                                                         const int* __restrict__ row_chunk,
+                                                         const float* __restrict__ part,
+                                                         float* __restrict__ out) {
+  sum_partials_entry(blockIdx.x * (long)blockDim.x + threadIdx.x, n_rows, D, row_chunk, part,
+                     out);
 }
 
 inline cudaError_t launch_sum_partials(int n_rows, int D, const int* row_chunk,

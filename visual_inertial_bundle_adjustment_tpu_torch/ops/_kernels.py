@@ -55,14 +55,12 @@ _SIGNATURES = {
     "viba_schur_up": [_I] * 3 + [_P] * 8 + [_P],
     "viba_schur_pcg": [_I] * 5 + [_P] * 14 + [_P],
     "viba_schur_pcg_cols": [_I] * 5 + [_P] * 8 + [_P],
-    "viba_schur_pcg_cols_tiles": [_I] * 6 + [_P] * 14 + [_P],
     "viba_rs_linearize": [_I] * 6 + [_P] * 34 + [_P],
     "viba_assemble_cal": [_I] * 7 + [_P] * 22 + [_P],
-    "viba_schur_down_cal": [_I] * 8 + [_P] * 19 + [_P],
-    "viba_schur_up_cal": [_I] * 6 + [_P] * 15 + [_P],
+    "viba_schur_down_cal": [_I] * 8 + [_P] * 20 + [_P],
+    "viba_schur_up_cal": [_I] * 5 + [_P] * 14 + [_P],
     "viba_schur_pcg_cal": [_I] * 7 + [_P] * 22 + [_P],
     "viba_schur_pcg_cal_cols": [_I] * 7 + [_P] * 14 + [_P],
-    "viba_schur_pcg_cal_cols_tiles": [_I] * 9 + [_P] * 23 + [_P],
     "viba_visual_cal_linearize": [_I] * 2 + [_P] * 25 + [_P],
     "viba_seg_mv_fused": [_I] * 5 + [_P] * 10 + [_P],
     "viba_seg_mv_scatter": [_I] * 5 + [_P] * 7 + [_P],

@@ -64,13 +64,15 @@ parallel, so each output row is instead owned by one thread group that walks
 that row's observations through a CSR list and reduces in a fixed order —
 deterministic, with no atomics. Rig rows (~300 observations each at the
 full-sensor size) and landmark rows (~30) are single segments. Window rows
-are few and long (120 rows of ~15k observations), so their lists are cut
+are few and long (120 rows of ~15k observations), so K8 cuts their lists
 into chunks of CHUNK slots: one group per chunk writes a partial row, and a
-second pass sums each row's partials in chunk order. What bounds them:
+second pass sums each row's partials in chunk order; K9 and K10 instead
+write one partial row per (rig, window row) pair of a rig row's walk, and
+a second pass sums each window row's partials in rig order. What bounds them:
 bytes of J read per pass — 2 x (rig_k + 3 (+ 23)) floats per observation.
 
 Walking a landmark's list reads the rig-ordered arrays at scattered slots,
-one 32-byte sector per float. K4, K6 and K9 therefore go through each
+one 32-byte sector per float. K4, K6, K9 and K10 therefore go through each
 slot's point-sorted position (SegPlan.pt_pos, built with the lists): a down
 pass, in slot order and coalesced, writes each slot's 3 landmark-side values
 there as one float4, and one landmark pass (csrc/pt_segments.cuh) sums each
@@ -78,8 +80,13 @@ landmark's contiguous range and, for K4 and K9, applies H_ll^-1. K6 is two
 launches (down to the positions, per slot or, with y, per rig row; the
 landmark sums); K4 three (the same, then up per rig row with w J_r x
 recomputed); K9 four (the same, with one window partial per (rig, window
-row) pair in its up pass, then the window rows' sums). K2's slots pass
-(and so K8's first) writes one 32-byte sector a slot at the same
+row) pair in its up pass, then the window rows' sums); K10's down pass two
+(t only: K9's down, then the landmark sums; with y: a 128-thread group
+per rig row over its pairs storing p beside y_r and the pair partials,
+then the landmark sums and the window rows' sums in one launch), its up
+pass two (the same walk with w J_p z[point] in registers, then the
+window rows' sums). K2's slots pass (and so K8's first) writes one
+32-byte sector a slot at the same
 positions, sqrt(w) J_p and sqrt(w) res (robust weights, w >= 0), and a
 16-lane group per landmark sums its range. On a scattered family
 (RowPlan.scattered: the landmark rows) K13a writes J^T u and K13c copies
@@ -115,11 +122,7 @@ import torch
 
 from . import _kernels
 
-CHUNK = 1024  # window-row slots per partial sum (cal kernels)
-# right-hand sides a pass of the tiled column kernels, entry "tiles"
-# (csrc/pt_segments.cuh kColTile)
-COL_TILE = 8
-COL_ENTRIES = ("fused", "tiles")
+CHUNK = 1024  # window-row slots per partial sum (K8)
 # calibration column splits of J_c by its width kc, in cal_groups order:
 # cam extr and cam intr (6 | 17), or one of them alone
 CAL_SPLITS = {23: (6, 17), 6: (6,), 17: (17,)}
@@ -151,9 +154,10 @@ class SegPlan(NamedTuple):
 
 class CalPlan(NamedTuple):
     """Window-row reduction plan of a calibration-coupled batch: each row's
-    real slots (slot order) cut into chunks of at most CHUNK slots (K8,
-    K10); and the (rig, window row) pairs of K9's up pass, in rig order,
-    each pair's J_c^T du summed into one partial row (pair_plan_arrays)."""
+    real slots (slot order) cut into chunks of at most CHUNK slots (K8);
+    and the (rig, window row) pairs of K9's up pass and K10's passes, in rig
+    order, each pair's J_c^T du summed into one partial row
+    (pair_plan_arrays)."""
 
     win: torch.Tensor  # (N,) int32 global window row of each slot (pads: tile base)
     chunk_ptr: torch.Tensor  # (n_chunks+1,) int32 CSR offsets into chunk_obs
@@ -278,16 +282,10 @@ def _tri_to_full(tri, k=3):
     return full
 
 
-def _plan_ptrs(plan):
+def _chunk_ptrs(cplan):
+    """K8's window chunk lists: chunk_ptr, chunk_obs, row_chunk."""
     ck = _kernels.check
-    return (ck(plan.rig_ptr, "rig_ptr", torch.int32), ck(plan.rig_obs, "rig_obs", torch.int32),
-            ck(plan.pt_ptr, "pt_ptr", torch.int32), ck(plan.pt_obs, "pt_obs", torch.int32))
-
-
-def _cal_ptrs(cplan, n):
-    ck = _kernels.check
-    return (ck(cplan.win, "win", torch.int32, (n,)),
-            ck(cplan.chunk_ptr, "chunk_ptr", torch.int32),
+    return (ck(cplan.chunk_ptr, "chunk_ptr", torch.int32),
             ck(cplan.chunk_obs, "chunk_obs", torch.int32),
             ck(cplan.row_chunk, "row_chunk", torch.int32))
 
@@ -464,6 +462,9 @@ def _schur_up_plain(J_r, J_p, w, z, plan, wu):
 
 
 def _launch_schur_up(J_r, J_p, w, z, plan):
+    """K5 in one launch (csrc/schur.cu viba_schur_up: a 128-thread group per
+    rig row, each thread's slots in batches whose loads are all in flight
+    before the first product)."""
     n, k, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
     y = _empty((R, k), w)
@@ -586,7 +587,7 @@ def seg_assemble_cal(J_r, J_c, J_p, res, w, plan: SegPlan, cplan: CalPlan):
     q = _sector_scratch(plan, w)
     _kernels.launch("viba_assemble_cal", R, L, n, k, kc, n_c, cplan.n_chunks,
                     *_k2_ptrs(plan),
-                    *_cal_ptrs(cplan, n)[1:], *jargs, _jc_arg(J_c, n),
+                    *_chunk_ptrs(cplan), *jargs, _jc_arg(J_c, n),
                     _kernels.check(res, "res", torch.float32, (2, n)),
                     g_r.data_ptr(), diag_r.data_ptr(), g_l.data_ptr(), H.data_ptr(),
                     part.data_ptr(), g_c.data_ptr(), diag_c.data_ptr(), by_dim.get(6),
@@ -601,6 +602,9 @@ def seg_assemble_cal(J_r, J_c, J_p, res, w, plan: SegPlan, cplan: CalPlan):
 
 
 def _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
+    """(y_r, y_c (both None without want_y), t, wu (2, N) = w u): K10's
+    down function with the per-slot wu staged, which the plain K9
+    composition reuses."""
     xg_r = x_r.index_select(0, plan.rig)
     xg_c = x_c.index_select(0, cplan.win)
     wu = ((J_r * xg_r.T[None]).sum(1) + (J_c * xg_c.T[None]).sum(1)) * w[None, :]
@@ -612,24 +616,45 @@ def _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
     return y_r, y_c, t, wu
 
 
+def _pair_ptrs(cplan, R, n_c, n_real):
+    """The (rig, window row) pair plan K9 and K10 walk: rig_pair, pair_ptr,
+    pair_obs, pair_part, win_pair."""
+    ck = _kernels.check
+    return (ck(cplan.rig_pair, "rig_pair", torch.int32, (R + 1,)),
+            ck(cplan.pair_ptr, "pair_ptr", torch.int32),
+            ck(cplan.pair_obs, "pair_obs", torch.int32, (n_real,)),
+            ck(cplan.pair_part, "pair_part", torch.int32, (cplan.n_pairs,)),
+            ck(cplan.win_pair, "win_pair", torch.int32, (n_c + 1,)))
+
+
 def _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
-    n, k, jargs = _jac_args(J_r, J_p, w)
+    """K10's down pass in two launches (csrc/cal_segments.cu
+    viba_schur_down_cal): p = J_p^T w u at each slot's point-sorted position
+    (per slot; with y, a 128-thread group per rig row over its (rig, window
+    row) pairs, y_r and one window partial a pair beside it), then the
+    landmark sums of p (with y in one launch with the window rows' sums of
+    their partials)."""
+    n, k, _ = _jac_args(J_r, J_p, w)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
     kc = J_c.shape[1]
+    n_real = plan.pt_obs.shape[0]
+    ck = _kernels.check
     y_r = _empty((R, k), w) if want_y else None
     y_c = _empty((n_c, kc), w) if want_y else None
-    part = _empty((max(cplan.n_chunks, 1), kc), w) if want_y else None
+    part = _empty((max(cplan.n_pairs, 1), kc), w) if want_y else None
     t = _empty((L, 3), w)
-    wu = torch.zeros((2, n), dtype=torch.float32, device=w.device)
-    ck = _kernels.check
-    _kernels.launch("viba_schur_down_cal", R, L, n, k, kc, n_c, cplan.n_chunks,
-                    int(bool(want_y)),
-                    *_plan_ptrs(plan), *_cal_ptrs(cplan, n), *jargs, _jc_arg(J_c, n),
-                    ck(x_r, "x_r", torch.float32, (R, k)),
-                    ck(x_c, "x_c", torch.float32, (n_c, kc)),
-                    *(a.data_ptr() if a is not None else None for a in (y_r, y_c, part)),
-                    t.data_ptr(), wu.data_ptr())
-    return y_r, y_c, t, wu
+    p = _empty((max(n_real, 1), 4), w)  # float4 per slot, point-sorted
+    _kernels.launch("viba_schur_down_cal", R, L, n, n_real, k, kc, n_c, int(bool(want_y)),
+                    ck(plan.rig, "rig", torch.int32, (n,)), ck(cplan.win, "win", torch.int32, (n,)),
+                    ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
+                    ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
+                    *_pair_ptrs(cplan, R, n_c, n_real),
+                    ck(J_r, "J_r", torch.float32, (2, k, n)), _jc_arg(J_c, n),
+                    ck(J_p, "J_p", torch.float32, (2, 3, n)), ck(w, "w", torch.float32, (n,)),
+                    ck(x_r, "x_r", torch.float32, (R, k)), ck(x_c, "x_c", torch.float32, (n_c, kc)),
+                    p.data_ptr(), *(a.data_ptr() if a is not None else None
+                                    for a in (part, y_r, y_c)), t.data_ptr())
+    return y_r, y_c, t
 
 
 @_kernels.register("schur_down_cal")
@@ -637,10 +662,9 @@ def seg_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan: SegPlan, cplan: CalPlan
                        want_y=True):
     """One pass over a calibration-coupled batch with u = J_r x_r[rig] +
     J_c x_c[win]: (y_r (R, k) = seg-sum_rig J_r^T w u, y_c (n_c, kc) =
-    seg-sum_win J_c^T w u (both None unless want_y), t (L, 3) = W^T x,
-    wu (2, N) = w u)."""
+    seg-sum_win J_c^T w u (both None unless want_y), t (L, 3) = W^T x)."""
     if not _kernels.on_card(w):
-        return _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y)
+        return _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y)[:3]
     out = _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y)
     seg_schur_down_cal.launches += 1
     return out
@@ -655,19 +679,23 @@ def _schur_up_cal_plain(J_r, J_c, J_p, w, z, plan, cplan, wu):
 
 
 def _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan):
-    n, k, jargs = _jac_args(J_r, J_p, w)
+    """K10's up pass in two launches (csrc/cal_segments.cu
+    viba_schur_up_cal): a 128-thread group per rig row over its (rig, window
+    row) pairs, w J_p z[point] in registers, y_r and one window partial a
+    pair; then the window rows' sums of their partials."""
+    n, k, _ = _jac_args(J_r, J_p, w)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
     kc = J_c.shape[1]
     y_r, y_c = _empty((R, k), w), _empty((n_c, kc), w)
-    part = _empty((max(cplan.n_chunks, 1), kc), w)
-    du = torch.zeros((2, n), dtype=torch.float32, device=w.device)
+    part = _empty((max(cplan.n_pairs, 1), kc), w)
     ck = _kernels.check
-    _kernels.launch("viba_schur_up_cal", R, n, k, kc, n_c, cplan.n_chunks,
-                    ck(plan.rig_ptr, "rig_ptr", torch.int32),
-                    ck(plan.rig_obs, "rig_obs", torch.int32),
-                    ck(plan.point, "point", torch.int32, (n,)), *_cal_ptrs(cplan, n)[1:],
-                    *jargs, _jc_arg(J_c, n), ck(z, "z", torch.float32, (L, 3)),
-                    du.data_ptr(), part.data_ptr(), y_r.data_ptr(), y_c.data_ptr())
+    _kernels.launch("viba_schur_up_cal", R, n, k, kc, n_c,
+                    *_pair_ptrs(cplan, R, n_c, plan.pt_obs.shape[0]),
+                    ck(plan.point, "point", torch.int32, (n,)),
+                    ck(J_r, "J_r", torch.float32, (2, k, n)), _jc_arg(J_c, n),
+                    ck(J_p, "J_p", torch.float32, (2, 3, n)), ck(w, "w", torch.float32, (n,)),
+                    ck(z, "z", torch.float32, (L, 3)), part.data_ptr(), y_r.data_ptr(),
+                    y_c.data_ptr())
     return y_r, y_c
 
 
@@ -701,11 +729,7 @@ def _launch_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
                     ck(plan.point, "point", torch.int32, (n,)),
                     ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
                     ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
-                    ck(cplan.rig_pair, "rig_pair", torch.int32, (R + 1,)),
-                    ck(cplan.pair_ptr, "pair_ptr", torch.int32),
-                    ck(cplan.pair_obs, "pair_obs", torch.int32, (n_real,)),
-                    ck(cplan.pair_part, "pair_part", torch.int32, (cplan.n_pairs,)),
-                    ck(cplan.win_pair, "win_pair", torch.int32, (n_c + 1,)),
+                    *_pair_ptrs(cplan, R, n_c, n_real),
                     ck(J_r, "J_r", torch.float32, (2, k, n)), _jc_arg(J_c, n),
                     ck(J_p, "J_p", torch.float32, (2, 3, n)), ck(w, "w", torch.float32, (n,)),
                     ck(x_r, "x_r", torch.float32, (R, k)), ck(x_c, "x_c", torch.float32, (n_c, kc)),
@@ -856,12 +880,6 @@ def _rec_args(rec, J_r, J_p, w, plan, J_c=None, cplan=None):
             int(rec.rig_sorted))
 
 
-def _entry_arg(entry):
-    if entry not in COL_ENTRIES:
-        raise ValueError(f"entry: one of {COL_ENTRIES}, got {entry!r}")
-    return entry
-
-
 def _cols_arg(x, name, rows, k):
     C = x.shape[-1] if x.ndim == 3 else 0
     _kernels.check(x, name, torch.float32, (rows, k, C))
@@ -871,99 +889,63 @@ def _cols_arg(x, name, rows, k):
 
 
 @_kernels.register("schur_pcg_cols")
-def seg_schur_pcg_cols(J_r, J_p, w, x_table, hinv, plan: SegPlan, rec: PtRecords | None = None,
-                       entry="fused"):
+def seg_schur_pcg_cols(J_r, J_p, w, x_table, hinv, plan: SegPlan, rec: PtRecords | None = None):
     """K4 on C right-hand sides: y (R, k, C), column c the y of
     seg_schur_pcg on x_table[..., c]. On the card one entry of two launches
     (csrc/schur.cu viba_schur_pcg_cols) over the point-sorted records `rec`
     (point_sorted_records; made here when None): the landmark pass, then
-    the rig rows, each record read once a tile of 32 columns. entry="tiles"
-    runs the tiled design it replaced (K4's three passes once per tile of
-    COL_TILE columns), kept as its yardstick. The CPU path ignores both."""
+    the rig rows, each record read once a tile of 32 columns. The CPU path
+    ignores rec."""
     if not _kernels.on_card(w):
         return _schur_pcg_cols_plain(J_r, None, J_p, w, x_table, None, hinv, plan, None)[0]
-    n, k, jargs = _jac_args(J_r, J_p, w)
+    _, k, _ = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
     C, x_ptr = _cols_arg(x_table, "x_table", R, k)
-    n_real = plan.pt_obs.shape[0]
     ck = _kernels.check
     y = _empty((R, k, C), w)
-    if _entry_arg(entry) == "fused":
-        z = _empty((max(L, 1), 3, C), w)
-        rig_pos, rec_ptr, rig_sorted = _rec_args(rec, J_r, J_p, w, plan)
-        _kernels.launch("viba_schur_pcg_cols", R, L, k, C, rig_sorted,
-                        ck(plan.rig_ptr, "rig_ptr", torch.int32, (R + 1,)), rig_pos,
-                        ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)), rec_ptr, x_ptr,
-                        ck(hinv, "hinv", torch.float32, (L, 3, 3)), z.data_ptr(), y.data_ptr())
-    else:
-        p = _empty((max(n_real, 1), COL_TILE, 4), w)  # COL_TILE float4s a slot, point-sorted
-        z = _empty((max(L, 1), COL_TILE, 3), w)
-        _kernels.launch("viba_schur_pcg_cols_tiles", R, L, n, n_real, k, C,
-                        ck(plan.rig, "rig", torch.int32, (n,)),
-                        ck(plan.point, "point", torch.int32, (n,)),
-                        ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
-                        ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
-                        ck(plan.rig_ptr, "rig_ptr", torch.int32, (R + 1,)),
-                        ck(plan.rig_obs, "rig_obs", torch.int32, (n_real,)), *jargs, x_ptr,
-                        ck(hinv, "hinv", torch.float32, (L, 3, 3)), p.data_ptr(), z.data_ptr(),
-                        y.data_ptr())
+    z = _empty((max(L, 1), 3, C), w)
+    rig_pos, rec_ptr, rig_sorted = _rec_args(rec, J_r, J_p, w, plan)
+    _kernels.launch("viba_schur_pcg_cols", R, L, k, C, rig_sorted,
+                    ck(plan.rig_ptr, "rig_ptr", torch.int32, (R + 1,)), rig_pos,
+                    ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)), rec_ptr, x_ptr,
+                    ck(hinv, "hinv", torch.float32, (L, 3, 3)), z.data_ptr(), y.data_ptr())
     seg_schur_pcg_cols.launches += 1
     return y
 
 
 @_kernels.register("schur_pcg_cal_cols")
 def seg_schur_pcg_cal_cols(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cplan: CalPlan,
-                           rec: PtRecords | None = None, entry="fused"):
+                           rec: PtRecords | None = None):
     """K9 on C right-hand sides: (y_r (R, k, C), y_c (n_c, kc, C)), column c
     the result of seg_schur_pcg_cal on column c of x_r and x_c. On the card
     one entry of three launches (csrc/cal_segments.cu
     viba_schur_pcg_cal_cols) over the point-sorted records `rec`
     (point_sorted_records; made here when None): the landmark pass; the rig
     rows with one window partial per (rig, window row) pair; the window
-    rows' sums. entry="tiles" runs the tiled design it replaced, per tile
-    of COL_TILE columns, kept as its yardstick. The CPU path ignores both."""
+    rows' sums. The CPU path ignores rec."""
     if not _kernels.on_card(w):
         return _schur_pcg_cols_plain(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
-    n, k, _ = _jac_args(J_r, J_p, w)
+    _, k, _ = _jac_args(J_r, J_p, w)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
     kc = J_c.shape[1]
     C, xr_ptr = _cols_arg(x_r, "x_r", R, k)
     C_c, xc_ptr = _cols_arg(x_c, "x_c", n_c, kc)
     if C_c != C:
         raise ValueError(f"x_c: {C_c} columns, x_r {C}")
-    n_real, n_pairs = plan.pt_obs.shape[0], cplan.n_pairs
+    n_pairs = cplan.n_pairs
     ck = _kernels.check
     y_r, y_c = _empty((R, k, C), w), _empty((n_c, kc, C), w)
-    rig_pair = ck(cplan.rig_pair, "rig_pair", torch.int32, (R + 1,))
-    pair_ptr = ck(cplan.pair_ptr, "pair_ptr", torch.int32)
-    pair_part = ck(cplan.pair_part, "pair_part", torch.int32, (n_pairs,))
-    win_pair = ck(cplan.win_pair, "win_pair", torch.int32, (n_c + 1,))
-    if _entry_arg(entry) == "fused":
-        z = _empty((max(L, 1), 3, C), w)
-        part = _empty((max(n_pairs, 1), kc, C), w)
-        rig_pos, rec_ptr, rig_sorted = _rec_args(rec, J_r, J_p, w, plan, J_c, cplan)
-        _kernels.launch("viba_schur_pcg_cal_cols", R, L, k, kc, n_c, C, rig_sorted, rig_pair,
-                        pair_ptr, pair_part, win_pair, rig_pos,
-                        ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)), rec_ptr, xr_ptr,
-                        xc_ptr, ck(hinv, "hinv", torch.float32, (L, 3, 3)), z.data_ptr(),
-                        part.data_ptr(), y_r.data_ptr(), y_c.data_ptr())
-    else:
-        p = _empty((max(n_real, 1), COL_TILE, 4), w)
-        z = _empty((max(L, 1), COL_TILE, 3), w)
-        du = _empty((max(n, 1), COL_TILE, 2), w)
-        part = _empty((max(n_pairs, 1), kc, COL_TILE), w)
-        _kernels.launch("viba_schur_pcg_cal_cols_tiles", R, L, n, n_real, k, kc, n_c, n_pairs, C,
-                        ck(plan.rig, "rig", torch.int32, (n,)),
-                        ck(cplan.win, "win", torch.int32, (n,)),
-                        ck(plan.point, "point", torch.int32, (n,)),
-                        ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
-                        ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)), rig_pair, pair_ptr,
-                        ck(cplan.pair_obs, "pair_obs", torch.int32, (n_real,)), pair_part,
-                        win_pair, ck(J_r, "J_r", torch.float32, (2, k, n)), _jc_arg(J_c, n),
-                        ck(J_p, "J_p", torch.float32, (2, 3, n)), ck(w, "w", torch.float32, (n,)),
-                        xr_ptr, xc_ptr, ck(hinv, "hinv", torch.float32, (L, 3, 3)),
-                        p.data_ptr(), z.data_ptr(), du.data_ptr(), part.data_ptr(),
-                        y_r.data_ptr(), y_c.data_ptr())
+    z = _empty((max(L, 1), 3, C), w)
+    part = _empty((max(n_pairs, 1), kc, C), w)
+    rig_pos, rec_ptr, rig_sorted = _rec_args(rec, J_r, J_p, w, plan, J_c, cplan)
+    _kernels.launch("viba_schur_pcg_cal_cols", R, L, k, kc, n_c, C, rig_sorted,
+                    ck(cplan.rig_pair, "rig_pair", torch.int32, (R + 1,)),
+                    ck(cplan.pair_ptr, "pair_ptr", torch.int32),
+                    ck(cplan.pair_part, "pair_part", torch.int32, (n_pairs,)),
+                    ck(cplan.win_pair, "win_pair", torch.int32, (n_c + 1,)), rig_pos,
+                    ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)), rec_ptr, xr_ptr,
+                    xc_ptr, ck(hinv, "hinv", torch.float32, (L, 3, 3)), z.data_ptr(),
+                    part.data_ptr(), y_r.data_ptr(), y_c.data_ptr())
     seg_schur_pcg_cal_cols.launches += 1
     return y_r, y_c
 

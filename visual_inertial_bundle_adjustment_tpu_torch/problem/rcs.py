@@ -837,10 +837,9 @@ def w_transpose_x(rs: RcsSystem, v, x: Tangent):
             _, t_b = seg.seg_schur_down(b.J, b.J_pt, b.w, x.rig[:, :b.rig_k].contiguous(),
                                         b.plan, want_y=False)
         elif _cal_fast(b):
-            _, _, t_b, _ = seg.seg_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w,
-                                                  x.rig[:, :b.rig_k].contiguous(),
-                                                  _cal_table(b, x), b.plan, b.cplan,
-                                                  want_y=False)
+            _, _, t_b = seg.seg_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w,
+                                               x.rig[:, :b.rig_k].contiguous(),
+                                               _cal_table(b, x), b.plan, b.cplan, want_y=False)
         else:
             t_b = _pt_reduce(b, _vis_u(b, x) * b.w[None, :])
         t = t + t_b
@@ -907,8 +906,8 @@ def _matvec_factor_sums(rs: RcsSystem, v, x: Tangent) -> Tangent:
         if _rig_only_fast(b):
             y_b, t_b = seg.seg_schur_down(b.J, b.J_pt, b.w, x_r, b.plan)
         elif _cal_fast(b):
-            y_b, y_c, t_b, _ = seg.seg_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w, x_r,
-                                                      _cal_table(b, x), b.plan, b.cplan)
+            y_b, y_c, t_b = seg.seg_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w, x_r,
+                                                   _cal_table(b, x), b.plan, b.cplan)
             hx = _cal_scatter_back(b, hx, y_c)
         elif b.groups == (fct.RIG,):
             wu, y_b = seg.seg_mv_fused_table(b.J, b.w, x_r, b.rows[0])
