@@ -1,12 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's four main paths through the entry points a user calls:
+Drives the port's main paths through the entry points a user calls:
 
   bias-only    the 120 s headline (1,200 rigs, 20,000 landmarks, ~394k
                Fisheye624 observations, one inertial chain with IMU bias)
                through `pipeline.builder.build_synthetic_problem` and
                `problem.optimizer.optimize` (kernels K1-K6);
+  cap          bench.py's capacity configuration (build_capacity_problem's
+               settings, CAP_*): a 1,800 s recording at 10 Hz, 18,000 rigs,
+               60,000 landmarks, ~3.13M observations, 150 Hz IMU, 12 s
+               tracks, IMU bias estimated, built on the card in float32; it
+               must take the rig-only single-pass route (per-tile landmark
+               windows: prb2, nhg > 0), with K1-K6 at its shapes, and run 3
+               LM iterations at 40 PCG iterations (bench's timed
+               iterations); peak device memory over the build and, apart,
+               over consistency, phases and main;
+  cap:cov      run_capacity_covariance's counterpart on the state cap
+               reached: the gauge prior, prepare_system(lam=1e-6) on the
+               blocked engine, the middle rig's 12 tangent columns at 200
+               PCG iterations as one solve_columns call (columns/s, the
+               column K4), the 12 x 12 block symmetric positive definite;
+               over the dimensions the problem observes, its entries and
+               standard deviations within COV_CAP_BOUNDS of a float64 solve
+               through the plain versions (a float32 solve through them
+               read beside it);
+  pcg_switch   the same configuration at 12 Hz (21,600 rigs, ~3.76M
+               observations), past pick_solver's switch at 20,000 rigs:
+               pick_solver("auto") must pick Gauss-Seidel PCG, and 3 LM
+               iterations run under exactly the settings it returned
+               (single-pass route, K1-K6 at its shapes, consistency; peak
+               device memory over the build and, apart, over consistency
+               and main);
   full-sensor  a 600 s Aria-style session with two IMUs and a rolling-shutter
                camera, readout and time offset estimated (6,000 rigs, 120
                five-second calibration windows, ~60k landmarks, ~1.75M
@@ -91,11 +116,12 @@ Phases, one printed line each (per path):
                the plain version in float32; the kernel's device time and
                device operations per call (torch.profiler; no host copy may
                be among them); the least time the card could take (bound).
-               K1 with the Jacobian and residual-only at the bias, two_grid
-               and gs_cal shapes; K2 at bias and on K8's batches at full
-               and gs_cal, K6 with y and as the main path calls it (t
-               alone); K4 and K9 beside their two-pass floors; K13a on the
-               two-grid landmark rows against the walk on the same rows;
+               K1 with the Jacobian and residual-only at the bias, cap,
+               two_grid and gs_cal shapes; K2-K6 at bias and cap, K2 on
+               K8's batches at full and gs_cal, K6 with y and as the main
+               path calls it (t alone); K4 and K9 beside their two-pass
+               floors; K13a on the two-grid landmark rows against the
+               walk on the same rows;
                K13c on those rows (D 9, D 3) against the walk and
                index_add_, and on point refinement's tables (cli, D 13
                and D 1); a library call's device time read in turns with
@@ -119,9 +145,9 @@ Phases, one printed line each (per path):
   phases       where one LM attempt's time goes: host time of each phase
                (synchronized, median of 3), and the device's busy share over
                one attempt (torch.profiler)
-  main         5 LM iterations through optimize() with the launch counts set
-               to 0 just before; every kernel of the path must launch and the
-               cost must fall
+  main         5 LM iterations (cap and pcg_switch: 3) through optimize()
+               with the launch counts set to 0 just before; every kernel of
+               the path must launch and the cost must fall
 
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -146,16 +172,20 @@ JAXPKG = "visual_inertial_bundle_adjustment_tpu"
 # kernel wrapper name -> (K#, CUDA source, the TPU Pallas kernel it replaces, path)
 KERNELS = {
     "visual_linearize": ("K1", f"{PKG}/csrc/visual_linearize.cu",
-                         f"{JAXPKG}/ops/visual_fused.py:139", "bias+gs_cal+two_grid+cov+multi"),
+                         f"{JAXPKG}/ops/visual_fused.py:139",
+                         "bias+cap+pcg_switch+gs_cal+two_grid+cov+multi"),
     "assemble_rig": ("K2", f"{PKG}/csrc/assemble_rig.cu", f"{JAXPKG}/ops/segments.py:840",
-                     "bias+cov"),
+                     "bias+cap+pcg_switch+cov"),
     "precond_rig": ("K3", f"{PKG}/csrc/precond_rig.cu", f"{JAXPKG}/ops/segments.py:1861",
-                    "bias+full+gs_cal+cli+cov+multi"),
-    "schur_pcg": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347", "bias"),
+                    "bias+cap+pcg_switch+full+gs_cal+cli+cov+multi"),
+    "schur_pcg": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347",
+                  "bias+cap+pcg_switch"),
     "schur_pcg_cols": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347",
                        "cov"),
-    "schur_up": ("K5", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:725", "bias"),
-    "schur_down": ("K6", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:586", "bias"),
+    "schur_up": ("K5", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:725",
+                 "bias+cap+pcg_switch"),
+    "schur_down": ("K6", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:586",
+                   "bias+cap+pcg_switch"),
     "rs_linearize": ("K7", f"{PKG}/csrc/rs_linearize.cu", f"{JAXPKG}/ops/rs_fused.py:131",
                      "full+cli+cov+multi"),
     "assemble_cal": ("K8", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1674",
@@ -189,7 +219,8 @@ KERNELS = {
     "mv_scatter": ("K14e", f"{PKG}/csrc/tile_segments.cu", f"{JAXPKG}/ops/segments.py:249",
                    "profile"),
 }
-PATHS = ("bias", "full", "gs_cal", "two_grid", "profile", "cli", "cov", "multi")
+PATHS = ("bias", "cap", "pcg_switch", "full", "gs_cal", "two_grid", "profile", "cli", "cov",
+         "multi")
 # the golden sessions' flags: a copy of tools_dev/gen_golden_session.py's
 # CLI_ARGS / CLI_ARGS_FULL (which imports JAX; a CPU test holds them equal)
 CLI_ARGS = [
@@ -609,8 +640,8 @@ def phase_times(path, problem, settings):
 
 
 def run_main(path, problem, settings, kernels):
-    """5 LM iterations through optimize(), launch counts set to 0 just before
-    and read just after; returns the counts."""
+    """settings.max_iterations LM iterations through optimize(), launch
+    counts set to 0 just before and read just after; returns the counts."""
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
@@ -648,10 +679,10 @@ def run_main(path, problem, settings, kernels):
     return launches
 
 
-def lm_settings():
+def lm_settings(iterations=LM_ITERATIONS):
     from visual_inertial_bundle_adjustment_tpu_torch.problem.optimizer import LMSettings
 
-    return LMSettings(max_iterations=LM_ITERATIONS, direct_mode=False,
+    return LMSettings(max_iterations=iterations, direct_mode=False,
                       pcg_max_iterations=PCG_ITERATIONS, preconditioner="gauss_seidel")
 
 
@@ -664,11 +695,9 @@ def bias_only(dev, bench):
     import numpy as np
     import torch
 
-    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.builder import (
         BuildOptions, build_synthetic_problem)
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic import SyntheticSession
-    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
 
     t0 = time.time()
     s = SyntheticSession(duration=120.0, keyframe_hz=10.0, gyro_hz=800.0, accel_hz=800.0,
@@ -678,70 +707,14 @@ def bias_only(dev, bench):
                         estimate_imu_calib=True,
                         imu_calib_options=dict(accelBias=True, gyroBias=True)),
         device=dev, dtype=torch.float32)
-    ks = problem._build()
-    k_lin, k_assemble = ks[0], ks[6]
+    problem._build()
     vi = next(i for i, c in enumerate(problem.cfgs) if c.block_info is not None)
     info, vdata = problem.cfgs[vi].block_info, problem.datas[vi]
     n_real = int((vdata["_pad"] < 0.5).sum())
     phase("bias:problem", f"R={s.num_rigs} L={len(s.points_w)} N={n_real} (padded "
           f"{info.nt * info.ts}) nt={info.nt} ts={info.ts} rb={info.rb} prb2={info.prb2} "
           f"nhg={info.nhg} built in {time.time() - t0:.1f} s")
-
-    v, masks, datas = problem.variables, problem.masks, tuple(problem.datas)
-    cfg = problem.active_cfgs[vi]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    N = info.nt * info.ts
-    k1_rows(bench, "", cfg, vdata, v, masks, N)
-
-    lg = k_lin(datas, v, masks, None)
-    asm = k_assemble(datas, lg, v, masks)
-    (b, lin), = rcs._vis_batches(problem.active_cfgs, datas, lg)
-    rs = rcs.with_damping(asm, v, masks, 1e-4)
-    k = b.rig_k
-    x = torch.randn((s.num_rigs, k), generator=gen, device=dev)
-    zl = torch.randn((len(s.points_w), 3), generator=gen, device=dev)
-    plan = walk_plan(b.plan)
-    assemble_rig_rows(bench, "assemble_rig", b, lin, n_real)
-    bench.compare("precond_rig", seg.seg_precond_rig, (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan),
-                  [("blocks", TOL_SEG)], [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan,
-                  (30 * k + 5 * k * (k + 1)) * n_real)
-    # K6 with y (the multi-batch matvec) and as the main path calls it
-    # (rcs.w_transpose_x: t = W^T x alone)
-    for name, want_y, index6, flops6 in (
-            ("schur_down", True, [b.plan.rig_ptr, b.plan.rig_obs], 8 * k + 17),
-            ("schur_down(want_y=False)", False, [b.plan.rig], 4 * k + 17)):
-        args6 = (b.J, b.J_pt, b.w, x, b.plan, want_y)
-        tols6 = [("y", TOL_SEG)] * want_y + [("t", TOL_SEG)]
-        row6 = bench.compare(name, seg.seg_schur_down, args6, tols6,
-                             [b.J, b.J_pt, b.w, x, b.plan.pt_pos, b.plan.pt_ptr] + index6,
-                             flops6 * n_real)
-        if row6["device_ops"] > 2:
-            raise AssertionError(f"{name}: {row6['device_ops']} device operations per call")
-    # K5 walks the rig lists: it reads J_r, J_p and w of the real slots,
-    # their landmark index, z, and writes y. Called once a solve, after the
-    # preconditioner: its 30 MB would sit in the L2 across repeated calls
-    real = n_real / b.J.shape[-1]
-    args5 = (b.J, b.J_pt, b.w, zl, b.plan)
-    row5 = bench.compare("schur_up", seg.seg_schur_up, args5, [("y", TOL_SEG)],
-                         [(b.J, real), (b.J_pt, real), (b.w, real), (b.plan.point, real), zl,
-                          b.plan.rig_ptr, b.plan.rig_obs], (4 * k + 14) * n_real, flush=True)
-    check_repeat_and_ops("schur_up", row5, seg.seg_schur_up, args5, 1)
-    args4 = (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan)
-    index4 = [b.plan.rig, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, b.plan.rig_ptr,
-              b.plan.rig_obs]
-    row4 = bench.compare("schur_pcg", seg.seg_schur_pcg, args4, [("y", TOL_SEG)],
-                         [b.J, b.J_pt, b.w, x, rs.H_ll_inv] + index4, (8 * k + 30) * n_real)
-
-    # the least bytes with the landmark solve between two passes: J_r, J_p
-    # and w read twice, p (16 B a slot) written and read once, each index
-    # array, x and hinv read once, z and y written once
-    floor4 = (2 * nbytes([b.J, b.J_pt, b.w]) + 2 * 16 * n_real
-              + nbytes(index4, x, rs.H_ll_inv) + 4 * (3 * len(s.points_w) + s.num_rigs * k))
-    row4.update(two_pass_floor_ms=floor4 / HBM_BYTES_PER_S * 1e3)
-    phase("kernels", f"schur_pcg: two-pass floor {row4['two_pass_floor_ms']:.4f} ms")
-    if row4["device_ops"] > 3:
-        raise AssertionError(f"schur_pcg: {row4['device_ops']} device operations per call")
-    del lg, asm, rs, lin, b
+    rig_kernel_rows(bench, problem, dev, "")
 
     # One LM iteration from the initial state, through the kernels and
     # through the plain versions (before the main path: after a few
@@ -762,6 +735,357 @@ def bias_only(dev, bench):
     cov_launches = cov_path("bias", problem, dev, bench, rigs, rows, rigs[::16], rows[:2],
                             COV_CHUNK)
     return launches, cov_launches
+
+
+def rig_kernel_rows(bench, problem, dev, tag):
+    """K1-K6 against their float64 plain versions at the shapes of a blocked
+    problem whose visual batch takes the rig-only single-pass route: K1
+    with the Jacobian and residual-only, K2, K3, K6 with y and as the main
+    path calls it (t alone), K5 with the L2 flushed, K4 beside its two-pass
+    floor; K4 <= 3, K6 <= 2 and K5 = 1 device operations a call, K5
+    repeating bit for bit. Rows `<kernel>` (tag "") or `<kernel>(<tag>)`."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+
+    def named(kernel, mode=""):
+        inner = ",".join(t for t in (tag, mode) if t)
+        return kernel + (f"({inner})" if inner else "")
+
+    ks = problem._build()
+    vi = next(i for i, c in enumerate(problem.cfgs) if c.block_info is not None)
+    info, vdata = problem.cfgs[vi].block_info, problem.datas[vi]
+    v, masks, datas = problem.variables, problem.masks, tuple(problem.datas)
+    R, L = v.pose_q.shape[0], v.points.shape[0]
+    n_real = int((vdata["_pad"] < 0.5).sum())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k1_rows(bench, tag, problem.active_cfgs[vi], vdata, v, masks, info.nt * info.ts)
+
+    lg = ks[0](datas, v, masks, None)
+    asm = ks[6](datas, lg, v, masks)
+    (b, lin), = rcs._vis_batches(problem.active_cfgs, datas, lg)
+    rs = rcs.with_damping(asm, v, masks, 1e-4)
+    k = b.rig_k
+    x = torch.randn((R, k), generator=gen, device=dev)
+    zl = torch.randn((L, 3), generator=gen, device=dev)
+    plan = walk_plan(b.plan)
+    assemble_rig_rows(bench, named("assemble_rig"), b, lin, n_real)
+    bench.compare(named("precond_rig"), seg.seg_precond_rig,
+                  (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan), [("blocks", TOL_SEG)],
+                  [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan, (30 * k + 5 * k * (k + 1)) * n_real)
+    # K6 with y (the multi-batch matvec) and as the main path calls it
+    # (rcs.w_transpose_x: t = W^T x alone)
+    for name, want_y, index6, flops6 in (
+            (named("schur_down"), True, [b.plan.rig_ptr, b.plan.rig_obs], 8 * k + 17),
+            (named("schur_down", "want_y=False"), False, [b.plan.rig], 4 * k + 17)):
+        args6 = (b.J, b.J_pt, b.w, x, b.plan, want_y)
+        tols6 = [("y", TOL_SEG)] * want_y + [("t", TOL_SEG)]
+        row6 = bench.compare(name, seg.seg_schur_down, args6, tols6,
+                             [b.J, b.J_pt, b.w, x, b.plan.pt_pos, b.plan.pt_ptr] + index6,
+                             flops6 * n_real)
+        if row6["device_ops"] > 2:
+            raise AssertionError(f"{name}: {row6['device_ops']} device operations per call")
+    # K5 walks the rig lists: it reads J_r, J_p and w of the real slots,
+    # their landmark index, z, and writes y. Called once a solve, after the
+    # preconditioner: its inputs would sit in the L2 across repeated calls
+    # at the bias shapes (30 MB)
+    real = n_real / b.J.shape[-1]
+    args5 = (b.J, b.J_pt, b.w, zl, b.plan)
+    row5 = bench.compare(named("schur_up"), seg.seg_schur_up, args5, [("y", TOL_SEG)],
+                         [(b.J, real), (b.J_pt, real), (b.w, real), (b.plan.point, real), zl,
+                          b.plan.rig_ptr, b.plan.rig_obs], (4 * k + 14) * n_real, flush=True)
+    check_repeat_and_ops(named("schur_up"), row5, seg.seg_schur_up, args5, 1)
+    args4 = (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan)
+    index4 = [b.plan.rig, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, b.plan.rig_ptr,
+              b.plan.rig_obs]
+    name4 = named("schur_pcg")
+    row4 = bench.compare(name4, seg.seg_schur_pcg, args4, [("y", TOL_SEG)],
+                         [b.J, b.J_pt, b.w, x, rs.H_ll_inv] + index4, (8 * k + 30) * n_real)
+
+    # the least bytes with the landmark solve between two passes: J_r, J_p
+    # and w read twice, p (16 B a slot) written and read once, each index
+    # array, x and hinv read once, z and y written once
+    floor4 = (2 * nbytes([b.J, b.J_pt, b.w]) + 2 * 16 * n_real
+              + nbytes(index4, x, rs.H_ll_inv) + 4 * (3 * L + R * k))
+    row4.update(two_pass_floor_ms=floor4 / HBM_BYTES_PER_S * 1e3)
+    phase("kernels", f"{name4}: two-pass floor {row4['two_pass_floor_ms']:.4f} ms")
+    if row4["device_ops"] > 3:
+        raise AssertionError(f"{name4}: {row4['device_ops']} device operations per call")
+    del lg, asm, rs, lin, b
+
+
+# ---------------------------------------------------------------------------
+# capacity and PCG-switch paths: 30-minute recordings on K1-K6
+# ---------------------------------------------------------------------------
+
+# bench.py's capacity configuration (build_capacity_problem, a CPU test
+# holds these equal to bench.py's): 30 minutes at 10 Hz (18,000 rigs), and
+# at 12 Hz (21,600 rigs), past pick_solver's switch at 20,000 rigs
+CAP_DURATION = 1800.0
+CAP_KEYFRAME_HZ = 10.0
+CAP_POINTS = 60000
+CAP_TIMED_ITERS = 3
+PCGSW_DURATION = 1800.0
+PCGSW_KEYFRAME_HZ = 12.0
+PCGSW_POINTS = 60000
+CAP_SESSION = {"gyro_hz": 150.0, "accel_hz": 150.0, "seed": 31, "pixel_noise": 0.3,
+               "track_lifetime_sec": 12.0}
+CAP_BUILD = {"init_pose_noise": 0.005, "init_point_noise": 0.03, "init_vel_noise": 0.03,
+             "estimate_imu_calib": True,
+             "imu_calib_options": {"accelBias": True, "gyroBias": True}}
+# run_capacity_covariance's system and columns (bench.py): one rig's 12
+# tangent columns on the damped blocked system
+CAP_COV_LAM = 1e-6
+CAP_COV_PCG_ITERATIONS = 200
+CAP_COV_PCG_TOL = 1e-8
+# the middle rig's dimensions the problem observes: all but the 3 of omega,
+# which no factor of this configuration reaches (variance 1/lam)
+CAP_COV_OBSERVED = 9
+# cap:cov's float32 block against the float64 solve over those dimensions:
+# each entry's error relative to sqrt(var_i var_j), and |std / std64 - 1|;
+# ~10x the first measurement on an H100 (9.3e-5, 2.2e-5), which a float32
+# solve through the plain versions gives as well (9.3e-5, 3.1e-5): the
+# error is float32's at 200 PCG iterations, not the kernels'
+COV_CAP_BOUNDS = {"corr": 1e-3, "std": 2e-4}
+
+
+def capacity_problem(path, dev, duration, keyframe_hz, points):
+    """build_capacity_problem's session on the card in float32, blocked:
+    prints the path's problem line (shapes, seconds per stage) and fails
+    unless R is duration x keyframe_hz and the visual batch has its
+    per-tile landmark windows (prb2, nhg > 0: finalize_blocks kept it off
+    the general two-grid path) and takes the rig-only single-pass route.
+    Returns the problem."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.builder import (
+        BuildOptions, build_synthetic_problem)
+    from visual_inertial_bundle_adjustment_tpu_torch.pipeline.synthetic import SyntheticSession
+
+    times = {}
+    t0 = time.time()
+    s = SyntheticSession(duration=duration, keyframe_hz=keyframe_hz, num_points=points,
+                         **CAP_SESSION)
+    s.observations()
+    times["generator"] = time.time() - t0
+    t0 = time.time()
+    problem = build_synthetic_problem(s, BuildOptions(**CAP_BUILD), device=dev,
+                                      dtype=torch.float32)
+    torch.cuda.synchronize()
+    times["build"] = time.time() - t0
+    t0 = time.time()
+    problem._build()
+    torch.cuda.synchronize()
+    times["_build"] = time.time() - t0
+    vi = next(i for i, c in enumerate(problem.cfgs) if c.block_info is not None)
+    info, vdata = problem.cfgs[vi].block_info, problem.datas[vi]
+    R, L = problem.variables.pose_q.shape[0], problem.variables.points.shape[0]
+    phase(f"{path}:problem", f"R={R} L={L} N={int((vdata['_pad'] < 0.5).sum())} (padded "
+          f"{info.nt * info.ts}) nt={info.nt} ts={info.ts} rb={info.rb} prb2={info.prb2} "
+          f"nhg={info.nhg} intervals={s.num_rigs - 1} | "
+          + ", ".join(f"{k} {t:.1f} s" for k, t in times.items()))
+    if R != int(duration * keyframe_hz):
+        raise AssertionError(f"{path}: {R} rigs, not {int(duration * keyframe_hz)}")
+    if not (info.prb2 > 0 and info.nhg > 0):
+        raise AssertionError(f"{path}: prb2 {info.prb2}, nhg {info.nhg}: finalize_blocks sent "
+                             "the visual batch to the general two-grid path")
+    check_route(path, problem)
+    return problem
+
+
+def check_route(path, problem):
+    """Fails unless the blocked visual batch takes the rig-only single-pass
+    route (K4-K6) at the current state."""
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+
+    ks = problem._build()
+    datas, v, masks = tuple(problem.datas), problem.variables, problem.masks
+    lg = ks[0](datas, v, masks, None)
+    (b, _), = rcs._vis_batches(problem.active_cfgs, datas, lg)
+    route = route_of(b)
+    phase(f"{path}:problem", f"route {route} (rig_k {b.rig_k})")
+    if route != "rig-only single-pass":
+        raise AssertionError(f"{path}: the visual batch takes the {route} route")
+
+
+def peak_memory(path, what):
+    """Prints the peak device memory since the last reset of the peak
+    statistics (allocated and reserved); returns both in GiB."""
+    import torch
+
+    alloc, res = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    phase(f"{path}:memory", f"peak device memory {alloc / 2**30:.2f} GiB allocated, "
+          f"{res / 2**30:.2f} GiB reserved, over {what}")
+    return dict(peak_allocated_gib=alloc / 2**30, peak_reserved_gib=res / 2**30)
+
+
+def capacity(dev, bench):
+    """The capacity path (bench.py's build_capacity_problem: 18,000 rigs,
+    ~3.13M observations): the problem, K1-K6 at its shapes, consistency,
+    phases, CAP_TIMED_ITERS LM iterations through optimize(); peak device
+    memory over the build and, apart, over the LM work (the kernel rows'
+    float64 plain references lie between the two readings); then cap:cov
+    on the state the LM run reached. Returns (main's launch counts,
+    cap:cov's)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    problem = capacity_problem("cap", dev, CAP_DURATION, CAP_KEYFRAME_HZ, CAP_POINTS)
+    build = peak_memory("cap", "the build")
+    rig_kernel_rows(bench, problem, dev, "cap")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # pick_solver("auto") would take direct mode here (18,000 < 20,000
+    # rigs: 500 PCG iterations an attempt, problem/optimizer.py); the JAX
+    # bench times this configuration at 40 (bench.timed_iterations), and so
+    # does this path
+    settings = lm_settings(CAP_TIMED_ITERS)
+    consistency("cap", problem, settings, TOL_ITER)
+    phase_times("cap", problem, settings)
+    launches = run_main("cap", problem, settings, path_kernels("cap"))
+    bench.results["cap"] = dict(build=build,
+                                lm=peak_memory("cap", "consistency, phases and main"))
+    cov_launches = capacity_covariance(problem, bench)
+    return launches, cov_launches
+
+
+def capacity_covariance(problem, bench):
+    """cap:cov, run_capacity_covariance's counterpart (bench.py) on the
+    state main reached: the gauge prior, prepare_system(lam=1e-6) on the
+    blocked engine, the 12 tangent columns of the middle rig at 200 PCG
+    iterations (warmed up on one column, then the 12 as one solve_columns
+    call, synchronized): columns/s beside prepare_system's seconds; the
+    12 x 12 block symmetric positive definite; over the dimensions the
+    problem observes, its entries and standard deviations within
+    COV_CAP_BOUNDS of the same columns solved in float64 through the plain
+    versions (problem_f64), with a float32 solve through them read beside
+    it. The column K4 must launch. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import covariance as cov
+
+    tag = "cap:cov"
+    torch.cuda.empty_cache()
+    R = problem.variables.pose_q.shape[0]
+    entries = [("rig", R // 2, d) for d in range(12)]
+    kw = dict(pcg_iters=CAP_COV_PCG_ITERATIONS, pcg_tol=CAP_COV_PCG_TOL)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with cov.with_gauge_prior(problem):
+        t0 = time.time()
+        system = cov.prepare_system(problem, lam=CAP_COV_LAM)
+        torch.cuda.synchronize()
+        t_prep = time.time() - t0
+        if not cov.system_is_blocked(system):
+            raise AssertionError(f"{tag}: prepare_system did not take the blocked engine")
+        cov.solve_columns(problem, entries[:1], system=system, **kw)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cols = cov.solve_columns(problem, entries, system=system, **kw)
+        torch.cuda.synchronize()
+        t_cols = time.time() - t0
+        del system
+    launches = _kernels.launch_counts()
+    block = cov._extract_cov(cols, entries)
+    phase(tag, f"rig {R // 2}: 12 columns in {t_cols:.3f} s, {12 / t_cols:.2f} columns/s "
+          f"({CAP_COV_PCG_ITERATIONS} PCG iterations, tol {CAP_COV_PCG_TOL:g}); prepare_system "
+          f"{t_prep:.2f} s | launches { {k: n for k, n in launches.items() if n} }")
+    if not launches.get("schur_pcg_cols", 0):
+        raise AssertionError(f"{tag}: the column K4 did not launch")
+    cov_blocks_check(tag, {("rig", R // 2): block})
+    ev = np.linalg.eigvalsh(block)
+    phase(tag, f"the 12 x 12 block is finite, symmetric and positive definite: eigenvalues "
+          f"{ev.min():.3e} to {ev.max():.3e}")
+    del cols
+    torch.cuda.empty_cache()
+
+    def plain_block(p):
+        t0 = time.time()
+        with _kernels.plain_reference(), cov.with_gauge_prior(p):
+            c = cov.solve_columns(p, entries, system=cov.prepare_system(p, lam=CAP_COV_LAM), **kw)
+        torch.cuda.synchronize()
+        return cov._extract_cov(c, entries), time.time() - t0
+
+    block64, t64 = plain_block(problem_f64(problem))
+    torch.cuda.empty_cache()
+    # the same solve in float32 through the plain versions: what float32
+    # alone gives at 200 PCG iterations, beside the kernels' error
+    block32, t32 = plain_block(problem)
+    torch.cuda.empty_cache()
+    phase(tag, f"plain references: float64 in {t64:.1f} s, float32 in {t32:.1f} s")
+    n_obs, corr, ratio = observed_errors(block, block64, CAP_COV_LAM)
+    _, corr32, ratio32 = observed_errors(block32, block64, CAP_COV_LAM)
+    phase(tag, f"float32 vs float64 over the {n_obs} observed dimensions of 12 (variance < "
+          f"1/(2 lam)): entries {corr:.3e} of {COV_CAP_BOUNDS['corr']:g} (relative to "
+          f"sqrt(var_i var_j)), std ratio {ratio:.3e} of {COV_CAP_BOUNDS['std']:g}; float32 "
+          f"through the plain versions {corr32:.3e} / {ratio32:.3e}")
+    if n_obs != CAP_COV_OBSERVED:
+        raise AssertionError(f"{tag}: {n_obs} observed dimensions, not {CAP_COV_OBSERVED}")
+    if not (corr <= COV_CAP_BOUNDS["corr"] and ratio <= COV_CAP_BOUNDS["std"]):
+        raise AssertionError(f"{tag}: the block is off the float64 run beyond its bounds: "
+                             f"entries {corr:.3e}, std ratio {ratio:.3e}")
+    bench.results.setdefault("cov", {})["cap"] = dict(
+        columns=12, seconds=t_cols, columns_per_s=12 / t_cols, prepare_seconds=t_prep,
+        observed_dims=n_obs, worst_entry_error=corr, worst_std_ratio=ratio,
+        plain32_entry_error=corr32, plain32_std_ratio=ratio32)
+    return launches
+
+
+def observed_errors(got, want, lam):
+    """A covariance block against its float64 counterpart over the
+    dimensions the problem observes: those whose float64 variance is below
+    1 / (2 lam) (a dimension no factor reaches has variance 1/lam, which
+    would set the scale of an error relative to the block's largest
+    entry). Returns their count, the worst entry error relative to
+    sqrt(W_ii W_jj) and the worst |std / std64 - 1|."""
+    import numpy as np
+
+    obs = np.diag(want) < 0.5 / lam
+    G, W = got[np.ix_(obs, obs)], want[np.ix_(obs, obs)]
+    sd = np.sqrt(np.diag(W))
+    corr = float((np.abs(G - W) / np.outer(sd, sd)).max()) if obs.any() else 0.0
+    ratio = float(np.abs(np.sqrt(np.diag(G)) / sd - 1.0).max()) if obs.any() else 0.0
+    return int(obs.sum()), corr, ratio
+
+
+def pcg_switch(dev, bench):
+    """The PCG-switch path: pick_solver("auto") at 21,600 rigs must pick
+    Gauss-Seidel PCG (bench.run_pcg_switch's check), then the capacity
+    configuration at 12 Hz: R 21,600, the single-pass route, K1-K6 at its
+    shapes (the port's largest N), consistency, CAP_TIMED_ITERS LM
+    iterations through optimize() under exactly the settings pick_solver
+    returned; peak device memory over the build and, apart, over
+    consistency and main. Returns the launch counts."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.optimizer import (LMSettings,
+                                                                               pick_solver)
+
+    n_rigs = int(PCGSW_DURATION * PCGSW_KEYFRAME_HZ)
+    settings = pick_solver(LMSettings(max_iterations=CAP_TIMED_ITERS), n_rigs, "auto")
+    phase("pcg_switch:solver", f"pick_solver(auto) at {n_rigs} rigs: direct_mode "
+          f"{settings.direct_mode}, preconditioner {settings.preconditioner}, "
+          f"pcg_max_iterations {settings.pcg_max_iterations}")
+    if settings.direct_mode or settings.preconditioner != "gauss_seidel":
+        raise AssertionError(f"pcg_switch: pick_solver(auto) at {n_rigs} rigs gave direct_mode "
+                             f"{settings.direct_mode}, preconditioner {settings.preconditioner}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    problem = capacity_problem("pcg_switch", dev, PCGSW_DURATION, PCGSW_KEYFRAME_HZ,
+                               PCGSW_POINTS)
+    build = peak_memory("pcg_switch", "the build")
+    rig_kernel_rows(bench, problem, dev, "pcg_switch")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    consistency("pcg_switch", problem, settings, TOL_ITER)
+    launches = run_main("pcg_switch", problem, settings, path_kernels("pcg_switch"))
+    bench.results["pcg_switch"] = dict(build=build,
+                                       lm=peak_memory("pcg_switch", "consistency and main"))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1236,9 +1560,8 @@ def multi_session(dev, bench, session, full_dir, gs_dir):
     consistency("multi", problem, settings, TOL_ITER)
     phase_times("multi", problem, settings)
     launches = run_main("multi", problem, settings, path_kernels("multi"))
-    phase("multi:memory", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved, over "
-          "the phase (builds, merge, blocking, kernel checks, consistency, phases, main)")
+    peak_memory("multi", "the phase (builds, merge, blocking, kernel checks, consistency, "
+                "phases, main)")
     return launches
 
 
@@ -1718,12 +2041,21 @@ def cov_blocks_check(tag, blocks):
             raise AssertionError(f"{tag}: block {key} eigenvalues down to {ev.min():.3e}")
 
 
-def cov_compare(tag, got, want, bounds):
+def cov_compare(tag, got, want, bounds, lam=None):
     """The worst block error (relative to the block's largest entry) and the
     worst standard-deviation ratio |std / std64 - 1| of blocks against
     their float64 counterparts; each kind of block ("rig", "cal": the keys'
-    first entries) within its bound."""
+    first entries) within its bound. With the system's damping `lam`,
+    also prints each block's errors over the dimensions the problem
+    observes (observed_errors), not bounded: a dimension no factor reaches
+    sits at 1/lam and sets the largest entry."""
     import numpy as np
+
+    if lam is not None:
+        phase(tag, f"over the observed dimensions (variance < 1/(2 lam), lam {lam:g}; not "
+              "bounded): dimensions, entry error relative to sqrt(var_i var_j), std ratio: "
+              + ", ".join("{} {} {}, {:.2e}, {:.2e}".format(*key, *observed_errors(
+                  got[key], W, lam)) for key, W in want.items() if W.size))
 
     errs, ratios, keys = [], [], [key for key, W in want.items() if W.size]
     for key in keys:
@@ -1869,7 +2201,7 @@ def cov_path(path, problem, dev, bench, rigs, cal_rows, ref_rigs, ref_rows, turn
     want.update({("cal", r): ref_cal[r][0] for r in ref_rows})
     got = {("rig", r): blocks[r] for r in ref_rigs}
     got.update({("cal", r): cal[r][0] for r in ref_rows})
-    worst, ratio = cov_compare(tag, got, want, COV_BOUNDS[path])
+    worst, ratio = cov_compare(tag, got, want, COV_BOUNDS[path], lam=1e-9)
     bench.results.setdefault("cov", {})[path] = dict(
         rig_seconds=t_rig, rig_columns=12 * len(rigs), cal_seconds=t_cal, cal_columns=cal_dims,
         worst_block_error=worst, worst_std_ratio=ratio, turn_columns_per_s=rate,
@@ -2198,6 +2530,10 @@ def main():
     launches = {}
     launches["bias"], cov_bias = bias_only(dev, bench)
     torch.cuda.empty_cache()
+    launches["cap"], cov_cap = capacity(dev, bench)
+    torch.cuda.empty_cache()
+    launches["pcg_switch"] = pcg_switch(dev, bench)
+    torch.cuda.empty_cache()
     launches.update(two_grid(dev, bench))
     torch.cuda.empty_cache()
     session, session_sec = session_600()
@@ -2205,9 +2541,9 @@ def main():
             tempfile.TemporaryDirectory() as tools_dir:
         times = {"session": session_sec, "write": write_600(session, full_dir, 0.03)}
         launches["full"], cov_full = full_sensor(dev, bench, full_dir, times)
-        # the cov path: its two runs' counts (each set to 0 just before it)
-        launches["cov"] = {k: cov_bias.get(k, 0) + cov_full.get(k, 0)
-                           for k in set(cov_bias) | set(cov_full)}
+        # the cov path: its three runs' counts (each set to 0 just before it)
+        runs = (cov_bias, cov_cap, cov_full)
+        launches["cov"] = {k: sum(r.get(k, 0) for r in runs) for k in set().union(*runs)}
         torch.cuda.empty_cache()
         launches["gs_cal"] = gs_cal(dev, bench, session, session_sec, gs_dir)
         torch.cuda.empty_cache()

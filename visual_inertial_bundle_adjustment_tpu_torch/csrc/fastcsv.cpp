@@ -1,5 +1,6 @@
-// Fast CSV parsers for the session input files (C++ runtime component),
-// built with g++ by pipeline/native.py (the JAX package's native/fastcsv.cpp).
+// Fast CSV parsers for the session input files and any numeric CSV (C++
+// runtime component), built with g++ by pipeline/native.py (the JAX
+// package's native/fastcsv.cpp).
 //
 // Counterpart of the reference's use of fast-cpp-csv-parser for IMU sample
 // files (lib/motion/imu_types/ImuDataReader.cpp) and the point-observation
@@ -87,6 +88,12 @@ struct Row {
   bool end() {
     while (p < nl && (*p == ' ' || *p == '\t' || *p == '\r')) ++p;
     return ok && p == nl;
+  }
+  // after the last field read: the row ends, or its next field begins
+  // (a row's fields past those read are not read)
+  bool end_or_more() {
+    while (p < nl && (*p == ' ' || *p == '\t' || *p == '\r')) ++p;
+    return ok && (p == nl || *p == ',');
   }
 };
 
@@ -180,6 +187,35 @@ int obs_csv_parse(const char* path, long n, long long* point_id,
       sqrt_h[i * 4 + 2] = r.dbl();
       sqrt_h[i * 4 + 3] = r.dbl();
       if (!r.end()) return -2;
+      ++i;
+    }
+    p = nl + 1;
+  }
+  return i == n ? 0 : -2;
+}
+
+// Any numeric CSV: the first n_cols fields of each data row, row-major.
+// Each of those must hold a number (a row with fewer fields, or a text
+// field among them, is malformed); the fields after them are not read.
+long num_csv_count(const char* path) {
+  FileBuf fb(path);
+  return count_data_lines(fb);
+}
+
+int num_csv_parse(const char* path, long n, int n_cols, double* out) {
+  FileBuf fb(path);
+  if (!fb.ok) return -1;
+  const char* p = fb.data.data();
+  const char* end = p + fb.data.size();
+  p = line_end(p, end);
+  if (p < end) ++p;
+  long i = 0;
+  while (p < end && i < n) {
+    const char* nl = line_end(p, end);
+    if (nl > p && *p != '#') {
+      Row r{p, nl};
+      for (int c = 0; c < n_cols; ++c) out[i * n_cols + c] = r.dbl();
+      if (!r.end_or_more()) return -2;
       ++i;
     }
     p = nl + 1;

@@ -80,6 +80,13 @@ def options_mask(
     return m
 
 
+def all_test_option_masks() -> np.ndarray:
+    """All 256 option combinations (reference ImuCalibrationOptions.h:72-82)."""
+    return np.stack([options_mask(**{name: bool((bits >> i) & 1)
+                                     for i, name in enumerate(OPTION_NAMES)})
+                     for bits in range(256)])
+
+
 def identity_calib(dtype=torch.float64, device=None):
     c = torch.zeros(CALIB_DIM, dtype=dtype, device=device)
     c[GYRO_SCALE] = 1.0

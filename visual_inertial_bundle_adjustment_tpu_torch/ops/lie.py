@@ -149,6 +149,35 @@ def quat_to_matrix(q):
     )
 
 
+def matrix_to_quat(m):
+    """(..., 3, 3) -> (..., 4) wxyz. Branch-free Shepperd-style construction:
+    of the four candidates, the one with the largest pivot."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                      1.0 - m00 - m11 + m22], -1)
+    qw = torch.sqrt(torch.clamp(qw, min=1e-30)) * 0.5
+    w0, x1, y2, z3 = qw.unbind(-1)
+    cand = torch.stack(
+        [
+            torch.stack([w0, (m21 - m12) / (4 * w0), (m02 - m20) / (4 * w0),
+                         (m10 - m01) / (4 * w0)], -1),
+            torch.stack([(m21 - m12) / (4 * x1), x1, (m01 + m10) / (4 * x1),
+                         (m02 + m20) / (4 * x1)], -1),
+            torch.stack([(m02 - m20) / (4 * y2), (m01 + m10) / (4 * y2), y2,
+                         (m12 + m21) / (4 * y2)], -1),
+            torch.stack([(m10 - m01) / (4 * z3), (m02 + m20) / (4 * z3),
+                         (m12 + m21) / (4 * z3), z3], -1),
+        ],
+        dim=-2,
+    )  # (..., 4 candidates, 4)
+    best = torch.argmax(qw, dim=-1)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    return quat_normalize(torch.gather(cand, -2, idx)[..., 0, :])
+
+
 def _eye_like(W):
     return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
 
@@ -184,6 +213,11 @@ def so3_left_jacobian_inverse(w):
 # ---------------------------------------------------------------------------
 # SE(3): pairs (q, t); tangent order [translation(3), rotation(3)]
 # ---------------------------------------------------------------------------
+
+
+def se3_identity(batch_shape=(), dtype=torch.float64, device=None):
+    return (quat_identity(batch_shape, dtype, device),
+            torch.zeros(tuple(batch_shape) + (3,), dtype=dtype, device=device))
 
 
 def se3_mul(a, b):
@@ -231,6 +265,55 @@ def se3_boxplus(T, xi):
 def se3_boxminus(a, b):
     """log(a * b^-1) (reference Variable.h:115)."""
     return se3_log(se3_mul(a, se3_inverse(b)))
+
+
+def se3_adj(T):
+    """Adjoint (..., 6, 6) for tangent order [v, w]: [[R, hat(t)R], [0, R]]."""
+    q, t = T
+    R = quat_to_matrix(q)
+    top = torch.cat([R, so3_hat(t) @ R], dim=-1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _se3_Q(v, w):
+    """Barfoot's Q(v, w) block of the SE(3) left Jacobian (tangent [v, w])."""
+    theta2 = (w * w).sum(-1)
+    small = theta2 < _SMALL * _SMALL
+    t2s = torch.where(small, torch.ones_like(theta2), theta2)
+    ts = torch.sqrt(t2s)
+    th4 = t2s * t2s
+    s, c = torch.sin(ts), torch.cos(ts)
+    c1 = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (ts - s) / (t2s * ts))
+    c2 = torch.where(small, 1.0 / 24.0 - theta2 / 720.0, (t2s + 2.0 * c - 2.0) / (2.0 * th4))
+    c3 = torch.where(small, 1.0 / 120.0 - theta2 / 2520.0,
+                     (2.0 * ts - 3.0 * s + ts * c) / (2.0 * th4 * ts))
+    V, W = so3_hat(v), so3_hat(w)
+    WV, VW = W @ V, V @ W
+    WVW = WV @ W
+    WWV, VWW = W @ WV, VW @ W
+    c1e, c2e, c3e = c1[..., None, None], c2[..., None, None], c3[..., None, None]
+    return (0.5 * V + c1e * (WV + VW + WVW) + c2e * (WWV + VWW - 3.0 * WVW)
+            + c3e * ((WVW @ W) + (W @ WVW)))
+
+
+def _upper_block(A, B):
+    """[[A, B], [0, A]] of (..., 3, 3) blocks: (..., 6, 6)."""
+    return torch.cat([torch.cat([A, B], dim=-1), torch.cat([torch.zeros_like(A), A], dim=-1)],
+                     dim=-2)
+
+
+def se3_left_jacobian(xi):
+    """SE(3) left Jacobian (..., 6, 6), tangent order [v, w]."""
+    v, w = xi[..., :3], xi[..., 3:]
+    return _upper_block(so3_left_jacobian(w), _se3_Q(v, w))
+
+
+def se3_left_jacobian_inverse(xi):
+    """Inverse SE(3) left Jacobian (..., 6, 6), tangent order [v, w]."""
+    v, w = xi[..., :3], xi[..., 3:]
+    Ji = so3_left_jacobian_inverse(w)
+    return _upper_block(Ji, -(Ji @ _se3_Q(v, w) @ Ji))
 
 
 # ---------------------------------------------------------------------------

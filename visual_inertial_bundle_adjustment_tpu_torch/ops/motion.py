@@ -27,6 +27,25 @@ class RotVelPos(NamedTuple):
     dt: torch.Tensor  # (...,) seconds
 
 
+def rvp_identity(batch_shape=(), dtype=torch.float64, device=None) -> RotVelPos:
+    shape = tuple(batch_shape)
+    return RotVelPos(lie.quat_identity(shape, dtype, device),
+                     torch.zeros(shape + (3,), dtype=dtype, device=device),
+                     torch.zeros(shape + (3,), dtype=dtype, device=device),
+                     torch.zeros(shape, dtype=dtype, device=device))
+
+
+def rvp_boxminus(a: RotVelPos, b: RotVelPos):
+    """The 9-dim tangent [rot, dV, dP] from b to a (rotation on the left)."""
+    return torch.cat([lie.so3_log(lie.quat_mul(a.q, lie.quat_conj(b.q))), a.dV - b.dV,
+                      a.dP - b.dP], dim=-1)
+
+
+def rvp_boxplus(b: RotVelPos, delta) -> RotVelPos:
+    return RotVelPos(lie.quat_mul(lie.so3_exp(delta[..., :3]), b.q), delta[..., 3:6] + b.dV,
+                     delta[..., 6:9] + b.dP, b.dt)
+
+
 def rvp_combine(a: RotVelPos, b: RotVelPos) -> RotVelPos:
     return RotVelPos(
         lie.quat_mul(a.q, b.q),
@@ -46,6 +65,32 @@ def rvp_uncombine_left(c: RotVelPos, a: RotVelPos) -> RotVelPos:
         lie.quat_rotate(qa_inv, c.dP - a.dP - a.dV * b_dt[..., None]),
         b_dt,
     )
+
+
+def rvp_uncombine_right(c: RotVelPos, b: RotVelPos) -> RotVelPos:
+    """Return a such that c = combine(a, b)."""
+    a_q = lie.quat_mul(c.q, lie.quat_conj(b.q))
+    a_dV = c.dV - lie.quat_rotate(a_q, b.dV)
+    a_dP = c.dP - a_dV * b.dt[..., None] - lie.quat_rotate(a_q, b.dP)
+    return RotVelPos(a_q, a_dV, a_dP, c.dt - b.dt)
+
+
+def rvp_combine_jacs(a: RotVelPos, b: RotVelPos, aJac, bJac):
+    """combine(a, b) plus the chain rule on stacked Jacobians (..., 9, N):
+    aJac / bJac map some parameter tangent to the RVP tangents of a and b;
+    the returned cJac maps it to the tangent of c = combine(a, b)
+    (MotionIntegral.cpp:52-75)."""
+    aRbV = lie.quat_rotate(a.q, b.dV)
+    aRbP = lie.quat_rotate(a.q, b.dP)
+    c = RotVelPos(lie.quat_mul(a.q, b.q), a.dV + aRbV, a.dP + a.dV * b.dt[..., None] + aRbP,
+                  a.dt + b.dt)
+    aR = lie.quat_to_matrix(a.q)
+    aJ_r, aJ_v, aJ_p = aJac[..., 0:3, :], aJac[..., 3:6, :], aJac[..., 6:9, :]
+    bJ_r, bJ_v, bJ_p = bJac[..., 0:3, :], bJac[..., 3:6, :], bJac[..., 6:9, :]
+    cJ_r = aJ_r + aR @ bJ_r
+    cJ_v = aJ_v + lie.so3_hat(-aRbV) @ aJ_r + aR @ bJ_v
+    cJ_p = aJ_p + aJ_v * b.dt[..., None, None] + lie.so3_hat(-aRbP) @ aJ_r + aR @ bJ_p
+    return c, torch.cat([cJ_r, cJ_v, cJ_p], dim=-2)
 
 
 def _mv(M, x):

@@ -201,6 +201,15 @@ def preintegrate_batch(calibs, iv: PreintInterval, noise: imu_model.ImuNoiseMode
                           calib_eval=calibs, valid=valid)
 
 
+def preintegrate(calib, interval: PreintInterval, noise: imu_model.ImuNoiseModel,
+                 num_steps: int) -> Preintegration:
+    """One interval: calib (23,), the interval's fields without the batch
+    axis; preintegrate_batch on a batch of one."""
+    p = preintegrate_batch(calib[None], PreintInterval(*(a[None] for a in interval)), noise,
+                           num_steps)
+    return Preintegration(RotVelPos(*(a[0] for a in p.rvp)), *(a[0] for a in p[1:]))
+
+
 def integrate_measurements(calibs, iv: PreintInterval, num_steps: int):
     """RVP-only integration of B intervals (reference PreIntegration.cpp:
     278-311), plus the per-step prefix RVPs and boundary flags that the

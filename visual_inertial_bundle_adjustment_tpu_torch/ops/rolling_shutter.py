@@ -114,6 +114,17 @@ def build_rs_tables(calibs, first_halves: PreintInterval, second_halves: PreintI
                     count, gravity_w)
 
 
+def build_rs_table(calib, first_half: PreintInterval, second_half: PreintInterval, gravity_w,
+                   num_steps: int, K: int):
+    """One rig's table: calib (23,), the halves' fields without the batch
+    axis; build_rs_tables on a batch of one. Returns ((dt, q, dV, dP,
+    i_gyro, i_accel, i_dvel, count), gravity_w), as the JAX package's does."""
+    one = build_rs_tables(calib[None], PreintInterval(*(a[None] for a in first_half)),
+                          PreintInterval(*(a[None] for a in second_half)), gravity_w,
+                          num_steps, K)
+    return tuple(a[0] for a in one[:-1]), gravity_w
+
+
 class RSEstimate(NamedTuple):
     q_mid_t: torch.Tensor  # (..., 4) R_mid_imuAtT
     p_mid_t: torch.Tensor  # (..., 3) pos of imuAtT in mid frame

@@ -171,10 +171,12 @@ def make_base_map_batch(point_rows, q_cam_world, t_cam_world, intr, obs_uv, sqrt
                         camera_kind, label="base_map", device=None, dtype=torch.float64):
     """Batch of constant-keyrig observations of merged landmarks
     (reference BaseMapVisualFactor), on `device` as `dtype` (the merged
-    problem's: pass its tables' device and dtype)."""
-    from .builder import REPROJ_LOSS
+    problem's: pass its tables' device and dtype). The device is the first
+    CUDA card unless the caller names another, as for the builder."""
+    from . import builder
 
-    cfg = fct.BatchCfg(kind="base_map_visual", loss=REPROJ_LOSS,
+    device = torch.device(device) if device is not None else builder.default_device()
+    cfg = fct.BatchCfg(kind="base_map_visual", loss=builder.REPROJ_LOSS,
                        camera_kind=camera_kind, label=label)
 
     def f(a):

@@ -35,6 +35,8 @@ _SIGNATURES = {
     "obs_csv_count": (ctypes.c_long, [ctypes.c_char_p]),
     "obs_csv_parse": (_I, [ctypes.c_char_p, ctypes.c_long, _PTR(_LL), _PTR(_LL), _PTR(_I),
                            _PTR(_D), _PTR(_D)]),
+    "num_csv_count": (ctypes.c_long, [ctypes.c_char_p]),
+    "num_csv_parse": (_I, [ctypes.c_char_p, ctypes.c_long, _I, _PTR(_D)]),
 }
 
 
@@ -109,3 +111,17 @@ def parse_obs_csv(path):
                        _ptr(uv, _D), _ptr(sh, _D)) != 0:
         raise ValueError(f"malformed observations CSV {path}")
     return pid, ts, cam, uv, sh.reshape(-1, 2, 2)
+
+
+def parse_numeric_csv(path, n_cols):
+    """Row-major float64 (N, n_cols) matrix of the first n_cols columns of a
+    CSV with one header line. Each of those fields must hold a number: a
+    row with fewer fields or a text field among them raises ValueError. The
+    JAX package's parser reads a text field as 0.0 and returns None where
+    this one raises."""
+    h = lib()
+    n = _count(h.num_csv_count, path)
+    out = np.empty((n, n_cols), np.float64)
+    if h.num_csv_parse(str(path).encode(), n, n_cols, _ptr(out, _D)) != 0:
+        raise ValueError(f"malformed numeric CSV {path}")
+    return out

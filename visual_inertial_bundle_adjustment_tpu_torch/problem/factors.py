@@ -742,6 +742,16 @@ REGISTRY: dict[str, dict[str, Any]] = {
 }
 
 
+def batch_indices(cfg: BatchCfg, data) -> list:
+    """(group, index tensor) pairs of the batch's tangents in REGISTRY order
+    (a group without an index field, gravity, gets index 0)."""
+    n = _batch_size(data)
+    device = next(a.device for k, a in data.items()
+                  if isinstance(a, torch.Tensor) and not k.startswith("_"))
+    return [(group, torch.zeros(n, dtype=torch.int32, device=device) if field is None
+             else data[field]) for group, field in REGISTRY[cfg.kind]["tangents"]]
+
+
 def _batch_size(data) -> int:
     for k, a in data.items():
         if k.startswith("_"):

@@ -82,6 +82,29 @@ def tables_to(tables, device=None, dtype=None):
                           else a.to(device=device) for a in tables))
 
 
+def make_tables(num_rigs: int, num_points: int = 0, num_cam_intr: int = 0,
+                num_cam_extr: int = 0, num_imu_calib: int = 0, num_imu_extr: int = 0,
+                num_cameras: int = 0, dtype=torch.float64, device=None) -> VariableTables:
+    """Identity-initialized tables of the given sizes."""
+    kw = dict(dtype=dtype, device=device)
+    return VariableTables(
+        pose_q=lie.quat_identity((num_rigs,), dtype, device),
+        pose_t=torch.zeros((num_rigs, 3), **kw),
+        vel=torch.zeros((num_rigs, 3), **kw),
+        omega=torch.zeros((num_rigs, 3), **kw),
+        points=torch.zeros((num_points, 3), **kw),
+        gravity=torch.tensor([0.0, 0.0, -GRAVITY_MAG], **kw),
+        cam_intr=torch.zeros((num_cam_intr, 17), **kw),
+        cam_extr_q=lie.quat_identity((num_cam_extr,), dtype, device),
+        cam_extr_t=torch.zeros((num_cam_extr, 3), **kw),
+        imu_calib=imu_model.identity_calib(dtype, device).expand(
+            num_imu_calib, imu_model.CALIB_DIM).clone(),
+        imu_extr_q=lie.quat_identity((num_imu_extr,), dtype, device),
+        imu_extr_t=torch.zeros((num_imu_extr, 3), **kw),
+        det_bias=torch.zeros((num_cameras, 2), **kw),
+    )
+
+
 def full_masks(v: VariableTables) -> Masks:
     kw = dict(dtype=v.points.dtype, device=v.points.device)
     return Masks(
@@ -191,6 +214,10 @@ def step_to_var_ratios(v: VariableTables, t: Tangent, points_step):
 # ---------------------------------------------------------------------------
 
 
+def t_add(a, b):
+    return type(a)(*(x + y for x, y in zip(a, b)))
+
+
 def t_sub(a, b):
     return type(a)(*(x - y for x, y in zip(a, b)))
 
@@ -199,8 +226,16 @@ def t_scale(a, s):
     return type(a)(*(x * s for x in a))
 
 
+def t_axpy(alpha, x, y):
+    return type(x)(*(alpha * xi + yi for xi, yi in zip(x, y)))
+
+
 def t_dot(a, b):
     return sum((x * y).sum() for x, y in zip(a, b))
+
+
+def t_norm(a):
+    return torch.sqrt(t_dot(a, a))
 
 
 # --- packed reduced-state layout: one (nb, K) tensor whose rows partition
