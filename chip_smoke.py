@@ -25,6 +25,22 @@ Drives the port's main paths through the entry points a user calls:
                standard deviations within COV_CAP_BOUNDS of a float64 solve
                through the plain versions (a float32 solve through them
                read beside it);
+  :bf16        the bf16 J storage of the PCG loop (rcs.MATVEC_BF16: bf16
+               copies of the single-pass batch's Jacobians read by K3, K4,
+               K5, K9, K10's up pass): `cap:bf16`, `bias:bf16` and
+               `full:bf16`, each on the problem its float32 path built,
+               from its initial state, after that path's covariances: one
+               LM step with the flag on against off (cosine, relative step
+               difference, model reduction, new cost; the reference's
+               bounds of tests/test_tpu_accuracy.py asserted on bias, printed
+               on cap and full), consistency, the path's LM iterations
+               (iteration ms beside the float32 run's; cap: peak memory),
+               the bf16 instantiations launched; the bf16 kernel rows at
+               cap's and full's shapes (K6 and K10's down pass with y too),
+               each bit-equal to the float32 instantiation on the upcast
+               copies and timed in turns with it on float32 J; on bias the
+               column K4 over the records of the copies, bit-equal to the
+               bf16 K4 column by column;
   pcg_switch   the same configuration at 12 Hz (21,600 rigs, ~3.76M
                observations), past pick_solver's switch at 20,000 rigs:
                pick_solver("auto") must pick Gauss-Seidel PCG, and 3 LM
@@ -62,8 +78,10 @@ Drives the port's main paths through the entry points a user calls:
                calibration row through the column K4, `cov:full` 4 rigs and
                the first window's 2 rows through the column K9 (K1 / K7, K2
                / K8 and K3 in each prepare_system); every block symmetric
-               positive definite; a subset against the same calls in
-               float64 through the plain versions (COV_BOUNDS); PCG device
+               positive definite; a subset against the same columns in
+               float64 through the plain versions (COV_BOUNDS; over the
+               observed dimensions COV_OBS_BOUNDS, and within
+               COV_PLAIN_RATIO of a float32 solve through them); PCG device
                time an iteration, split into the column kernel and the
                rest; peak device memory beside the point-sorted records';
                one chunk in turns against a loop over its columns through
@@ -93,7 +111,8 @@ Drives the port's main paths through the entry points a user calls:
                (float32): `cli:golden` on the two committed sessions
                (tests/data/golden_session{,_full}) against their expected
                outputs, and again with --compute-covariances in float32 and
-               float64 (COV_CLI_BOUNDS); `cli:full` on the full-sensor session directory
+               float64 (COV_CLI_BOUNDS; over the observed dimensions
+               COV_CLI_OBS_BOUNDS); `cli:full` on the full-sensor session directory
                with readout and time offset estimated, 3 LM iterations,
                --recompute-preint, the calibration evaluation, simple stats,
                a JSONL monitor and a JSON report: every output written, one
@@ -158,6 +177,7 @@ Usage: python3 chip_smoke.py  (from the repository root; needs one CUDA card)
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import resource
@@ -242,15 +262,17 @@ TOL_RES, TOL_J, TOL_SEG = 1e-5, 2e-4, 1e-5
 # instantiations per mode of K7, K1 and K11, K2's two passes, K6's rig-row
 # pass, K14b's flat gather, the tile pass of K14e, K14c and K14a, the
 # column-batched K4 and K9 of the covariance columns (their fused landmark
-# and rig passes), K10's rig-pair pass and its second launch, and K5), by
-# the names ptxas gives them
+# and rig passes), K10's rig-pair pass and its second launch, K5, and K3),
+# by the names ptxas gives them: each name matches the float32 and the bf16
+# instantiation (rcs.MATVEC_BF16) of the kernels of the PCG loop
 NO_SPILL = ("pcg_down", "pcg_up", "pcg_cal_down", "pcg_cal_up", "point_range_sum",
             "jtu_slot_major", "reduce_gather4", "to_slot_major", "reduce_gather",
             "assemble_cal_window", "sum_cal_points", "rs_linearize_mode", "visual_linearize_mode",
             "visual_cal_linearize_mode", "assemble_rows_slots", "assemble_points",
             "schur_down_rows", "tile_gather_flat", "tile_scatter_staged", "tile_fused_staged",
             "tile_reduce_split", "point_pass_cols", "rig_row_pass_cols", "rig_pair_pass_cols",
-            "rig_split_pass_cols", "cal_pair_pass", "cal_down_sums", "schur_up_rows")
+            "rig_split_pass_cols", "cal_pair_pass", "cal_down_sums", "schur_up_rows",
+            "precond_rig")
 TOL_RS_RES, TOL_RS_J = 1e-4, 3e-4
 TOL_CAL_J = 3e-4  # K11's Jacobian (its residual: TOL_RES)
 # kernel vs plain LM iteration, relative (see the consistency phases)
@@ -639,9 +661,14 @@ def phase_times(path, problem, settings):
               f"{key[:40]} {us / 1e3:.2f} ms x{n}" for key, n, us in top))
 
 
+# each main run's LM iteration ms, by path (run_main)
+ITER_MS = {}
+
+
 def run_main(path, problem, settings, kernels):
     """settings.max_iterations LM iterations through optimize(), launch
-    counts set to 0 just before and read just after; returns the counts."""
+    counts set to 0 just before and read just after; returns the counts
+    (the iteration ms into ITER_MS[path])."""
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
@@ -664,6 +691,7 @@ def run_main(path, problem, settings, kernels):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = _kernels.launch_counts()
+    ITER_MS[path] = [d["iter_time_sec"] * 1e3 for d in iters]
     costs = [d["prev_cost"] for d in iters] + [summary.final_cost]
     phase(f"{path}:main", f"{summary.num_iterations} LM iterations in {wall:.2f} s: cost "
           f"{summary.initial_cost:.6g} -> {summary.final_cost:.6g} | launches "
@@ -723,6 +751,7 @@ def bias_only(dev, bench):
     # summed in other orders; K1's float64 registers round J differently,
     # and the unconverged PCG amplifies that (PERF.md §6).
     settings = lm_settings()
+    v0 = problem.variables
     consistency("bias", problem, settings, TOL_ITER)
     phase_times("bias", problem, settings)
     launches = run_main("bias", problem, settings, path_kernels("bias"))
@@ -733,8 +762,11 @@ def bias_only(dev, bench):
     rigs = [int(r) for r in np.linspace(1, R - 1, 64).round()]
     rows = list(range(problem.variables.imu_calib.shape[0]))
     cov_launches = cov_path("bias", problem, dev, bench, rigs, rows, rigs[::16], rows[:2],
-                            COV_CHUNK)
-    return launches, cov_launches
+                            COV_CHUNK, rigs[::16])
+    # the flag on, from the initial state: the reference's step bounds asserted
+    bf16 = bf16_path("bias", problem, v0, settings, bench, asserted=True)
+    bf16_column_check(problem, dev)
+    return launches, cov_launches, bf16
 
 
 def rig_kernel_rows(bench, problem, dev, tag):
@@ -926,8 +958,9 @@ def capacity(dev, bench):
     phases, CAP_TIMED_ITERS LM iterations through optimize(); peak device
     memory over the build and, apart, over the LM work (the kernel rows'
     float64 plain references lie between the two readings); then cap:cov
-    on the state the LM run reached. Returns (main's launch counts,
-    cap:cov's)."""
+    on the state the LM run reached; then cap:bf16 (bf16_kernel_rows,
+    bf16_path) from the initial state. Returns (main's launch counts,
+    cap:cov's, cap:bf16's launch and bf16 launch counts)."""
     import torch
 
     torch.cuda.empty_cache()
@@ -942,13 +975,17 @@ def capacity(dev, bench):
     # bench times this configuration at 40 (bench.timed_iterations), and so
     # does this path
     settings = lm_settings(CAP_TIMED_ITERS)
+    v0 = problem.variables
     consistency("cap", problem, settings, TOL_ITER)
     phase_times("cap", problem, settings)
     launches = run_main("cap", problem, settings, path_kernels("cap"))
     bench.results["cap"] = dict(build=build,
                                 lm=peak_memory("cap", "consistency, phases and main"))
     cov_launches = capacity_covariance(problem, bench)
-    return launches, cov_launches
+    torch.cuda.empty_cache()
+    bf16_kernel_rows(bench, problem, dev, "cap")
+    bf16 = bf16_path("cap", problem, v0, settings, bench, peak=True)
+    return launches, cov_launches, bf16
 
 
 def capacity_covariance(problem, bench):
@@ -1086,6 +1123,255 @@ def pcg_switch(dev, bench):
     bench.results["pcg_switch"] = dict(build=build,
                                        lm=peak_memory("pcg_switch", "consistency and main"))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# bf16 J storage of the PCG loop (rcs.MATVEC_BF16): cap:bf16, bias:bf16,
+# full:bf16 on the problems their float32 paths built
+# ---------------------------------------------------------------------------
+
+# the bf16 instantiations each flagged main path must launch (the
+# back-substitution's K6 / K10 down pass reads float32 J)
+BF16_PATHS = {"bias:bf16": ("precond_rig", "schur_pcg", "schur_up"),
+              "cap:bf16": ("precond_rig", "schur_pcg", "schur_up"),
+              "full:bf16": ("precond_rig", "schur_pcg_cal", "schur_up_cal")}
+# one LM step with the flag on against off, read as
+# tests/test_tpu_accuracy.py:86-97 reads it, at its damping, PCG
+# iterations and tolerance; its bounds (step cosine, relative step
+# difference, model reduction and new cost, relative) are asserted on
+# bias:bf16 and printed on cap:bf16 and full:bf16 (the reference states them
+# for a 60 s problem)
+STEP_LAM, STEP_TOL = 1e-4, 1e-10
+STEP_BOUNDS = {"cos": 0.999, "rel": 0.05, "model": 2e-2, "cost": 1e-3}
+BF16_COLS = 8  # the column K4 on the records of the copies, held to the bf16 K4
+
+
+@contextlib.contextmanager
+def matvec_bf16():
+    """rcs.MATVEC_BF16 on inside, restored after."""
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+
+    saved = rcs.MATVEC_BF16
+    rcs.MATVEC_BF16 = True
+    try:
+        yield
+    finally:
+        rcs.MATVEC_BF16 = saved
+
+
+def one_step(problem):
+    """One LM attempt from the current state at STEP_LAM, PCG_ITERATIONS,
+    STEP_TOL: (linearization, the step kernel's outputs)."""
+    import torch
+
+    ks = problem._build()
+    datas, v, masks = tuple(problem.datas), problem.variables, problem.masks
+    lg = ks[0](datas, v, masks, None)
+    out = ks[7](ks[6](datas, lg, v, masks), datas, lg, v, masks, STEP_LAM, PCG_ITERATIONS,
+                STEP_TOL, "gauss_seidel")
+    torch.cuda.synchronize()
+    return lg, out
+
+
+def step_agreement(tag, problem, asserted):
+    """One LM step with the flag on against the same step with it off, from
+    the current state: the step's cosine and relative difference (x_r and
+    x_l flattened), model reduction and new cost, relative; within
+    STEP_BOUNDS when `asserted`."""
+    import torch
+
+    with matvec_bf16():
+        lg_a, out_a = one_step(problem)
+    lg_b, out_b = one_step(problem)
+
+    def flat_step(out):
+        return torch.cat([getattr(out[0], f).double().reshape(-1) for f in out[0]._fields]
+                         + [out[1].double().reshape(-1)])
+
+    sa, sb = flat_step(out_a), flat_step(out_b)
+    rel = lambda a, b: abs(float(a) - float(b)) / abs(float(b))  # noqa: E731
+    got = dict(cos=float(sa @ sb / (sa.norm() * sb.norm())), rel=float((sa - sb).norm() / sb.norm()),
+               model=rel(out_a[2], out_b[2]), cost=rel(out_a[9].cost, out_b[9].cost),
+               lin_cost=rel(lg_a.cost, lg_b.cost), model_bf16=float(out_a[2]),
+               model_f32=float(out_b[2]), cost_bf16=float(out_a[9].cost),
+               cost_f32=float(out_b[9].cost))
+    ok = (got["cos"] > STEP_BOUNDS["cos"] and got["rel"] < STEP_BOUNDS["rel"]
+          and got["model"] <= STEP_BOUNDS["model"] and got["cost"] <= STEP_BOUNDS["cost"])
+    phase(tag, f"one LM step (lam {STEP_LAM:g}, {PCG_ITERATIONS} PCG iterations, tol "
+          f"{STEP_TOL:g}) bf16 J against float32: cosine {got['cos']:.6f} (bound > "
+          f"{STEP_BOUNDS['cos']}), relative step difference {got['rel']:.3e} (< "
+          f"{STEP_BOUNDS['rel']}), model reduction {got['model_bf16']:.8g} vs "
+          f"{got['model_f32']:.8g} (rel {got['model']:.3e}, {STEP_BOUNDS['model']:g}), new cost "
+          f"{got['cost_bf16']:.8g} vs {got['cost_f32']:.8g} (rel {got['cost']:.3e}, "
+          f"{STEP_BOUNDS['cost']:g}), linearized cost rel {got['lin_cost']:.1e}: "
+          + ("within the reference's bounds" if ok else "OUTSIDE the reference's bounds")
+          + ("" if asserted else " (not asserted at this size)"))
+    if asserted and not ok:
+        raise AssertionError(f"{tag}: the bf16 step is off the float32 step beyond the "
+                             f"reference's bounds: {got}")
+    return got
+
+
+def bf16_path(path, problem, v0, settings, bench, asserted=False, peak=False):
+    """`<path>:bf16`: the path's problem from its initial state v0 with
+    rcs.MATVEC_BF16 on: one LM step against the float32 step
+    (step_agreement), the consistency iteration (the kernel path twice,
+    bit-equal, then against the plain versions on the same copies),
+    settings.max_iterations LM iterations through optimize() with the counts
+    set to 0 just before (every kernel of the path launched, the bf16
+    instantiations of BF16_PATHS among them; iteration ms beside the float32
+    run's, read in this call; peak device memory over main with `peak`).
+    Returns (launch counts, bf16 launch counts)."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+
+    tag = f"{path}:bf16"
+    problem.variables = v0
+    res = {"step": step_agreement(tag, problem, asserted)}
+    with matvec_bf16():
+        consistency(tag, problem, settings, TOL_ITER)
+        if peak:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        launches = run_main(tag, problem, settings, path_kernels(path))
+        bf16 = _kernels.launch_counts(bf16=True)
+        if peak:
+            res["lm"] = peak_memory(tag, "consistency and main")
+    missing = [k for k in BF16_PATHS[tag] if not bf16.get(k)]
+    f32_ms, bf16_ms = statistics.median(ITER_MS[path]), statistics.median(ITER_MS[tag])
+    phase(tag, f"LM iteration median {bf16_ms:.1f} ms with bf16 J against {f32_ms:.1f} ms for "
+          f"the float32 run of this call (host-bound: PERF.md section 5) | bf16 launches "
+          f"{ {k: n for k, n in bf16.items() if n} }")
+    if missing:
+        raise AssertionError(f"{tag}: bf16 instantiations not launched on the main path: "
+                             f"{missing}")
+    res.update(iteration_ms=ITER_MS[tag], iteration_ms_f32=ITER_MS[path])
+    bench.results.setdefault("bf16", {})[path] = res
+    return launches, bf16
+
+
+def bf16_kernel_rows(bench, problem, dev, tag):
+    """The bf16 instantiations at a single-pass batch's shapes, the flag on:
+    K3, K4, K5 (the L2 flushed) and K6 with y and t alone on a rig-only
+    batch, K3, K9 and K10's down pass with y and t alone and its up pass on
+    a calibration-coupled one (K6's and K10's down pass with y run only on
+    the route with several batches: launched here on these plans). Rows
+    `<kernel>(<tag>,[<mode>,]bf16)`: each against its plain version on the
+    same bf16 values evaluated in float64 (TOL_SEG), its bound counting J at
+    2 B an element; bit-equal to the float32 instantiation on the copies
+    upcast; its device time in turns with the float32 instantiation on the
+    batch's float32 J."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+
+    ks = problem._build()
+    datas, v, masks = tuple(problem.datas), problem.variables, problem.masks
+    with matvec_bf16():
+        lg = ks[0](datas, v, masks, None)
+        asm = ks[6](datas, lg, v, masks)
+    (b,) = asm.vis
+    rs = rcs.with_damping(asm, v, masks, 1e-4)
+    k, R, L = b.rig_k, v.pose_q.shape[0], v.points.shape[0]
+    n_real, N = int(b.plan.rig_obs.shape[0]), b.J.shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((R, k), generator=gen, device=dev)
+    zl = torch.randn((L, 3), generator=gen, device=dev)
+    J, Jp, Jc, hinv = b.J_mv, b.J_pt_mv, b.J_cal_mv, rs.H_ll_inv
+    plan = walk_plan(b.plan)
+    real = n_real / N
+    tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
+    index6 = [b.J_mv, b.J_pt_mv, b.w, x, b.plan.pt_pos, b.plan.pt_ptr]
+    if rcs._rig_only_fast(b):
+        rows = [("precond_rig", "", seg.seg_precond_rig, (J, Jp, b.w, hinv, b.plan),
+                 tol("blocks"), [J, Jp, b.w, hinv] + plan, (30 * k + 5 * k * (k + 1)) * n_real,
+                 False),
+                ("schur_down", "", seg.seg_schur_down, (J, Jp, b.w, x, b.plan, True),
+                 tol("y", "t"), index6 + [b.plan.rig_ptr, b.plan.rig_obs], (8 * k + 17) * n_real,
+                 False),
+                ("schur_down", "want_y=False", seg.seg_schur_down, (J, Jp, b.w, x, b.plan, False),
+                 tol("t"), index6 + [b.plan.rig], (4 * k + 17) * n_real, False),
+                ("schur_up", "", seg.seg_schur_up, (J, Jp, b.w, zl, b.plan), tol("y"),
+                 [(J, real), (Jp, real), (b.w, real), (b.plan.point, real), zl,
+                  b.plan.rig_ptr, b.plan.rig_obs], (4 * k + 14) * n_real, True),
+                ("schur_pcg", "", seg.seg_schur_pcg, (J, Jp, b.w, x, hinv, b.plan), tol("y"),
+                 [J, Jp, b.w, x, hinv, b.plan.rig, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr,
+                  b.plan.rig_ptr, b.plan.rig_obs], (8 * k + 30) * n_real, False)]
+        jpos, f32_J = (0, 1), (b.J, b.J_pt)
+    else:
+        kc, cp = Jc.shape[1], b.cplan
+        xc = torch.randn((cp.n_rows, kc), generator=gen, device=dev)
+        cplan = list(cp)[:4]
+        jread = [J, Jp, Jc, b.w]
+        index9 = [b.plan.rig, cp.win, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, cp.rig_pair,
+                  cp.pair_ptr, cp.pair_obs, cp.pair_part, cp.win_pair]
+        rows = [("precond_rig", "", lambda Jr, Jcc, Jpp, *a: seg.seg_precond_rig(Jr, Jpp, *a),
+                 (J, Jc, Jp, b.w, hinv, b.plan), tol("blocks"), [J, Jp, b.w, hinv] + plan,
+                 (30 * k + 5 * k * (k + 1)) * n_real, False),
+                ("schur_pcg_cal", "", seg.seg_schur_pcg_cal,
+                 (J, Jc, Jp, b.w, x, xc, hinv, b.plan, cp), tol("y_r", "y_c"),
+                 jread + [x, xc, hinv] + index9, (8 * k + 8 * kc + 24) * n_real, False),
+                ("schur_down_cal", "", seg.seg_schur_down_cal, (J, Jc, Jp, b.w, x, xc, b.plan, cp),
+                 tol("y_r", "y_c", "t"), jread + [x, xc] + plan + cplan,
+                 (8 * k + 8 * kc + 16) * n_real, False),
+                ("schur_down_cal", "want_y=False", seg.seg_schur_down_cal,
+                 (J, Jc, Jp, b.w, x, xc, b.plan, cp, False), tol("t"),
+                 jread + [x, xc] + plan + cplan[:1], (4 * k + 4 * kc + 16) * n_real, False),
+                ("schur_up_cal", "", seg.seg_schur_up_cal, (J, Jc, Jp, b.w, zl, b.plan, cp),
+                 tol("y_r", "y_c"), jread + [zl] + plan + cplan, (4 * k + 4 * kc + 14) * n_real,
+                 False)]
+        jpos, f32_J = (0, 1, 2), (b.J, b.J_cal, b.J_pt)
+    for kernel, mode, fn, args, tols, read, flops, flush in rows:
+        name = f"{kernel}({','.join(t for t in (tag, mode, 'bf16') if t)})"
+        row = bench.compare(name, fn, args, tols, read, flops, flush=flush)
+        up = tuple(a.float() if i in jpos else a for i, a in enumerate(args))
+        if not all(torch.equal(p, q) for p, q in zip(flat(fn(*args)), flat(fn(*up)))):
+            raise AssertionError(f"{name}: not the float32 instantiation's bits on the upcast "
+                                 "copies")
+        f32 = tuple(f32_J[jpos.index(i)] if i in jpos else a for i, a in enumerate(args))
+        if flush:  # each read with the L2 flushed dirty before every call
+            pre = l2_flush()
+            f32_ms = sum(t for _, t in flushed_device_ms(lambda: fn(*f32), pre).values())
+            bf16_ms = sum(t for _, t in flushed_device_ms(lambda: fn(*args), pre).values())
+        else:
+            (bf16_ms, _, _), (f32_ms, _, _) = in_turns([lambda: fn(*args), lambda: fn(*f32)])
+        row.update(kernel=kernel, bit_equal_f32=True, bf16_device_ms_in_turns=bf16_ms,
+                   f32_device_ms_in_turns=f32_ms)
+        phase("kernels", f"{name}: bit-equal to the float32 instantiation on the upcast copies; "
+              f"in turns with it on float32 J: {bf16_ms:.4f} ms against {f32_ms:.4f} ms device "
+              f"({f32_ms / bf16_ms:.2f}x)")
+    del lg, asm, rs, b
+
+
+def bf16_column_check(problem, dev):
+    """With the flag on, the column K4 at BF16_COLS columns over the records
+    of the system (rcs.with_column_records: the bf16 copies upcast) against
+    the bf16 K4 column by column: every column bit-equal."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs
+
+    ks = problem._build()
+    datas, v, masks = tuple(problem.datas), problem.variables, problem.masks
+    with matvec_bf16():
+        lg = ks[0](datas, v, masks, None)
+        rs = rcs.with_column_records(rcs.with_damping(ks[6](datas, lg, v, masks), v, masks,
+                                                      1e-4))
+    (b,) = rs.vis
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((v.pose_q.shape[0], b.rig_k, BF16_COLS), generator=gen, device=dev)
+    out = seg.seg_schur_pcg_cols(b.J_mv, b.J_pt_mv, b.w, x, rs.H_ll_inv, b.plan, rec=b.rec)
+    same = sum(bool(torch.equal(out[..., c], seg.seg_schur_pcg(
+        b.J_mv, b.J_pt_mv, b.w, x[..., c].contiguous(), rs.H_ll_inv, b.plan)))
+        for c in range(BF16_COLS))
+    phase("bias:bf16", f"schur_pcg_cols (C={BF16_COLS}) over the records of the bf16 copies: "
+          f"{same} of {BF16_COLS} columns bit-equal to the bf16 schur_pcg")
+    if same != BF16_COLS:
+        raise AssertionError("bias:bf16: the column K4 on the copies' records is not the bf16 "
+                             "K4's bits")
 
 
 # ---------------------------------------------------------------------------
@@ -1260,8 +1546,10 @@ def check_repeat_and_ops(name, row, fn, args, max_ops):
 
 def full_sensor(dev, bench, session_dir, times):
     """The full-sensor path on the session directory written for it (kept
-    for cli:full)."""
+    for cli:full); then full:bf16 (bf16_kernel_rows, bf16_path) from the
+    initial state."""
     import numpy as np
+    import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import AdapterOptions
@@ -1296,6 +1584,7 @@ def full_sensor(dev, bench, session_dir, times):
     # in other orders and K7 rounds res and J from float64 registers; the
     # 40-iteration PCG does not converge, so the step carries that rounding
     settings = lm_settings()
+    v0 = problem.variables
     consistency("full", problem, settings, TOL_ITER)
     phase_times("full", problem, settings)
     launches = run_main("full", problem, settings, path_kernels("full"))
@@ -1306,8 +1595,11 @@ def full_sensor(dev, bench, session_dir, times):
     R = v.pose_q.shape[0]
     rigs = [int(r) for r in np.linspace(1, R - 1, 4).round()]
     rows = list(range(adapter.num_imus))
-    cov_launches = cov_path("full", problem, dev, bench, rigs, rows, rigs[:1], rows[:1], 32)
-    return launches, cov_launches
+    cov_launches = cov_path("full", problem, dev, bench, rigs, rows, rigs[:1], rows[:1], 32, [])
+    torch.cuda.empty_cache()
+    bf16_kernel_rows(bench, problem, dev, "full")
+    bf16 = bf16_path("full", problem, v0, settings, bench)
+    return launches, cov_launches, bf16
 
 
 # ---------------------------------------------------------------------------
@@ -1921,6 +2213,34 @@ COV_TURN_ITERATIONS = 5  # PCG iterations of the in-turns timing of one chunk
 COV_CLI_ARGS = ["--max-num-iterations", "2", "--compute-covariances",
                 "--covariance-pcg-iterations", "150"]
 COV_CLI_BOUNDS = {"rig": 2e-2, "cal": 5e-2}
+# the damping of the covariance systems (rig_covariances' and
+# calib_covariances' default, the CLI's)
+COV_LAM = 1e-9
+# the same blocks over the dimensions the problem observes
+# (observed_errors: each entry's error relative to sqrt(var_i var_j), and
+# |std / std64 - 1|), by path and block kind: ~10x the first readings on an
+# H100 (cov:bias rigs 6.98e-3 / 3.49e-3, calibration 5.75e-5 / 1.51e-5;
+# cov:full rig 1.82e-3 / 9.12e-4, calibration 4.10e-2 / 2.07e-2), where a
+# float32 solve through the plain versions errs as much (COV_PLAIN_RATIO)
+COV_OBS_BOUNDS = {"bias": {"rig": {"corr": 7e-2, "std": 3.5e-2},
+                           "cal": {"corr": 6e-4, "std": 1.5e-4}},
+                  "full": {"rig": {"corr": 2e-2, "std": 1e-2},
+                           "cal": {"corr": 0.4, "std": 0.2}}}
+# cli:golden's float32 run against its float64 run over the observed
+# dimensions, by session: ~10x the first readings on an H100
+# (golden_session rig 0.115 / 0.056, calibration 2.9e-3 / 1.4e-3;
+# golden_session_full rig 2.4e-2 / 1.2e-2, calibration 1.1e-2 / 5.5e-3):
+# the two runs' 2 LM iterations end at points float32's noise apart, so
+# their rig entries differ by tenths of sqrt(var_i var_j) on golden_session
+COV_CLI_OBS_BOUNDS = {"golden_session": {"rig": {"corr": 1.2, "std": 0.6},
+                                         "cal": {"corr": 3e-2, "std": 1.5e-2}},
+                      "golden_session_full": {"rig": {"corr": 0.25, "std": 0.12},
+                                              "cal": {"corr": 0.12, "std": 6e-2}}}
+# the kernels' observed-dimension errors at most this multiple of a float32
+# solve's through the plain versions on the same columns (cov:bias's rigs
+# and calibration rows; cov:full's calibration row: with its rig the solve
+# took 74 s on an H100, where the rig read 1.00x)
+COV_PLAIN_RATIO = 3.0
 
 
 def problem_f64(problem):
@@ -2041,21 +2361,58 @@ def cov_blocks_check(tag, blocks):
             raise AssertionError(f"{tag}: block {key} eigenvalues down to {ev.min():.3e}")
 
 
-def cov_compare(tag, got, want, bounds, lam=None):
+def observed_by_kind(got, want, lam):
+    """observed_errors of each block, and the worst entry error and std
+    ratio of each kind of block: ({key: (dims, corr, std)}, {kind: (corr,
+    std)})."""
+    each = {key: observed_errors(got[key], W, lam) for key, W in want.items()
+            if W.size and key in got}
+    worst = {}
+    for (kind, _), (_, corr, std) in each.items():
+        c0, s0 = worst.get(kind, (0.0, 0.0))
+        worst[kind] = (max(c0, corr), max(s0, std))
+    return each, worst
+
+
+def cov_compare(tag, got, want, bounds, lam=None, obs_bounds=None, plain=None):
     """The worst block error (relative to the block's largest entry) and the
     worst standard-deviation ratio |std / std64 - 1| of blocks against
     their float64 counterparts; each kind of block ("rig", "cal": the keys'
-    first entries) within its bound. With the system's damping `lam`,
-    also prints each block's errors over the dimensions the problem
-    observes (observed_errors), not bounded: a dimension no factor reaches
-    sits at 1/lam and sets the largest entry."""
+    first entries) within its bound. With the system's damping `lam`, the
+    same over the dimensions the problem observes (observed_errors: a
+    dimension no factor reaches sits at 1/lam and sets the largest entry),
+    each kind within `obs_bounds` (entry error "corr", std ratio "std");
+    with `plain`, the same blocks from a float32 solve through the plain
+    versions, whose observed errors bound the kernels' within
+    COV_PLAIN_RATIO."""
     import numpy as np
 
     if lam is not None:
-        phase(tag, f"over the observed dimensions (variance < 1/(2 lam), lam {lam:g}; not "
-              "bounded): dimensions, entry error relative to sqrt(var_i var_j), std ratio: "
-              + ", ".join("{} {} {}, {:.2e}, {:.2e}".format(*key, *observed_errors(
-                  got[key], W, lam)) for key, W in want.items() if W.size))
+        each, worst = observed_by_kind(got, want, lam)
+        phase(tag, f"over the observed dimensions (variance < 1/(2 lam), lam {lam:g}): "
+              "dimensions, entry error relative to sqrt(var_i var_j), std ratio: "
+              + ", ".join("{} {} {}, {:.2e}, {:.2e}".format(*key, *e) for key, e in each.items()))
+        if plain is not None:
+            each32, worst32 = observed_by_kind(plain, want, lam)
+            phase(tag, "a float32 solve through the plain versions, the same: " + ", ".join(
+                "{} {} {}, {:.2e}, {:.2e}".format(*key, *e) for key, e in each32.items()))
+        for kind, (corr, std) in worst.items():
+            b = obs_bounds[kind]
+            phase(tag, f"{kind}: worst over the observed dimensions {corr:.3e} of {b['corr']:g} "
+                  f"(entries), {std:.3e} of {b['std']:g} (std ratio)"
+                  + (f"; float32 plain {worst32[kind][0]:.3e} / {worst32[kind][1]:.3e}, the "
+                     f"kernels at {corr / max(worst32[kind][0], 1e-300):.2f}x / "
+                     f"{std / max(worst32[kind][1], 1e-300):.2f}x of it (at most "
+                     f"{COV_PLAIN_RATIO:g}x)" if plain is not None and kind in worst32 else ""))
+            if not (corr <= b["corr"] and std <= b["std"]):
+                raise AssertionError(f"{tag}: {kind} blocks off the float64 run over the observed "
+                                     f"dimensions: entries {corr:.3e}, std ratio {std:.3e}")
+            if plain is not None and kind in worst32 and not (
+                    corr <= COV_PLAIN_RATIO * worst32[kind][0]
+                    and std <= COV_PLAIN_RATIO * worst32[kind][1]):
+                raise AssertionError(f"{tag}: {kind} blocks err beyond {COV_PLAIN_RATIO:g}x a "
+                                     f"float32 plain solve: {corr:.3e} / {std:.3e} against "
+                                     f"{worst32[kind][0]:.3e} / {worst32[kind][1]:.3e}")
 
     errs, ratios, keys = [], [], [key for key, W in want.items() if W.size]
     for key in keys:
@@ -2079,13 +2436,42 @@ def cov_compare(tag, got, want, bounds, lam=None):
     return worst, ratio
 
 
-def cov_path(path, problem, dev, bench, rigs, cal_rows, ref_rigs, ref_rows, turn_cols):
+def plain_cov_blocks(problem, rigs, rows, kw):
+    """The rig blocks of `rigs` and the IMU-calibration blocks of `rows`
+    (their unmasked dimensions), as rig_covariances and calib_covariances
+    give them, through the plain versions, in one solve_columns call for
+    all their columns at COV_LAM: {("rig", r): (12, 12), ("cal", r): (n,
+    n)}."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import covariance as cov
+
+    marr = problem.masks.imu_calib.cpu().numpy()
+    dims = {r: [d for d in range(marr.shape[1]) if marr[r, d] > 0.5] for r in rows}
+    entries = ([("rig", int(r), d) for r in rigs for d in range(12)]
+               + [("imu_calib", int(r), d) for r in rows for d in dims[r]])
+    with _kernels.plain_reference(), cov.with_gauge_prior(problem):
+        cols = cov.solve_columns(problem, entries, system=cov.prepare_system(problem, COV_LAM),
+                                 **kw)
+        torch.cuda.synchronize()
+    B = cov._extract_cov(cols, entries)
+    out, pos = {}, 0
+    for key, n in [(("rig", r), 12) for r in rigs] + [(("cal", r), len(dims[r])) for r in rows]:
+        out[key] = B[pos:pos + n, pos:pos + n]
+        pos += n
+    return out
+
+
+def cov_path(path, problem, dev, bench, rigs, cal_rows, ref_rigs, ref_rows, turn_cols,
+             plain_rigs):
     """The covariance columns on a problem after its LM run: the column
     kernels' rows, then rig_covariances(rigs) and calib_covariances
     ("imu_calib", cal_rows) at the CLI's 400 PCG iterations with the launch
     counts set to 0 just before and read just after, blocks checked; PCG
     device time an iteration; the float32 blocks of ref_rigs / ref_rows
-    against the same calls in float64 through the plain versions; one chunk
+    against the same calls in float64 through the plain versions (and the
+    blocks of plain_rigs and ref_rows through them in float32); one chunk
     of `turn_cols` columns in turns against a loop over its columns through
     the single-column kernel. Returns the launch counts."""
     import torch
@@ -2186,22 +2572,23 @@ def cov_path(path, problem, dev, bench, rigs, cal_rows, ref_rigs, ref_rows, turn
         del lg, rs, bc, bt, b
     torch.cuda.empty_cache()
 
-    # the float64 reference through the plain versions on a subset
+    # the subset through the plain versions, in float64 (the reference) and
+    # in float32 (what float32 alone gives at these iterations)
     p64 = problem_f64(problem)
     t0 = time.time()
-    with _kernels.plain_reference():
-        ref = cov.rig_covariances(p64, ref_rigs, **kw)
-        ref_cal = cov.calib_covariances(p64, "imu_calib", ref_rows, **kw)
-    torch.cuda.synchronize()
-    phase(tag, f"float64 plain reference on rigs {ref_rigs} and calibration rows {ref_rows} in "
-          f"{time.time() - t0:.1f} s")
+    want = plain_cov_blocks(p64, ref_rigs, ref_rows, kw)
+    t64 = time.time() - t0
     del p64
     torch.cuda.empty_cache()
-    want = {("rig", r): ref[r] for r in ref_rigs}
-    want.update({("cal", r): ref_cal[r][0] for r in ref_rows})
+    t0 = time.time()
+    plain32 = plain_cov_blocks(problem, plain_rigs, ref_rows, kw)
+    phase(tag, f"plain references on rigs {ref_rigs} and calibration rows {ref_rows}: float64 in "
+          f"{t64:.1f} s; float32 on rigs {plain_rigs} and those rows in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
     got = {("rig", r): blocks[r] for r in ref_rigs}
     got.update({("cal", r): cal[r][0] for r in ref_rows})
-    worst, ratio = cov_compare(tag, got, want, COV_BOUNDS[path], lam=1e-9)
+    worst, ratio = cov_compare(tag, got, want, COV_BOUNDS[path], lam=COV_LAM,
+                               obs_bounds=COV_OBS_BOUNDS[path], plain=plain32)
     bench.results.setdefault("cov", {})[path] = dict(
         rig_seconds=t_rig, rig_columns=12 * len(rigs), cal_seconds=t_cal, cal_columns=cal_dims,
         worst_block_error=worst, worst_std_ratio=ratio, turn_columns_per_s=rate,
@@ -2400,7 +2787,8 @@ def cli_golden_covariances(dev):
               f" float32, {timings64['covariances']:.2f} s float64 (plain); the gauge rig 0's "
               f"block {float(np.abs(B[0] - B64[0]).max() / np.abs(B64[0]).max()):.3e} off the "
               "float64 run (not bounded)")
-        cov_compare(f"cli:golden {name}", got, want, COV_CLI_BOUNDS)
+        cov_compare(f"cli:golden {name}", got, want, COV_CLI_BOUNDS, lam=COV_LAM,
+                    obs_bounds=COV_CLI_OBS_BOUNDS[name])
 
 
 def cli_argv(session_dir, out_dir, tmp):
@@ -2528,9 +2916,10 @@ def main():
 
     bench = Bench()
     launches = {}
-    launches["bias"], cov_bias = bias_only(dev, bench)
+    bf16 = {}  # flagged path -> its bf16 launch counts
+    launches["bias"], cov_bias, (launches["bias:bf16"], bf16["bias:bf16"]) = bias_only(dev, bench)
     torch.cuda.empty_cache()
-    launches["cap"], cov_cap = capacity(dev, bench)
+    launches["cap"], cov_cap, (launches["cap:bf16"], bf16["cap:bf16"]) = capacity(dev, bench)
     torch.cuda.empty_cache()
     launches["pcg_switch"] = pcg_switch(dev, bench)
     torch.cuda.empty_cache()
@@ -2540,7 +2929,8 @@ def main():
     with tempfile.TemporaryDirectory() as full_dir, tempfile.TemporaryDirectory() as gs_dir, \
             tempfile.TemporaryDirectory() as tools_dir:
         times = {"session": session_sec, "write": write_600(session, full_dir, 0.03)}
-        launches["full"], cov_full = full_sensor(dev, bench, full_dir, times)
+        launches["full"], cov_full, (launches["full:bf16"], bf16["full:bf16"]) = full_sensor(
+            dev, bench, full_dir, times)
         # the cov path: its three runs' counts (each set to 0 just before it)
         runs = (cov_bias, cov_cap, cov_full)
         launches["cov"] = {k: sum(r.get(k, 0) for r in runs) for k in set().union(*runs)}
@@ -2565,17 +2955,29 @@ def main():
         torch.cuda.empty_cache()
         cli_refinement_rows(dev, bench, full_dir)
 
+    # the flagged paths: every kernel of the path launched (checked in
+    # bf16_path), and the bf16 instantiations of BF16_PATHS among them
+    for path, names in BF16_PATHS.items():
+        if not all(bf16[path].get(n, 0) for n in names):
+            raise AssertionError(f"{path}: bf16 instantiations not launched: {bf16[path]}")
     rows = []
     for name, (kid, src, rep, path) in KERNELS.items():
         per_path = {p: launches[p].get(name, 0) for p in PATHS if p in path.split("+")}
         if not all(per_path.values()):
             raise AssertionError(f"{name}: not launched on every path of {per_path}")
+        bf16_by_path = {p: n for p in BF16_PATHS if (n := bf16[p].get(name, 0))}
         row = dict(name=name, k=kid, route="cuda", source=src, replaces=rep, path=path,
                    launches=sum(per_path.values()), launches_by_path=per_path,
-                   **bench.results[name])
+                   bf16_launches_by_path=bf16_by_path, **bench.results[name])
         # the same kernel at another path's shapes (rig_k, row family, width)
         row["also"] = {key: res for key, res in bench.results.items()
                        if key.startswith(name + "(")}
+        # a bf16 row's launches: its instantiation's on its flagged main path
+        # (0 for K6 and K10's down pass: the back-substitution reads float32
+        # J, and their pass with y runs on the route with several batches)
+        for key, res in row["also"].items():
+            if key.endswith(",bf16)"):
+                res["launches"] = bf16[key[len(name) + 1:].split(",")[0] + ":bf16"].get(name, 0)
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(smi)

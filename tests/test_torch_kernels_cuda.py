@@ -1570,3 +1570,170 @@ def test_schur_up_kernel_edge_plan(k, cuda_device, monkeypatch):
         ref = tseg.seg_schur_up(*_kernels.to_f64((J_r, J_p, w, z)), plan)
     _check((out,), (ref,), (1e-5,))
     assert torch.equal(out, again) and float(out[2].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# bf16 Jacobians (rcs.MATVEC_BF16): the eight kernels of the PCG loop
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _rig_bf16_call(name, J_r, J_p, w, x, z, hinv, plan):
+    """K3-K6 (K6 with y, "schur_down"; t alone, "schur_down_t") on one set
+    of inputs, as a tuple of outputs."""
+    if name == "precond_rig":
+        return (tseg.seg_precond_rig(J_r, J_p, w, hinv, plan),)
+    if name in ("schur_down", "schur_down_t"):
+        return tseg.seg_schur_down(J_r, J_p, w, x, plan, name == "schur_down")
+    if name == "schur_up":
+        return (tseg.seg_schur_up(J_r, J_p, w, z, plan),)
+    return (tseg.seg_schur_pcg(J_r, J_p, w, x, hinv, plan),)
+
+
+def _cal_bf16_call(name, J_r, J_c, J_p, w, x_r, x_c, z, hinv, plan, cplan):
+    """K9 and K10 (down with y, "schur_down_cal"; t alone, "schur_down_cal_t";
+    up) on one set of inputs, as a tuple of outputs."""
+    if name == "schur_pcg_cal":
+        return tseg.seg_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
+    if name == "schur_up_cal":
+        return tseg.seg_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan)
+    return tseg.seg_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan,
+                                   name == "schur_down_cal")
+
+
+def _bf16_against_plain_and_f32(call, wrapper, J, rest):
+    """call(*J, *rest) with the Jacobians J rounded to bf16: one launch of
+    the bf16 instantiation, within 1e-5 of the plain version evaluated in
+    float64 on the same bf16 values, the same bits every call, and the
+    bits of the float32 instantiation on those values upcast."""
+    Jb = tuple(a.to(BF16) for a in J)
+    _kernels.reset_launch_counts()
+    out = [o for o in call(*Jb, *rest) if o is not None]
+    assert _kernels.launch_counts(bf16=True)[wrapper] == 1
+    again = [o for o in call(*Jb, *rest) if o is not None]
+    f32 = [o for o in call(*(a.float() for a in Jb), *rest) if o is not None]
+    counts = _kernels.launch_counts()
+    assert counts[wrapper] == 3 and sum(counts.values()) == 3
+    assert _kernels.launch_counts(bf16=True)[wrapper] == 2
+    with _kernels.plain_reference():
+        ref = [o for o in call(*_kernels.to_f64(Jb), *_kernels.to_f64(rest)) if o is not None]
+    assert len(out) == len(ref) == len(f32)
+    _check(out, ref, (1e-5,) * len(out))
+    for o, o2, o3 in zip(out, again, f32):
+        assert torch.equal(o, o2) and torch.equal(o, o3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["precond_rig", "schur_down", "schur_down_t", "schur_up",
+                                  "schur_pcg"])
+@pytest.mark.parametrize("k", [6, 9])
+def test_rig_kernels_bf16(name, k, cuda_device):
+    """K3, K6 (pcg_down, schur_down_rows), K5 (schur_up_rows) and K4
+    (pcg_down, pcg_up) on bf16 J on the bias-only batch's plan at rig widths
+    6 and 9: against the plain version on the bf16 values and, bit for bit,
+    the float32 instantiation on them upcast."""
+    plan, a = _segment_inputs(cuda_device)
+    J_r, J_p, w, x, hinv = _schur_pcg_args(a["w"], plan, k, cuda_device, 281 + k)
+    wrapper = "schur_down" if name == "schur_down_t" else name
+    _bf16_against_plain_and_f32(lambda Jr, Jp, *r: _rig_bf16_call(name, Jr, Jp, *r), wrapper,
+                                (J_r, J_p), (w, x, a["z"], hinv, plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["schur_pcg_cal", "schur_down_cal", "schur_down_cal_t",
+                                  "schur_up_cal"])
+@pytest.mark.parametrize("kc", [6, 17, 23])
+@pytest.mark.parametrize("k", [6, 9])
+def test_cal_kernels_bf16(name, k, kc, cuda_device):
+    """K9 (pcg_cal_down, pcg_cal_up) and K10 (cal_pair_pass down with y and
+    up; pcg_cal_down for t alone) on bf16 J on the full-sensor batch's plans
+    at every rig and window width: against the plain version on the bf16
+    values and, bit for bit, the float32 instantiation on them upcast."""
+    b, _ = _cal_inputs(cuda_device)
+    J_r, J_c, J_p, w, x_r, x_c, hinv = _pcg_cal_args(b.w, b.plan, b.cplan, k, kc, cuda_device,
+                                                     283 + k + kc)
+    z = _cols((b.plan.n_pts,), 3, cuda_device, 293)
+    wrapper = "schur_down_cal" if name == "schur_down_cal_t" else name
+    _bf16_against_plain_and_f32(lambda Jr, Jc, Jp, *r: _cal_bf16_call(name, Jr, Jc, Jp, *r),
+                                wrapper, (J_r, J_c, J_p),
+                                (w, x_r, x_c, z, hinv, b.plan, b.cplan))
+
+
+@pytest.mark.cuda
+def test_bf16_wrappers_refuse_mixed_jacobians(cuda_device):
+    """One J type a call: bf16 J_r with float32 J_p (or J_c) is refused
+    before any launch, and assembly (K2, K8) takes float32 J only."""
+    b, a = _cal_inputs(cuda_device)
+    _kernels.reset_launch_counts()
+    with pytest.raises(ValueError):
+        tseg.seg_schur_pcg_cal(b.J.to(BF16), b.J_cal, b.J_pt.to(BF16), b.w, a["x"], a["x_c"],
+                               a["hinv"], b.plan, b.cplan)
+    with pytest.raises(ValueError):
+        tseg.seg_precond_rig(b.J.to(BF16), b.J_pt, b.w, a["hinv"], b.plan)
+    with pytest.raises(ValueError):
+        tseg.seg_assemble_cal(b.J.to(BF16), b.J_cal.to(BF16), b.J_pt.to(BF16), a["res"], b.w,
+                              b.plan, b.cplan)
+    assert sum(_kernels.launch_counts().values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem", ["bias", "full_sensor"])
+def test_flagged_lm_attempt_runs_bf16_kernels(problem, cuda_device, monkeypatch):
+    """One LM attempt with rcs.MATVEC_BF16 on: K3, K4 / K9 and K5 / K10's up
+    pass launch their bf16 instantiations (the back-substitution its float32
+    one), the attempt repeats bit for bit, and it agrees with the same
+    attempt through the plain versions within 1e-3 in new cost and |step|."""
+    monkeypatch.setattr(trcs, "MATVEC_BF16", True)
+    make = _card_problem if problem == "bias" else _full_card
+    _kernels.reset_launch_counts()
+    cost, x_r, x_l = _attempt(make(cuda_device)[0])
+    bf16 = _kernels.launch_counts(bf16=True)
+    counts = _kernels.launch_counts()
+    cost2, x_r2, x_l2 = _attempt(make(cuda_device)[0])
+    with _kernels.plain_reference():
+        cost_p, x_r_p, x_l_p = _attempt(make(cuda_device)[0])
+    mv = (("precond_rig", "schur_pcg", "schur_up") if problem == "bias"
+          else ("precond_rig", "schur_pcg_cal", "schur_up_cal"))
+    assert all(bf16[k] > 0 for k in mv), bf16
+    back = "schur_down" if problem == "bias" else "schur_down_cal"
+    assert counts[back] > 0 and bf16[back] == 0
+    assert float(cost) == float(cost2) and torch.equal(x_l, x_l2)
+    assert all(torch.equal(a, c) for a, c in zip(x_r, x_r2))
+    step = lambda xr, xl: float(torch.sqrt(tst.t_dot(xr, xr) + (xl * xl).sum()))  # noqa: E731
+    assert abs(float(cost) - float(cost_p)) <= 1e-3 * abs(float(cost_p))
+    assert abs(step(x_r, x_l) - step(x_r_p, x_l_p)) <= 1e-3 * step(x_r_p, x_l_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["bias", "full_sensor"])
+def test_column_kernels_on_the_copies_match_bf16_single_column(route, cuda_device,
+                                                              monkeypatch):
+    """With the flag on, the point-sorted records of a system hold the bf16
+    copies upcast (rcs.with_column_records), so the column K4 / K9 at 8
+    columns give, column by column, the bits of the single-column bf16
+    kernel."""
+    monkeypatch.setattr(trcs, "MATVEC_BF16", True)
+    p = (_card_problem if route == "bias" else _full_card)(cuda_device)[0]
+    ks = p._build()
+    datas, v = tuple(p.datas), p.variables
+    lg = ks[0](datas, v, p.masks, None)
+    rs = trcs.with_column_records(trcs.with_damping(ks[6](datas, lg, v, p.masks), v, p.masks,
+                                                    1e-4))
+    (b,) = rs.vis
+    assert b.J_mv.dtype == BF16 and b.rec is not None
+    C = 8
+    x_r = _cols((v.pose_q.shape[0], b.rig_k), C, cuda_device, 307)
+    if route == "bias":
+        out = (tseg.seg_schur_pcg_cols(b.J_mv, b.J_pt_mv, b.w, x_r, rs.H_ll_inv, b.plan, b.rec),)
+        single = [(tseg.seg_schur_pcg(b.J_mv, b.J_pt_mv, b.w, x_r[..., c].contiguous(),
+                                      rs.H_ll_inv, b.plan),) for c in range(C)]
+    else:
+        x_c = _cols((b.cplan.n_rows, b.J_cal.shape[1]), C, cuda_device, 311)
+        out = tseg.seg_schur_pcg_cal_cols(b.J_mv, b.J_cal_mv, b.J_pt_mv, b.w, x_r, x_c,
+                                          rs.H_ll_inv, b.plan, b.cplan, b.rec)
+        single = [tseg.seg_schur_pcg_cal(b.J_mv, b.J_cal_mv, b.J_pt_mv, b.w,
+                                         x_r[..., c].contiguous(), x_c[..., c].contiguous(),
+                                         rs.H_ll_inv, b.plan, b.cplan) for c in range(C)]
+    for c in range(C):
+        assert all(torch.equal(o[..., c], s) for o, s in zip(out, single[c])), c

@@ -18,7 +18,10 @@
 // K9 and K10 walk each rig row's (rig, window row) pairs and write one
 // partial row a pair, which a second pass sums in rig order. Landmark rows
 // (~30 observations) are summed over each slot's point-sorted position
-// (pt_segments.cuh). Deterministic, no atomics.
+// (pt_segments.cuh). Deterministic, no atomics. K9's and K10's kernels are
+// templated on TJ too, J's element type (J_r, J_c and J_p alike): float, or
+// bf16 for the PCG loop's copies (rcs.MATVEC_BF16; tile_reduce.cuh jf),
+// which halve the J bytes their bounds count; K8 reads float J only.
 //
 // K8 (viba_assemble_cal) is three launches: K2's first (assemble_rig.cuh: the
 // rig rows, and each slot's landmark-side sector at its point-sorted
@@ -409,11 +412,11 @@ __global__ void __launch_bounds__(256) sum_cal_points(
 }
 
 // K9 down: p[pt_pos[s]] = J_p^T w (J_r x_r[rig] + J_c x_c[win]) per real slot
-template <int K, int KC>
+template <int K, int KC, class TJ>
 __global__ void __launch_bounds__(256) pcg_cal_down(
     int n, const int* __restrict__ rig, const int* __restrict__ win,
-    const int* __restrict__ pt_pos, const float* __restrict__ J_r, const float* __restrict__ J_c,
-    const float* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ x_r,
+    const int* __restrict__ pt_pos, const TJ* __restrict__ J_r, const TJ* __restrict__ J_c,
+    const TJ* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ x_r,
     const float* __restrict__ x_c, float4* __restrict__ p) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= n) return;
@@ -425,23 +428,23 @@ __global__ void __launch_bounds__(256) pcg_cal_down(
 #pragma unroll
   for (int c = 0; c < K; ++c) {
     const float xv = xr[c];
-    u0 += J_r[c * (long)n + s] * xv;
-    u1 += J_r[(K + c) * (long)n + s] * xv;
+    u0 += viba::jf(J_r[c * (long)n + s]) * xv;
+    u1 += viba::jf(J_r[(K + c) * (long)n + s]) * xv;
   }
   // eight columns of J_c in flight: fully unrolled at kc 23, ptxas kept 32
   // registers and spilled
 #pragma unroll 8
   for (int c = 0; c < KC; ++c) {
     const float xv = xc[c];
-    v0 += J_c[c * (long)n + s] * xv;
-    v1 += J_c[(KC + c) * (long)n + s] * xv;
+    v0 += viba::jf(J_c[c * (long)n + s]) * xv;
+    v1 += viba::jf(J_c[(KC + c) * (long)n + s]) * xv;
   }
   const float ws = w[s];
   const float wu0 = (u0 + v0) * ws, wu1 = (u1 + v1) * ws;
   float q[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    q[c] = J_p[c * (long)n + s] * wu0 + J_p[(3 + c) * (long)n + s] * wu1;
+    q[c] = viba::jf(J_p[c * (long)n + s]) * wu0 + viba::jf(J_p[(3 + c) * (long)n + s]) * wu1;
   p[pos] = make_float4(q[0], q[1], q[2], 0.f);
 }
 
@@ -452,12 +455,12 @@ __device__ __forceinline__ void warp_sum(float (&acc)[D]) {
 
 // K9 up: per rig row, du = w (J_r x_r + J_c x_c[win]) - w J_p z[point] per slot,
 // y_r = sum J_r^T du, and per (rig, window row) pair one partial sum J_c^T du
-template <int K, int KC>
+template <int K, int KC, class TJ>
 __global__ void __launch_bounds__(viba::kBlock) pcg_cal_up(
     int R, int n, const int* __restrict__ rig_pair, const int* __restrict__ pair_ptr,
     const int* __restrict__ pair_obs, const int* __restrict__ pair_part,
-    const int* __restrict__ win, const int* __restrict__ point, const float* __restrict__ J_r,
-    const float* __restrict__ J_c, const float* __restrict__ J_p, const float* __restrict__ w,
+    const int* __restrict__ win, const int* __restrict__ point, const TJ* __restrict__ J_r,
+    const TJ* __restrict__ J_c, const TJ* __restrict__ J_p, const float* __restrict__ w,
     const float* __restrict__ x_r, const float* __restrict__ x_c, const float* __restrict__ z,
     float* __restrict__ part, float* __restrict__ y_r) {
   const int r = blockIdx.x * (viba::kBlock / 32) + threadIdx.x / 32;
@@ -484,24 +487,25 @@ __global__ void __launch_bounds__(viba::kBlock) pcg_cal_up(
       float u0 = 0.f, u1 = 0.f, v0 = 0.f, v1 = 0.f;
 #pragma unroll
       for (int c = 0; c < K; ++c) {
-        jr0[c] = J_r[c * (long)n + s];
-        jr1[c] = J_r[(K + c) * (long)n + s];
+        jr0[c] = viba::jf(J_r[c * (long)n + s]);
+        jr1[c] = viba::jf(J_r[(K + c) * (long)n + s]);
         u0 += jr0[c] * xr[c];
         u1 += jr1[c] * xr[c];
       }
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
-        jc0[c] = J_c[c * (long)n + s];
-        jc1[c] = J_c[(KC + c) * (long)n + s];
+        jc0[c] = viba::jf(J_c[c * (long)n + s]);
+        jc1[c] = viba::jf(J_c[(KC + c) * (long)n + s]);
         v0 += jc0[c] * xc[c];
         v1 += jc1[c] * xc[c];
       }
       const float ws = w[s];
       const float* zp = z + 3 * (long)point[s];
       const float z0 = zp[0], z1 = zp[1], z2 = zp[2];
-      const float a0 = J_p[s] * z0 + J_p[(long)n + s] * z1 + J_p[2 * (long)n + s] * z2;
-      const float a1 =
-          J_p[3 * (long)n + s] * z0 + J_p[4 * (long)n + s] * z1 + J_p[5 * (long)n + s] * z2;
+      const float a0 = viba::jf(J_p[s]) * z0 + viba::jf(J_p[(long)n + s]) * z1 +
+                       viba::jf(J_p[2 * (long)n + s]) * z2;
+      const float a1 = viba::jf(J_p[3 * (long)n + s]) * z0 +
+                       viba::jf(J_p[4 * (long)n + s]) * z1 + viba::jf(J_p[5 * (long)n + s]) * z2;
       const float d0 = (u0 + v0) * ws - a0 * ws;
       const float d1 = (u1 + v1) * ws - a1 * ws;
 #pragma unroll
@@ -532,12 +536,12 @@ __global__ void __launch_bounds__(viba::kBlock) pcg_cal_up(
 // pair order (y_r after the group's sum: the butterfly, then the warps in
 // order) and J_c^T wu over those of one pair (the pair's partial row after
 // the group's sum).
-template <int K, int KC, bool kDown>
+template <int K, int KC, bool kDown, class TJ>
 __global__ void __launch_bounds__(viba::kBlock) cal_pair_pass(
     int n, const int* __restrict__ rig_pair, const int* __restrict__ pair_ptr,
     const int* __restrict__ pair_obs, const int* __restrict__ pair_part,
-    const int* __restrict__ win, const int* __restrict__ idx, const float* __restrict__ J_r,
-    const float* __restrict__ J_c, const float* __restrict__ J_p, const float* __restrict__ w,
+    const int* __restrict__ win, const int* __restrict__ idx, const TJ* __restrict__ J_r,
+    const TJ* __restrict__ J_c, const TJ* __restrict__ J_p, const float* __restrict__ w,
     const float* __restrict__ x_r, const float* __restrict__ x_c, const float* __restrict__ z,
     float4* __restrict__ p, float* __restrict__ part, float* __restrict__ y_r) {
   constexpr int G = viba::kBlock;  // one rig row a block
@@ -567,15 +571,15 @@ __global__ void __launch_bounds__(viba::kBlock) cal_pair_pass(
         float u0 = 0.f, u1 = 0.f, v0 = 0.f, v1 = 0.f;
 #pragma unroll
         for (int c = 0; c < K; ++c) {
-          jr0[c] = J_r[c * (long)n + s];
-          jr1[c] = J_r[(K + c) * (long)n + s];
+          jr0[c] = viba::jf(J_r[c * (long)n + s]);
+          jr1[c] = viba::jf(J_r[(K + c) * (long)n + s]);
           u0 += jr0[c] * xr[c];
           u1 += jr1[c] * xr[c];
         }
 #pragma unroll
         for (int c = 0; c < KC; ++c) {
-          jc0[c] = J_c[c * (long)n + s];
-          jc1[c] = J_c[(KC + c) * (long)n + s];
+          jc0[c] = viba::jf(J_c[c * (long)n + s]);
+          jc1[c] = viba::jf(J_c[(KC + c) * (long)n + s]);
           v0 += jc0[c] * xc[c];
           v1 += jc1[c] * xc[c];
         }
@@ -583,7 +587,7 @@ __global__ void __launch_bounds__(viba::kBlock) cal_pair_pass(
         float q3[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c)
-          q3[c] = J_p[c * (long)n + s] * wu0 + J_p[(3 + c) * (long)n + s] * wu1;
+          q3[c] = viba::jf(J_p[c * (long)n + s]) * wu0 + viba::jf(J_p[(3 + c) * (long)n + s]) * wu1;
         p[idx[s]] = make_float4(q3[0], q3[1], q3[2], 0.f);
 #pragma unroll
         for (int c = 0; c < K; ++c) acc_r[c] += jr0[c] * wu0 + jr1[c] * wu1;
@@ -592,16 +596,17 @@ __global__ void __launch_bounds__(viba::kBlock) cal_pair_pass(
       } else {
         const float* zp = z + 3 * (long)idx[s];
         const float z0 = zp[0], z1 = zp[1], z2 = zp[2];
-        const float a0 = J_p[s] * z0 + J_p[(long)n + s] * z1 + J_p[2 * (long)n + s] * z2;
-        const float a1 =
-            J_p[3 * (long)n + s] * z0 + J_p[4 * (long)n + s] * z1 + J_p[5 * (long)n + s] * z2;
+        const float a0 = viba::jf(J_p[s]) * z0 + viba::jf(J_p[(long)n + s]) * z1 +
+                         viba::jf(J_p[2 * (long)n + s]) * z2;
+        const float a1 = viba::jf(J_p[3 * (long)n + s]) * z0 +
+                         viba::jf(J_p[4 * (long)n + s]) * z1 + viba::jf(J_p[5 * (long)n + s]) * z2;
         const float d0 = a0 * ws, d1 = a1 * ws;
 #pragma unroll
         for (int c = 0; c < K; ++c)
-          acc_r[c] += J_r[c * (long)n + s] * d0 + J_r[(K + c) * (long)n + s] * d1;
+          acc_r[c] += viba::jf(J_r[c * (long)n + s]) * d0 + viba::jf(J_r[(K + c) * (long)n + s]) * d1;
 #pragma unroll
         for (int c = 0; c < KC; ++c)
-          acc_c[c] += J_c[c * (long)n + s] * d0 + J_c[(KC + c) * (long)n + s] * d1;
+          acc_c[c] += viba::jf(J_c[c * (long)n + s]) * d0 + viba::jf(J_c[(KC + c) * (long)n + s]) * d1;
       }
     }
     viba::group_sum<G, KC>(acc_c, smem);
@@ -636,24 +641,24 @@ __global__ void __launch_bounds__(viba::kBlock) cal_down_sums(
                                   threadIdx.x % G, L, pt_ptr, p, nullptr, t);
 }
 
-template <int K, int KC>
+template <int K, int KC, class TJ>
 cudaError_t down_cal(int R, int L, int n, int n_real, int n_c, int want_y, const int* rig,
                      const int* win, const int* pt_pos, const int* pt_ptr, const int* rig_pair,
                      const int* pair_ptr, const int* pair_obs, const int* pair_part,
-                     const int* win_pair, const float* J_r, const float* J_c, const float* J_p,
+                     const int* win_pair, const TJ* J_r, const TJ* J_c, const TJ* J_p,
                      const float* w, const float* x_r, const float* x_c, float4* p, float* part,
                      float* y_r, float* y_c, float* t, cudaStream_t st) {
   if (!want_y) {
     if (n_real > 0) {
-      pcg_cal_down<K, KC><<<(n + 255) / 256, 256, 0, st>>>(n, rig, win, pt_pos, J_r, J_c, J_p, w,
-                                                           x_r, x_c, p);
+      pcg_cal_down<K, KC, TJ><<<(n + 255) / 256, 256, 0, st>>>(n, rig, win, pt_pos, J_r, J_c,
+                                                               J_p, w, x_r, x_c, p);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
     return viba::launch_point_sums(L, pt_ptr, p, t, st);
   }
   if (R > 0) {
-    cal_pair_pass<K, KC, true><<<R, viba::kBlock, 0, st>>>(
+    cal_pair_pass<K, KC, true, TJ><<<R, viba::kBlock, 0, st>>>(
         n, rig_pair, pair_ptr, pair_obs, pair_part, win, pt_pos, J_r, J_c, J_p, w, x_r, x_c,
         nullptr, p, part, y_r);
     const cudaError_t err = cudaGetLastError();
@@ -668,14 +673,14 @@ cudaError_t down_cal(int R, int L, int n, int n_real, int n_c, int want_y, const
   return cudaGetLastError();
 }
 
-template <int K, int KC>
+template <int K, int KC, class TJ>
 cudaError_t up_cal(int R, int n, int n_c, const int* rig_pair, const int* pair_ptr,
                    const int* pair_obs, const int* pair_part, const int* win_pair,
-                   const int* point, const float* J_r, const float* J_c, const float* J_p,
+                   const int* point, const TJ* J_r, const TJ* J_c, const TJ* J_p,
                    const float* w, const float* z, float* part, float* y_r, float* y_c,
                    cudaStream_t st) {
   if (R > 0) {
-    cal_pair_pass<K, KC, false><<<R, viba::kBlock, 0, st>>>(
+    cal_pair_pass<K, KC, false, TJ><<<R, viba::kBlock, 0, st>>>(
         n, rig_pair, pair_ptr, pair_obs, pair_part, nullptr, point, J_r, J_c, J_p, w, nullptr,
         nullptr, z, nullptr, part, y_r);
     const cudaError_t err = cudaGetLastError();
@@ -1129,16 +1134,16 @@ cudaError_t pcg_cal_cols_fused(int R, int L, int n_c, int C, int rig_sorted, con
   return viba::launch_sum_partials(n_c, KC * C, win_pair, part, y_c, st);
 }
 
-template <int K, int KC>
+template <int K, int KC, class TJ>
 cudaError_t pcg_cal(int R, int L, int n, int n_real, int n_c, const int* rig, const int* win,
                     const int* point, const int* pt_pos, const int* pt_ptr, const int* rig_pair,
                     const int* pair_ptr, const int* pair_obs, const int* pair_part,
-                    const int* win_pair, const float* J_r, const float* J_c, const float* J_p,
+                    const int* win_pair, const TJ* J_r, const TJ* J_c, const TJ* J_p,
                     const float* w, const float* x_r, const float* x_c, const float* hinv,
                     float4* p, float* z, float* part, float* y_r, float* y_c, cudaStream_t st) {
   if (n_real > 0) {
-    pcg_cal_down<K, KC><<<(n + 255) / 256, 256, 0, st>>>(n, rig, win, pt_pos, J_r, J_c, J_p, w,
-                                                         x_r, x_c, p);
+    pcg_cal_down<K, KC, TJ><<<(n + 255) / 256, 256, 0, st>>>(n, rig, win, pt_pos, J_r, J_c, J_p,
+                                                             w, x_r, x_c, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -1147,7 +1152,7 @@ cudaError_t pcg_cal(int R, int L, int n, int n_real, int n_c, const int* rig, co
     if (err != cudaSuccess) return err;
   }
   if (R > 0) {
-    pcg_cal_up<K, KC><<<viba::segment_blocks<32>(R), viba::kBlock, 0, st>>>(
+    pcg_cal_up<K, KC, TJ><<<viba::segment_blocks<32>(R), viba::kBlock, 0, st>>>(
         R, n, rig_pair, pair_ptr, pair_obs, pair_part, win, point, J_r, J_c, J_p, w, x_r, x_c, z,
         part, y_r);
     const cudaError_t err = cudaGetLastError();
@@ -1210,59 +1215,104 @@ extern "C" int viba_assemble_cal(int R, int L, int n, int k, int kc, int n_c, in
 #undef VIBA_ASM
 }
 
-extern "C" int viba_schur_down_cal(int R, int L, int n, int n_real, int k, int kc, int n_c,
-                                   int want_y, const int* rig, const int* win, const int* pt_pos,
-                                   const int* pt_ptr, const int* rig_pair, const int* pair_ptr,
-                                   const int* pair_obs, const int* pair_part, const int* win_pair,
-                                   const float* J_r, const float* J_c, const float* J_p,
-                                   const float* w, const float* x_r, const float* x_c, float* p,
-                                   float* part, float* y_r, float* y_c, float* t, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The K9 / K10 entries for J of element type TJ (J_r, J_c and J_p alike),
+// dispatched on rig_k and kc
+template <class TJ>
+int down_cal_typed(int R, int L, int n, int n_real, int k, int kc, int n_c, int want_y,
+                   const int* rig, const int* win, const int* pt_pos, const int* pt_ptr,
+                   const int* rig_pair, const int* pair_ptr, const int* pair_obs,
+                   const int* pair_part, const int* win_pair, const void* J_r_,
+                   const void* J_c_, const void* J_p_, const float* w, const float* x_r,
+                   const float* x_c, float* p, float* part, float* y_r, float* y_c, float* t,
+                   cudaStream_t st) {
+  const TJ *J_r = static_cast<const TJ*>(J_r_), *J_c = static_cast<const TJ*>(J_c_),
+           *J_p = static_cast<const TJ*>(J_p_);
   float4* p4 = reinterpret_cast<float4*>(p);
-#define VIBA_DOWN(K, KC)                                                                       \
-  static_cast<int>(down_cal<K, KC>(R, L, n, n_real, n_c, want_y, rig, win, pt_pos, pt_ptr,     \
-                                   rig_pair, pair_ptr, pair_obs, pair_part, win_pair, J_r, J_c, \
-                                   J_p, w, x_r, x_c, p4, part, y_r, y_c, t, st))
+#define VIBA_DOWN(K, KC)                                                                        \
+  static_cast<int>(down_cal<K, KC, TJ>(R, L, n, n_real, n_c, want_y, rig, win, pt_pos, pt_ptr, \
+                                       rig_pair, pair_ptr, pair_obs, pair_part, win_pair, J_r,  \
+                                       J_c, J_p, w, x_r, x_c, p4, part, y_r, y_c, t, st))
   if (k == 6) return VIBA_DISPATCH_KC(kc, VIBA_DOWN(6, 6), VIBA_DOWN(6, 17), VIBA_DOWN(6, 23));
   if (k == 9) return VIBA_DISPATCH_KC(kc, VIBA_DOWN(9, 6), VIBA_DOWN(9, 17), VIBA_DOWN(9, 23));
   return static_cast<int>(cudaErrorInvalidValue);
 #undef VIBA_DOWN
 }
 
-extern "C" int viba_schur_up_cal(int R, int n, int k, int kc, int n_c, const int* rig_pair,
-                                 const int* pair_ptr, const int* pair_obs, const int* pair_part,
-                                 const int* win_pair, const int* point, const float* J_r,
-                                 const float* J_c, const float* J_p, const float* w,
-                                 const float* z, float* part, float* y_r, float* y_c,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VIBA_UP(K, KC)                                                                        \
-  static_cast<int>(up_cal<K, KC>(R, n, n_c, rig_pair, pair_ptr, pair_obs, pair_part, win_pair, \
-                                 point, J_r, J_c, J_p, w, z, part, y_r, y_c, st))
+template <class TJ>
+int up_cal_typed(int R, int n, int k, int kc, int n_c, const int* rig_pair, const int* pair_ptr,
+                 const int* pair_obs, const int* pair_part, const int* win_pair,
+                 const int* point, const void* J_r_, const void* J_c_, const void* J_p_,
+                 const float* w, const float* z, float* part, float* y_r, float* y_c,
+                 cudaStream_t st) {
+  const TJ *J_r = static_cast<const TJ*>(J_r_), *J_c = static_cast<const TJ*>(J_c_),
+           *J_p = static_cast<const TJ*>(J_p_);
+#define VIBA_UP(K, KC)                                                                      \
+  static_cast<int>(up_cal<K, KC, TJ>(R, n, n_c, rig_pair, pair_ptr, pair_obs, pair_part,    \
+                                     win_pair, point, J_r, J_c, J_p, w, z, part, y_r, y_c, st))
   if (k == 6) return VIBA_DISPATCH_KC(kc, VIBA_UP(6, 6), VIBA_UP(6, 17), VIBA_UP(6, 23));
   if (k == 9) return VIBA_DISPATCH_KC(kc, VIBA_UP(9, 6), VIBA_UP(9, 17), VIBA_UP(9, 23));
   return static_cast<int>(cudaErrorInvalidValue);
 #undef VIBA_UP
 }
 
-extern "C" int viba_schur_pcg_cal(int R, int L, int n, int n_real, int k, int kc, int n_c,
-                                  const int* rig, const int* win, const int* point,
-                                  const int* pt_pos, const int* pt_ptr, const int* rig_pair,
-                                  const int* pair_ptr, const int* pair_obs, const int* pair_part,
-                                  const int* win_pair, const float* J_r, const float* J_c,
-                                  const float* J_p, const float* w, const float* x_r,
-                                  const float* x_c, const float* hinv, float* p, float* z,
-                                  float* part, float* y_r, float* y_c, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <class TJ>
+int pcg_cal_typed(int R, int L, int n, int n_real, int k, int kc, int n_c, const int* rig,
+                  const int* win, const int* point, const int* pt_pos, const int* pt_ptr,
+                  const int* rig_pair, const int* pair_ptr, const int* pair_obs,
+                  const int* pair_part, const int* win_pair, const void* J_r_,
+                  const void* J_c_, const void* J_p_, const float* w, const float* x_r,
+                  const float* x_c, const float* hinv, float* p, float* z, float* part,
+                  float* y_r, float* y_c, cudaStream_t st) {
+  const TJ *J_r = static_cast<const TJ*>(J_r_), *J_c = static_cast<const TJ*>(J_c_),
+           *J_p = static_cast<const TJ*>(J_p_);
   float4* p4 = reinterpret_cast<float4*>(p);
-#define VIBA_PCG(K, KC)                                                                        \
-  static_cast<int>(pcg_cal<K, KC>(R, L, n, n_real, n_c, rig, win, point, pt_pos, pt_ptr,       \
-                                  rig_pair, pair_ptr, pair_obs, pair_part, win_pair, J_r, J_c, \
-                                  J_p, w, x_r, x_c, hinv, p4, z, part, y_r, y_c, st))
+#define VIBA_PCG(K, KC)                                                                         \
+  static_cast<int>(pcg_cal<K, KC, TJ>(R, L, n, n_real, n_c, rig, win, point, pt_pos, pt_ptr,   \
+                                      rig_pair, pair_ptr, pair_obs, pair_part, win_pair, J_r,  \
+                                      J_c, J_p, w, x_r, x_c, hinv, p4, z, part, y_r, y_c, st))
   if (k == 6) return VIBA_DISPATCH_KC(kc, VIBA_PCG(6, 6), VIBA_PCG(6, 17), VIBA_PCG(6, 23));
   if (k == 9) return VIBA_DISPATCH_KC(kc, VIBA_PCG(9, 6), VIBA_PCG(9, 17), VIBA_PCG(9, 23));
   return static_cast<int>(cudaErrorInvalidValue);
 #undef VIBA_PCG
+}
+
+// jt: the J type code of the K9 / K10 entries (VIBA_BY_JTYPE)
+extern "C" int viba_schur_down_cal(int R, int L, int n, int n_real, int k, int kc, int n_c,
+                                   int jt, int want_y, const int* rig, const int* win,
+                                   const int* pt_pos, const int* pt_ptr, const int* rig_pair,
+                                   const int* pair_ptr, const int* pair_obs,
+                                   const int* pair_part, const int* win_pair, const void* J_r,
+                                   const void* J_c, const void* J_p, const float* w,
+                                   const float* x_r, const float* x_c, float* p, float* part,
+                                   float* y_r, float* y_c, float* t, void* stream) {
+  return VIBA_BY_JTYPE(jt, down_cal_typed, R, L, n, n_real, k, kc, n_c, want_y, rig, win, pt_pos,
+                       pt_ptr, rig_pair, pair_ptr, pair_obs, pair_part, win_pair, J_r, J_c, J_p,
+                       w, x_r, x_c, p, part, y_r, y_c, t, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int viba_schur_up_cal(int R, int n, int k, int kc, int n_c, int jt,
+                                 const int* rig_pair, const int* pair_ptr, const int* pair_obs,
+                                 const int* pair_part, const int* win_pair, const int* point,
+                                 const void* J_r, const void* J_c, const void* J_p,
+                                 const float* w, const float* z, float* part, float* y_r,
+                                 float* y_c, void* stream) {
+  return VIBA_BY_JTYPE(jt, up_cal_typed, R, n, k, kc, n_c, rig_pair, pair_ptr, pair_obs,
+                       pair_part, win_pair, point, J_r, J_c, J_p, w, z, part, y_r, y_c,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int viba_schur_pcg_cal(int R, int L, int n, int n_real, int k, int kc, int n_c,
+                                  int jt, const int* rig, const int* win, const int* point,
+                                  const int* pt_pos, const int* pt_ptr, const int* rig_pair,
+                                  const int* pair_ptr, const int* pair_obs, const int* pair_part,
+                                  const int* win_pair, const void* J_r, const void* J_c,
+                                  const void* J_p, const float* w, const float* x_r,
+                                  const float* x_c, const float* hinv, float* p, float* z,
+                                  float* part, float* y_r, float* y_c, void* stream) {
+  return VIBA_BY_JTYPE(jt, pcg_cal_typed, R, L, n, n_real, k, kc, n_c, rig, win, point, pt_pos,
+                       pt_ptr, rig_pair, pair_ptr, pair_obs, pair_part, win_pair, J_r, J_c, J_p,
+                       w, x_r, x_c, hinv, p, z, part, y_r, y_c,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int viba_schur_pcg_cal_cols(int R, int L, int k, int kc, int n_c, int C,

@@ -10,19 +10,21 @@
 // mirrored, as the full symmetric K x K block. K is a template parameter (6 for
 // global-shutter batches, 9 for rolling-shutter ones, where the velocity
 // couples): the K(K+1)/2-float accumulator (21 or 45) and the per-slot K x 3
-// products stay in registers. Bound: bytes of J and the gathered 36 B
-// H_ll^-1 row per observation.
+// products stay in registers. TJ is J's element type: float, or bf16 for the
+// PCG loop's copies (rcs.MATVEC_BF16; tile_reduce.cuh jf). Bound: bytes of
+// J (4 or 2 B an element) and the gathered 36 B H_ll^-1 row per
+// observation.
 #include "tile_reduce.cuh"
 
 namespace {
 
 using viba::kRowGroup;
 
-template <int K>
+template <int K, class TJ>
 __global__ void __launch_bounds__(viba::kBlock) precond_rig(
     int R, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
-    const int* __restrict__ point, const float* __restrict__ J_r,
-    const float* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ hinv,
+    const int* __restrict__ point, const TJ* __restrict__ J_r,
+    const TJ* __restrict__ J_p, const float* __restrict__ w, const float* __restrict__ hinv,
     float* __restrict__ out) {
   constexpr int T = K * (K + 1) / 2;
   viba::reduce_segments<kRowGroup, T>(
@@ -34,9 +36,9 @@ __global__ void __launch_bounds__(viba::kBlock) precond_rig(
 #pragma unroll
         for (int d = 0; d < 2; ++d) {
 #pragma unroll
-          for (int a = 0; a < K; ++a) Jr[d][a] = J_r[(K * d + a) * (long)n + s];
+          for (int a = 0; a < K; ++a) Jr[d][a] = viba::jf(J_r[(K * d + a) * (long)n + s]);
 #pragma unroll
-          for (int c = 0; c < 3; ++c) Jp[d][c] = J_p[(3 * d + c) * (long)n + s];
+          for (int c = 0; c < 3; ++c) Jp[d][c] = viba::jf(J_p[(3 * d + c) * (long)n + s]);
         }
         float A[K][3], C[K][3];
 #pragma unroll
@@ -74,22 +76,33 @@ __global__ void __launch_bounds__(viba::kBlock) precond_rig(
       });
 }
 
+template <class TJ>
+cudaError_t precond_rig_typed(int R, int n, int k, const int* rig_ptr, const int* rig_obs,
+                              const int* point, const void* J_r, const void* J_p,
+                              const float* w, const float* hinv, float* out, cudaStream_t st) {
+  const int grid = viba::segment_blocks<kRowGroup>(R);
+  const TJ* jr = static_cast<const TJ*>(J_r);
+  const TJ* jp = static_cast<const TJ*>(J_p);
+  if (k == 6) {
+    precond_rig<6, TJ><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, jr, jp, w,
+                                                      hinv, out);
+  } else if (k == 9) {
+    precond_rig<9, TJ><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, jr, jp, w,
+                                                      hinv, out);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int viba_precond_rig(int R, int n, int k, const int* rig_ptr, const int* rig_obs,
-                                const int* point, const float* J_r, const float* J_p,
-                                const float* w, const float* hinv, float* out, void* stream) {
+// jt: the J type code (VIBA_BY_JTYPE)
+extern "C" int viba_precond_rig(int R, int n, int k, int jt, const int* rig_ptr,
+                                const int* rig_obs, const int* point, const void* J_r,
+                                const void* J_p, const float* w, const float* hinv, float* out,
+                                void* stream) {
   if (R <= 0) return 0;
-  const int grid = viba::segment_blocks<kRowGroup>(R);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k == 6) {
-    precond_rig<6><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w,
-                                                  hinv, out);
-  } else if (k == 9) {
-    precond_rig<9><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w,
-                                                  hinv, out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return VIBA_BY_JTYPE(jt, precond_rig_typed, R, n, k, rig_ptr, rig_obs, point, J_r, J_p, w,
+                       hinv, out, static_cast<cudaStream_t>(stream));
 }

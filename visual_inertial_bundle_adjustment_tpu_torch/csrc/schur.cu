@@ -32,7 +32,10 @@
 // J_r, J_p, w and the landmark index of each real slot, the rig lists and
 // z read once, y written once; the L2 holds all of it across repeated
 // calls, so it is timed with the L2 flushed.
-// K = rig_k (6 or 9) is a template parameter.
+// K = rig_k (6 or 9) is a template parameter, and so is TJ, J's element
+// type in K4-K6: float, or bf16 for the PCG loop's copies
+// (rcs.MATVEC_BF16; tile_reduce.cuh jf), which halve J's bytes in their
+// bounds.
 //
 // K4 is one entry of three launches around each slot's point-sorted
 // position (pt_segments.cuh), the design of K9 (cal_segments.cu) without
@@ -82,10 +85,10 @@ namespace {
 using viba::kRowGroup;
 
 // K6 with y: per rig row, y = sum J_r^T wu; p[pt_pos[s]] = J_p^T wu per slot
-template <int K>
+template <int K, class TJ>
 __global__ void __launch_bounds__(viba::kBlock) schur_down_rows(
     int R, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
-    const int* __restrict__ pt_pos, const float* __restrict__ J_r, const float* __restrict__ J_p,
+    const int* __restrict__ pt_pos, const TJ* __restrict__ J_r, const TJ* __restrict__ J_p,
     const float* __restrict__ w, const float* __restrict__ x, float* __restrict__ y,
     float4* __restrict__ p) {
   const int row = blockIdx.x;  // one rig row per block (kRowGroup == kBlock)
@@ -98,8 +101,8 @@ __global__ void __launch_bounds__(viba::kBlock) schur_down_rows(
         float j0[K], j1[K], u0 = 0.f, u1 = 0.f;
 #pragma unroll
         for (int c = 0; c < K; ++c) {
-          j0[c] = J_r[c * (long)n + s];
-          j1[c] = J_r[(K + c) * (long)n + s];
+          j0[c] = viba::jf(J_r[c * (long)n + s]);
+          j1[c] = viba::jf(J_r[(K + c) * (long)n + s]);
           u0 += j0[c] * xr[c];
           u1 += j1[c] * xr[c];
         }
@@ -110,7 +113,7 @@ __global__ void __launch_bounds__(viba::kBlock) schur_down_rows(
         float q[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c)
-          q[c] = J_p[c * (long)n + s] * wu0 + J_p[(3 + c) * (long)n + s] * wu1;
+          q[c] = viba::jf(J_p[c * (long)n + s]) * wu0 + viba::jf(J_p[(3 + c) * (long)n + s]) * wu1;
         p[pt_pos[s]] = make_float4(q[0], q[1], q[2], 0.f);
       },
       [&](int r, float(&acc)[K]) {
@@ -122,10 +125,10 @@ __global__ void __launch_bounds__(viba::kBlock) schur_down_rows(
 // K5: per rig row, y = sum J_r^T w J_p z[point] (see the file's head)
 constexpr int kUpBatch = 4;
 
-template <int K>
+template <int K, class TJ>
 __global__ void __launch_bounds__(viba::kBlock) schur_up_rows(
     int R, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
-    const int* __restrict__ point, const float* __restrict__ J_r, const float* __restrict__ J_p,
+    const int* __restrict__ point, const TJ* __restrict__ J_r, const TJ* __restrict__ J_p,
     const float* __restrict__ w, const float* __restrict__ z, float* __restrict__ y) {
   constexpr int G = kRowGroup, B = kUpBatch;
   static_assert(G == viba::kBlock, "one rig row a block");
@@ -151,9 +154,9 @@ __global__ void __launch_bounds__(viba::kBlock) schur_up_rows(
       pt[b] = point[s[b]];
       ws[b] = w[s[b]];
 #pragma unroll
-      for (int c = 0; c < 6; ++c) jp[b][c] = J_p[c * (long)n + s[b]];
+      for (int c = 0; c < 6; ++c) jp[b][c] = viba::jf(J_p[c * (long)n + s[b]]);
 #pragma unroll
-      for (int c = 0; c < 2 * K; ++c) jr[b][c] = J_r[c * (long)n + s[b]];
+      for (int c = 0; c < 2 * K; ++c) jr[b][c] = viba::jf(J_r[c * (long)n + s[b]]);
     }
 #pragma unroll
     for (int b = 0; b < B; ++b) {
@@ -179,11 +182,11 @@ __global__ void __launch_bounds__(viba::kBlock) schur_up_rows(
 }
 
 // K4 down: p[pt_pos[s]] = J_p^T w J_r x[rig[s]] per real slot
-template <int K>
+template <int K, class TJ>
 __global__ void __launch_bounds__(256) pcg_down(int n, const int* __restrict__ rig,
                                                 const int* __restrict__ pt_pos,
-                                                const float* __restrict__ J_r,
-                                                const float* __restrict__ J_p,
+                                                const TJ* __restrict__ J_r,
+                                                const TJ* __restrict__ J_p,
                                                 const float* __restrict__ w,
                                                 const float* __restrict__ x,
                                                 float4* __restrict__ p) {
@@ -196,24 +199,24 @@ __global__ void __launch_bounds__(256) pcg_down(int n, const int* __restrict__ r
 #pragma unroll
   for (int c = 0; c < K; ++c) {
     const float xv = xr[c];
-    u0 += J_r[c * (long)n + s] * xv;
-    u1 += J_r[(K + c) * (long)n + s] * xv;
+    u0 += viba::jf(J_r[c * (long)n + s]) * xv;
+    u1 += viba::jf(J_r[(K + c) * (long)n + s]) * xv;
   }
   const float ws = w[s];
   const float wu0 = u0 * ws, wu1 = u1 * ws;
   float q[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    q[c] = J_p[c * (long)n + s] * wu0 + J_p[(3 + c) * (long)n + s] * wu1;
+    q[c] = viba::jf(J_p[c * (long)n + s]) * wu0 + viba::jf(J_p[(3 + c) * (long)n + s]) * wu1;
   p[pos] = make_float4(q[0], q[1], q[2], 0.f);
 }
 
 // K4 up: per rig row, du = w J_r x_r - w J_p z[point] per slot (wu
 // recomputed), y = sum J_r^T du
-template <int K>
+template <int K, class TJ>
 __global__ void __launch_bounds__(viba::kBlock) pcg_up(
     int R, int n, const int* __restrict__ rig_ptr, const int* __restrict__ rig_obs,
-    const int* __restrict__ point, const float* __restrict__ J_r, const float* __restrict__ J_p,
+    const int* __restrict__ point, const TJ* __restrict__ J_r, const TJ* __restrict__ J_p,
     const float* __restrict__ w, const float* __restrict__ x, const float* __restrict__ z,
     float* __restrict__ y) {
   const int row = blockIdx.x;  // one rig row per block (kRowGroup == kBlock)
@@ -226,16 +229,17 @@ __global__ void __launch_bounds__(viba::kBlock) pcg_up(
         float j0[K], j1[K], u0 = 0.f, u1 = 0.f;
 #pragma unroll
         for (int c = 0; c < K; ++c) {
-          j0[c] = J_r[c * (long)n + s];
-          j1[c] = J_r[(K + c) * (long)n + s];
+          j0[c] = viba::jf(J_r[c * (long)n + s]);
+          j1[c] = viba::jf(J_r[(K + c) * (long)n + s]);
           u0 += j0[c] * xr[c];
           u1 += j1[c] * xr[c];
         }
         const float* zp = z + 3 * (long)point[s];
         const float z0 = zp[0], z1 = zp[1], z2 = zp[2];
-        const float a0 = J_p[s] * z0 + J_p[(long)n + s] * z1 + J_p[2 * (long)n + s] * z2;
-        const float a1 =
-            J_p[3 * (long)n + s] * z0 + J_p[4 * (long)n + s] * z1 + J_p[5 * (long)n + s] * z2;
+        const float a0 = viba::jf(J_p[s]) * z0 + viba::jf(J_p[(long)n + s]) * z1 +
+                         viba::jf(J_p[2 * (long)n + s]) * z2;
+        const float a1 = viba::jf(J_p[3 * (long)n + s]) * z0 +
+                         viba::jf(J_p[4 * (long)n + s]) * z1 + viba::jf(J_p[5 * (long)n + s]) * z2;
         const float ws = w[s];
         const float d0 = u0 * ws - a0 * ws, d1 = u1 * ws - a1 * ws;
 #pragma unroll
@@ -387,90 +391,124 @@ cudaError_t schur_pcg_cols_fused(int R, int L, int C, int rig_sorted, const int*
   }
 }
 
-template <int K>
+template <int K, class TJ>
 cudaError_t schur_pcg(int R, int L, int n, int n_real, const int* rig, const int* point,
                       const int* pt_pos, const int* pt_ptr, const int* rig_ptr,
-                      const int* rig_obs, const float* J_r, const float* J_p, const float* w,
+                      const int* rig_obs, const TJ* J_r, const TJ* J_p, const float* w,
                       const float* x, const float* hinv, float4* p, float* z, float* y,
                       cudaStream_t st) {
   if (n_real > 0) {
-    pcg_down<K><<<(n + 255) / 256, 256, 0, st>>>(n, rig, pt_pos, J_r, J_p, w, x, p);
+    pcg_down<K, TJ><<<(n + 255) / 256, 256, 0, st>>>(n, rig, pt_pos, J_r, J_p, w, x, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const cudaError_t err = viba::launch_point_range_sum(L, pt_ptr, p, hinv, z, st);
   if (err != cudaSuccess || R <= 0) return err;
-  pcg_up<K><<<viba::segment_blocks<kRowGroup>(R), viba::kBlock, 0, st>>>(
+  pcg_up<K, TJ><<<viba::segment_blocks<kRowGroup>(R), viba::kBlock, 0, st>>>(
       R, n, rig_ptr, rig_obs, point, J_r, J_p, w, x, z, y);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int viba_schur_down(int R, int L, int n, int n_real, int k, int want_y,
-                               const int* rig, const int* pt_pos, const int* pt_ptr,
-                               const int* rig_ptr, const int* rig_obs, const float* J_r,
-                               const float* J_p, const float* w, const float* x, float* y,
-                               float* t, float* p, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float4* p4 = reinterpret_cast<float4*>(p);
-  if (k != 6 && k != 9) return static_cast<int>(cudaErrorInvalidValue);
+// K6 (both launches) for J of element type TJ
+template <class TJ>
+cudaError_t schur_down_typed(int R, int L, int n, int n_real, int k, int want_y, const int* rig,
+                             const int* pt_pos, const int* pt_ptr, const int* rig_ptr,
+                             const int* rig_obs, const void* J_r, const void* J_p,
+                             const float* w, const float* x, float* y, float* t, float4* p4,
+                             cudaStream_t st) {
+  const TJ* jr = static_cast<const TJ*>(J_r);
+  const TJ* jp = static_cast<const TJ*>(J_p);
+  if (k != 6 && k != 9) return cudaErrorInvalidValue;
   if (want_y && R > 0) {
     const int grid = viba::segment_blocks<kRowGroup>(R);
     if (k == 6) {
-      schur_down_rows<6><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, pt_pos, J_r, J_p,
-                                                        w, x, y, p4);
+      schur_down_rows<6, TJ><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, pt_pos, jr,
+                                                            jp, w, x, y, p4);
     } else {
-      schur_down_rows<9><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, pt_pos, J_r, J_p,
-                                                        w, x, y, p4);
+      schur_down_rows<9, TJ><<<grid, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, pt_pos, jr,
+                                                            jp, w, x, y, p4);
     }
   } else if (!want_y && n_real > 0) {
     const int grid = (n + 255) / 256;
     if (k == 6) {
-      pcg_down<6><<<grid, 256, 0, st>>>(n, rig, pt_pos, J_r, J_p, w, x, p4);
+      pcg_down<6, TJ><<<grid, 256, 0, st>>>(n, rig, pt_pos, jr, jp, w, x, p4);
     } else {
-      pcg_down<9><<<grid, 256, 0, st>>>(n, rig, pt_pos, J_r, J_p, w, x, p4);
+      pcg_down<9, TJ><<<grid, 256, 0, st>>>(n, rig, pt_pos, jr, jp, w, x, p4);
     }
   }
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(viba::launch_point_sums(L, pt_ptr, p4, t, st));
+  if (err != cudaSuccess) return err;
+  return viba::launch_point_sums(L, pt_ptr, p4, t, st);
 }
 
-extern "C" int viba_schur_up(int R, int n, int k, const int* rig_ptr, const int* rig_obs,
-                             const int* point, const float* J_r, const float* J_p,
-                             const float* w, const float* z, float* y, void* stream) {
-  if (R <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// K5 for J of element type TJ
+template <class TJ>
+cudaError_t schur_up_typed(int R, int n, int k, const int* rig_ptr, const int* rig_obs,
+                           const int* point, const void* J_r, const void* J_p, const float* w,
+                           const float* z, float* y, cudaStream_t st) {
+  const TJ* jr = static_cast<const TJ*>(J_r);
+  const TJ* jp = static_cast<const TJ*>(J_p);
   if (k == 6) {
-    schur_up_rows<6><<<R, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w, z,
-                                                 y);
+    schur_up_rows<6, TJ><<<R, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, jr, jp, w, z,
+                                                     y);
   } else if (k == 9) {
-    schur_up_rows<9><<<R, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, J_r, J_p, w, z,
-                                                 y);
+    schur_up_rows<9, TJ><<<R, viba::kBlock, 0, st>>>(R, n, rig_ptr, rig_obs, point, jr, jp, w, z,
+                                                     y);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
 }
 
-extern "C" int viba_schur_pcg(int R, int L, int n, int n_real, int k, const int* rig,
-                              const int* point, const int* pt_pos, const int* pt_ptr,
-                              const int* rig_ptr, const int* rig_obs,
-                              const float* J_r, const float* J_p, const float* w,
-                              const float* x, const float* hinv, float* p, float* z, float* y,
-                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float4* p4 = reinterpret_cast<float4*>(p);
+// K4 (three launches) for J of element type TJ
+template <class TJ>
+cudaError_t schur_pcg_typed(int R, int L, int n, int n_real, int k, const int* rig,
+                            const int* point, const int* pt_pos, const int* pt_ptr,
+                            const int* rig_ptr, const int* rig_obs, const void* J_r,
+                            const void* J_p, const float* w, const float* x, const float* hinv,
+                            float4* p4, float* z, float* y, cudaStream_t st) {
+  const TJ* jr = static_cast<const TJ*>(J_r);
+  const TJ* jp = static_cast<const TJ*>(J_p);
   if (k == 6) {
-    return static_cast<int>(schur_pcg<6>(R, L, n, n_real, rig, point, pt_pos, pt_ptr,
-                                         rig_ptr, rig_obs, J_r, J_p, w, x, hinv, p4, z, y, st));
+    return schur_pcg<6, TJ>(R, L, n, n_real, rig, point, pt_pos, pt_ptr, rig_ptr, rig_obs, jr,
+                            jp, w, x, hinv, p4, z, y, st);
   }
   if (k == 9) {
-    return static_cast<int>(schur_pcg<9>(R, L, n, n_real, rig, point, pt_pos, pt_ptr,
-                                         rig_ptr, rig_obs, J_r, J_p, w, x, hinv, p4, z, y, st));
+    return schur_pcg<9, TJ>(R, L, n, n_real, rig, point, pt_pos, pt_ptr, rig_ptr, rig_obs, jr,
+                            jp, w, x, hinv, p4, z, y, st);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// jt: the J type code of the K4-K6 entries (VIBA_BY_JTYPE)
+extern "C" int viba_schur_down(int R, int L, int n, int n_real, int k, int jt, int want_y,
+                               const int* rig, const int* pt_pos, const int* pt_ptr,
+                               const int* rig_ptr, const int* rig_obs, const void* J_r,
+                               const void* J_p, const float* w, const float* x, float* y,
+                               float* t, float* p, void* stream) {
+  return VIBA_BY_JTYPE(jt, schur_down_typed, R, L, n, n_real, k, want_y, rig, pt_pos, pt_ptr,
+                       rig_ptr, rig_obs, J_r, J_p, w, x, y, t, reinterpret_cast<float4*>(p),
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int viba_schur_up(int R, int n, int k, int jt, const int* rig_ptr, const int* rig_obs,
+                             const int* point, const void* J_r, const void* J_p,
+                             const float* w, const float* z, float* y, void* stream) {
+  if (R <= 0) return 0;
+  return VIBA_BY_JTYPE(jt, schur_up_typed, R, n, k, rig_ptr, rig_obs, point, J_r, J_p, w, z, y,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int viba_schur_pcg(int R, int L, int n, int n_real, int k, int jt, const int* rig,
+                              const int* point, const int* pt_pos, const int* pt_ptr,
+                              const int* rig_ptr, const int* rig_obs, const void* J_r,
+                              const void* J_p, const float* w, const float* x, const float* hinv,
+                              float* p, float* z, float* y, void* stream) {
+  return VIBA_BY_JTYPE(jt, schur_pcg_typed, R, L, n, n_real, k, rig, point, pt_pos, pt_ptr,
+                       rig_ptr, rig_obs, J_r, J_p, w, x, hinv, reinterpret_cast<float4*>(p), z, y,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int viba_schur_pcg_cols(int R, int L, int k, int C, int rig_sorted,

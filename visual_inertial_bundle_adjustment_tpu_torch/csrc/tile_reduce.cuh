@@ -18,6 +18,7 @@
 // and no partials, second pass or atomics are needed.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace viba {
@@ -25,6 +26,22 @@ namespace viba {
 constexpr int kBlock = 128;       // threads per block, all segment kernels
 constexpr int kRowGroup = 128;    // threads per rig row (~640 obs per rig)
 constexpr int kPointGroup = 16;   // threads per landmark row (~40 obs per point)
+
+// A Jacobian element as float. The kernels of the PCG loop (K3-K6, K9,
+// K10) read J stored as float or, under rcs.MATVEC_BF16, as a bf16 copy
+// (their template parameter TJ): each element is upcast once where it is
+// loaded (exactly: a bf16 value is a float with its low 16 mantissa bits
+// zero) and every product and sum stays float, so a bf16 call gives the
+// float instantiation's bits on the upcast values.
+__device__ __forceinline__ float jf(float v) { return v; }
+__device__ __forceinline__ float jf(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// A C entry's dispatch on its J type code (ops/segments.py J_TYPES): 0
+// float, 1 bf16; fn is a host template over TJ returning an error code.
+#define VIBA_BY_JTYPE(jt, fn, ...)                                     \
+  ((jt) == 0   ? static_cast<int>(fn<float>(__VA_ARGS__))              \
+   : (jt) == 1 ? static_cast<int>(fn<__nv_bfloat16>(__VA_ARGS__))      \
+               : static_cast<int>(cudaErrorInvalidValue))
 
 // Sum acc over the G threads of a group in a fixed order. G <= 32: every
 // lane of the group ends with the same total (xor butterfly; float addition

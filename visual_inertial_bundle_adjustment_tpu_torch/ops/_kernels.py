@@ -50,16 +50,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "viba_visual_linearize": [_I] * 3 + [_P] * 22 + [_P],
     "viba_assemble_rig": [_I] * 4 + [_P] * 13 + [_P],
-    "viba_precond_rig": [_I] * 3 + [_P] * 8 + [_P],
-    "viba_schur_down": [_I] * 6 + [_P] * 12 + [_P],
-    "viba_schur_up": [_I] * 3 + [_P] * 8 + [_P],
-    "viba_schur_pcg": [_I] * 5 + [_P] * 14 + [_P],
+    "viba_precond_rig": [_I] * 4 + [_P] * 8 + [_P],
+    "viba_schur_down": [_I] * 7 + [_P] * 12 + [_P],
+    "viba_schur_up": [_I] * 4 + [_P] * 8 + [_P],
+    "viba_schur_pcg": [_I] * 6 + [_P] * 14 + [_P],
     "viba_schur_pcg_cols": [_I] * 5 + [_P] * 8 + [_P],
     "viba_rs_linearize": [_I] * 6 + [_P] * 34 + [_P],
     "viba_assemble_cal": [_I] * 7 + [_P] * 22 + [_P],
-    "viba_schur_down_cal": [_I] * 8 + [_P] * 20 + [_P],
-    "viba_schur_up_cal": [_I] * 5 + [_P] * 14 + [_P],
-    "viba_schur_pcg_cal": [_I] * 7 + [_P] * 22 + [_P],
+    "viba_schur_down_cal": [_I] * 9 + [_P] * 20 + [_P],
+    "viba_schur_up_cal": [_I] * 6 + [_P] * 14 + [_P],
+    "viba_schur_pcg_cal": [_I] * 8 + [_P] * 22 + [_P],
     "viba_schur_pcg_cal_cols": [_I] * 7 + [_P] * 14 + [_P],
     "viba_visual_cal_linearize": [_I] * 2 + [_P] * 25 + [_P],
     "viba_seg_mv_fused": [_I] * 5 + [_P] * 10 + [_P],
@@ -78,15 +78,17 @@ _SIGNATURES = {
 _state = threading.local()
 _lib = None
 _lib_lock = threading.Lock()
-# wrappers that launch a kernel, by kernel name (each has a `launches` count)
+# wrappers that launch a kernel, by kernel name (each has a `launches`
+# count, and `bf16_launches`, those of its launches that read bf16 J)
 WRAPPERS: dict = {}
 
 
 def register(name):
-    """Mark `fn` as the wrapper of kernel `name` and give it a launch count."""
+    """Mark `fn` as the wrapper of kernel `name` and give it its launch
+    counts."""
 
     def deco(fn):
-        fn.launches = 0
+        fn.launches = fn.bf16_launches = 0
         WRAPPERS[name] = fn
         return fn
 
@@ -95,11 +97,13 @@ def register(name):
 
 def reset_launch_counts():
     for fn in WRAPPERS.values():
-        fn.launches = 0
+        fn.launches = fn.bf16_launches = 0
 
 
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+def launch_counts(bf16=False) -> dict:
+    """Launches by kernel name since the last reset (bf16: only those that
+    read bf16 Jacobians, the instantiations of rcs.MATVEC_BF16)."""
+    return {name: fn.bf16_launches if bf16 else fn.launches for name, fn in WRAPPERS.items()}
 
 
 @contextlib.contextmanager

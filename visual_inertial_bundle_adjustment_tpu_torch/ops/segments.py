@@ -107,6 +107,13 @@ K9's window rows then sum their pair partials. Each pass reads a record once for
 columns, and nothing is stored per (slot, column); every column is summed
 in the single-column kernel's order, so each column has its bits.
 
+K3-K6, K9 and K10 also take bf16 Jacobians (J_r, J_c and J_p of one type):
+the PCG loop's copies under rcs.MATVEC_BF16. Each kernel has a bf16
+instantiation that upcasts an element where it loads it and computes in
+float32 as before (csrc/tile_reduce.cuh jf), so it gives the float32
+instantiation's bits on the upcast values; each plain version upcasts its
+J to w's type once, at entry.
+
 The plain PyTorch versions below compute the same functions with
 `index_add_` over the global rig/point/window index (or tile row) of each
 slot; CPU tensors take them. Nothing that a CUDA tensor reaches sums with
@@ -127,6 +134,11 @@ CHUNK = 1024  # window-row slots per partial sum (K8)
 # cam extr and cam intr (6 | 17), or one of them alone
 CAL_SPLITS = {23: (6, 17), 6: (6,), 17: (17,)}
 RIG_KS = (6, 9)  # rig Jacobian widths the kernels are built for
+# the Jacobian element types of the kernels, by the code their C entries
+# take (csrc/tile_reduce.cuh VIBA_BY_JTYPE): float32, and bf16 for the PCG
+# loop's copies (rcs.MATVEC_BF16), which K3-K6, K9 and K10 also read (the
+# code is also what a launch adds to its wrapper's bf16_launches)
+J_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class SegPlan(NamedTuple):
@@ -290,15 +302,18 @@ def _chunk_ptrs(cplan):
             ck(cplan.row_chunk, "row_chunk", torch.int32))
 
 
-def _jac_args(J_r, J_p, w):
+def _jac_args(J_r, J_p, w, mv=False):
+    """(N, rig_k, J type code, pointers of J_r, J_p and w). float32 J, or
+    with mv (a kernel of the PCG loop) bf16 J too, J_r and J_p of one
+    type; w float32."""
     d, k, n = J_r.shape
     if d != 2 or k not in RIG_KS:
         raise ValueError(f"kernels take rig J blocks of shape (2, k in {RIG_KS}, N), "
                          f"got {tuple(J_r.shape)}")
+    jt = J_r.dtype if mv and J_r.dtype in J_TYPES else torch.float32
     ck = _kernels.check
-    return n, k, (ck(J_r, "J_r", torch.float32, (2, k, n)),
-                  ck(J_p, "J_p", torch.float32, (2, 3, n)),
-                  ck(w, "w", torch.float32, (n,)))
+    return n, k, J_TYPES[jt], (ck(J_r, "J_r", jt, (2, k, n)), ck(J_p, "J_p", jt, (2, 3, n)),
+                               ck(w, "w", torch.float32, (n,)))
 
 
 def _cal_splits(J_c):
@@ -308,8 +323,16 @@ def _cal_splits(J_c):
     return CAL_SPLITS[kc]
 
 
-def _jc_arg(J_c, n):
-    return _kernels.check(J_c, "J_c", torch.float32, (2, sum(_cal_splits(J_c)), n))
+def _jc_arg(J_c, n, dtype=torch.float32):
+    """The pointer of J_c, of J_r's type `dtype`."""
+    return _kernels.check(J_c, "J_c", dtype, (2, sum(_cal_splits(J_c)), n))
+
+
+def _upcast(w, *J):
+    """The Jacobians in w's type, as the kernels upcast bf16 J (rcs.
+    MATVEC_BF16) where they load it: the plain versions compute the
+    kernels' function (a product of two bf16 tensors would stay bf16)."""
+    return tuple(None if a is None else a.to(w.dtype) for a in J)
 
 
 def _empty(shape, like):
@@ -357,7 +380,7 @@ def seg_assemble_rig(J_r, J_p, res, w, plan: SegPlan):
     a 16-lane group per landmark)."""
     if not _kernels.on_card(w):
         return _assemble_rig_plain(J_r, J_p, res, w, plan)
-    n, k, jargs = _jac_args(J_r, J_p, w)
+    n, k, _, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
     g_r, diag_r = _empty((R, k), w), _empty((R, k), w)
     g_l, H = _empty((L, 3), w), _empty((L, 3, 3), w)
@@ -375,6 +398,7 @@ def seg_assemble_rig(J_r, J_p, res, w, plan: SegPlan):
 
 
 def _precond_rig_plain(J_r, J_p, w, hinv, plan):
+    J_r, J_p = _upcast(w, J_r, J_p)
     Hn = hinv.index_select(0, plan.point)  # (N, 3, 3)
     Jw = J_r * w[None, None, :]
     A = (Jw[:, :, None, :] * J_p[:, None, :, :]).sum(0)  # (k, 3, N)
@@ -390,19 +414,20 @@ def _precond_rig_plain(J_r, J_p, w, hinv, plan):
 def seg_precond_rig(J_r, J_p, w, hinv, plan: SegPlan):
     """(R, k, k) rig blocks sum w J J^T - (J^T w J_p) H_ll^-1 (J^T w J_p)^T,
     symmetric (CG needs a symmetric preconditioner; the kernel accumulates
-    the upper triangle)."""
+    the upper triangle). J float32, or bf16 (rcs.MATVEC_BF16)."""
     if not _kernels.on_card(w):
         return _precond_rig_plain(J_r, J_p, w, hinv, plan)
-    n, k, jargs = _jac_args(J_r, J_p, w)
+    n, k, jt, jargs = _jac_args(J_r, J_p, w, mv=True)
     R, L = plan.n_rows, plan.n_pts
     blocks = _empty((R, k, k), w)
     ck = _kernels.check
-    _kernels.launch("viba_precond_rig", R, n, k,
+    _kernels.launch("viba_precond_rig", R, n, k, jt,
                     ck(plan.rig_ptr, "rig_ptr", torch.int32),
                     ck(plan.rig_obs, "rig_obs", torch.int32),
                     ck(plan.point, "point", torch.int32, (n,)), *jargs,
                     ck(hinv, "hinv", torch.float32, (L, 3, 3)), blocks.data_ptr())
     seg_precond_rig.launches += 1
+    seg_precond_rig.bf16_launches += J_TYPES[J_r.dtype]
     return blocks
 
 
@@ -414,6 +439,7 @@ def seg_precond_rig(J_r, J_p, w, hinv, plan: SegPlan):
 def _schur_down_staged(J_r, J_p, w, x_table, plan, want_y):
     """(y or None, t, wu (2, N) = w J_r x): K6's function with the per-slot
     wu staged, which the plain K4 composition reuses."""
+    J_r, J_p = _upcast(w, J_r, J_p)
     xg = x_table.index_select(0, plan.rig)  # (N, k)
     wu = (J_r * xg.T[None]).sum(1) * w[None, :]  # (d, N)
     y = _rows_sum((J_r * wu[:, None, :]).sum(0), plan.rig, plan.n_rows) if want_y else None
@@ -425,14 +451,14 @@ def _launch_schur_down(J_r, J_p, w, x_table, plan, want_y):
     """K6 in two launches (csrc/schur.cu viba_schur_down): p = J_p^T w J_r x
     at each slot's point-sorted position (per slot, or per rig row with y),
     then t = the landmark sums of p."""
-    n, k, jargs = _jac_args(J_r, J_p, w)
+    n, k, jt, jargs = _jac_args(J_r, J_p, w, mv=True)
     R, L = plan.n_rows, plan.n_pts
     n_real = plan.pt_obs.shape[0]
     ck = _kernels.check
     y = _empty((R, k), w) if want_y else None
     t = _empty((L, 3), w)
     p = _empty((n_real, 4), w)  # float4 per slot, point-sorted
-    _kernels.launch("viba_schur_down", R, L, n, n_real, k, int(bool(want_y)),
+    _kernels.launch("viba_schur_down", R, L, n, n_real, k, jt, int(bool(want_y)),
                     ck(plan.rig, "rig", torch.int32, (n,)),
                     ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
                     ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
@@ -446,15 +472,18 @@ def _launch_schur_down(J_r, J_p, w, x_table, plan, want_y):
 @_kernels.register("schur_down")
 def seg_schur_down(J_r, J_p, w, x_table, plan: SegPlan, want_y=True):
     """(y (R, k) = seg-sum_rig J_r^T w J_r x, or None without want_y;
-    t (L, 3) = seg-sum_pt J_p^T w J_r x = W^T x)."""
+    t (L, 3) = seg-sum_pt J_p^T w J_r x = W^T x). J float32, or bf16
+    (rcs.MATVEC_BF16)."""
     if not _kernels.on_card(w):
         return _schur_down_staged(J_r, J_p, w, x_table, plan, want_y)[:2]
     out = _launch_schur_down(J_r, J_p, w, x_table, plan, want_y)
     seg_schur_down.launches += 1
+    seg_schur_down.bf16_launches += J_TYPES[J_r.dtype]
     return out
 
 
 def _schur_up_plain(J_r, J_p, w, z, plan, wu):
+    J_r, J_p = _upcast(w, J_r, J_p)
     zg = z.index_select(0, plan.point)  # (N, 3)
     wu2 = (J_p * zg.T[None]).sum(1) * w[None, :]  # (d, N)
     du = wu2 if wu is None else wu - wu2
@@ -465,11 +494,11 @@ def _launch_schur_up(J_r, J_p, w, z, plan):
     """K5 in one launch (csrc/schur.cu viba_schur_up: a 128-thread group per
     rig row, each thread's slots in batches whose loads are all in flight
     before the first product)."""
-    n, k, jargs = _jac_args(J_r, J_p, w)
+    n, k, jt, jargs = _jac_args(J_r, J_p, w, mv=True)
     R, L = plan.n_rows, plan.n_pts
     y = _empty((R, k), w)
     ck = _kernels.check
-    _kernels.launch("viba_schur_up", R, n, k,
+    _kernels.launch("viba_schur_up", R, n, k, jt,
                     ck(plan.rig_ptr, "rig_ptr", torch.int32),
                     ck(plan.rig_obs, "rig_obs", torch.int32),
                     ck(plan.point, "point", torch.int32, (n,)), *jargs,
@@ -481,7 +510,8 @@ def _launch_schur_up(J_r, J_p, w, z, plan):
 def seg_schur_up(J_r, J_p, w, z, plan: SegPlan, wu=None):
     """y (R, k) = seg-sum_rig J_r^T w J_p z[pt] (= W z); with the staged
     wu = w J_r x of _schur_down_staged (plain version only; K4 replaced
-    that composition on the card): seg-sum_rig J_r^T (wu - w J_p z[pt])."""
+    that composition on the card): seg-sum_rig J_r^T (wu - w J_p z[pt]).
+    J float32, or bf16 (rcs.MATVEC_BF16)."""
     if not _kernels.on_card(w):
         return _schur_up_plain(J_r, J_p, w, z, plan, wu)
     if wu is not None:
@@ -489,6 +519,7 @@ def seg_schur_up(J_r, J_p, w, z, plan: SegPlan, wu=None):
                          "composition's kernel)")
     y = _launch_schur_up(J_r, J_p, w, z, plan)
     seg_schur_up.launches += 1
+    seg_schur_up.bf16_launches += J_TYPES[J_r.dtype]
     return y
 
 
@@ -496,13 +527,13 @@ def _launch_schur_pcg(J_r, J_p, w, x_table, hinv, plan):
     """K4 in three launches (csrc/schur.cu viba_schur_pcg): p = J_p^T w J_r x
     at each slot's point-sorted position, z = H_ll^-1 (landmark sums of p),
     then per rig row y = sum J_r^T (w J_r x - w J_p z[pt])."""
-    n, k, jargs = _jac_args(J_r, J_p, w)
+    n, k, jt, jargs = _jac_args(J_r, J_p, w, mv=True)
     R, L = plan.n_rows, plan.n_pts
     n_real = plan.pt_obs.shape[0]
     ck = _kernels.check
     p = _empty((n_real, 4), w)  # float4 per slot, point-sorted
     z, y = _empty((L, 3), w), _empty((R, k), w)
-    _kernels.launch("viba_schur_pcg", R, L, n, n_real, k,
+    _kernels.launch("viba_schur_pcg", R, L, n, n_real, k, jt,
                     ck(plan.rig, "rig", torch.int32, (n,)),
                     ck(plan.point, "point", torch.int32, (n,)),
                     ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
@@ -520,12 +551,14 @@ def seg_schur_pcg(J_r, J_p, w, x_table, hinv, plan: SegPlan):
     """K4, the PCG Schur matvec y = seg-sum_rig J_r^T w J_r x - W H_ll^-1 W^T x
     of one rig-only batch. Plain version: K6's down (t, staged wu) ->
     z = H_ll^-1 t -> K5's up with wu; on the card one entry of three
-    launches around the plan's point-sorted positions."""
+    launches around the plan's point-sorted positions. J float32, or bf16
+    (rcs.MATVEC_BF16)."""
     if not _kernels.on_card(w):
         _, t, wu = _schur_down_staged(J_r, J_p, w, x_table, plan, False)
         return _schur_up_plain(J_r, J_p, w, (hinv * t[:, None, :]).sum(-1), plan, wu)
     y = _launch_schur_pcg(J_r, J_p, w, x_table, hinv, plan)
     seg_schur_pcg.launches += 1
+    seg_schur_pcg.bf16_launches += J_TYPES[J_r.dtype]
     return y
 
 
@@ -574,7 +607,7 @@ def seg_assemble_cal(J_r, J_c, J_p, res, w, plan: SegPlan, cplan: CalPlan):
     w >= 0, as for seg_assemble_rig."""
     if not _kernels.on_card(w):
         return _assemble_cal_plain(J_r, J_c, J_p, res, w, plan, cplan)
-    n, k, jargs = _jac_args(J_r, J_p, w)
+    n, k, _, jargs = _jac_args(J_r, J_p, w)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
     splits = _cal_splits(J_c)
     kc = sum(splits)
@@ -605,6 +638,7 @@ def _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
     """(y_r, y_c (both None without want_y), t, wu (2, N) = w u): K10's
     down function with the per-slot wu staged, which the plain K9
     composition reuses."""
+    J_r, J_c, J_p = _upcast(w, J_r, J_c, J_p)
     xg_r = x_r.index_select(0, plan.rig)
     xg_c = x_c.index_select(0, cplan.win)
     wu = ((J_r * xg_r.T[None]).sum(1) + (J_c * xg_c.T[None]).sum(1)) * w[None, :]
@@ -634,7 +668,7 @@ def _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
     row) pairs, y_r and one window partial a pair beside it), then the
     landmark sums of p (with y in one launch with the window rows' sums of
     their partials)."""
-    n, k, _ = _jac_args(J_r, J_p, w)
+    n, k, jt, (jr, jp, wp) = _jac_args(J_r, J_p, w, mv=True)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
     kc = J_c.shape[1]
     n_real = plan.pt_obs.shape[0]
@@ -644,13 +678,11 @@ def _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
     part = _empty((max(cplan.n_pairs, 1), kc), w) if want_y else None
     t = _empty((L, 3), w)
     p = _empty((max(n_real, 1), 4), w)  # float4 per slot, point-sorted
-    _kernels.launch("viba_schur_down_cal", R, L, n, n_real, k, kc, n_c, int(bool(want_y)),
+    _kernels.launch("viba_schur_down_cal", R, L, n, n_real, k, kc, n_c, jt, int(bool(want_y)),
                     ck(plan.rig, "rig", torch.int32, (n,)), ck(cplan.win, "win", torch.int32, (n,)),
                     ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
                     ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
-                    *_pair_ptrs(cplan, R, n_c, n_real),
-                    ck(J_r, "J_r", torch.float32, (2, k, n)), _jc_arg(J_c, n),
-                    ck(J_p, "J_p", torch.float32, (2, 3, n)), ck(w, "w", torch.float32, (n,)),
+                    *_pair_ptrs(cplan, R, n_c, n_real), jr, _jc_arg(J_c, n, J_r.dtype), jp, wp,
                     ck(x_r, "x_r", torch.float32, (R, k)), ck(x_c, "x_c", torch.float32, (n_c, kc)),
                     p.data_ptr(), *(a.data_ptr() if a is not None else None
                                     for a in (part, y_r, y_c)), t.data_ptr())
@@ -662,15 +694,18 @@ def seg_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan: SegPlan, cplan: CalPlan
                        want_y=True):
     """One pass over a calibration-coupled batch with u = J_r x_r[rig] +
     J_c x_c[win]: (y_r (R, k) = seg-sum_rig J_r^T w u, y_c (n_c, kc) =
-    seg-sum_win J_c^T w u (both None unless want_y), t (L, 3) = W^T x)."""
+    seg-sum_win J_c^T w u (both None unless want_y), t (L, 3) = W^T x).
+    J float32, or bf16 (rcs.MATVEC_BF16), J_r, J_c and J_p of one type."""
     if not _kernels.on_card(w):
         return _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y)[:3]
     out = _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y)
     seg_schur_down_cal.launches += 1
+    seg_schur_down_cal.bf16_launches += J_TYPES[J_r.dtype]
     return out
 
 
 def _schur_up_cal_plain(J_r, J_c, J_p, w, z, plan, cplan, wu):
+    J_r, J_c, J_p = _upcast(w, J_r, J_c, J_p)
     zg = z.index_select(0, plan.point)
     wu2 = (J_p * zg.T[None]).sum(1) * w[None, :]
     du = wu2 if wu is None else wu - wu2
@@ -683,18 +718,16 @@ def _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan):
     viba_schur_up_cal): a 128-thread group per rig row over its (rig, window
     row) pairs, w J_p z[point] in registers, y_r and one window partial a
     pair; then the window rows' sums of their partials."""
-    n, k, _ = _jac_args(J_r, J_p, w)
+    n, k, jt, (jr, jp, wp) = _jac_args(J_r, J_p, w, mv=True)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
     kc = J_c.shape[1]
     y_r, y_c = _empty((R, k), w), _empty((n_c, kc), w)
     part = _empty((max(cplan.n_pairs, 1), kc), w)
     ck = _kernels.check
-    _kernels.launch("viba_schur_up_cal", R, n, k, kc, n_c,
+    _kernels.launch("viba_schur_up_cal", R, n, k, kc, n_c, jt,
                     *_pair_ptrs(cplan, R, n_c, plan.pt_obs.shape[0]),
-                    ck(plan.point, "point", torch.int32, (n,)),
-                    ck(J_r, "J_r", torch.float32, (2, k, n)), _jc_arg(J_c, n),
-                    ck(J_p, "J_p", torch.float32, (2, 3, n)), ck(w, "w", torch.float32, (n,)),
-                    ck(z, "z", torch.float32, (L, 3)), part.data_ptr(), y_r.data_ptr(),
+                    ck(plan.point, "point", torch.int32, (n,)), jr, _jc_arg(J_c, n, J_r.dtype),
+                    jp, wp, ck(z, "z", torch.float32, (L, 3)), part.data_ptr(), y_r.data_ptr(),
                     y_c.data_ptr())
     return y_r, y_c
 
@@ -702,11 +735,13 @@ def _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan):
 @_kernels.register("schur_up_cal")
 def seg_schur_up_cal(J_r, J_c, J_p, w, z, plan: SegPlan, cplan: CalPlan):
     """(y_r (R, k), y_c (n_c, kc)) = segment sums of (J_r, J_c)^T w J_p z[pt]
-    (= W z over rig and window columns)."""
+    (= W z over rig and window columns). J float32, or bf16 (rcs.
+    MATVEC_BF16), J_r, J_c and J_p of one type."""
     if not _kernels.on_card(w):
         return _schur_up_cal_plain(J_r, J_c, J_p, w, z, plan, cplan, None)
     out = _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan)
     seg_schur_up_cal.launches += 1
+    seg_schur_up_cal.bf16_launches += J_TYPES[J_r.dtype]
     return out
 
 
@@ -715,7 +750,7 @@ def _launch_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
     J_p^T w u at each slot's point-sorted position, z = H_ll^-1 (landmark
     sums of p), then per rig row y_r and one J_c^T du partial per (rig,
     window row) pair, then the window rows' sums of their pair partials."""
-    n, k, _ = _jac_args(J_r, J_p, w)
+    n, k, jt, (jr, jp, wp) = _jac_args(J_r, J_p, w, mv=True)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
     kc = J_c.shape[1]
     n_real = plan.pt_obs.shape[0]
@@ -724,14 +759,12 @@ def _launch_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
     z = _empty((L, 3), w)
     part = _empty((max(cplan.n_pairs, 1), kc), w)
     y_r, y_c = _empty((R, k), w), _empty((n_c, kc), w)
-    _kernels.launch("viba_schur_pcg_cal", R, L, n, n_real, k, kc, n_c,
+    _kernels.launch("viba_schur_pcg_cal", R, L, n, n_real, k, kc, n_c, jt,
                     ck(plan.rig, "rig", torch.int32, (n,)), ck(cplan.win, "win", torch.int32, (n,)),
                     ck(plan.point, "point", torch.int32, (n,)),
                     ck(plan.pt_pos, "pt_pos", torch.int32, (n,)),
                     ck(plan.pt_ptr, "pt_ptr", torch.int32, (L + 1,)),
-                    *_pair_ptrs(cplan, R, n_c, n_real),
-                    ck(J_r, "J_r", torch.float32, (2, k, n)), _jc_arg(J_c, n),
-                    ck(J_p, "J_p", torch.float32, (2, 3, n)), ck(w, "w", torch.float32, (n,)),
+                    *_pair_ptrs(cplan, R, n_c, n_real), jr, _jc_arg(J_c, n, J_r.dtype), jp, wp,
                     ck(x_r, "x_r", torch.float32, (R, k)), ck(x_c, "x_c", torch.float32, (n_c, kc)),
                     ck(hinv, "hinv", torch.float32, (L, 3, 3)), p.data_ptr(), z.data_ptr(),
                     part.data_ptr(), y_r.data_ptr(), y_c.data_ptr())
@@ -743,13 +776,15 @@ def seg_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cplan: Ca
     """K9, the PCG Schur matvec (y_r, y_c) = H_batch x - W H_ll^-1 W^T x of
     one calibration-coupled batch. Plain version: K10's down (t, staged wu)
     -> z = H_ll^-1 t -> K10's up; on the card one entry of four launches
-    around the plan's point-sorted positions and (rig, window row) pairs."""
+    around the plan's point-sorted positions and (rig, window row) pairs.
+    J float32, or bf16 (rcs.MATVEC_BF16), J_r, J_c and J_p of one type."""
     if not _kernels.on_card(w):
         _, _, t, wu = _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, False)
         return _schur_up_cal_plain(J_r, J_c, J_p, w, (hinv * t[:, None, :]).sum(-1), plan,
                                    cplan, wu)
     out = _launch_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
     seg_schur_pcg_cal.launches += 1
+    seg_schur_pcg_cal.bf16_launches += J_TYPES[J_r.dtype]
     return out
 
 
@@ -782,6 +817,7 @@ def _schur_pcg_cols_plain(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
     every product and sum of a column runs as in the single-column version
     (the same bits on the CPU). Returns y_r (R, k, C) and y_c (n_c, kc, C)
     or None."""
+    J_r, J_c, J_p = _upcast(w, J_r, J_c, J_p)
     C = x_r.shape[-1]
     width = max(J_r.shape[1], 3 if J_c is None else J_c.shape[1])
     group = max(1, _PLAIN_COLS_ELEMS // max(J_r.shape[0] * width * J_r.shape[-1], 1))
@@ -868,8 +904,8 @@ def _rec_args(rec, J_r, J_p, w, plan, J_c=None, cplan=None):
     """The pointers of the records' rig-side order and of the records, and
     their rig_sorted flag, the records made here when the caller has
     none."""
-    if rec is None:
-        rec = point_sorted_records(J_r, J_p, w, plan, J_c, cplan)
+    if rec is None:  # float32 records (bf16 J, rcs.MATVEC_BF16, upcast exactly)
+        rec = point_sorted_records(*_upcast(w, J_r, J_p), w, plan, *_upcast(w, J_c), cplan)
     k, kc = J_r.shape[1], 0 if J_c is None else J_c.shape[1]
     if (rec.k, rec.kc) != (k, kc):
         raise ValueError(f"rec: records of (k, kc) = {(rec.k, rec.kc)}, batch {(k, kc)}")
@@ -898,7 +934,7 @@ def seg_schur_pcg_cols(J_r, J_p, w, x_table, hinv, plan: SegPlan, rec: PtRecords
     ignores rec."""
     if not _kernels.on_card(w):
         return _schur_pcg_cols_plain(J_r, None, J_p, w, x_table, None, hinv, plan, None)[0]
-    _, k, _ = _jac_args(J_r, J_p, w)
+    _, k, _, _ = _jac_args(J_r, J_p, w, mv=True)
     R, L = plan.n_rows, plan.n_pts
     C, x_ptr = _cols_arg(x_table, "x_table", R, k)
     ck = _kernels.check
@@ -925,7 +961,7 @@ def seg_schur_pcg_cal_cols(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cpla
     rows' sums. The CPU path ignores rec."""
     if not _kernels.on_card(w):
         return _schur_pcg_cols_plain(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
-    _, k, _ = _jac_args(J_r, J_p, w)
+    _, k, _, _ = _jac_args(J_r, J_p, w, mv=True)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
     kc = J_c.shape[1]
     C, xr_ptr = _cols_arg(x_r, "x_r", R, k)

@@ -60,6 +60,21 @@ VISUAL_KINDS = ("visual", "rs_visual")
 # factors touch only the pose (rig tangent [pose 0:6, vel 6:9, omega 9:12])
 RIG_COLS = {"visual": 6, "rs_visual": 9}
 
+# Store bf16 copies of each single-pass batch's Jacobians (J_mv, J_pt_mv,
+# J_cal_mv) for the kernels of the PCG loop: the preconditioner's rig blocks
+# (K3), the Schur right-hand side and W y (K5, K10's up pass) and the PCG
+# matvec (K4, K9; K6 and K10's down pass on the route with several visual
+# batches), which read J every iteration and are bound by its bytes; bf16
+# halves them. The back-substitution (w_transpose_x), assembly, gradient
+# and cost read float32 J, so the PCG solves the consistently rounded
+# operator S~ = J~^T w J~ - W~ H_ll^-1 W~^T, still symmetric positive
+# semi-definite: the reference's LowerPrecSolvePrecond trade
+# (Preconditioner.h:163) applied to the reduced operator (the JAX package's
+# MATVEC_BF16, rcs.py:57-65). Off by default: the JAX package turns it on
+# only on its TPU; on the H100 whether it pays is a benchmark cell's
+# question (ROADMAP, "Held for the first benchmark PR").
+MATVEC_BF16 = False
+
 
 def _padk(y, k):
     """(n, k) rig-column result (or (n, k, C) with columns) back to the full
@@ -348,6 +363,10 @@ class VisBatch(NamedTuple):
     # the point-sorted slot records of the column kernels (single-pass
     # batches on the card, with_column_records), or None
     rec: seg.PtRecords | None = None
+    # bf16 copies of J, J_pt and J_cal for the PCG loop (MATVEC_BF16), or None
+    J_mv: torch.Tensor | None = None
+    J_pt_mv: torch.Tensor | None = None
+    J_cal_mv: torch.Tensor | None = None
 
 
 def _rig_only_fast(b: VisBatch):
@@ -366,6 +385,26 @@ def _cal_fast(b: VisBatch):
 
 def _single_pass(b: VisBatch):
     return _rig_only_fast(b) or _cal_fast(b)
+
+
+def _mv_jacs(b: VisBatch):
+    """(J, J_pt, J_cal) for the kernels of the PCG loop: the bf16 copies
+    under MATVEC_BF16, else the batch's own."""
+    if b.J_mv is not None:
+        return b.J_mv, b.J_pt_mv, b.J_cal_mv
+    return b.J, b.J_pt, b.J_cal
+
+
+def _with_mv_copies(b: VisBatch):
+    """b with the bf16 copies of its Jacobians (MATVEC_BF16, single-pass
+    batches; every device and float type, so that the CPU tests reach it).
+    J_cal is not padded to 8 columns as in the JAX package (a Mosaic
+    sublane idiom)."""
+    if not (MATVEC_BF16 and _single_pass(b)):
+        return b
+    bf = torch.bfloat16
+    return b._replace(J_mv=b.J.to(bf), J_pt_mv=b.J_pt.to(bf),
+                      J_cal_mv=None if b.J_cal is None else b.J_cal.to(bf))
 
 
 def _split(cfgs, lg):
@@ -427,12 +466,12 @@ def _vis_batches(cfgs, datas, lg):
         cplan = cal_plan_of(data, info)
         fold = (cplan is not None and bool(extra)
                 and all(g in (fct.CAM_EXTR, fct.CAM_INTR) for g, _ in extra))
-        out.append((VisBatch(
+        out.append((_with_mv_copies(VisBatch(
             info=info, w=w * (1.0 - data["_pad"]), rig_k=rig_k, J=J_rig, J_pt=J_pt, plan=plan,
             cal_groups=tuple((g, J.shape[1]) for g, J in extra) if fold else (),
             J_cal=torch.cat([J for _, J in extra], dim=1) if fold else None,
             cplan=cplan if fold else None,
-            groups=tuple(groups), idx=tuple(idx), jac=tuple(jac), rows=tuple(rows)), lin))
+            groups=tuple(groups), idx=tuple(idx), jac=tuple(jac), rows=tuple(rows))), lin))
     return out
 
 
@@ -440,13 +479,16 @@ def with_column_records(rs):
     """The system with the point-sorted slot records (seg.point_sorted_records)
     of its single-pass visual batch made once, for the column kernels that
     every PCG iteration of a covariance chunk calls (J is constant over the
-    system's solves). Only on the card: the CPU path ignores them."""
+    system's solves). Only on the card: the CPU path ignores them. Under
+    MATVEC_BF16 the records hold the bf16 copies upcast to float32, so the
+    column kernels solve the PCG loop's rounded operator."""
     if not (len(rs.vis) == 1 and not rs.rest_pt.lins and _single_pass(rs.vis[0])):
         return rs
     b = rs.vis[0]
     if not _kernels.on_card(b.w) or b.rec is not None:
         return rs
-    rec = seg.point_sorted_records(b.J, b.J_pt, b.w, b.plan, b.J_cal if _cal_fast(b) else None,
+    J, J_pt, J_cal = (None if a is None else a.float() for a in _mv_jacs(b))
+    rec = seg.point_sorted_records(J, J_pt, b.w, b.plan, J_cal if _cal_fast(b) else None,
                                    b.cplan if _cal_fast(b) else None)
     return rs._replace(vis=(b._replace(rec=rec),))
 
@@ -744,8 +786,9 @@ def _precond_finish(asm: RcsAsm, v, masks, lam, H_ll_inv, precond="gauss_seidel"
     Hinv_used = H_ll_inv if schur_corr else torch.zeros_like(H_ll_inv)
     for b, A in zip(asm.vis, asm.A_rp):
         if _single_pass(b):
+            J, J_pt, _ = _mv_jacs(b)
             blocks[fct.RIG] = blocks[fct.RIG] + _padkk(
-                seg.seg_precond_rig(b.J, b.J_pt, b.w, Hinv_used, b.plan), b.rig_k)
+                seg.seg_precond_rig(J, J_pt, b.w, Hinv_used, b.plan), b.rig_k)
             continue
         if A is None or not schur_corr:
             continue
@@ -830,7 +873,8 @@ def _pt_expand(b: VisBatch, yl):
 
 def w_transpose_x(rs: RcsSystem, v, x: Tangent):
     """W^T x (L, 3) (K6; K10's down pass for calibration-coupled batches;
-    K13b + K13a on the general path)."""
+    K13b + K13a on the general path). The back-substitution: float32 J
+    under MATVEC_BF16 too, as in the JAX package."""
     t = torch.zeros_like(v.points)
     for b in rs.vis:
         if _rig_only_fast(b):
@@ -849,14 +893,16 @@ def w_transpose_x(rs: RcsSystem, v, x: Tangent):
 
 
 def w_y(rs: RcsSystem, v, yl):
-    """W y_l (Tangent) (K5; K10's up pass; K13b + K13a on the general path)."""
+    """W y_l (Tangent) (K5; K10's up pass; K13b + K13a on the general path;
+    the bf16 copies under MATVEC_BF16)."""
     y = zero_tangent(v)
     yl = yl.contiguous()
     for b in rs.vis:
+        J, J_pt, J_cal = _mv_jacs(b)
         if _rig_only_fast(b):
-            y_r = seg.seg_schur_up(b.J, b.J_pt, b.w, yl, b.plan)
+            y_r = seg.seg_schur_up(J, J_pt, b.w, yl, b.plan)
         elif _cal_fast(b):
-            y_r, y_c = seg.seg_schur_up_cal(b.J, b.J_cal, b.J_pt, b.w, yl, b.plan, b.cplan)
+            y_r, y_c = seg.seg_schur_up_cal(J, J_cal, J_pt, b.w, yl, b.plan, b.cplan)
             y = _cal_scatter_back(b, y, y_c)
         else:
             y = Tangent(**_vis_scatter(b, y._asdict(), _pt_expand(b, yl)))
@@ -879,7 +925,8 @@ def _matvec_factor_sums(rs: RcsSystem, v, x: Tangent) -> Tangent:
     single-pass route runs the column-batched K4 or K9 once for all of them
     (and the rest graph batched over them); every other route (the general
     two-grid path, several visual batches, point-coupled small batches)
-    runs its kernels column by column."""
+    runs its kernels column by column. The single-pass kernels read the
+    bf16 copies under MATVEC_BF16."""
     single = len(rs.vis) == 1 and not rs.rest_pt.lins and _single_pass(rs.vis[0])
     cols = has_columns(x)
     if cols and not single:
@@ -888,26 +935,27 @@ def _matvec_factor_sums(rs: RcsSystem, v, x: Tangent) -> Tangent:
     hx = rest_hmatvec(rs.rest_stacks, v, x)
     if single:
         b = rs.vis[0]
+        J, J_pt, J_cal = _mv_jacs(b)
         x_r = x.rig[:, :b.rig_k].contiguous()
         if _cal_fast(b):
-            args = (b.J, b.J_cal, b.J_pt, b.w, x_r, _cal_table(b, x), rs.H_ll_inv, b.plan,
-                     b.cplan)
+            args = (J, J_cal, J_pt, b.w, x_r, _cal_table(b, x), rs.H_ll_inv, b.plan, b.cplan)
             y_r, y_c = (seg.seg_schur_pcg_cal_cols(*args, rec=b.rec) if cols
                         else seg.seg_schur_pcg_cal(*args))
             hx = _cal_scatter_back(b, hx, y_c)
         else:
-            args = (b.J, b.J_pt, b.w, x_r, rs.H_ll_inv, b.plan)
+            args = (J, J_pt, b.w, x_r, rs.H_ll_inv, b.plan)
             y_r = (seg.seg_schur_pcg_cols(*args, rec=b.rec) if cols
                    else seg.seg_schur_pcg(*args))
         return hx._replace(rig=hx.rig + _padk(y_r, b.rig_k))
     t = torch.zeros_like(v.points)
     for b in rs.vis:
         x_r = x.rig[:, :b.rig_k].contiguous()
+        J, J_pt, J_cal = _mv_jacs(b)
         if _rig_only_fast(b):
-            y_b, t_b = seg.seg_schur_down(b.J, b.J_pt, b.w, x_r, b.plan)
+            y_b, t_b = seg.seg_schur_down(J, J_pt, b.w, x_r, b.plan)
         elif _cal_fast(b):
-            y_b, y_c, t_b = seg.seg_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w, x_r,
-                                                   _cal_table(b, x), b.plan, b.cplan)
+            y_b, y_c, t_b = seg.seg_schur_down_cal(J, J_cal, J_pt, b.w, x_r, _cal_table(b, x),
+                                                   b.plan, b.cplan)
             hx = _cal_scatter_back(b, hx, y_c)
         elif b.groups == (fct.RIG,):
             wu, y_b = seg.seg_mv_fused_table(b.J, b.w, x_r, b.rows[0])
