@@ -43,7 +43,7 @@ Drives the port's main paths through the entry points a user calls:
                bf16 K4 column by column;
   pcg_switch   the same configuration at 12 Hz (21,600 rigs, ~3.76M
                observations), past pick_solver's switch at 20,000 rigs:
-               pick_solver("auto") must pick Gauss-Seidel PCG, and 3 LM
+               pick_solver("auto") must pick Gauss-Seidel PCG, and 2 LM
                iterations run under exactly the settings it returned
                (single-pass route, K1-K6 at its shapes, consistency; peak
                device memory over the build and, apart, over consistency
@@ -120,7 +120,31 @@ Drives the port's main paths through the entry points a user calls:
                cost falls, and K3, K7-K10 and K13c (point refinement's
                landmark sums) launch, with the counts set to 0 just before;
                then K13c on refinement's own tables of that session (D 13
-               and D 1 over its landmark plan) against its plain version.
+               and D 1 over its landmark plan) against its plain version;
+  shard        the tile-sharded blocked engine (`parallel.sharding`), two
+               gloo ranks on the one card (NCCL refuses two ranks on one
+               device; gloo's all_reduce takes CUDA tensors, the halo slabs
+               go through pinned host buffers), spawned once while this
+               process writes gs_cal's session directory (host only), each
+               loading the problems from host files written by the cap and
+               full paths (no rebuild): `shard:cap`, the
+               capacity problem from its initial state (each rank's tiles
+               and slots, the landmark and rig halo plans asserted engaged,
+               the collective bytes of a PCG iteration against the (L, 3) +
+               (R, 12) all-reduces they replace, none of those inside the
+               loop; one LM step against the single-device step of the same
+               state: cosine > 0.999, relative step difference and new cost
+               within TOL_ITER; 3 LM iterations through optimize(): the
+               cost falls and the ranks end with bit-equal variables;
+               per-rank peak memory and iteration ms); `shard:full`, the
+               full-sensor problem (K7, K8, K3, K10 on each rank's plans;
+               the window tables' plans or their logged bail-outs; the step
+               against one device); `shard:nccl`, the bias-only problem on a
+               group of world size 1 on NCCL (its all-reduces on the card,
+               the step against the fused single-device route). K1-K3, K5-K8
+               and K10 must launch on every rank, K4 and K9 never (the
+               sharded PCG is two-pass). Labelled "2 gloo ranks on one card,
+               not multi-GPU": no multi-card run is made.
 
 Phases, one printed line each (per path):
 
@@ -164,7 +188,7 @@ Phases, one printed line each (per path):
   phases       where one LM attempt's time goes: host time of each phase
                (synchronized, median of 3), and the device's busy share over
                one attempt (torch.profiler)
-  main         5 LM iterations (cap and pcg_switch: 3) through optimize()
+  main         5 LM iterations (cap: 3, pcg_switch: 2) through optimize()
                with the launch counts set to 0 just before; every kernel of
                the path must launch and the cost must fall
 
@@ -193,31 +217,31 @@ JAXPKG = "visual_inertial_bundle_adjustment_tpu"
 KERNELS = {
     "visual_linearize": ("K1", f"{PKG}/csrc/visual_linearize.cu",
                          f"{JAXPKG}/ops/visual_fused.py:139",
-                         "bias+cap+pcg_switch+gs_cal+two_grid+cov+multi"),
+                         "bias+cap+pcg_switch+gs_cal+two_grid+cov+multi+shard"),
     "assemble_rig": ("K2", f"{PKG}/csrc/assemble_rig.cu", f"{JAXPKG}/ops/segments.py:840",
-                     "bias+cap+pcg_switch+cov"),
+                     "bias+cap+pcg_switch+cov+shard"),
     "precond_rig": ("K3", f"{PKG}/csrc/precond_rig.cu", f"{JAXPKG}/ops/segments.py:1861",
-                    "bias+cap+pcg_switch+full+gs_cal+cli+cov+multi"),
+                    "bias+cap+pcg_switch+full+gs_cal+cli+cov+multi+shard"),
     "schur_pcg": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347",
                   "bias+cap+pcg_switch"),
     "schur_pcg_cols": ("K4", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:1318,1347",
                        "cov"),
     "schur_up": ("K5", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:725",
-                 "bias+cap+pcg_switch"),
+                 "bias+cap+pcg_switch+shard"),
     "schur_down": ("K6", f"{PKG}/csrc/schur.cu", f"{JAXPKG}/ops/segments.py:586",
-                   "bias+cap+pcg_switch"),
+                   "bias+cap+pcg_switch+shard"),
     "rs_linearize": ("K7", f"{PKG}/csrc/rs_linearize.cu", f"{JAXPKG}/ops/rs_fused.py:131",
-                     "full+cli+cov+multi"),
+                     "full+cli+cov+multi+shard"),
     "assemble_cal": ("K8", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1674",
-                     "full+gs_cal+cli+cov+multi"),
+                     "full+gs_cal+cli+cov+multi+shard"),
     "schur_pcg_cal": ("K9", f"{PKG}/csrc/cal_segments.cu",
                       f"{JAXPKG}/ops/segments.py:1468,1519", "full+gs_cal+cli"),
     "schur_pcg_cal_cols": ("K9", f"{PKG}/csrc/cal_segments.cu",
                            f"{JAXPKG}/ops/segments.py:1468,1519", "cov"),
     "schur_down_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1005",
-                       "full+gs_cal+cli+multi"),
+                       "full+gs_cal+cli+multi+shard"),
     "schur_up_cal": ("K10", f"{PKG}/csrc/cal_segments.cu", f"{JAXPKG}/ops/segments.py:1146",
-                     "full+gs_cal+cli+multi"),
+                     "full+gs_cal+cli+multi+shard"),
     "visual_cal_linearize": ("K11", f"{PKG}/csrc/visual_cal_linearize.cu",
                              f"{JAXPKG}/ops/visual_fused.py:347", "gs_cal+multi"),
     "mv_fused_table": ("K12", f"{PKG}/csrc/table_segments.cu", f"{JAXPKG}/ops/segments.py:304",
@@ -240,7 +264,7 @@ KERNELS = {
                    "profile"),
 }
 PATHS = ("bias", "cap", "pcg_switch", "full", "gs_cal", "two_grid", "profile", "cli", "cov",
-         "multi")
+         "multi", "shard")
 # the golden sessions' flags: a copy of tools_dev/gen_golden_session.py's
 # CLI_ARGS / CLI_ARGS_FULL (which imports JAX; a CPU test holds them equal)
 CLI_ARGS = [
@@ -388,11 +412,16 @@ def l2_flush(clean=False):
 
 def flushed_device_ms(fn, pre):
     """{kernel: (launches, device ms) per call} of fn with pre() (an L2
-    flush) before every call, the flush's own kernels left out."""
+    flush) before every call, the flush's own kernels left out. They are
+    named by a session of pre() alone; one that recorded nothing (seen on
+    the H100) would leave the flush counted as fn's, so it is taken again,
+    and the reading fails if none recorded the flush."""
     from visual_inertial_bundle_adjustment_tpu_torch import profile_matvec as pm
 
-    flush_keys = {key for key, _, _ in pm.device_rows(pre)}
-    per = pm.per_call([pm.device_rows(lambda: (pre(), fn())) for _ in range(pm.SESSIONS)],
+    flush_keys = {key for key, _, _ in pm.recorded_rows(pre)}
+    if not flush_keys:
+        raise RuntimeError("the profiler recorded no L2 flush in three sessions")
+    per = pm.per_call([pm.recorded_rows(lambda: (pre(), fn())) for _ in range(pm.SESSIONS)],
                       pm.DEVICE_REPS)
     return {key: val for key, val in per.items() if key not in flush_keys}
 
@@ -413,7 +442,7 @@ class Bench:
         self.results = {}
 
     def compare(self, name, fn, args, labels_tol, read, flops, f64=False, library=None,
-                flush=False):
+                flush=False, poison=False):
         """fn(*args) -> outputs. The kernel's outputs are held against the
         plain version evaluated in float64 on the same inputs (so the bound
         measures the kernel's own error, not the float32 rounding of two
@@ -427,10 +456,18 @@ class Bench:
         own kernel is left out of the device time), for a kernel whose
         inputs the L2 would otherwise hold across the calls; its device time
         is read again with the L2 flushed clean (no write-back of the
-        flush's dirty lines in the kernel's time)."""
+        flush's dirty lines in the kernel's time). poison: the outputs the
+        kernel is held by are allocated (torch.empty in the wrappers) from
+        blocks of the caching allocator just filled with NaN, so a row the
+        kernel leaves unwritten fails the comparison."""
         from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
         import torch
 
+        if poison:
+            sizes = [(o.numel(), o.dtype) for o in flat(fn(*args))]
+            torch.cuda.synchronize()
+            nan = [torch.full((n,), float("nan"), dtype=dt, device="cuda") for n, dt in sizes]
+            del nan
         out_k = flat(fn(*args))
         with _kernels.plain_reference():
             out_p = flat(fn(*_kernels.to_f64(args)))
@@ -515,7 +552,7 @@ def k1_rows(bench, shape, cfg, data, v, masks, N, modes=(True, False)):
                       (400.0 if with_jac else 150.0) * N, f64=True)
 
 
-def assemble_rig_rows(bench, name, b, lin, n_real):
+def assemble_rig_rows(bench, name, b, lin, n_real, poison=False):
     """K2 on a batch against its float64 plain version; at most 2 device
     operations a call."""
     from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
@@ -524,7 +561,7 @@ def assemble_rig_rows(bench, name, b, lin, n_real):
     tols = [(label, TOL_SEG) for label in ("g_r", "diag_r", "g_l", "H_ll0")]
     row = bench.compare(name, seg.seg_assemble_rig, args, tols,
                         [b.J, b.J_pt, lin.res, b.w] + walk_plan(b.plan)[2:],
-                        (8 * b.rig_k + 36) * n_real)
+                        (8 * b.rig_k + 36) * n_real, poison=poison)
     if row["device_ops"] > 2:
         raise AssertionError(f"{name}: {row['device_ops']} device operations per call")
 
@@ -644,7 +681,10 @@ def phase_times(path, problem, settings):
 
     attempt()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    # the device's activity alone: with the host's too, summarising the
+    # tracer's events of every operator took ~2 minutes of a run, and the
+    # tracer slowed the attempt it measures
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         attempt()
@@ -719,7 +759,7 @@ def lm_settings(iterations=LM_ITERATIONS):
 # ---------------------------------------------------------------------------
 
 
-def bias_only(dev, bench):
+def bias_only(dev, bench, smi):
     import numpy as np
     import torch
 
@@ -766,7 +806,8 @@ def bias_only(dev, bench):
     # the flag on, from the initial state: the reference's step bounds asserted
     bf16 = bf16_path("bias", problem, v0, settings, bench, asserted=True)
     bf16_column_check(problem, dev)
-    return launches, cov_launches, bf16
+    shard = shard_nccl(dev, problem, v0, smi)
+    return launches, cov_launches, bf16, shard
 
 
 def rig_kernel_rows(bench, problem, dev, tag):
@@ -801,33 +842,7 @@ def rig_kernel_rows(bench, problem, dev, tag):
     k = b.rig_k
     x = torch.randn((R, k), generator=gen, device=dev)
     zl = torch.randn((L, 3), generator=gen, device=dev)
-    plan = walk_plan(b.plan)
-    assemble_rig_rows(bench, named("assemble_rig"), b, lin, n_real)
-    bench.compare(named("precond_rig"), seg.seg_precond_rig,
-                  (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan), [("blocks", TOL_SEG)],
-                  [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan, (30 * k + 5 * k * (k + 1)) * n_real)
-    # K6 with y (the multi-batch matvec) and as the main path calls it
-    # (rcs.w_transpose_x: t = W^T x alone)
-    for name, want_y, index6, flops6 in (
-            (named("schur_down"), True, [b.plan.rig_ptr, b.plan.rig_obs], 8 * k + 17),
-            (named("schur_down", "want_y=False"), False, [b.plan.rig], 4 * k + 17)):
-        args6 = (b.J, b.J_pt, b.w, x, b.plan, want_y)
-        tols6 = [("y", TOL_SEG)] * want_y + [("t", TOL_SEG)]
-        row6 = bench.compare(name, seg.seg_schur_down, args6, tols6,
-                             [b.J, b.J_pt, b.w, x, b.plan.pt_pos, b.plan.pt_ptr] + index6,
-                             flops6 * n_real)
-        if row6["device_ops"] > 2:
-            raise AssertionError(f"{name}: {row6['device_ops']} device operations per call")
-    # K5 walks the rig lists: it reads J_r, J_p and w of the real slots,
-    # their landmark index, z, and writes y. Called once a solve, after the
-    # preconditioner: its inputs would sit in the L2 across repeated calls
-    # at the bias shapes (30 MB)
-    real = n_real / b.J.shape[-1]
-    args5 = (b.J, b.J_pt, b.w, zl, b.plan)
-    row5 = bench.compare(named("schur_up"), seg.seg_schur_up, args5, [("y", TOL_SEG)],
-                         [(b.J, real), (b.J_pt, real), (b.w, real), (b.plan.point, real), zl,
-                          b.plan.rig_ptr, b.plan.rig_obs], (4 * k + 14) * n_real, flush=True)
-    check_repeat_and_ops(named("schur_up"), row5, seg.seg_schur_up, args5, 1)
+    rig_segment_rows(bench, named, b, lin, rs.H_ll_inv, x, zl, n_real)
     args4 = (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan)
     index4 = [b.plan.rig, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, b.plan.rig_ptr,
               b.plan.rig_obs]
@@ -845,6 +860,44 @@ def rig_kernel_rows(bench, problem, dev, tag):
     if row4["device_ops"] > 3:
         raise AssertionError(f"{name4}: {row4['device_ops']} device operations per call")
     del lg, asm, rs, lin, b
+
+
+def rig_segment_rows(bench, named, b, lin, hinv, x, zl, n_real, poison=False):
+    """K2, K3, K6 with y and as rcs.w_transpose_x calls it (t alone) and K5
+    (the L2 flushed) on a rig-only single-pass batch against their float64
+    plain versions (TOL_SEG), on x (R, k), z (L, 3) and the landmark
+    inverses hinv; K2 <= 2, K6 <= 2 and K5 = 1 device operations a call, K5
+    repeating bit for bit. `named(kernel, mode="")` names the rows;
+    `poison`: see Bench.compare."""
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+
+    k = b.rig_k
+    plan = walk_plan(b.plan)
+    assemble_rig_rows(bench, named("assemble_rig"), b, lin, n_real, poison)
+    precond_rig_row(bench, named("precond_rig"), b, hinv, n_real, poison)
+    # K6 with y (the multi-batch matvec) and as the main path calls it
+    # (rcs.w_transpose_x: t = W^T x alone)
+    for name, want_y, index6, flops6 in (
+            (named("schur_down"), True, [b.plan.rig_ptr, b.plan.rig_obs], 8 * k + 17),
+            (named("schur_down", "want_y=False"), False, [b.plan.rig], 4 * k + 17)):
+        args6 = (b.J, b.J_pt, b.w, x, b.plan, want_y)
+        tols6 = [("y", TOL_SEG)] * want_y + [("t", TOL_SEG)]
+        row6 = bench.compare(name, seg.seg_schur_down, args6, tols6,
+                             [b.J, b.J_pt, b.w, x, b.plan.pt_pos, b.plan.pt_ptr] + index6,
+                             flops6 * n_real, poison=poison)
+        if row6["device_ops"] > 2:
+            raise AssertionError(f"{name}: {row6['device_ops']} device operations per call")
+    # K5 walks the rig lists: it reads J_r, J_p and w of the real slots,
+    # their landmark index, z, and writes y. Called once a solve, after the
+    # preconditioner: its inputs would sit in the L2 across repeated calls
+    # at the bias shapes (30 MB)
+    real = n_real / b.J.shape[-1]
+    args5 = (b.J, b.J_pt, b.w, zl, b.plan)
+    row5 = bench.compare(named("schur_up"), seg.seg_schur_up, args5, [("y", TOL_SEG)],
+                         [(b.J, real), (b.J_pt, real), (b.w, real), (b.plan.point, real), zl,
+                          b.plan.rig_ptr, b.plan.rig_obs], (4 * k + 14) * n_real, flush=True,
+                         poison=poison)
+    check_repeat_and_ops(named("schur_up"), row5, seg.seg_schur_up, args5, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -952,7 +1005,7 @@ def peak_memory(path, what):
     return dict(peak_allocated_gib=alloc / 2**30, peak_reserved_gib=res / 2**30)
 
 
-def capacity(dev, bench):
+def capacity(dev, bench, shard_dir):
     """The capacity path (bench.py's build_capacity_problem: 18,000 rigs,
     ~3.13M observations): the problem, K1-K6 at its shapes, consistency,
     phases, CAP_TIMED_ITERS LM iterations through optimize(); peak device
@@ -985,7 +1038,9 @@ def capacity(dev, bench):
     torch.cuda.empty_cache()
     bf16_kernel_rows(bench, problem, dev, "cap")
     bf16 = bf16_path("cap", problem, v0, settings, bench, peak=True)
-    return launches, cov_launches, bf16
+    shard = shard_file("cap", problem, v0, shard_dir)
+    shard_kernel_rows(bench, problem, dev, "cap")
+    return launches, cov_launches, bf16, shard
 
 
 def capacity_covariance(problem, bench):
@@ -1463,27 +1518,14 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
     x = torch.randn((R, k), generator=gen, device=dev)
     xc = torch.randn((n_c, b.J_cal.shape[1]), generator=gen, device=dev)
     zl = torch.randn((L, 3), generator=gen, device=dev)
-    plan, cplan = walk_plan(b.plan), list(b.cplan)[:4]  # K8, K10: the window chunk lists
     jread = [b.J, b.J_pt, b.J_cal, b.w]
     kc = b.J_cal.shape[1]
-    n_out = seg.n_cal_out(seg.CAL_SPLITS[kc])
     seg_tol = lambda *names: [(nm, TOL_SEG) for nm in names]  # noqa: E731
     if kc == 23:  # K3 does not depend on the window columns
-        bench.compare(f"precond_rig{suffix or f'(k={k})'}", seg.seg_precond_rig,
-                      (b.J, b.J_pt, b.w, rs.H_ll_inv, b.plan), seg_tol("blocks"),
-                      [b.J, b.J_pt, b.w, rs.H_ll_inv] + plan,
-                      (30 * k + 5 * k * (k + 1)) * n_real)
+        precond_rig_row(bench, f"precond_rig{suffix or f'(k={k})'}", b, rs.H_ll_inv, n_real)
     if kc != 17:  # K2, whose two passes K8 runs, alone on this batch (no window column)
         assemble_rig_rows(bench, f"assemble_rig{suffix or '(full)'}", b, lin, n_real)
-    args8 = (b.J, b.J_cal, b.J_pt, lin.res, b.w, b.plan, b.cplan)
-    row8 = bench.compare(f"assemble_cal{suffix}", seg.seg_assemble_cal, args8,
-                         seg_tol("g_r", "diag_r", "g_c", "diag_c",
-                                 *(f"blocks_{g}" for g, _ in b.cal_groups), "g_l", "H_ll0"),
-                         jread + [lin.res] + plan + cplan,
-                         (8 * k + 36 + 4 * kc + 5 * (n_out - kc)) * n_real)
-    if row8["device_ops"] > 3:
-        raise AssertionError(f"assemble_cal{suffix}: {row8['device_ops']} device operations "
-                             "per call")
+    assemble_cal_row(bench, f"assemble_cal{suffix}", b, lin)
     cp = b.cplan
     index9 = [b.plan.rig, cp.win, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, cp.rig_pair,
               cp.pair_ptr, cp.pair_obs, cp.pair_part, cp.win_pair]
@@ -1503,7 +1545,35 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
     k10_rows(bench, b, x, xc, zl, suffix)
 
 
-def k10_rows(bench, b, x, xc, zl, suffix):
+def precond_rig_row(bench, name, b, hinv, n_real, poison=False):
+    """K3 on a single-pass batch against its float64 plain version."""
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+
+    k = b.rig_k
+    bench.compare(name, seg.seg_precond_rig, (b.J, b.J_pt, b.w, hinv, b.plan),
+                  [("blocks", TOL_SEG)], [b.J, b.J_pt, b.w, hinv] + walk_plan(b.plan),
+                  (30 * k + 5 * k * (k + 1)) * n_real, poison=poison)
+
+
+def assemble_cal_row(bench, name, b, lin, poison=False):
+    """K8 on a calibration-coupled batch against its float64 plain
+    version; at most 3 device operations a call."""
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+
+    k, kc, n_real = b.rig_k, b.J_cal.shape[1], int(b.plan.rig_obs.shape[0])
+    n_out = seg.n_cal_out(seg.CAL_SPLITS[kc])
+    args8 = (b.J, b.J_cal, b.J_pt, lin.res, b.w, b.plan, b.cplan)
+    tols8 = [(nm, TOL_SEG) for nm in ("g_r", "diag_r", "g_c", "diag_c",
+                                      *(f"blocks_{g}" for g, _ in b.cal_groups), "g_l", "H_ll0")]
+    row8 = bench.compare(name, seg.seg_assemble_cal, args8, tols8,
+                         [b.J, b.J_pt, b.J_cal, b.w, lin.res] + walk_plan(b.plan)
+                         + list(b.cplan)[:4], (8 * k + 36 + 4 * kc + 5 * (n_out - kc)) * n_real,
+                         poison=poison)
+    if row8["device_ops"] > 3:
+        raise AssertionError(f"{name}: {row8['device_ops']} device operations per call")
+
+
+def k10_rows(bench, b, x, xc, zl, suffix, poison=False):
     """K10 on a calibration-coupled batch against its float64 plain
     version: the down pass with y (the two-pass PCG matvec), as
     rcs.w_transpose_x calls it (t = W^T x alone) and the up pass; each
@@ -1528,7 +1598,7 @@ def k10_rows(bench, b, x, xc, zl, suffix):
          (b.J, b.J_cal, b.J_pt, b.w, zl, b.plan, b.cplan), seg_tol("y_r", "y_c"),
          jread + [zl] + plan + cplan, (4 * k + 4 * kc + 14) * n_real, 2))
     for name, fn, args, tols, read, flops, max_ops in rows:
-        row = bench.compare(name, fn, args, tols, read, flops)
+        row = bench.compare(name, fn, args, tols, read, flops, poison=poison)
         check_repeat_and_ops(name, row, fn, args, max_ops)
 
 
@@ -1544,7 +1614,7 @@ def check_repeat_and_ops(name, row, fn, args, max_ops):
         raise AssertionError(f"{name}: {row['device_ops']} device operations per call")
 
 
-def full_sensor(dev, bench, session_dir, times):
+def full_sensor(dev, bench, session_dir, times, shard_dir):
     """The full-sensor path on the session directory written for it (kept
     for cli:full); then full:bf16 (bf16_kernel_rows, bf16_path) from the
     initial state."""
@@ -1599,7 +1669,9 @@ def full_sensor(dev, bench, session_dir, times):
     torch.cuda.empty_cache()
     bf16_kernel_rows(bench, problem, dev, "full")
     bf16 = bf16_path("full", problem, v0, settings, bench)
-    return launches, cov_launches, bf16
+    shard = shard_file("full", problem, v0, shard_dir)
+    shard_kernel_rows(bench, problem, dev, "full")
+    return launches, cov_launches, bf16, shard
 
 
 # ---------------------------------------------------------------------------
@@ -1607,15 +1679,15 @@ def full_sensor(dev, bench, session_dir, times):
 # ---------------------------------------------------------------------------
 
 
-def gs_cal(dev, bench, session, session_sec, gs_dir):
-    """The global-shutter calibration path on a session directory written
-    into gs_dir (kept for the multi path)."""
+def gs_cal(dev, bench, gs_dir, times):
+    """The global-shutter calibration path on the session directory written
+    into gs_dir (kept for the multi path; `times`: the session's and the
+    write's seconds)."""
     import torch
 
     from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
     from visual_inertial_bundle_adjustment_tpu_torch.pipeline.adapter import AdapterOptions
 
-    times = {"session": session_sec, "write": write_600(session, gs_dir, None)}
     problem, adapter, vi = adapter_problem("gs_cal", dev, gs_dir, times, AdapterOptions())
     kinds = [c.kind for c in problem.cfgs]
     if "rs_visual" in kinds or any("rs_tables" in d for d in problem.datas):
@@ -1731,8 +1803,8 @@ def pcg_device(rs, v, b_rhs, settings):
 
     rcs.pcg(rs, v, b_rhs, PCG_ITERATIONS, settings.pcg_tol)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    # the device's activity alone (phase_times says why)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         rcs.pcg(rs, v, b_rhs, PCG_ITERATIONS, settings.pcg_tol)
         torch.cuda.synchronize()
     rows = pm.device_kernels(prof.key_averages())
@@ -2519,8 +2591,8 @@ def cov_path(path, problem, dev, bench, rigs, cal_rows, ref_rigs, ref_rows, turn
         n_it = 10
         rcs.pcg(rs, v, bc, 1, 1e-12)
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        # the device's activity alone (phase_times says why)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             rcs.pcg(rs, v, bc, n_it, 1e-12)
             torch.cuda.synchronize()
@@ -2881,6 +2953,425 @@ def cli_full(dev, session_dir, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# shard path: the tile-sharded blocked engine (parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2  # gloo ranks on the one card (NCCL refuses two ranks on one device)
+SHARD_TIMEOUT_S = 420
+# the kernels each shard phase must launch on every rank, and the fused PCG
+# matvecs it must not (the sharded PCG is two-pass: K6 / K10's down pass,
+# the landmark sums completed across the ranks, K5 / K10's up pass)
+SHARD_KERNELS = {"cap": ("visual_linearize", "assemble_rig", "precond_rig", "schur_down",
+                         "schur_up"),
+                 "full": ("rs_linearize", "assemble_cal", "precond_rig", "schur_down_cal",
+                          "schur_up_cal"),
+                 "nccl": ("visual_linearize", "assemble_rig", "precond_rig", "schur_down",
+                          "schur_up")}
+SHARD_FUSED = ("schur_pcg", "schur_pcg_cal")
+SHARD_LABEL = "2 gloo ranks on one card, not multi-GPU"
+# the shard phases the ranks run, in order: (tag, LM iterations after the step)
+SHARD_JOBS = (("cap", CAP_TIMED_ITERS), ("full", 0))
+
+
+def shard_kernel_rows(bench, problem, dev, tag):
+    """The kernels of `shard:<tag>` held against their float64 plain
+    versions (TOL_SEG) on each rank's plans at the path's shapes: the
+    problem (at its initial state) cut here for each of SHARD_RANKS ranks by
+    shard_blocked_problem over a Mesh of that rank (the cut needs no process
+    group), the rank's batch linearized on its own slots. Rig-only (cap):
+    K2, K3, K6 with y and t alone, K5 (rig_segment_rows); calibration-coupled
+    (full): K3, K8 and K10's down pass with y and t alone and its up pass
+    (k10_rows). A rank's plans keep every global rig and landmark row, and
+    many hold no local slot: the rank's empty rows are counted, asserted
+    present, and each output is allocated from NaN-filled memory (poison)
+    so that a row the kernel does not write fails. Rows
+    `<kernel>(<tag>,shard,rank<r>)`; main gives each the launches of its
+    kernel on that rank in the shard phase."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.parallel import sharding
+    from visual_inertial_bundle_adjustment_tpu_torch.problem import engine, rcs
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.optimizer import Problem
+
+    ks = problem._build()
+    datas, v, masks = tuple(problem.datas), problem.variables, problem.masks
+    lg = ks[0](datas, v, masks, None)
+    hinv = rcs.with_damping(ks[6](datas, lg, v, masks), v, masks, 1e-4).H_ll_inv
+    del lg
+    R, L, n_c = v.pose_q.shape[0], v.points.shape[0], v.cam_intr.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for rank in range(SHARD_RANKS):
+        q = Problem(v, masks)
+        q.cfgs, q.datas = list(problem.cfgs), list(problem.datas)
+        sharding.shard_blocked_problem(q, sharding.Mesh(rank, SHARD_RANKS, dev, "gloo"),
+                                       log=[].append)
+        cfgs, qdatas = q.resolve_cfgs(), tuple(q.datas)
+        (b, lin), = rcs._vis_batches(cfgs, qdatas,
+                                     engine.linearize(cfgs, qdatas, q.variables, q.masks))
+        n_real = int(b.plan.rig_obs.shape[0])
+        empty_r = int((b.plan.rig_ptr[1:] == b.plan.rig_ptr[:-1]).sum())
+        empty_l = int((b.plan.pt_ptr[1:] == b.plan.pt_ptr[:-1]).sum())
+        phase(f"shard:{tag}", f"rank {rank}'s plans: {b.info.nt} tiles, {n_real} real slots, "
+              f"{empty_r} of {R} rig rows and {empty_l} of {L} landmark rows with no local slot")
+        if not (empty_r and empty_l):
+            raise AssertionError(f"shard:{tag}: rank {rank}'s plans have no empty rig or "
+                                 "landmark row")
+        inner = f"{tag},shard,rank{rank}"
+        x = torch.randn((R, b.rig_k), generator=gen, device=dev)
+        zl = torch.randn((L, 3), generator=gen, device=dev)
+        if rcs._rig_only_fast(b):
+            rig_segment_rows(bench, lambda kernel, mode="": f"{kernel}({inner}"
+                             + (f",{mode})" if mode else ")"), b, lin, hinv, x, zl, n_real,
+                             poison=True)
+        elif rcs._cal_fast(b):
+            xc = torch.randn((n_c, b.J_cal.shape[1]), generator=gen, device=dev)
+            precond_rig_row(bench, f"precond_rig({inner})", b, hinv, n_real, poison=True)
+            assemble_cal_row(bench, f"assemble_cal({inner})", b, lin, poison=True)
+            k10_rows(bench, b, x, xc, zl, f"({inner})", poison=True)
+        else:
+            raise AssertionError(f"shard:{tag}: rank {rank}'s batch takes no single-pass route")
+        del q, b, lin
+    torch.cuda.empty_cache()
+
+
+def problem_spec(problem):
+    """A problem as plain data on the host (tables, masks, cfgs, batches;
+    the transpose plans `_ell*` left out: each rank builds its own), for
+    the file the shard ranks load."""
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.structure import tables_to
+
+    def cpu(a):
+        return type(a)(*(x.cpu() for x in a)) if isinstance(a, tuple) else a.cpu()
+
+    return dict(variables=tables_to(problem.variables, "cpu"),
+                masks=tables_to(problem.masks, "cpu"), cfgs=list(problem.cfgs),
+                datas=[{k: cpu(a) for k, a in d.items() if not k.startswith("_ell")}
+                       for d in problem.datas])
+
+
+def spec_problem(spec):
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.optimizer import Problem
+
+    p = Problem(spec["variables"], spec["masks"])
+    p.cfgs, p.datas = list(spec["cfgs"]), list(spec["datas"])
+    return p
+
+
+def step_of(lg, out):
+    """One LM attempt's step, model reduction, new cost and PCG iterations,
+    on the host."""
+    return dict(x_r={f: getattr(out[0], f).cpu() for f in out[0]._fields}, x_l=out[1].cpu(),
+                model=float(out[2]), cost=float(out[9].cost), lin_cost=float(lg.cost),
+                pcg_iters=int(out[4]))
+
+
+def shard_file(tag, problem, v0, workdir):
+    """The path's problem from its initial state v0 written to
+    `<workdir>/<tag>.pt` for the shard ranks (problem_spec); returns the
+    single-device step of that state (one_step, through the fused route),
+    which theirs are held against, with L and R."""
+    import os
+
+    import torch
+
+    problem.variables = v0
+    want = dict(step=step_of(*one_step(problem)), L=v0.points.shape[0], R=v0.pose_q.shape[0])
+    t0 = time.time()
+    path = os.path.join(workdir, f"{tag}.pt")
+    torch.save(problem_spec(problem), path)
+    phase(f"shard:{tag}", f"problem file {os.path.getsize(path) / 2**20:.0f} MiB written in "
+          f"{time.time() - t0:.1f} s")
+    return want
+
+
+def rank_job(workdir, tag, iterations, world):
+    """One shard phase on this rank: loads `<tag>.pt`, shard_blocked_problem,
+    one LM attempt from the file's state (the launch and collective counts
+    set to 0 just before; the first attempt's stages timed), then
+    `iterations` LM iterations through optimize() (launch counts set to 0
+    just before). Returns the results on the host."""
+    import os
+
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+    from visual_inertial_bundle_adjustment_tpu_torch.parallel import sharding
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.optimizer import optimize
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.structure import tables_to
+
+    out = {}
+    t0 = time.time()
+    problem = spec_problem(torch.load(os.path.join(workdir, f"{tag}.pt"), map_location="cpu",
+                                      weights_only=False))
+    out["load_s"] = time.time() - t0
+    mesh = sharding.make_mesh(world, device=torch.device("cuda", 0))
+    logs = []
+    t0 = time.time()
+    sharding.shard_blocked_problem(problem, mesh, log=logs.append)
+    torch.cuda.synchronize()
+    out["shard_s"] = time.time() - t0
+    vis = [(c.block_info, d) for c, d in zip(problem.cfgs, problem.datas)
+           if c.block_info is not None]
+    out["tiles"] = [i.nt for i, _ in vis]
+    out["slots"] = [int((d["_pad"] < 0.5).sum()) for _, d in vis]
+    pt = problem.pt_plan
+    out["pt_plan"] = None if pt is None else (pt.own_lo.tolist(), pt.halo)
+    out["t_plans"] = {g: (q.own_lo.tolist(), q.halo) for g, q in problem.t_plans.items()}
+    out["logs"] = logs
+    out["resident_gib"] = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    mesh.reset_counts()
+    _kernels.reset_launch_counts()
+    stages = {}
+    t0 = time.time()
+    ks = problem._build()
+    datas, v, masks = tuple(problem.datas), problem.variables, problem.masks
+    lg = ks[0](datas, v, masks, None)
+    torch.cuda.synchronize()
+    stages["linearize"] = time.time() - t0
+    asm = ks[6](datas, lg, v, masks)
+    torch.cuda.synchronize()
+    stages["assemble"] = time.time() - t0 - stages["linearize"]
+    res = ks[7](asm, datas, lg, v, masks, STEP_LAM, PCG_ITERATIONS, STEP_TOL, "gauss_seidel")
+    torch.cuda.synchronize()
+    stages["solve"] = time.time() - t0 - stages["linearize"] - stages["assemble"]
+    out["step_s"] = stages
+    out["step_launches"] = _kernels.launch_counts()
+    out["step"] = step_of(lg, res)
+    out["counts"] = {k: list(c) for k, c in mesh.counts.items()}
+    out["main_launches"] = {}
+    if iterations:
+        iters = []
+        settings = lm_settings(iterations)
+        settings.iteration_callback = iters.append
+        _kernels.reset_launch_counts()
+        summary = optimize(problem, settings)
+        torch.cuda.synchronize()
+        out["main_launches"] = _kernels.launch_counts()
+        out["main"] = dict(initial=summary.initial_cost, final=summary.final_cost,
+                           iterations=summary.num_iterations,
+                           iter_ms=[d["iter_time_sec"] * 1e3 for d in iters],
+                           costs=[d["prev_cost"] for d in iters])
+        out["v"] = tables_to(problem.variables, "cpu")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def shard_rank(rank, world, workdir, jobs):
+    """One gloo rank of the shard path, spawned on card 0: rank_job for each
+    (tag, iterations) of `jobs`, in order; writes the results to
+    rank<r>.pt."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        out = {tag: rank_job(workdir, tag, iterations, world) for tag, iterations in jobs}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def start_ranks(workdir, jobs):
+    """SHARD_RANKS gloo ranks spawned on card 0 over a FileStore in workdir,
+    each loading the problem files written there (none rebuilds a
+    problem); returns (the spawn context, its start time)."""
+    import torch.multiprocessing as mp
+
+    phase("shard", f"{SHARD_RANKS} gloo ranks on cuda:0 for " + ", ".join(t for t, _ in jobs))
+    return mp.start_processes(shard_rank, args=(SHARD_RANKS, workdir, jobs), nprocs=SHARD_RANKS,
+                              join=False, start_method="spawn"), time.time()
+
+
+def finish_ranks(started, workdir):
+    """Joins the ranks within SHARD_TIMEOUT_S (stopping them otherwise) and
+    returns their results."""
+    import os
+
+    import torch
+
+    ctx, t0 = started
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() - t0 > SHARD_TIMEOUT_S:
+                raise TimeoutError(f"shard: ranks not done in {SHARD_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(30)
+    phase("shard", f"ranks done in {time.time() - t0:.1f} s")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+            for r in range(SHARD_RANKS)]
+
+
+def step_vs_single(tag, got, want):
+    """A sharded LM step against the single-device step from the same state
+    (as step_agreement reads it): cosine > STEP_BOUNDS' 0.999, relative step
+    difference and new cost within TOL_ITER."""
+    import torch
+
+    def flat(s):
+        return torch.cat([s["x_r"][f].double().reshape(-1) for f in s["x_r"]]
+                         + [s["x_l"].double().reshape(-1)])
+
+    a, b = flat(got), flat(want)
+    cos = float(a @ b / (a.norm() * b.norm()))
+    rel_step = float((a - b).norm() / b.norm())
+    rel_cost = abs(got["cost"] - want["cost"]) / abs(want["cost"])
+    rel_model = abs(got["model"] - want["model"]) / abs(want["model"])
+    ok = cos > STEP_BOUNDS["cos"] and rel_step <= TOL_ITER and rel_cost <= TOL_ITER
+    phase(f"shard:{tag}", f"one LM step (lam {STEP_LAM:g}, {PCG_ITERATIONS} PCG iterations) "
+          f"sharded against one device: cosine {cos:.6f} (> {STEP_BOUNDS['cos']}), relative "
+          f"step difference {rel_step:.3e} (<= {TOL_ITER:g}), new cost {got['cost']:.8g} vs "
+          f"{want['cost']:.8g} (rel {rel_cost:.3e}, <= {TOL_ITER:g}), model reduction rel "
+          f"{rel_model:.3e}, linearized cost {got['lin_cost']:.8g} vs {want['lin_cost']:.8g}")
+    if not ok:
+        raise AssertionError(f"shard:{tag}: the sharded step is off the single-device step")
+    return dict(cos=cos, rel_step=rel_step, rel_cost=rel_cost, rel_model=rel_model)
+
+
+def collective_report(tag, counts, L, R, pcg_iters, smi, planned):
+    """Bytes a rank moves per PCG iteration (the halo slabs it sends, the
+    all-reduced tensors), against the (L, 3) + (R, 12) all-reduces the halo
+    exchanges replace; fails if the loop all-reduces the (L, 3) table while
+    the landmark plan is engaged, or the (R, 12) one while the rig plan is
+    (`planned`: the point plan, and the table plans by group)."""
+    pt_plan, t_plans = planned
+    loop = {k: v for k, v in counts.items() if k[0] == "pcg"}
+    tables = [k for k in loop if k[1] == "all_reduce" and (
+        (pt_plan is not None and k[2] in ((L, 3), (L, 3, 3)))
+        or ("rig" in t_plans and len(k[2]) >= 2 and k[2][:2] == (R, 12)))]
+    if tables:
+        raise AssertionError(f"shard:{tag}: table all-reduces inside the PCG loop: {tables}")
+    halo = sum(v[1] for k, v in loop.items() if k[1] == "halo") / pcg_iters
+    red = sum(v[1] for k, v in loop.items() if k[1] == "all_reduce") / pcg_iters
+    full = (L * 3 + R * 12) * 4
+    phase(f"shard:{tag}", f"collectives per PCG iteration, one rank: halo slabs {halo / 1e3:.1f} "
+          f"kB sent, all-reduced {red / 1e3:.2f} kB, against {full / 1e3:.1f} kB of the (L, 3) + "
+          f"(R, 12) all-reduces they replace | " + ", ".join(
+              f"{k[1]} {k[2]} x{v[0] // pcg_iters}" for k, v in sorted(loop.items()))
+          + f" | {smi}")
+    return dict(halo_bytes_per_iteration=halo, all_reduce_bytes_per_iteration=red,
+                replaced_bytes_per_iteration=full)
+
+
+def check_shard_launches(tag, launches):
+    missing = [k for k in SHARD_KERNELS[tag] if launches.get(k, 0) < 1]
+    fused = [k for k in SHARD_FUSED if launches.get(k, 0)]
+    if missing or fused:
+        raise AssertionError(f"shard:{tag}: kernels not launched {missing}, fused PCG "
+                             f"matvecs launched {fused}")
+
+
+def shard_checks(tag, ranks, want, L, R, smi):
+    """`shard:<tag>` on the ranks' results (rank_job): each rank's tiles and
+    slots and the halo plans (cap: the landmark and rig plans asserted
+    engaged; full: the window tables' plans or their logged bail-outs), the
+    sharded LM step against the single-device step `want` of the same state
+    (step_vs_single), the collectives of its PCG (collective_report), the
+    LM iterations through optimize() when run: the cost falls and the ranks
+    end with bit-equal variables; every kernel of SHARD_KERNELS launched on
+    every rank and neither fused PCG matvec; per-rank peak memory and
+    iteration ms. Returns the ranks' launch counts summed, and each rank's."""
+    import torch
+
+    r0 = ranks[0]
+    phase(f"shard:{tag}", "tiles per rank " + ", ".join(str(r["tiles"]) for r in ranks)
+          + ", real slots per rank " + ", ".join(str(r["slots"]) for r in ranks)
+          + f" | landmark plan {r0['pt_plan']}, table plans {r0['t_plans']}"
+          + (f" | logged: {r0['logs']}" if r0["logs"] else "")
+          + " | s per rank: load " + ", ".join(f"{r['load_s']:.1f}" for r in ranks)
+          + "; cut " + ", ".join(f"{r['shard_s']:.1f}" for r in ranks)
+          + "; the first attempt " + ", ".join(
+              " / ".join(f"{k} {t:.1f}" for k, t in r["step_s"].items()) for r in ranks))
+    if tag == "cap" and (r0["pt_plan"] is None or "rig" not in r0["t_plans"]):
+        raise AssertionError(f"shard:cap: halo plans not engaged: {r0['pt_plan']}, "
+                             f"{r0['t_plans']}, {r0['logs']}")
+    step_vs_single(tag, r0["step"], want)
+    for r in ranks[1:]:
+        same = all(torch.equal(r["step"]["x_r"][f], x) for f, x in r0["step"]["x_r"].items())
+        if not (same and torch.equal(r["step"]["x_l"], r0["step"]["x_l"])):
+            raise AssertionError(f"shard:{tag}: the ranks' steps differ")
+    collective_report(tag, r0["counts"], L, R, PCG_ITERATIONS, smi, (r0["pt_plan"], r0["t_plans"]))
+    launches, by_rank = {}, []
+    for r in ranks:
+        per = {k: n + r["main_launches"].get(k, 0) for k, n in r["step_launches"].items()}
+        check_shard_launches(tag, per)
+        by_rank.append(per)
+        for k, n in per.items():
+            launches[k] = launches.get(k, 0) + n
+    if "main" in r0:
+        mains = [r["main"] for r in ranks]
+        phase(f"shard:{tag}", f"{mains[0]['iterations']} LM iterations through optimize(): cost "
+              f"{mains[0]['initial']:.6g} -> {mains[0]['final']:.6g}; iteration ms per rank "
+              + "; ".join(", ".join(f"{t:.0f}" for t in m["iter_ms"]) for m in mains)
+              + f" ({SHARD_LABEL})")
+        if not all(math.isfinite(c) for c in mains[0]["costs"] + [mains[0]["final"]]):
+            raise AssertionError(f"shard:{tag}: non-finite cost")
+        if not mains[0]["final"] < mains[0]["initial"]:
+            raise AssertionError(f"shard:{tag}: cost did not fall")
+        for r in ranks[1:]:
+            if not all(torch.equal(a, b) for a, b in zip(r["v"], r0["v"])):
+                raise AssertionError(f"shard:{tag}: the ranks' final variables differ")
+        phase(f"shard:{tag}", "final variables bit-equal on every rank")
+    phase(f"shard:{tag}", "peak device memory per rank over the step and main "
+          + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks) + " GiB allocated (resident after "
+          "the cut " + ", ".join(f"{r['resident_gib']:.2f}" for r in ranks)
+          + f" GiB) | {SHARD_LABEL} | {smi}")
+    return launches, by_rank
+
+
+def shard_nccl(dev, problem, v0, smi):
+    """`shard:nccl`: the bias-only problem from its initial state sharded
+    over a group of world size 1 on NCCL in this process (FileStore): NCCL
+    initialises and its all-reduces run on the card (the halo exchanges
+    have no peer), the step takes the sharded two-pass route (K6, K5; no
+    K4) and agrees with the single-device fused route within TOL_ITER.
+    Returns the launch counts."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
+    from visual_inertial_bundle_adjustment_tpu_torch.parallel import sharding
+    from visual_inertial_bundle_adjustment_tpu_torch.problem.optimizer import Problem
+
+    problem.variables = v0
+    want = step_of(*one_step(problem))
+    q = Problem(problem.variables, problem.masks)
+    q.cfgs, q.datas = list(problem.cfgs), list(problem.datas)
+    with tempfile.TemporaryDirectory() as workdir:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(workdir, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = sharding.make_mesh(1, device=dev)
+            logs = []
+            sharding.shard_blocked_problem(q, mesh, log=logs.append)
+            mesh.reset_counts()
+            _kernels.reset_launch_counts()
+            lg, out = one_step(q)
+            torch.cuda.synchronize()
+            launches = _kernels.launch_counts()
+            counts = {k: list(v) for k, v in mesh.counts.items()}
+        finally:
+            dist.destroy_process_group()
+    check_shard_launches("nccl", launches)
+    n_red = sum(v[0] for k, v in counts.items() if k[1] == "all_reduce")
+    phase("shard:nccl", f"backend {mesh.backend}, world size 1 on {dev}: {n_red} tensors "
+          f"all-reduced over one LM attempt, landmark plan halo "
+          f"{None if q.pt_plan is None else q.pt_plan.halo}, table plans {sorted(q.t_plans)} | "
+          f"launches { {k: n for k, n in launches.items() if n} } | {smi}")
+    step_vs_single("nccl", step_of(lg, out), want)
+    return launches
+
+
 def main():
     import torch
 
@@ -2917,9 +3408,17 @@ def main():
     bench = Bench()
     launches = {}
     bf16 = {}  # flagged path -> its bf16 launch counts
-    launches["bias"], cov_bias, (launches["bias:bf16"], bf16["bias:bf16"]) = bias_only(dev, bench)
+    shard = []  # the launch counts of the shard phases (each set to 0 just before it)
+    # the shard ranks' problem files (the finalizer removes it on a failure)
+    shard_tmp = tempfile.TemporaryDirectory()
+    want = {}  # the single-device step of each shard phase's problem and state
+    shard_by_rank = {}  # shard phase -> each rank's launch counts
+    (launches["bias"], cov_bias, (launches["bias:bf16"], bf16["bias:bf16"]),
+     shard_nccl_launches) = bias_only(dev, bench, smi)
+    shard.append(shard_nccl_launches)
     torch.cuda.empty_cache()
-    launches["cap"], cov_cap, (launches["cap:bf16"], bf16["cap:bf16"]) = capacity(dev, bench)
+    (launches["cap"], cov_cap, (launches["cap:bf16"], bf16["cap:bf16"]),
+     want["cap"]) = capacity(dev, bench, shard_tmp.name)
     torch.cuda.empty_cache()
     launches["pcg_switch"] = pcg_switch(dev, bench)
     torch.cuda.empty_cache()
@@ -2929,13 +3428,23 @@ def main():
     with tempfile.TemporaryDirectory() as full_dir, tempfile.TemporaryDirectory() as gs_dir, \
             tempfile.TemporaryDirectory() as tools_dir:
         times = {"session": session_sec, "write": write_600(session, full_dir, 0.03)}
-        launches["full"], cov_full, (launches["full:bf16"], bf16["full:bf16"]) = full_sensor(
-            dev, bench, full_dir, times)
+        (launches["full"], cov_full, (launches["full:bf16"], bf16["full:bf16"]),
+         want["full"]) = full_sensor(dev, bench, full_dir, times, shard_tmp.name)
         # the cov path: its three runs' counts (each set to 0 just before it)
         runs = (cov_bias, cov_cap, cov_full)
         launches["cov"] = {k: sum(r.get(k, 0) for r in runs) for k in set().union(*runs)}
         torch.cuda.empty_cache()
-        launches["gs_cal"] = gs_cal(dev, bench, session, session_sec, gs_dir)
+        gs_times = {"session": session_sec, "write": write_600(session, gs_dir, None)}
+        # the shard ranks run alone: no host work of this process beside them
+        ranks = finish_ranks(start_ranks(shard_tmp.name, SHARD_JOBS), shard_tmp.name)
+        shard_tmp.cleanup()
+        for tag, _ in SHARD_JOBS:
+            summed, shard_by_rank[tag] = shard_checks(
+                tag, [r[tag] for r in ranks], want[tag]["step"], want[tag]["L"],
+                want[tag]["R"], smi)
+            shard.append(summed)
+        launches["shard"] = {k: sum(r.get(k, 0) for r in shard) for k in set().union(*shard)}
+        launches["gs_cal"] = gs_cal(dev, bench, gs_dir, gs_times)
         torch.cuda.empty_cache()
         # the preprocessing tool runs on the host while the merged sessions
         # run on the card
@@ -2975,9 +3484,13 @@ def main():
         # a bf16 row's launches: its instantiation's on its flagged main path
         # (0 for K6 and K10's down pass: the back-substitution reads float32
         # J, and their pass with y runs on the route with several batches)
+        # and a shard row's: its kernel's on that rank in the shard phase
         for key, res in row["also"].items():
+            inner = key[len(name) + 1:].split(")")[0].split(",")
             if key.endswith(",bf16)"):
-                res["launches"] = bf16[key[len(name) + 1:].split(",")[0] + ":bf16"].get(name, 0)
+                res["launches"] = bf16[inner[0] + ":bf16"].get(name, 0)
+            elif len(inner) >= 3 and inner[1] == "shard":
+                res["launches"] = shard_by_rank[inner[0]][int(inner[2][len("rank"):])].get(name, 0)
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(smi)

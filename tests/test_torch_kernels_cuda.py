@@ -84,6 +84,7 @@ from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
 from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as tseg
 from visual_inertial_bundle_adjustment_tpu_torch.ops import visual_fused
 from visual_inertial_bundle_adjustment_tpu_torch.pipeline import multi_session as tms
+from visual_inertial_bundle_adjustment_tpu_torch.problem import engine as teng
 from visual_inertial_bundle_adjustment_tpu_torch.problem import optimizer as topt
 from visual_inertial_bundle_adjustment_tpu_torch.problem import rcs as trcs
 from visual_inertial_bundle_adjustment_tpu_torch.problem import structure as tst
@@ -1737,3 +1738,92 @@ def test_column_kernels_on_the_copies_match_bf16_single_column(route, cuda_devic
                                          rs.H_ll_inv, b.plan, b.cplan) for c in range(C)]
     for c in range(C):
         assert all(torch.equal(o[..., c], s) for o, s in zip(out, single[c])), c
+
+
+# ---------------------------------------------------------------------------
+# K2, K3, K5, K6 and K10 on one shard's plans (parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+SHARDS = 2
+SHARD_KERNELS = [("assemble_rig", "bias"), ("precond_rig", "bias"), ("schur_down", "bias"),
+                 ("schur_up", "bias"), ("schur_down_cal", "full_sensor"),
+                 ("schur_up_cal", "full_sensor")]
+
+
+def _shard_batches(problem, dev):
+    """[(VisBatch, Lin)] of the blocked visual batch of the whole problem and
+    of each of SHARDS tile-sharded ranks' problems (shard_blocked_problem
+    with a Mesh of that rank: no process group is needed to cut), each
+    linearized on its own slots."""
+    from visual_inertial_bundle_adjustment_tpu_torch.parallel import sharding
+
+    make = _card_problem if problem == "bias" else _full_card
+    out = []
+    for rank in (None, *range(SHARDS)):
+        p = make(dev)[0]
+        if rank is not None:
+            sharding.shard_blocked_problem(p, sharding.Mesh(rank, SHARDS, dev, "gloo"),
+                                           log=[].append)
+        cfgs = p.resolve_cfgs()  # the rank's batches, no collective
+        datas = tuple(p.datas)
+        lg = teng.linearize(cfgs, datas, p.variables, p.masks)
+        (pair,) = trcs._vis_batches(cfgs, datas, lg)
+        out.append(pair)
+    return out, p.variables
+
+
+def _shard_kernel(name, b, lin, t):
+    if name == "assemble_rig":
+        return tseg.seg_assemble_rig(b.J, b.J_pt, lin.res, b.w, b.plan)
+    if name == "precond_rig":
+        return (tseg.seg_precond_rig(b.J, b.J_pt, b.w, t["hinv"], b.plan),)
+    if name == "schur_down":
+        return tseg.seg_schur_down(b.J, b.J_pt, b.w, t["x"][:, :b.rig_k].contiguous(), b.plan)
+    if name == "schur_up":
+        return (tseg.seg_schur_up(b.J, b.J_pt, b.w, t["z"], b.plan),)
+    x_c = t["x_c"][:, :b.J_cal.shape[1]].contiguous()
+    if name == "schur_down_cal":
+        return tseg.seg_schur_down_cal(b.J, b.J_cal, b.J_pt, b.w,
+                                       t["x"][:, :b.rig_k].contiguous(), x_c, b.plan, b.cplan)
+    return tseg.seg_schur_up_cal(b.J, b.J_cal, b.J_pt, b.w, t["z"], b.plan, b.cplan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,problem", SHARD_KERNELS)
+def test_segment_kernel_on_shard_plans(name, problem, cuda_device):
+    """K2, K3, K5, K6 (bias-only batch) and K10's down and up pass
+    (full-sensor batch) on each of two tile-sharded ranks' plans, built over
+    the rank's own slots with global rows (rows without a local slot have
+    empty lists): within 1e-5 of the plain version on the same inputs, and
+    the ranks' outputs summed (the all-reduce) within 1e-5 of the kernel on
+    the whole batch."""
+    (whole, *shards), v = _shard_batches(problem, cuda_device)
+    R, L, n_c = v.pose_q.shape[0], v.points.shape[0], v.cam_intr.shape[0]
+    rng = np.random.default_rng(191)
+    A = rng.normal(size=(L, 3, 3))
+
+    def f32(a):
+        return torch.from_numpy(a).to(device=cuda_device, dtype=torch.float32)
+
+    tables = dict(x=f32(rng.normal(size=(R, 9))), x_c=f32(rng.normal(size=(n_c, 23))),
+                  z=f32(rng.normal(size=(L, 3))), hinv=f32(A @ np.swapaxes(A, -1, -2) + np.eye(3)))
+    want = _shard_kernel(name, *whole, tables)
+    total = None
+    for b, lin in shards:
+        assert b.info.nt * SHARDS >= whole[0].info.nt
+        _kernels.reset_launch_counts()
+        out = _shard_kernel(name, b, lin, tables)
+        assert _kernels.launch_counts()[name] == 1
+        with _kernels.plain_reference():
+            ref = _shard_kernel(name, *_kernels.to_f64((b, lin)), _kernels.to_f64(tables))
+        torch.cuda.synchronize()
+        out = [o for o in out if o is not None]
+        ref = [r for r in ref if r is not None]
+        assert len(out) == len(ref)
+        for o, r in zip(out, ref):
+            assert rel(o.cpu().numpy(), r.cpu().numpy()) < 1e-5
+        total = out if total is None else [a + o for a, o in zip(total, out)]
+    want = [w for w in want if w is not None]
+    assert len(total) == len(want)
+    for t_, w in zip(total, want):
+        assert rel(t_.cpu().numpy(), w.cpu().numpy()) < 1e-5

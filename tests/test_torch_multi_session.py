@@ -209,11 +209,15 @@ def _jax_reference():
 
 def _fresh_jax_merge():
     """The JAX merge of _merged() as a new Problem (finalize_blocks mutates
-    its argument)."""
+    its argument), its base-map batch a copy of the dict: the JAX
+    Problem._build adds the transpose plans (`_ell*`) into its batches'
+    dicts, and a caller that builds the fresh merge (tests/test_torch_bf16.py)
+    must not add them to _merged()'s, which test_merge_matches_jax compares
+    key for key."""
     mj, _ = _merged()
     return jms.merge_sessions(
         [_jax_session(41)[1], _jax_session(42)[1]], point_matches=MATCHES,
-        extra_batches=[(mj.problem.cfgs[-1], mj.problem.datas[-1])]).problem
+        extra_batches=[(mj.problem.cfgs[-1], dict(mj.problem.datas[-1]))]).problem
 
 
 def _port_attempt(p):

@@ -254,8 +254,9 @@ def _public_names(package):
 
 def test_only_multi_gpu_and_tpu_idioms_lack_a_port():
     """The public def / class names of each JAX module against the port's
-    module of the same path: only parallel/sharding.py and rcs.PointHaloPlan
-    (multi-GPU, queue A4) and three TPU idioms of ops/segments.py are left."""
+    module of the same path: only three TPU idioms of ops/segments.py are
+    left. The multi-GPU names (parallel/sharding.py, rcs.PointHaloPlan) have
+    their counterparts now; the test keeps its name."""
     jax_names, port_names = _public_names(JAXPKG), _public_names(PORT)
     missing = {}
     for module, names in jax_names.items():
@@ -263,8 +264,5 @@ def test_only_multi_gpu_and_tpu_idioms_lack_a_port():
         if lack:
             missing[module] = sorted(lack)
     assert missing == {
-        "parallel/sharding.py": ["build_sharded_kernels", "make_mesh", "point_halo_plan",
-                                 "shard_blocked_problem", "shard_problem", "table_halo_plans"],
-        "problem/rcs.py": ["PointHaloPlan"],
         "ops/segments.py": ["pt_table_from_kernel", "pt_table_to_kernel", "use_pallas"],
     }

@@ -102,6 +102,11 @@ class Problem:
         self.cfgs: list = []
         self.datas: list = []
         self.use_blocked_engine = True
+        # parallel/sharding.py: the mesh of a sharded problem (None: one
+        # device) and its landmark and table halo plans
+        self.mesh = None
+        self.pt_plan = None
+        self.t_plans = {}
         self._kernels = None
         self.active_cfgs = None
 
@@ -149,15 +154,28 @@ class Problem:
         groups from the masks, build the small batches' transpose plans, and
         return the iteration callables (the blocked solver's, or the generic
         engine's when no batch is blocked) (k_linearize, k_solve, k_resolve,
-        k_cost, k_grad, k_retract, k_assemble, k_step)."""
+        k_cost, k_grad, k_retract, k_assemble, k_step). A sharded problem
+        (parallel/sharding.py) takes build_sharded_kernels' (the JAX
+        package's choice, its optimizer.py:133-141)."""
         if self._kernels is not None:
+            return self._kernels
+        if self.mesh is not None:
+            from ..parallel.sharding import build_sharded_kernels
+
+            self._kernels = build_sharded_kernels(self)
             return self._kernels
         if self.use_blocked_engine:
             rcs.finalize_blocks(self)
         # no blocked batch: the generic Schur-reduced engine solves the
         # problem (the JAX package's choice, its optimizer.py:182-212)
         blocked = any(c.block_info is not None for c in self.cfgs)
-        active = {g: bool(getattr(self.masks, g).any()) for g in fct.GROUP_DIMS}
+        self._kernels = iteration_kernels(self.resolve_cfgs(), blocked)
+        return self._kernels
+
+    def resolve_cfgs(self):
+        """Build the small batches' transpose plans and resolve the static
+        active groups from the masks: the cfgs the iteration callables run
+        (also kept as `active_cfgs`)."""
         v = self.variables
         rows = {
             fct.RIG: v.pose_q.shape[0], fct.POINTS: v.points.shape[0],
@@ -166,60 +184,77 @@ class Problem:
             fct.DET_BIAS: v.det_bias.shape[0], fct.GRAVITY: 1,
         }
         fct.build_transpose_plans(self.cfgs, self.datas, rows)
-        cfgs = tuple(
-            dataclasses.replace(c, active_groups=tuple(
-                g for g, _ in fct.REGISTRY[c.kind]["tangents"] if active[g]))
-            for c in self.cfgs)
-        self.active_cfgs = cfgs
-
-        def k_linearize(datas, v, masks, alive):
-            return engine.linearize(cfgs, datas, v, masks, alive)
-
-        def k_assemble(datas, lg, v, masks):
-            # the generic engine assembles inside its solve
-            return rcs.assemble(cfgs, datas, lg, v, masks) if blocked else None
-
-        def k_solve(asm, datas, lg, v, masks, lam, max_iters, rel_tol,
-                    precond="gauss_seidel"):
-            if blocked:
-                return rcs.solve_assembled(asm, v, masks, lam, max_iters, rel_tol, precond)
-            return engine.solve_step(cfgs, datas, lg, v, masks, lam, max_iters, rel_tol, precond)
-
-        def k_resolve(lg, v, rs, g_r, g_l, max_iters, rel_tol):
-            resolve = rcs.solve_with_system if blocked else engine.solve_with_system
-            return resolve(lg, v, rs, g_r, g_l, max_iters, rel_tol)
-
-        def k_cost(datas, v, lg):
-            return engine.comparable_cost(cfgs, datas, v, lg)
-
-        def k_grad(datas, v, masks):
-            return engine.gradient_tangent(cfgs, datas, v, masks)
-
-        def k_retract(v, t, tp, masks, scale):
-            t2 = t_scale(t, scale)
-            return retract(v, t2, tp * scale, masks), step_to_var_ratios(v, t2, tp * scale)
-
-        def k_step(asm, datas, lg, v, masks, lam, max_iters, rel_tol,
-                   precond="gauss_seidel"):
-            """Solve + retract + comparable cost + norms of one LM attempt."""
-            out = k_solve(asm, datas, lg, v, masks, lam, max_iters, rel_tol, precond)
-            x_r, x_l, model_red, pcg_rel, pcg_it, rs, (g_r, g_l) = out
-            step_r, step_l = t_scale(x_r, -1.0), -x_l
-            v_new = retract(v, step_r, step_l, masks)
-            ratios = step_to_var_ratios(v, step_r, step_l)
-            stats = engine.comparable_cost(cfgs, datas, v_new, lg)
-            grad_norm = torch.sqrt(t_dot(g_r, g_r) + (g_l * g_l).sum())
-            step_norm = torch.sqrt(t_dot(step_r, step_r) + (step_l * step_l).sum())
-            return (x_r, x_l, model_red, pcg_rel, pcg_it, rs, (g_r, g_l),
-                    v_new, ratios, stats, grad_norm, step_norm)
-
-        self._kernels = (k_linearize, k_solve, k_resolve, k_cost, k_grad, k_retract,
-                         k_assemble, k_step)
-        return self._kernels
+        self.active_cfgs = engine.prune_cfgs(self.cfgs, self.masks)
+        return self.active_cfgs
 
     def initial_alive(self):
         return tuple(torch.ones(fct._batch_size(d), dtype=self.variables.points.dtype,
                                 device=self.variables.points.device) for d in self.datas)
+
+
+def iteration_kernels(cfgs, blocked, axis=None):
+    """The iteration callables (k_linearize, k_solve, k_resolve, k_cost,
+    k_grad, k_retract, k_assemble, k_step) of resolved cfgs: the blocked
+    solver's, or the generic engine's when no batch is blocked.
+
+    Sharded (`axis` a mesh, parallel/sharding.py), the batches are the
+    rank's and the tables replicated: every scalar and table summed over the
+    factors is all-reduced where the JAX package psums it (the cost and the
+    failure counts, the assembly, the preconditioner blocks, the Schur
+    right-hand side and back-substitution, the comparable cost, the
+    gradient), and the PCG rides the mesh's halo plans. Every accept or
+    reject decision of optimize() then reads the same sums on every rank,
+    and the ranks keep bit-equal variables."""
+
+    def all_sum(*xs):
+        return xs if axis is None else tuple(axis.all_reduce(list(xs)))
+
+    def k_linearize(datas, v, masks, alive):
+        lg = engine.linearize(cfgs, datas, v, masks, alive)
+        if axis is None:
+            return lg
+        cost, n_inv, n_opt = all_sum(lg.cost, lg.num_invalid, lg.num_optional)
+        return lg._replace(cost=cost, num_invalid=n_inv, num_optional=n_opt)
+
+    def k_assemble(datas, lg, v, masks):
+        # the generic engine assembles inside its solve
+        return rcs.assemble(cfgs, datas, lg, v, masks, axis) if blocked else None
+
+    def k_solve(asm, datas, lg, v, masks, lam, max_iters, rel_tol, precond="gauss_seidel"):
+        if blocked:
+            return rcs.solve_assembled(asm, v, masks, lam, max_iters, rel_tol, precond, axis)
+        return engine.solve_step(cfgs, datas, lg, v, masks, lam, max_iters, rel_tol, precond,
+                                 axis=axis)
+
+    def k_resolve(lg, v, rs, g_r, g_l, max_iters, rel_tol):
+        if blocked:
+            return rcs.solve_with_system(lg, v, rs, g_r, g_l, max_iters, rel_tol, axis)
+        return engine.solve_with_system(lg, v, rs, g_r, g_l, max_iters, rel_tol, axis=axis)
+
+    def k_cost(datas, v, lg):
+        return engine.CostStats(*all_sum(*engine.comparable_cost(cfgs, datas, v, lg)))
+
+    def k_grad(datas, v, masks):
+        return engine.gradient_tangent(cfgs, datas, v, masks, axis)
+
+    def k_retract(v, t, tp, masks, scale):
+        t2 = t_scale(t, scale)
+        return retract(v, t2, tp * scale, masks), step_to_var_ratios(v, t2, tp * scale)
+
+    def k_step(asm, datas, lg, v, masks, lam, max_iters, rel_tol, precond="gauss_seidel"):
+        """Solve + retract + comparable cost + norms of one LM attempt."""
+        out = k_solve(asm, datas, lg, v, masks, lam, max_iters, rel_tol, precond)
+        x_r, x_l, model_red, pcg_rel, pcg_it, rs, (g_r, g_l) = out
+        step_r, step_l = t_scale(x_r, -1.0), -x_l
+        v_new = retract(v, step_r, step_l, masks)
+        ratios = step_to_var_ratios(v, step_r, step_l)
+        stats = k_cost(datas, v_new, lg)
+        grad_norm = torch.sqrt(t_dot(g_r, g_r) + (g_l * g_l).sum())
+        step_norm = torch.sqrt(t_dot(step_r, step_r) + (step_l * step_l).sum())
+        return (x_r, x_l, model_red, pcg_rel, pcg_it, rs, (g_r, g_l),
+                v_new, ratios, stats, grad_norm, step_norm)
+
+    return (k_linearize, k_solve, k_resolve, k_cost, k_grad, k_retract, k_assemble, k_step)
 
 
 def _host(*xs):

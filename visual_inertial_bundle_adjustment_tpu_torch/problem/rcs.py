@@ -51,6 +51,7 @@ from ..ops import _kernels
 from ..ops import segments as seg
 from . import engine
 from . import factors as fct
+from .engine import _maybe_psum
 from .structure import (Masks, Tangent, column, has_columns, pack_info, pack_t, stack_columns,
                         t_dot, t_sub, unpack_t, zero_tangent)
 
@@ -742,11 +743,14 @@ def _precond_blocks_static(vis, rest, v, masks):
     return blocks, tuple(A_rp)
 
 
-def assemble(cfgs, datas, lg, v, masks: Masks) -> RcsAsm:
+def assemble(cfgs, datas, lg, v, masks: Masks, axis=None) -> RcsAsm:
     """Everything lambda-independent for this linearization: rig-only
     single-pass batches through K2, calibration-coupled ones through K8
     (which also gives the window gradient, diagonal and block-Jacobi self
-    blocks), general-path ones through K13c."""
+    blocks), general-path ones through K13c. Sharded (`axis` a mesh), the
+    factor-sum tables (landmark blocks, diagonal, gradients, block-Jacobi
+    blocks) are completed by one all-reduce; per-factor state stays the
+    shard's."""
     pairs = _vis_batches(cfgs, datas, lg)
     vis = tuple(b for b, _ in pairs)
     _, rest, rest_pt = _split(cfgs, lg)
@@ -769,26 +773,28 @@ def assemble(cfgs, datas, lg, v, masks: Masks) -> RcsAsm:
         diag_r = diag_r._replace(rig=diag_r.rig + _padk(dg_b, b.rig_k))
         g_l = g_l + gl_b
         H_ll0 = H_ll0 + H_b
+    H_ll0, diag_r, g_r, g_l, blocks0 = _maybe_psum((H_ll0, diag_r, g_r, g_l, blocks0), axis)
     return RcsAsm(vis, rest, H_ll0, diag_r, g_r, g_l, blocks0, build_rest_stacks(rest, v), A_rp,
                   rest_pt)
 
 
-def _precond_finish(asm: RcsAsm, v, masks, lam, H_ll_inv, precond="gauss_seidel"):
+def _precond_finish(asm: RcsAsm, v, masks, lam, H_ll_inv, precond="gauss_seidel", axis=None):
     """Per-lambda: rig blocks with the Schur self-correction (K3 for
     single-pass batches; A H_ll^-1 A^T through K13c for general-path ones),
     damp, mask, invert. `precond`: "identity" -> None; "jacobi" -> no Schur
     correction; "gauss_seidel"/"lower_prec" -> corrected (reference
-    Preconditioner.h)."""
+    Preconditioner.h). Sharded (`axis` a mesh), the shard's rig-block sums
+    are completed by one all-reduce before damping and inversion."""
     if precond == "identity":
         return None
     schur_corr = precond in ("gauss_seidel", "lower_prec")
     blocks = dict(asm.blocks0)
     Hinv_used = H_ll_inv if schur_corr else torch.zeros_like(H_ll_inv)
+    rig = torch.zeros_like(blocks[fct.RIG])
     for b, A in zip(asm.vis, asm.A_rp):
         if _single_pass(b):
             J, J_pt, _ = _mv_jacs(b)
-            blocks[fct.RIG] = blocks[fct.RIG] + _padkk(
-                seg.seg_precond_rig(J, J_pt, b.w, Hinv_used, b.plan), b.rig_k)
+            rig = rig + _padkk(seg.seg_precond_rig(J, J_pt, b.w, Hinv_used, b.plan), b.rig_k)
             continue
         if A is None or not schur_corr:
             continue
@@ -797,7 +803,8 @@ def _precond_finish(asm: RcsAsm, v, masks, lam, H_ll_inv, precond="gauss_seidel"
         corr = (C[:, None, :, :] * A[None, :, :, :]).sum(2)  # (k, k, N)
         k = corr.shape[0]
         red = reduce_rows(corr.reshape(k * k, -1), seg.rig_rows(b.plan)).reshape(-1, k, k)
-        blocks[fct.RIG] = blocks[fct.RIG] - _padkk(red, k)
+        rig = rig - _padkk(red, k)
+    blocks[fct.RIG] = blocks[fct.RIG] + _maybe_psum(rig, axis)
     inv = {}
     for g, B in blocks.items():
         dim = B.shape[-1]
@@ -816,14 +823,14 @@ def _precond_finish(asm: RcsAsm, v, masks, lam, H_ll_inv, precond="gauss_seidel"
                    det_bias=inv[fct.DET_BIAS], gravity=inv[fct.GRAVITY][0])
 
 
-def with_damping(asm: RcsAsm, v, masks, lam, precond="gauss_seidel") -> RcsSystem:
+def with_damping(asm: RcsAsm, v, masks, lam, precond="gauss_seidel", axis=None) -> RcsSystem:
     """Per-lambda completion: damped landmark inverses + preconditioner."""
     lam = torch.as_tensor(lam, dtype=v.points.dtype, device=v.points.device)
     diag = torch.diagonal(asm.H_ll0, dim1=-2, dim2=-1)
     eye = torch.eye(3, dtype=asm.H_ll0.dtype, device=asm.H_ll0.device)
     H_ll = asm.H_ll0 + eye * (lam * diag + lam)[..., None, :] * eye
     H_ll_inv = engine._inv3(H_ll)
-    precond_inv = _precond_finish(asm, v, masks, lam, H_ll_inv, precond)
+    precond_inv = _precond_finish(asm, v, masks, lam, H_ll_inv, precond, axis)
     return RcsSystem(asm.vis, asm.rest, H_ll, H_ll_inv, asm.diag_r, lam, precond_inv,
                      asm.rest_stacks, asm.rest_pt)
 
@@ -871,10 +878,11 @@ def _pt_expand(b: VisBatch, yl):
     return seg.seg_mv_gather_table(b.J_pt, yl, seg.point_rows(b.plan)) * b.w[None, :]
 
 
-def w_transpose_x(rs: RcsSystem, v, x: Tangent):
+def w_transpose_x(rs: RcsSystem, v, x: Tangent, axis=None):
     """W^T x (L, 3) (K6; K10's down pass for calibration-coupled batches;
-    K13b + K13a on the general path). The back-substitution: float32 J
-    under MATVEC_BF16 too, as in the JAX package."""
+    K13b + K13a on the general path), all-reduced when sharded. The
+    back-substitution: float32 J under MATVEC_BF16 too, as in the JAX
+    package."""
     t = torch.zeros_like(v.points)
     for b in rs.vis:
         if _rig_only_fast(b):
@@ -889,12 +897,12 @@ def w_transpose_x(rs: RcsSystem, v, x: Tangent):
         t = t + t_b
     if rs.rest_pt.lins:  # point-coupled small batches: H_lr x
         t = t + engine._hmatvec(rs.rest_pt, v, x, torch.zeros_like(v.points))[1]
-    return t
+    return _maybe_psum(t, axis)
 
 
-def w_y(rs: RcsSystem, v, yl):
+def w_y(rs: RcsSystem, v, yl, axis=None):
     """W y_l (Tangent) (K5; K10's up pass; K13b + K13a on the general path;
-    the bf16 copies under MATVEC_BF16)."""
+    the bf16 copies under MATVEC_BF16), all-reduced when sharded."""
     y = zero_tangent(v)
     yl = yl.contiguous()
     for b in rs.vis:
@@ -911,15 +919,22 @@ def w_y(rs: RcsSystem, v, yl):
     if rs.rest_pt.lins:  # point-coupled small batches: H_rl y_l
         y = Tangent(*(a + h for a, h in zip(y, engine._hmatvec(rs.rest_pt, v, zero_tangent(v),
                                                                  yl)[0])))
-    return y
+    return _maybe_psum(y, axis)
 
 
-def _matvec_factor_sums(rs: RcsSystem, v, x: Tangent) -> Tangent:
+def _matvec_factor_sums(rs: RcsSystem, v, x: Tangent, axis=None) -> Tangent:
     """H_rr x - W H_ll^-1 W^T x, no damping. One single-pass visual batch
-    (the bench shapes) runs as K4 or K9; otherwise the batches sum their down
-    passes before the landmark solve and subtract their up passes after: a
-    general-path batch whose only group is the rig goes down through K12
-    (J read once), any other through _vis_u / _vis_scatter.
+    (the bench shapes) on one device runs as K4 or K9; otherwise the batches
+    sum their down passes before the landmark solve and subtract their up
+    passes after: a general-path batch whose only group is the rig goes down
+    through K12 (J read once), any other through _vis_u / _vis_scatter.
+
+    Sharded (`axis` a mesh), the route is always the two-pass one (K6 or
+    K10's down pass, then K5 or K10's up pass), as in the JAX package: the
+    shard's landmark sums t are completed before the 3x3 solve, by the
+    neighbour halo exchange of the mesh's `pt_plan` (owned rows, then the
+    halo rows fetched back) or by an all-reduce, and the result stays the shard's
+    partial sum (the caller completes it once).
 
     x with columns (covariance columns, structure.has_columns): the
     single-pass route runs the column-batched K4 or K9 once for all of them
@@ -927,8 +942,11 @@ def _matvec_factor_sums(rs: RcsSystem, v, x: Tangent) -> Tangent:
     two-grid path, several visual batches, point-coupled small batches)
     runs its kernels column by column. The single-pass kernels read the
     bf16 copies under MATVEC_BF16."""
-    single = len(rs.vis) == 1 and not rs.rest_pt.lins and _single_pass(rs.vis[0])
     cols = has_columns(x)
+    if cols and axis is not None:
+        raise ValueError("the sharded matvec takes no columns")
+    single = (axis is None and len(rs.vis) == 1 and not rs.rest_pt.lins
+              and _single_pass(rs.vis[0]))
     if cols and not single:
         return stack_columns([_matvec_factor_sums(rs, v, column(x, c))
                               for c in range(x.gravity.shape[-1])])
@@ -969,35 +987,104 @@ def _matvec_factor_sums(rs: RcsSystem, v, x: Tangent) -> Tangent:
         t = t + t_b
     if rs.rest_pt.lins:  # point-coupled small batches: their W^T x summand
         t = t + engine._hmatvec(rs.rest_pt, v, x, torch.zeros_like(v.points))[1]
-    return t_sub(hx, w_y(rs, v, engine._chol_solve(rs.H_ll_inv, t)))
+    if axis is not None and axis.pt_plan is not None:
+        # landmark shards: neighbour exchanges of (halo, 3) slabs in place
+        # of the (L, 3) all-reduce, bytes independent of L
+        z = engine._chol_solve(rs.H_ll_inv, _halo_reduce_points(t, axis, axis.pt_plan))
+        z = _halo_fetch_points(z, axis, axis.pt_plan)
+    else:
+        z = engine._chol_solve(rs.H_ll_inv, _maybe_psum(t, axis))
+    return t_sub(hx, w_y(rs, v, z))
 
 
-def matvec(rs: RcsSystem, v, x: Tangent) -> Tangent:
+def matvec(rs: RcsSystem, v, x: Tangent, axis=None) -> Tangent:
     """S x = (H_rr + damping) x - W H_ll^-1 W^T x; x with or without
-    columns."""
-    S = _matvec_factor_sums(rs, v, x)
+    columns. Sharded, the factor sums are completed once: the groups with a
+    halo plan in the mesh's `t_plans` by neighbour exchanges (owned rows
+    complete, halo rows partial), the rest by one all-reduce; damping is
+    added row by row after the completion, so no slab carries it twice."""
+    S = _matvec_factor_sums(rs, v, x, axis)
+    if axis is not None:
+        S = _complete_tangent(S, axis) if axis.t_plans else _maybe_psum(S, axis)
     return Tangent(*(h + rs.lam * (d.reshape(d.shape + (1,) * (xv.ndim - d.ndim)) * xv)
                      + rs.lam * xv for h, d, xv in zip(S, rs.diag_r, x)))
 
 
-def pcg(rs: RcsSystem, v, b: Tangent, max_iters: int, rel_tol):
+class _ShardedPcg:
+    """The collectives of one sharded PCG solve (engine.packed_pcg's `dist`):
+    dot products over owned rows summed across the ranks, the halo rows of
+    the search direction fetched from their owners each iteration, and the
+    solution completed once at the end. With the mesh's `t_plans` the
+    reduced state is right only on each rank's owned rows (a planned group's
+    rows from the plan's ownership, every other group's rows on rank 0: the
+    JAX package's owned-row mask, its rcs.py:1287-1298); without, the matvec
+    completes every row on every rank, and the solve needs no collective of
+    its own."""
+
+    def __init__(self, axis, b: Tangent):
+        self.axis, self.t_plans = axis, axis.t_plans
+        self.info = pack_info(b)
+        self.own = None
+        if self.t_plans:
+            parts = []
+            for f, cnt in zip(Tangent._fields, self.info[0]):
+                m = b.gravity.new_zeros(cnt)
+                if f in self.t_plans:
+                    lo, hi = _owned(axis, self.t_plans[f])
+                    m[lo:hi] = 1.0
+                elif axis.rank == 0:  # complete on every rank: counted once
+                    m[:] = 1.0
+                parts.append(m)
+            self.own = torch.cat(parts)[:, None]
+
+    def section(self):
+        return self.axis.section("pcg")
+
+    def dots(self, pairs):
+        """The dot products a . c of `pairs` [(a, c), ...] (packed (1, nb,
+        K) states), in one all-reduce."""
+        if self.own is None:  # complete vectors: the same sums on every rank
+            return [(a * c).reshape(a.shape[0], -1).sum(-1) for a, c in pairs]
+        vals = [(a * self.own * c).reshape(a.shape[0], -1).sum(-1) for a, c in pairs]
+        return list(self.axis.all_reduce([torch.stack(vals)])[0])
+
+    def fetch(self, p):
+        """p with each planned group's halo rows from their owners."""
+        if not self.t_plans:
+            return p
+        t = _fetch_tangent_halo(unpack_t(p[0], *self.info), self.axis)
+        return pack_t(t, *self.info)[None]
+
+    def complete(self, x):
+        """The solution from the owned rows of every rank, each summed once."""
+        if self.own is None:
+            return x
+        return self.axis.all_reduce([x * self.own])[0]
+
+
+def pcg(rs: RcsSystem, v, b: Tangent, max_iters: int, rel_tol, axis=None):
     """Packed-state PCG on the reduced system (engine.packed_pcg: a fixed
     count of iterations, the stop test an on-device mask); b with columns
-    solves them together (engine.packed_pcg_columns)."""
-    return engine.packed_pcg(lambda x: matvec(rs, v, x), rs.precond_inv, b, max_iters, rel_tol)
+    solves them together (engine.packed_pcg_columns). Sharded, with the
+    collectives of _ShardedPcg."""
+    dist = None if axis is None else _ShardedPcg(axis, b)
+    return engine.packed_pcg(lambda x: matvec(rs, v, x, axis), rs.precond_inv, b, max_iters,
+                             rel_tol, dist=dist)
 
 
 def solve_assembled(asm: RcsAsm, v, masks, lam, max_iters=250, rel_tol=1e-10,
-                    precond="gauss_seidel"):
+                    precond="gauss_seidel", axis=None):
     """Per-lambda solve on a prebuilt assembly: Schur RHS (K5), packed PCG
-    (K4 matvecs), back-substitution (K6). Returns (x_r, x_l, model_red, rel,
-    iters, rs, (g_r, g_l))."""
-    rs = with_damping(asm, v, masks, lam, precond)
+    (K4 matvecs; sharded, K6 and K5), back-substitution (K6). Returns (x_r,
+    x_l, model_red, rel, iters, rs, (g_r, g_l)). Sharded, the once-a-solve
+    reductions are all-reduces; only those of the PCG iterations ride the
+    halo plans."""
+    rs = with_damping(asm, v, masks, lam, precond, axis)
     g_r, g_l = asm.g_r, asm.g_l
     z = engine._chol_solve(rs.H_ll_inv, g_l)
-    b = t_sub(g_r, w_y(rs, v, z))
-    x_r, rel, iters = pcg(rs, v, b, max_iters, rel_tol)
-    x_l = engine._chol_solve(rs.H_ll_inv, g_l - w_transpose_x(rs, v, x_r))
+    b = t_sub(g_r, w_y(rs, v, z, axis))
+    x_r, rel, iters = pcg(rs, v, b, max_iters, rel_tol, axis)
+    x_l = engine._chol_solve(rs.H_ll_inv, g_l - w_transpose_x(rs, v, x_r, axis))
     model_red = 0.5 * (t_dot(x_r, g_r) + (x_l * g_l).sum())
     return x_r, x_l, model_red, rel, iters, rs, (g_r, g_l)
 
@@ -1009,11 +1096,111 @@ def solve_step(cfgs, datas, lg, v, masks, lam, max_iters=250, rel_tol=1e-10,
     return solve_assembled(asm, v, masks, lam, max_iters, rel_tol, precond)
 
 
-def solve_with_system(lg, v, rs: RcsSystem, g_r, g_l, max_iters=250, rel_tol=1e-10):
+def solve_with_system(lg, v, rs: RcsSystem, g_r, g_l, max_iters=250, rel_tol=1e-10,
+                      axis=None):
     """Re-solve with an existing damped system (reference sub-step reusing
     the factorization, Optimizer.cpp:958-1000)."""
     z = engine._chol_solve(rs.H_ll_inv, g_l)
-    b = t_sub(g_r, w_y(rs, v, z))
-    x_r, _, _ = pcg(rs, v, b, max_iters, rel_tol)
-    x_l = engine._chol_solve(rs.H_ll_inv, g_l - w_transpose_x(rs, v, x_r))
+    b = t_sub(g_r, w_y(rs, v, z, axis))
+    x_r, _, _ = pcg(rs, v, b, max_iters, rel_tol, axis)
+    x_l = engine._chol_solve(rs.H_ll_inv, g_l - w_transpose_x(rs, v, x_r, axis))
     return x_r, x_l
+
+
+# ---------------------------------------------------------------------------
+# Collectives of the sharded solver (parallel/sharding.py): `axis` is the
+# mesh (sharding.Mesh), or None on one device
+# ---------------------------------------------------------------------------
+
+
+class PointHaloPlan:
+    """Row ownership of a table under tile sharding (SURVEY section 7 step 8,
+    landmark shards), built on the host (parallel/sharding.py).
+
+    Factor tiles shard as contiguous trajectory spans and landmark ids are
+    time-sorted, so each shard's contributions to the (L, 3) point table (or
+    a rig or window table) fall in a contiguous range overlapping only its
+    neighbours'. Rank i owns rows [own_lo[i], own_lo[i+1]); contributions
+    past its ownership (at most `halo` rows a side) go to the neighbour in
+    (halo, width) slabs instead of an all-reduce of the whole table, so the
+    bytes exchanged in a matvec are independent of the table's height."""
+
+    def __init__(self, own_lo, halo: int, n_shards: int):
+        self.own_lo = np.asarray(own_lo, np.int64)  # (S+1,), [0] = 0, [S] = rows
+        self.halo = int(halo)
+        self.n = int(n_shards)
+
+    def bytes_per_matvec(self, itemsize=4, width=3):
+        return 4 * self.halo * width * itemsize  # 2 phases x 2 directions
+
+
+def _owned(axis, plan):
+    return int(plan.own_lo[axis.rank]), int(plan.own_lo[axis.rank + 1])
+
+
+def _halo_reduce_points(t, axis, plan: PointHaloPlan):
+    """The shard's partial row sums t completed on its OWNED rows: the rows it
+    contributed below and above its ownership go to its neighbours, which add
+    them to their owned tail and head (the edge ranks receive nothing). Rows
+    outside ownership stay partial: _halo_fetch_points repairs them."""
+    H, S, i = plan.halo, plan.n, axis.rank
+    lo, hi = _owned(axis, plan)
+    sends, peers = [], []
+    if i > 0:  # rows below my ownership -> the left neighbour's owned tail
+        sends.append((i - 1, t[lo - H:lo]))
+    if i < S - 1:  # rows above my ownership -> the right neighbour's owned head
+        sends.append((i + 1, t[hi:hi + H]))
+    if i < S - 1:
+        peers.append(i + 1)
+    if i > 0:
+        peers.append(i - 1)
+    got = dict(zip(peers, axis.exchange(sends, peers, (H,) + tuple(t.shape[1:]), t.dtype)))
+    t = t.clone()
+    if i < S - 1:
+        t[hi - H:hi] += got[i + 1]
+    if i > 0:
+        t[lo:lo + H] += got[i - 1]
+    return t
+
+
+def _halo_fetch_points(z, axis, plan: PointHaloPlan):
+    """z with the rank's halo rows (outside its ownership) overwritten by the
+    owning neighbours' values, so the up pass reads complete rows."""
+    H, S, i = plan.halo, plan.n, axis.rank
+    lo, hi = _owned(axis, plan)
+    sends, peers = [], []
+    if i < S - 1:  # my owned tail -> the right neighbour's rows below its ownership
+        sends.append((i + 1, z[hi - H:hi]))
+    if i > 0:  # my owned head -> the left neighbour's rows above its ownership
+        sends.append((i - 1, z[lo:lo + H]))
+    if i > 0:
+        peers.append(i - 1)
+    if i < S - 1:
+        peers.append(i + 1)
+    got = dict(zip(peers, axis.exchange(sends, peers, (H,) + tuple(z.shape[1:]), z.dtype)))
+    z = z.clone()
+    if i > 0:
+        z[lo - H:lo] = got[i - 1]
+    if i < S - 1:
+        z[hi:hi + H] = got[i + 1]
+    return z
+
+
+def _complete_tangent(S: Tangent, axis) -> Tangent:
+    """A shard's partial factor sums completed: the groups with a halo plan
+    by neighbour exchanges (owned rows complete, halo rows partial), every
+    other group (gravity, detector bias, a group whose plan bailed out) by
+    one all-reduce."""
+    d = S._asdict()
+    d.update(_maybe_psum({g: a for g, a in d.items() if g not in axis.t_plans}, axis))
+    for g, plan in axis.t_plans.items():
+        d[g] = _halo_reduce_points(d[g], axis, plan)
+    return Tangent(**d)
+
+
+def _fetch_tangent_halo(x: Tangent, axis) -> Tangent:
+    """x with the halo rows of the planned groups from their owners."""
+    d = x._asdict()
+    for g, plan in axis.t_plans.items():
+        d[g] = _halo_fetch_points(d[g], axis, plan)
+    return Tangent(**d)

@@ -356,6 +356,17 @@ def device_rows(fn):
     return device_kernels(prof.key_averages())
 
 
+def recorded_rows(fn, tries=3):
+    """device_rows(fn), taken again while a session recorded no device time
+    at all (seen on the H100), up to `tries` sessions; the last one's rows
+    (possibly empty) are returned."""
+    for _ in range(tries):
+        rows = device_rows(fn)
+        if rows:
+            break
+    return rows
+
+
 def device_ms(fn):
     """Device milliseconds per call of fn(), by kernel name (per_call over
     SESSIONS profiler sessions)."""
@@ -372,11 +383,7 @@ def in_turns(fns):
     H100) is run again, up to three times."""
     sessions = [[] for _ in fns]
     for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
-        for _ in range(3):
-            rows = device_rows(fns[i])
-            if rows:
-                break
-        sessions[i].append(rows)
+        sessions[i].append(recorded_rows(fns[i]))
     out = []
     for rows in sessions:
         per = per_call(rows, DEVICE_REPS)
