@@ -842,7 +842,7 @@ def rig_kernel_rows(bench, problem, dev, tag):
     k = b.rig_k
     x = torch.randn((R, k), generator=gen, device=dev)
     zl = torch.randn((L, 3), generator=gen, device=dev)
-    rig_segment_rows(bench, named, b, lin, rs.H_ll_inv, x, zl, n_real)
+    rig_segment_rows(bench, named, b, lin, rs.H_ll_inv, x, zl, n_real, empty_rows=tag == "cap")
     args4 = (b.J, b.J_pt, b.w, x, rs.H_ll_inv, b.plan)
     index4 = [b.plan.rig, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, b.plan.rig_ptr,
               b.plan.rig_obs]
@@ -862,19 +862,18 @@ def rig_kernel_rows(bench, problem, dev, tag):
     del lg, asm, rs, lin, b
 
 
-def rig_segment_rows(bench, named, b, lin, hinv, x, zl, n_real, poison=False):
+def rig_segment_rows(bench, named, b, lin, hinv, x, zl, n_real, poison=False, empty_rows=False):
     """K2, K3, K6 with y and as rcs.w_transpose_x calls it (t alone) and K5
     (the L2 flushed) on a rig-only single-pass batch against their float64
     plain versions (TOL_SEG), on x (R, k), z (L, 3) and the landmark
     inverses hinv; K2 <= 2, K6 <= 2 and K5 = 1 device operations a call, K5
-    repeating bit for bit. `named(kernel, mode="")` names the rows;
-    `poison`: see Bench.compare."""
+    repeating bit for bit (K3: precond_rig_row, empty_rows there).
+    `named(kernel, mode="")` names the rows; `poison`: see Bench.compare."""
     from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
 
     k = b.rig_k
-    plan = walk_plan(b.plan)
     assemble_rig_rows(bench, named("assemble_rig"), b, lin, n_real, poison)
-    precond_rig_row(bench, named("precond_rig"), b, hinv, n_real, poison)
+    precond_rig_row(bench, named("precond_rig"), b, hinv, n_real, empty_rows=empty_rows)
     # K6 with y (the multi-batch matvec) and as the main path calls it
     # (rcs.w_transpose_x: t = W^T x alone)
     for name, want_y, index6, flops6 in (
@@ -1341,7 +1340,7 @@ def bf16_kernel_rows(bench, problem, dev, tag):
     index6 = [b.J_mv, b.J_pt_mv, b.w, x, b.plan.pt_pos, b.plan.pt_ptr]
     if rcs._rig_only_fast(b):
         rows = [("precond_rig", "", seg.seg_precond_rig, (J, Jp, b.w, hinv, b.plan),
-                 tol("blocks"), [J, Jp, b.w, hinv] + plan, (30 * k + 5 * k * (k + 1)) * n_real,
+                 tol("blocks"), k3_read(J, Jp, b.w, hinv, b.plan, n_real), k3_flops(k, n_real),
                  False),
                 ("schur_down", "", seg.seg_schur_down, (J, Jp, b.w, x, b.plan, True),
                  tol("y", "t"), index6 + [b.plan.rig_ptr, b.plan.rig_obs], (8 * k + 17) * n_real,
@@ -1363,8 +1362,8 @@ def bf16_kernel_rows(bench, problem, dev, tag):
         index9 = [b.plan.rig, cp.win, b.plan.point, b.plan.pt_pos, b.plan.pt_ptr, cp.rig_pair,
                   cp.pair_ptr, cp.pair_obs, cp.pair_part, cp.win_pair]
         rows = [("precond_rig", "", lambda Jr, Jcc, Jpp, *a: seg.seg_precond_rig(Jr, Jpp, *a),
-                 (J, Jc, Jp, b.w, hinv, b.plan), tol("blocks"), [J, Jp, b.w, hinv] + plan,
-                 (30 * k + 5 * k * (k + 1)) * n_real, False),
+                 (J, Jc, Jp, b.w, hinv, b.plan), tol("blocks"),
+                 k3_read(J, Jp, b.w, hinv, b.plan, n_real), k3_flops(k, n_real), False),
                 ("schur_pcg_cal", "", seg.seg_schur_pcg_cal,
                  (J, Jc, Jp, b.w, x, xc, hinv, b.plan, cp), tol("y_r", "y_c"),
                  jread + [x, xc, hinv] + index9, (8 * k + 8 * kc + 24) * n_real, False),
@@ -1380,7 +1379,10 @@ def bf16_kernel_rows(bench, problem, dev, tag):
         jpos, f32_J = (0, 1, 2), (b.J, b.J_cal, b.J_pt)
     for kernel, mode, fn, args, tols, read, flops, flush in rows:
         name = f"{kernel}({','.join(t for t in (tag, mode, 'bf16') if t)})"
-        row = bench.compare(name, fn, args, tols, read, flops, flush=flush)
+        row = bench.compare(name, fn, args, tols, read, flops, flush=flush,
+                            poison=kernel == "precond_rig")
+        if kernel == "precond_rig":
+            k3_readings(name, row, (J, Jp, b.w, hinv, b.plan))
         up = tuple(a.float() if i in jpos else a for i, a in enumerate(args))
         if not all(torch.equal(p, q) for p, q in zip(flat(fn(*args)), flat(fn(*up)))):
             raise AssertionError(f"{name}: not the float32 instantiation's bits on the upcast "
@@ -1545,14 +1547,51 @@ def cal_segment_kernels(bench, problem, dev, suffix=""):
     k10_rows(bench, b, x, xc, zl, suffix)
 
 
-def precond_rig_row(bench, name, b, hinv, n_real, poison=False):
-    """K3 on a single-pass batch against its float64 plain version."""
+def k3_read(J, J_pt, w, hinv, plan, n_real):
+    """What K3's function must read: J_r, J_p, w and the landmark index of
+    each real slot, the rig lists, the H_ll^-1 table once."""
+    real = n_real / w.shape[0]
+    return [(J, real), (J_pt, real), (w, real), (plan.point, real), plan.rig_ptr, plan.rig_obs,
+            hinv]
+
+
+def k3_flops(k, n_real):
+    """The fewest operations K3's function needs a real slot: as J_r^T M
+    J_r, M = w I - w^2 J_p h J_p^T (~33 FMAs), M J_r (4k) and the triangle
+    (2 FMAs an entry)."""
+    return 2 * (33 + 4 * k + k * (k + 1)) * n_real
+
+
+def precond_rig_row(bench, name, b, hinv, n_real, empty_rows=False):
+    """K3 on a single-pass batch against its float64 plain version from
+    NaN-filled output memory; then k3_readings."""
     from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
 
-    k = b.rig_k
-    bench.compare(name, seg.seg_precond_rig, (b.J, b.J_pt, b.w, hinv, b.plan),
-                  [("blocks", TOL_SEG)], [b.J, b.J_pt, b.w, hinv] + walk_plan(b.plan),
-                  (30 * k + 5 * k * (k + 1)) * n_real, poison=poison)
+    args = (b.J, b.J_pt, b.w, hinv, b.plan)
+    row = bench.compare(name, seg.seg_precond_rig, args, [("blocks", TOL_SEG)],
+                        k3_read(*args, n_real), k3_flops(b.rig_k, n_real), poison=True)
+    k3_readings(name, row, args, empty_rows)
+    return row
+
+
+def k3_readings(name, row, args, empty_rows=False):
+    """K3 (args: J_r, J_p, w, hinv, plan) bit-equal over two calls in at
+    most 2 device operations; with empty_rows, its device time in turns on
+    the batch's plan with every rig row empty (the same R, rig_ptr all
+    zero) and on the whole batch."""
+    import torch
+
+    from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as seg
+
+    check_repeat_and_ops(name, row, seg.seg_precond_rig, args, 2)
+    if empty_rows:
+        plan = args[-1]
+        empty = plan._replace(rig_ptr=torch.zeros_like(plan.rig_ptr))
+        (e_ms, _, _), (w_ms, _, _) = in_turns([lambda: seg.seg_precond_rig(*args[:-1], empty),
+                                               lambda: seg.seg_precond_rig(*args)])
+        row.update(empty_rows_device_ms=e_ms, whole_device_ms=w_ms)
+        phase("kernels", f"{name}: every rig row empty {e_ms:.4f} ms device against the "
+              f"whole batch's {w_ms:.4f} ({e_ms / w_ms:.2f})")
 
 
 def assemble_cal_row(bench, name, b, lin, poison=False):
@@ -3026,7 +3065,7 @@ def shard_kernel_rows(bench, problem, dev, tag):
                              poison=True)
         elif rcs._cal_fast(b):
             xc = torch.randn((n_c, b.J_cal.shape[1]), generator=gen, device=dev)
-            precond_rig_row(bench, f"precond_rig({inner})", b, hinv, n_real, poison=True)
+            precond_rig_row(bench, f"precond_rig({inner})", b, hinv, n_real)
             assemble_cal_row(bench, f"assemble_cal({inner})", b, lin, poison=True)
             k10_rows(bench, b, x, xc, zl, f"({inner})", poison=True)
         else:
@@ -3391,6 +3430,9 @@ def main():
     t0 = time.time()
     _kernels.lib()
     phase("build", f"{_kernels.library_path().name} in {time.time() - t0:.1f} s")
+    phase("build", "seconds to each source's nvcc exit: " + ", ".join(
+        f"{src} {sec:.1f}" for src, sec in sorted(_kernels.build_seconds().items(),
+                                                   key=lambda kv: -kv[1])))
     usage = _kernels.resource_usage()
     for name, regs, spill_st, spill_ld in usage:
         phase("build", f"ptxas {name}: {regs} registers, spill stores {spill_st} B, "

@@ -218,3 +218,44 @@ def test_on_card_rejects_other_devices():
     assert _kernels.on_card(torch.zeros(2)) is False
     with pytest.raises(ValueError):
         _kernels.on_card(torch.empty(2, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# The build: one nvcc per source, each source's seconds kept in the log
+# ---------------------------------------------------------------------------
+
+FAKE_NVCC = """#!/bin/sh
+prev=""
+for a in "$@"; do
+  [ "$prev" = "-o" ] && out="$a"
+  prev="$a"
+done
+: > "$out"
+case "$*" in
+  *-shared*) ;;
+  *) name=$(basename "$out" .o)
+     echo "ptxas info    : Function properties for k_$name"
+     echo "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+     echo "ptxas info    : Used 12 registers" ;;
+esac
+"""
+
+
+def test_build_log_times_each_source_and_keeps_the_ptxas_report(tmp_path, monkeypatch):
+    """build() with a stand-in nvcc (it writes its -o file and a ptxas
+    report): every csrc/*.cu compiles once, the log keeps each source's
+    seconds to its nvcc's exit (build_seconds) and its ptxas report
+    (resource_usage), and a second build() reuses the library."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: str(nvcc))
+    out = _kernels.build()
+    stems = sorted(p.stem for p in _kernels.CSRC.glob("*.cu"))
+    seconds = _kernels.build_seconds()
+    assert sorted(seconds) == sorted(s + ".cu" for s in stems) and "precond_rig.cu" in seconds
+    assert all(0 <= s < 60 for s in seconds.values())
+    assert _kernels.resource_usage() == [(f"k_{s}", 12, 0, 0) for s in stems]
+    assert out.exists() and _kernels.build() == out
+    assert [p.name for p in (tmp_path / "_build").iterdir() if p.is_dir()] == []

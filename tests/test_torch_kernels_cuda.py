@@ -65,7 +65,12 @@ full-sensor, global-shutter and merged batches' plans (the merged ones
 with a third of each batch's slots moved to the next window row, so that
 rigs span two): within 1e-5 of their plain versions, the same bits every
 call, at most 3 / 2 / 2 / 1 device operations a call (torch.profiler); K5
-also on the made-up plan, zeros for its rig without slots.
+also on the made-up plan, zeros for its rig without slots. K3 on a made-up
+plan of rig rows of 0, 1, 2, 37, 64, 200 and 1,500 slots at rig widths 6
+and 9, on float32 and on bf16 J: within
+1e-5 of its plain version from NaN-filled output memory, zeros for the rows
+without slots, the same bits every call (and, on bf16 J, the float32
+call's on the upcast copies), at most 2 device operations a call.
 """
 
 import functools
@@ -1571,6 +1576,71 @@ def test_schur_up_kernel_edge_plan(k, cuda_device, monkeypatch):
         ref = tseg.seg_schur_up(*_kernels.to_f64((J_r, J_p, w, z)), plan)
     _check((out,), (ref,), (1e-5,))
     assert torch.equal(out, again) and float(out[2].abs().max()) == 0.0
+
+
+# real slots of each rig row of _k3_edge_plan
+K3_ROWS = (1, 0, 1500, 1, 37, 0, 200, 2, 64, 0)
+
+
+def _k3_edge_plan(dev):
+    """Plans of a made-up rig-sorted batch for K3: rig rows of K3_ROWS real
+    slots (rows without slots, rows of one and two slots, one of 1,500:
+    many rounds of a group's batches), a pad after every 39 real slots (so
+    inside the rows' slot ranges), 50 landmarks."""
+    rng = np.random.default_rng(293)
+    R, L = len(K3_ROWS), 50
+    rig, pad = [], []
+    for i, r in enumerate(np.repeat(np.arange(R), K3_ROWS)):
+        rig.append(r)
+        pad.append(0.0)
+        if i % 39 == 38:
+            rig.append(r)
+            pad.append(1.0)
+    rig, pad = np.array(rig), np.array(pad)
+    point = rng.integers(0, L, size=rig.shape[0])
+    arrays = trcs.segment_plan(rig, point, pad, R, L)
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
+
+    plan = tseg.SegPlan(i32(rig), i32(point), *(i32(arrays[k]) for k in (
+        "_rig_ptr", "_rig_obs", "_pt_ptr", "_pt_obs", "_pt_pos")))
+    assert np.diff(arrays["_rig_ptr"]).tolist() == list(K3_ROWS)
+    return plan, pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jtype", ["float32", "bf16"])
+@pytest.mark.parametrize("k", [6, 9])
+def test_precond_rig_kernel_edge_plan(k, jtype, cuda_device, monkeypatch):
+    """K3 on the made-up plan of K3_ROWS at rig widths 6 and 9, J float32 or
+    rounded to bf16: within 1e-5 of its plain version in float64 from
+    NaN-filled output memory, exact zeros for the rows without slots, the
+    same bits every call, a bf16 call the float32 call's bits on the upcast
+    copies; a call one C entry, one counted launch and at most 2 device
+    operations."""
+    plan, pad = _k3_edge_plan(cuda_device)
+    w = _edge_w(pad, cuda_device, 297)
+    J_r, J_p, _, _, hinv = _schur_pcg_args(w, plan, k, cuda_device, 299 + k)
+    if jtype == "bf16":
+        J_r, J_p = J_r.to(BF16), J_p.to(BF16)
+    with _kernels.plain_reference():
+        ref = tseg.seg_precond_rig(*_kernels.to_f64((J_r, J_p, w, hinv)), plan)
+    empty = [r for r, m in enumerate(K3_ROWS) if m == 0]
+    names = _recording_launches(monkeypatch)
+    _kernels.reset_launch_counts()
+    outs = []
+    for _ in range(2):
+        # a block of NaN freed at once: the output is allocated from it
+        torch.full((plan.n_rows * k * k,), float("nan"), device=cuda_device)
+        outs.append(tseg.seg_precond_rig(J_r, J_p, w, hinv, plan))
+    assert names == ["viba_precond_rig"] * 2 and _kernels.launch_counts()["precond_rig"] == 2
+    assert _kernels.launch_counts(bf16=True)["precond_rig"] == 2 * (jtype == "bf16")
+    _check(outs[:1], (ref,), (1e-5,))
+    assert torch.equal(outs[0], outs[1]) and float(outs[0][empty].abs().max()) == 0.0
+    if jtype == "bf16":
+        assert torch.equal(outs[0], tseg.seg_precond_rig(J_r.float(), J_p.float(), w, hinv, plan))
+    assert _device_ops(lambda: tseg.seg_precond_rig(J_r, J_p, w, hinv, plan)) <= 2
 
 
 # ---------------------------------------------------------------------------

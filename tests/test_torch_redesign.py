@@ -1,5 +1,5 @@
-"""The plans and the data flow of the redesigned K2, K4, K5, K6, K8, K9, K10,
-K13a and K13c, on the CPU.
+"""The plans and the data flow of the redesigned K2, K3, K4, K5, K6, K8, K9,
+K10, K13a and K13c, on the CPU.
 
 K4 (the bias-only PCG matvec) and K9 (the calibration PCG matvec) go on the
 card through each slot's point-sorted position `_pt_pos`
@@ -63,7 +63,16 @@ against their plain versions); here:
     full-sensor batch at kc 6, 17 and 23 with rigs spanning both window
     rows, and K5's (each rig row's 128-thread group sums) equals
     seg_schur_up on the bias-only batch at rig widths 6 and 9 with two
-    rigs and two landmarks left without slots, in float64 within 1e-9.
+    rigs and two landmarks left without slots, in float64 within 1e-9;
+  * K3's (precond_rig.cu: per slot A = w J_r^T J_p and the triangle of
+    w J_r J_r^T - A H A^T, each rig row's slot range walked by a warp,
+    pads included, the butterfly's sums, each entry written at tri_entry
+    and its mirror) equals seg_precond_rig on the bias-only batch at rig
+    widths 6 and 9 with a symmetric positive-definite H_ll^-1 table, in
+    float64 within 1e-9; its reduce-scatter tail leaves each entry of the
+    triangle with one lane and the butterfly's float32 bits; on the port's
+    bias-only and full-sensor batches each rig row's slot range holds only
+    the row's real slots and pads of weight 0.
 """
 
 import functools
@@ -653,6 +662,138 @@ def test_schur_up_flow_matches_jax(k):
     assert np.all(got.numpy()[empty_rigs] == 0)
 
 
+# ---------------------------------------------------------------------------
+# K3: A H A^T a slot, a warp a rig row, a reduce-scatter tail
+# ---------------------------------------------------------------------------
+
+
+def _k3_tri_entry(e, k):
+    """precond_rig.cu tri_entry: (a, b), a <= b, of entry e of the upper
+    triangle row by row."""
+    row = start = 0
+    for i in range(k - 1):
+        if row == i and e >= start + (k - i):
+            start += k - i
+            row = i + 1
+    return row, row + e - start
+
+
+def _precond_rig_flow(J_r, J_p, w, hinv, plan):
+    """K3 as torch ops: per slot A = w J_r^T J_p (k x 3) and the upper
+    triangle of w J_r J_r^T - A H A^T (H = H_ll^-1[point]) row by row
+    (entry (a, b) = w J_r[:, a] . J_r[:, b] - (A_a H) . A_b); each rig row's
+    sum over its slot range [rig_obs[beg], rig_obs[end-1]] (pads included)
+    in the order of its warp (lane i takes the range's slots i, i + 32, ...
+    in order, its batches of loads changing nothing in it; then the
+    butterfly); entry e written at tri_entry(e) and its mirror. Rows
+    without slots are zero."""
+    k = J_r.shape[1]
+    H = hinv[plan.point.long()]
+    Jp, Jr = J_p.permute(2, 0, 1), J_r.permute(2, 0, 1)  # (N, 2, 3), (N, 2, k)
+    A = w[:, None, None] * Jr.transpose(1, 2) @ Jp  # (N, k, 3)
+    E = w[:, None, None] * Jr.transpose(1, 2) @ Jr - (A @ H) @ A.transpose(1, 2)
+    entries = [_k3_tri_entry(e, k) for e in range(k * (k + 1) // 2)]
+    tri = torch.stack([E[:, a, b] for a, b in entries], dim=1)
+    out = tri.new_zeros((plan.n_rows, k, k))
+    ptr, obs = plan.rig_ptr.tolist(), plan.rig_obs.tolist()
+    for r in range(plan.n_rows):
+        if ptr[r] == ptr[r + 1]:
+            continue
+        first, last = obs[ptr[r]], obs[ptr[r + 1] - 1]
+        sums = _group_sums(tri[first:last + 1], torch.tensor([0, last + 1 - first]), 32)[0]
+        for e, (a, b) in enumerate(entries):
+            out[r, a, b] = out[r, b, a] = sums[e]
+    return out
+
+
+@pytest.mark.parametrize("k", [6, 9])
+def test_precond_rig_flow_matches_jax(k):
+    """K3's flow (a warp a rig row) and its plain version equal the JAX entry seg_precond_rig on its XLA branch (f64, 1e-9), with a
+    symmetric positive-definite H_ll^-1 table; the rigs without slots come
+    out exactly zero."""
+    j, plan, a, empty_rigs, _ = _bias_case(233 + k, k, ("J_r", "J_p", "w"))
+    A = np.random.default_rng(239 + k).normal(size=(j["L"], 3, 3))
+    hinv = A @ np.swapaxes(A, -1, -2) + np.eye(3)
+    J = {key: jnp.asarray(v) for key, v in a.items()}
+    want = np.asarray(jseg.seg_precond_rig(J["J_r"], J["J_p"], J["w"], *j["loc"],
+                                           jnp.asarray(hinv), j["base"], *j["geo"], j["R"]))
+    args = [t(v) for v in a.values()] + [t(hinv)]
+    plain = tseg.seg_precond_rig(*args, plan)
+    assert np.abs(want).max() > 0 and np.all(want[empty_rigs] == 0)
+    assert rel(plain.numpy(), want) < TOL
+    got = _precond_rig_flow(*args, plan)
+    assert rel(got.numpy(), want) < TOL
+    assert torch.equal(got, got.transpose(1, 2))
+    assert np.all(got.numpy()[empty_rigs] == 0)
+
+
+@pytest.mark.parametrize("problem", ["bias", "full_sensor"])
+def test_precond_rig_row_ranges_hold_the_rows_slots_and_zero_weight_pads(problem):
+    """K3 walks each rig row's slot range [rig_obs[beg], rig_obs[end-1]]: on
+    the port's blocked batches the real slots there are the row's list, in
+    order, every other slot is a pad, and a pad's weight in the batch is 0
+    (so it adds nothing)."""
+    p = port_full_built()[0] if problem == "full_sensor" else port_blocked_problem()
+    ks, datas = p._build(), tuple(p.datas)
+    lg = ks[0](datas, p.variables, p.masks, None)
+    (b, _), = trcs._vis_batches(p.active_cfgs, datas, lg)
+    pad = _blocked(p)[0]["_pad"].numpy() > 0.5
+    assert pad.any() and np.all(b.w.numpy()[pad] == 0)
+    ptr, obs = b.plan.rig_ptr.numpy(), b.plan.rig_obs.numpy()
+    for r in range(b.plan.n_rows):
+        if ptr[r] < ptr[r + 1]:
+            span = np.arange(obs[ptr[r]], obs[ptr[r + 1] - 1] + 1)
+            np.testing.assert_array_equal(span[~pad[span]], obs[ptr[r]:ptr[r + 1]])
+
+
+def _reduce_scatter(parts):
+    """precond_rig.cu ReduceScatter over a warp's 32 lanes in float32:
+    parts (32, T) -> {entry: [(lane, value)]} of what each lane ends owning."""
+    held = [list(parts[lane]) for lane in range(32)]
+    base, cnt = [0] * 32, [parts.shape[1]] * 32
+    off = 16
+    while off:
+        n = len(held[0])
+        half = (n + 1) // 2
+        pad = [np.float32(0.0)] * (2 * half - n)
+        lo = [x[:half] for x in held]
+        hi = [x[half:] + pad for x in held]
+        nxt = []
+        for lane in range(32):
+            upper, other = bool(lane & off), lane ^ off
+            keep, recv = (hi[lane], hi[other]) if upper else (lo[lane], lo[other])
+            nxt.append([np.float32(x + y) for x, y in zip(keep, recv)])
+            if upper:
+                base[lane] += half
+                cnt[lane] = max(cnt[lane] - half, 0)
+            else:
+                cnt[lane] = min(cnt[lane], half)
+        held = nxt
+        off //= 2
+    owned = {}
+    for lane in range(32):
+        for i in range(cnt[lane]):
+            owned.setdefault(base[lane] + i, []).append((lane, held[lane][i]))
+    return owned
+
+
+@pytest.mark.parametrize("T", [21, 45])
+def test_reduce_scatter_owns_each_entry_once_with_the_butterfly_bits(T):
+    """K3's tail at K 6 (T 21) and 9 (T 45): every entry of the triangle
+    ends with exactly one lane, ceil(T / 32) at most a lane, holding the
+    bits of group_sum's xor butterfly over the warp's lanes."""
+    parts = np.random.default_rng(241 + T).normal(size=(32, T)).astype(np.float32)
+    owned = _reduce_scatter(parts)
+    assert sorted(owned) == list(range(T))
+    per_lane = {}
+    for e, holders in owned.items():
+        assert len(holders) == 1
+        lane, value = holders[0]
+        per_lane[lane] = per_lane.get(lane, 0) + 1
+        assert value == _butterfly(list(parts[:, e]))
+    assert max(per_lane.values()) == -(-T // 32)
+
+
 @pytest.mark.parametrize("kernel", ["schur_pcg", "mv_scatter_table"])
 def test_cpu_tensors_take_the_plain_versions(kernel):
     """On CPU tensors the wrappers compute their plain versions and count no
@@ -812,19 +953,17 @@ def test_assemble_cal_flow_matches_jax(kc):
 @pytest.mark.parametrize("k", [3, 6, 9, 17])
 def test_full_block_layouts_match_tri_to_full(k):
     """The full symmetric blocks the kernels write from their upper
-    triangles: K3 walks the triangle row by row and stores each entry at
-    (a, b) and (b, a) (precond_rig.cu); K8's sum pass reads entry (a, b)
+    triangles: K3's owner of entry e stores it at tri_entry(e) = (a, b) and
+    at (b, a) (precond_rig.cu); K8's sum pass reads entry (a, b)
     at tri_index(min, max) (cal_segments.cu sum_cal_points); K2 maps the 3x3
     block through kTri (assemble_rig.cuh)."""
     n = 5
     tri = torch.from_numpy(np.random.default_rng(157 + k).normal(size=(n, k * (k + 1) // 2)))
     want = tseg._tri_to_full(tri, k)
     k3 = tri.new_empty((n, k, k))
-    m = 0
-    for a in range(k):
-        for b in range(a, k):
-            k3[:, a, b] = k3[:, b, a] = tri[:, m]
-            m += 1
+    for e in range(k * (k + 1) // 2):
+        a, b = _k3_tri_entry(e, k)
+        k3[:, a, b] = k3[:, b, a] = tri[:, e]
     k8 = tri[:, torch.tensor([[_tri_index(min(a, b), max(a, b), k) for b in range(k)]
                               for a in range(k)])]
     assert torch.equal(k3, want) and torch.equal(k8, want)

@@ -31,6 +31,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -175,17 +176,25 @@ def build() -> Path:
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     nvcc = _nvcc()
     procs = []
+    t0 = time.monotonic()
     for src in (p for p in _sources() if p.suffix == ".cu"):
         obj = work / (src.stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.PIPE, text=True)))
+        with open(obj.with_suffix(".txt"), "w") as f:
+            procs.append((src, obj, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+    # each source's seconds from the common start to its nvcc's exit
+    seconds = {}
+    while len(seconds) < len(procs):
+        for src, _, proc in procs:
+            if src.name not in seconds and proc.poll() is not None:
+                seconds[src.name] = time.monotonic() - t0
+        time.sleep(0.05)
     log, failed = [], []
-    for src, _, proc in procs:
-        stdout, stderr = proc.communicate()
-        log.append(f"== {src.name}\n{stdout}{stderr}")
+    for src, obj, proc in procs:
+        text = obj.with_suffix(".txt").read_text()
+        log.append(f"== {src.name} ({seconds[src.name]:.1f} s)\n{text}")
         if proc.returncode != 0:
-            failed.append(f"{src.name} ({proc.returncode}):\n{stderr}")
+            failed.append(f"{src.name} ({proc.returncode}):\n{text}")
     if failed:
         shutil.rmtree(work, ignore_errors=True)
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
@@ -199,6 +208,15 @@ def build() -> Path:
     os.replace(tmp, out)
     shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def build_seconds():
+    """{source: seconds from the build's start to its nvcc's exit} of the
+    current build (the sources compile in parallel: the longest sets the
+    build's time)."""
+    text = library_path().with_suffix(".log").read_text()
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(r"^== (\S+) \(([\d.]+) s\)$", text, re.M)}
 
 
 def resource_usage():

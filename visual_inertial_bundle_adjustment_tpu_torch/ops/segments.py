@@ -63,7 +63,9 @@ VMEM-resident tables through one-hot MXU dots; on Hopper blocks run in
 parallel, so each output row is instead owned by one thread group that walks
 that row's observations through a CSR list and reduces in a fixed order —
 deterministic, with no atomics. Rig rows (~300 observations each at the
-full-sensor size) and landmark rows (~30) are single segments. Window rows
+full-sensor size) and landmark rows (~30) are single segments (K3 takes a
+warp per rig row and walks the row's slot range itself: rows are contiguous
+runs of the rig-sorted tiles, and the pads among them weigh 0). Window rows
 are few and long (120 rows of ~15k observations), so K8 cuts their lists
 into chunks of CHUNK slots: one group per chunk writes a partial row, and a
 second pass sums each row's partials in chunk order; K9 and K10 instead
@@ -414,7 +416,8 @@ def _precond_rig_plain(J_r, J_p, w, hinv, plan):
 def seg_precond_rig(J_r, J_p, w, hinv, plan: SegPlan):
     """(R, k, k) rig blocks sum w J J^T - (J^T w J_p) H_ll^-1 (J^T w J_p)^T,
     symmetric (CG needs a symmetric preconditioner; the kernel accumulates
-    the upper triangle). J float32, or bf16 (rcs.MATVEC_BF16)."""
+    the upper triangle over each rig row's slot range: the pads there have
+    w = 0). J float32, or bf16 (rcs.MATVEC_BF16)."""
     if not _kernels.on_card(w):
         return _precond_rig_plain(J_r, J_p, w, hinv, plan)
     n, k, jt, jargs = _jac_args(J_r, J_p, w, mv=True)
