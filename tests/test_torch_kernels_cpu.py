@@ -255,7 +255,33 @@ def test_build_log_times_each_source_and_keeps_the_ptxas_report(tmp_path, monkey
     stems = sorted(p.stem for p in _kernels.CSRC.glob("*.cu"))
     seconds = _kernels.build_seconds()
     assert sorted(seconds) == sorted(s + ".cu" for s in stems) and "precond_rig.cu" in seconds
+    # K8, K9 / K10 and the column K9 (at rig widths 6 and 9) compile as units
+    # of their own
+    assert {"cal_assemble.cu", "cal_pcg.cu", "cal_pcg_cols.cu",
+            "cal_pcg_cols_k9.cu"} <= set(seconds)
+    assert "cal_segments.cu" not in seconds
     assert all(0 <= s < 60 for s in seconds.values())
     assert _kernels.resource_usage() == [(f"k_{s}", 12, 0, 0) for s in stems]
     assert out.exists() and _kernels.build() == out
     assert [p.name for p in (tmp_path / "_build").iterdir() if p.is_dir()] == []
+
+
+def test_each_c_entry_is_defined_in_one_source():
+    """Every C entry point the loader binds (_SIGNATURES) is defined in
+    exactly one csrc/*.cu, and the units K8-K10 were split into define
+    theirs: a unit left out of the build would fail only at load on the
+    card."""
+    import re
+
+    defined = {}
+    for src in _kernels.CSRC.glob("*.cu"):
+        for name in re.findall(r'extern "C" int (viba_\w+)\(', src.read_text()):
+            defined.setdefault(name, []).append(src.name)
+    assert {n: defined.get(n) for n in _kernels._SIGNATURES
+            if len(defined.get(n, [])) != 1} == {}
+    assert defined["viba_assemble_cal"] == ["cal_assemble.cu"]
+    assert {n: defined[n] for n in ("viba_schur_pcg_cal", "viba_schur_down_cal",
+                                    "viba_schur_up_cal")} == {
+        n: ["cal_pcg.cu"] for n in ("viba_schur_pcg_cal", "viba_schur_down_cal",
+                                    "viba_schur_up_cal")}
+    assert defined["viba_schur_pcg_cal_cols"] == ["cal_pcg_cols.cu"]

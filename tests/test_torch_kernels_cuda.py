@@ -70,7 +70,12 @@ plan of rig rows of 0, 1, 2, 37, 64, 200 and 1,500 slots at rig widths 6
 and 9, on float32 and on bf16 J: within
 1e-5 of its plain version from NaN-filled output memory, zeros for the rows
 without slots, the same bits every call (and, on bf16 J, the float32
-call's on the upcast copies), at most 2 device operations a call.
+call's on the upcast copies), at most 2 device operations a call. K8, K9,
+K10 and the column K9 give the bits they gave from the one source their
+units were split from (digests of fixed inputs). chip_smoke's cov:bias
+check (cov_probe.median_check over copies of the state) passes at two LM
+states of the full-size bias-only problem and fails with one slot of each
+rig row left out of the column K4's walk.
 """
 
 import functools
@@ -84,6 +89,7 @@ from _torch_port_fixtures import (BUILD, TWO_GRID_BLOCKS, port_blocked_problem, 
                                   port_gs_built, port_merge_inputs, port_session, rel)
 from torch.overrides import TorchFunctionMode
 
+from visual_inertial_bundle_adjustment_tpu_torch import cov_probe
 from visual_inertial_bundle_adjustment_tpu_torch.ops import _kernels
 from visual_inertial_bundle_adjustment_tpu_torch.ops import rs_fused
 from visual_inertial_bundle_adjustment_tpu_torch.ops import segments as tseg
@@ -1217,10 +1223,68 @@ def _pcg_digests(dev):
     return out
 
 
+# sha256 (first 16 hex digits) of K8's, K9's and K10's outputs (on float32
+# and on bf16 J) and of the column K9's on the fixed inputs of _cal_digests,
+# as the kernels gave them from one unit, csrc/cal_segments.cu, before their
+# split into units, on an NVIDIA H100 80GB HBM3
+CAL_DIGESTS = {"K8": "ba6981d1bd7dcfc7", "K9": "9337e7c560816bad", "K10": "f397ce65c7e6ceb2",
+               "K9 bf16": "41f69e97b6d3fe55", "K10 bf16": "d537a3f2cc6407af",
+               "K9 columns": "62bbde6bcae268a5"}
+
+
+def _cal_digests(dev):
+    """K8, K9 and K10 (on float32 and on bf16 J) and the column K9 (at 1, 8
+    and 48 columns) on the made-up plan at every rig and window width, with
+    random inputs from a numpy seed: one digest of each family's outputs'
+    bytes, in call order."""
+    import hashlib
+
+    plan, cplan, pad = _edge_plans(dev)
+    w = _edge_w(pad, dev, 191)
+    rng = np.random.default_rng(193)
+    z = torch.from_numpy(rng.normal(size=(plan.n_pts, 3))).to(dev, torch.float32)
+    hs = {f: hashlib.sha256() for f in ("K8", "K9", "K10", "K9 bf16", "K10 bf16",
+                                        "K9 columns")}
+
+    def add(family, outs):
+        for o in _flat(outs):
+            if o is not None:  # K10's down pass without y
+                hs[family].update(o.cpu().numpy().tobytes())
+
+    for k in (6, 9):
+        for kc in (6, 17, 23):
+            add("K8", tseg.seg_assemble_cal(
+                *_assemble_cal_args(w, plan, cplan, k, kc, dev, 197 + k + kc), plan, cplan))
+            J_r, J_c, J_p, _, x_r, x_c, hinv = _pcg_cal_args(w, plan, cplan, k, kc, dev,
+                                                             199 + k + kc)
+            for jt, tag in ((torch.float32, ""), (torch.bfloat16, " bf16")):
+                Jr, Jc, Jp = (a.to(jt) for a in (J_r, J_c, J_p))
+                add("K9" + tag, tseg.seg_schur_pcg_cal(Jr, Jc, Jp, w, x_r, x_c, hinv, plan,
+                                                       cplan))
+                for want_y in (True, False):
+                    add("K10" + tag, tseg.seg_schur_down_cal(Jr, Jc, Jp, w, x_r, x_c, plan,
+                                                             cplan, want_y))
+                add("K10" + tag, tseg.seg_schur_up_cal(Jr, Jc, Jp, w, z, plan, cplan))
+            for C in (1, 8, 48):
+                add("K9 columns", tseg.seg_schur_pcg_cal_cols(
+                    J_r, J_c, J_p, w, _cols((plan.n_rows, k), C, dev, 211 + C),
+                    _cols((cplan.n_rows, kc), C, dev, 223 + C), hinv, plan, cplan))
+    torch.cuda.synchronize()
+    return {f: h.hexdigest()[:16] for f, h in hs.items()}
+
+
 @pytest.mark.cuda
 def test_schur_pcg_bits_unchanged(cuda_device):
     """K4 and K9 give the same bits as before K6 shared their landmark pass."""
     assert _pcg_digests(cuda_device) == PCG_DIGESTS
+
+
+@pytest.mark.cuda
+def test_cal_units_bits_unchanged(cuda_device):
+    """K8, K9, K10 and the column K9 give the same bits from their units
+    (csrc/cal_assemble.cu, cal_pcg.cu, cal_pcg_cols.cu, cal_pcg_cols_k9.cu)
+    as from the one source they were split from."""
+    assert _cal_digests(cuda_device) == CAL_DIGESTS
 
 
 # ---------------------------------------------------------------------------
@@ -1897,3 +1961,32 @@ def test_segment_kernel_on_shard_plans(name, problem, cuda_device):
     assert len(total) == len(want)
     for t_, w in zip(total, want):
         assert rel(t_.cpu().numpy(), w.cpu().numpy()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke's cov:bias check over float32's own spread (cov_probe.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cov_check_verdict_at_two_lm_states(cuda_device):
+    """cov:bias's check at two LM states of the bias-only problem (1,200
+    rigs, ~394k observations; 5 LM iterations, chip_smoke's, and 7): the
+    kernels' median covariance errors over the observed dimensions
+    within COV_PLAIN_RATIO of the plain float32 solve's, by their medians
+    over the problem and two copies moved by an ulp, each against its own
+    float64 solve (cov_probe.copy_readings, median_check). It passes with
+    the kernels, and fails with the column K4 leaving one slot of each rig
+    row out of its walk (cov_probe.inject_defect("drop"))."""
+    p = cov_probe.bias_problem(cuda_device)
+    v0 = p.variables
+    rigs, rows = cov_probe.reference_rows(p)
+    for n in (5, 7):
+        p.variables, _ = cov_probe.lm_state(p, v0, n)
+        kern, plain = cov_probe.copy_readings(p, rigs, rows)
+        stat, fail = cov_probe.median_check(kern, plain)
+        assert fail == [], (n, stat)
+        bad, _ = cov_probe.copy_readings(p, rigs, rows, defect="drop")
+        stat, fail = cov_probe.median_check(bad, plain)
+        assert fail, (n, stat)
+    p.variables = v0

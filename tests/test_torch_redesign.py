@@ -37,7 +37,7 @@ against their plain versions); here:
     count no launch;
   * profile_matvec.per_call, which turns the profiler's records into device
     time per call, counts a launch the profiler missed;
-  * K8's window flow (cal_segments.cu: a chunk's slots in 128-slot steps,
+  * K8's window flow (cal_assemble.cu: a chunk's slots in 128-slot steps,
     the outputs cut into 3x3 items each owned by one warp, a lane's 4 slots
     of each step summed in order, the warp's butterfly, the chunks' partial
     rows summed in chunk order into g_c, diag_c and the full split blocks)
@@ -322,7 +322,7 @@ def _win_pair_sums(part, win_pair):
 
 
 def _pair_pass_sums(J_r, J_c, wu, cplan):
-    """K10's rig-pair pass (csrc/cal_segments.cu cal_pair_pass: a 128-thread
+    """K10's rig-pair pass (csrc/cal_pcg.cu cal_pair_pass: a 128-thread
     group a rig row) on a per-slot wu (2, N): each rig row's slots in
     (rig, window row) pair order, J_r^T wu summed in the group's order
     across the row's pairs (y_r) and J_c^T wu per pair (its partial row),
@@ -827,7 +827,7 @@ STEP, LANES = 128, 32  # K8: the slots a warp takes per step, its lanes (4 slots
 
 
 def _tri_index(a, b, dim):
-    """cal_segments.cu tri_index: (a, b), a <= b, in a row-major upper triangle."""
+    """cal_assemble.cu tri_index: (a, b), a <= b, in a row-major upper triangle."""
     return a * dim - a * (a - 1) // 2 + (b - a)
 
 
@@ -955,7 +955,7 @@ def test_full_block_layouts_match_tri_to_full(k):
     """The full symmetric blocks the kernels write from their upper
     triangles: K3's owner of entry e stores it at tri_entry(e) = (a, b) and
     at (b, a) (precond_rig.cu); K8's sum pass reads entry (a, b)
-    at tri_index(min, max) (cal_segments.cu sum_cal_points); K2 maps the 3x3
+    at tri_index(min, max) (cal_assemble.cu sum_cal_points); K2 maps the 3x3
     block through kTri (assemble_rig.cuh)."""
     n = 5
     tri = torch.from_numpy(np.random.default_rng(157 + k).normal(size=(n, k * (k + 1) // 2)))
@@ -1066,7 +1066,7 @@ def _pcg_cal_cols_flow(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
     """The column K9's three launches as torch ops: the landmark pass; each
     rig row's records in (rig, window row) pair order with du for every
     column, J_r^T du summed in the warp's order across the row's pairs and
-    J_c^T du per pair (csrc/cal_segments.cu cal_rig_pass_cols); each window
+    J_c^T du per pair (csrc/cal_pcg_cols.cuh cal_rig_pass_cols); each window
     row's pair partials summed in rig order (sum_partials)."""
     rec = _records(J_r, J_p, w, plan, J_c, cplan)
     z = _point_pass_cols(rec, plan.pt_ptr, x_r, hinv, x_c)
@@ -1311,7 +1311,7 @@ def test_in_thread_orders_keep_the_butterfly_bits(G, P):
 
 
 # (the rig pass's single-column warps, entries a chunk) by kernel and
-# columns a tile (csrc/schur.cu RowCols, csrc/cal_segments.cu CalCols)
+# columns a tile (csrc/schur.cu RowCols, csrc/cal_pcg_cols.cuh CalCols)
 _CHUNK_SHAPES = {("K4", 32): (4, 256), ("K4", 8): (4, 256), ("K4", 1): (4, 256),
                  ("K9", 32): (1, 96), ("K9", 8): (1, 192), ("K9", 1): (1, 256)}
 
@@ -1354,7 +1354,7 @@ def test_rig_pass_chunks_cover_each_slot_once(kernel, W):
 
 
 def _split_tree(parts):
-    """The column K9's rig pass at 32 columns (csrc/cal_segments.cu
+    """The column K9's rig pass at 32 columns (csrc/cal_pcg_cols.cuh
     rig_split_pass_cols): warp w holds the classes w + 8 j, merged in the
     warp (j and j + 2, then the two), then the warps' subtrees (w and w + 4,
     w and w + 2, w and w + 1)."""

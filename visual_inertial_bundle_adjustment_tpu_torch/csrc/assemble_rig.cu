@@ -1,5 +1,5 @@
 // K2: lambda-independent assembly of a blocked visual batch, rig and
-// landmark side (K8, cal_segments.cu, runs the same two passes around its
+// landmark side (K8, cal_assemble.cu, runs the same two passes around its
 // window pass).
 //
 // Replaces the Pallas kernel _assemble_rig_kernel (JAX ops/segments.py:840,

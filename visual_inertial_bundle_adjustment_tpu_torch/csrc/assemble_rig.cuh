@@ -1,4 +1,4 @@
-// K2's two launches (assemble_rig.cu; K8, cal_segments.cu, runs the first as
+// K2's two launches (assemble_rig.cu; K8, cal_assemble.cu, runs the first as
 // its first and the second inside its sum pass's launch).
 //
 // K2 reduces, for a blocked visual batch,

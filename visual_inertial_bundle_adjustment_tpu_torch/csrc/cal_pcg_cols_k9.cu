@@ -1,0 +1,12 @@
+// K9 on C right-hand sides at rig width 9 (the kernels: cal_pcg_cols.cuh;
+// rig width 6 and the C entry: cal_pcg_cols.cu).
+#include "cal_pcg_cols.cuh"
+
+int viba_pcg_cal_cols_k9(int R, int L, int n_c, int kc, int C, int rig_sorted, const int* rig_pair,
+    const int* pair_ptr, const int* pair_part, const int* win_pair, const int* rig_pos,
+    const int* pt_ptr, const float* rec, const float* x_r, const float* x_c,
+    const float* hinv, float* z, float* part, float* y_r, float* y_c, cudaStream_t st) {
+  return pcg_cal_cols_at<9>(R, L, n_c, kc, C, rig_sorted, rig_pair, pair_ptr, pair_part,
+                              win_pair, rig_pos, pt_ptr, rec, x_r, x_c, hinv, z, part, y_r,
+                              y_c, st);
+}

@@ -1,5 +1,5 @@
 // The landmark pass of the point-sorted routes: K4 and K6 (schur.cu), K9
-// and K10 (cal_segments.cu).
+// and K10 (cal_pcg.cu), and the column K9 (cal_pcg_cols.cuh).
 //
 // Walking a landmark's CSR list reads the rig-ordered slot arrays at
 // scattered slots, one 32-byte sector per float. The point-sorted routes
@@ -33,7 +33,7 @@
 // in one thread, each in its accumulator, merged in that tree before the
 // butterfly over the P lanes: the same additions in the same order, so
 // every column's z has the single-column kernel's bits. The rig passes
-// (schur.cu, cal_segments.cu) walk their rows' classes depth first
+// (schur.cu, cal_pcg_cols.cuh) walk their rows' classes depth first
 // instead (LeafTree), which keeps fewer partials. Bound: operations —
 // (4K + 4KC + 12) FMA-equivalents a slot and column; x_r[rig] is read per
 // slot and column, from a window of the block's rigs staged in shared

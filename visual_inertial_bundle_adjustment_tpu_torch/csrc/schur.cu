@@ -38,7 +38,7 @@
 // bounds.
 //
 // K4 is one entry of three launches around each slot's point-sorted
-// position (pt_segments.cuh), the design of K9 (cal_segments.cu) without
+// position (pt_segments.cuh), the design of K9 (cal_pcg.cu) without
 // the window columns:
 //   down     one thread per slot: wu = w J_r x[rig[s]] in registers and
 //            p = J_p^T wu, stored as one float4 at p[pt_pos[s]]; wu is not

@@ -1,5 +1,5 @@
 // Group-per-segment reduction skeleton shared by the segment kernels
-// (assemble_rig.cu, schur.cu, cal_segments.cu, table_segments.cu).
+// (assemble_rig.cu, schur.cu, cal_pcg.cu, cal_pcg_cols.cuh, table_segments.cu).
 //
 // The blocked solver lays a visual batch out in rig-sorted ragged tiles
 // (rcs.finalize_blocks). Every segment kernel reduces small per-observation

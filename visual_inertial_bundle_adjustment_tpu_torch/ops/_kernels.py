@@ -13,8 +13,9 @@ raises.
 
 Dispatch rule shared by every kernel wrapper: a CPU tensor takes the plain
 PyTorch version; a CUDA tensor launches the kernel (or raises). The only
-way a CUDA tensor reaches a plain version is inside `plain_reference()`,
-which the on-card comparisons use on purpose.
+way a CUDA tensor reaches a plain version is inside `plain_reference()`
+(every kernel, or only the named ones), which the on-card comparisons use
+on purpose.
 
 TF32 stays off for every float32 product on the card (the TPU analogue,
 default-precision dots, cost 2e-3 of Jacobian error).
@@ -108,15 +109,29 @@ def launch_counts(bf16=False) -> dict:
 
 
 @contextlib.contextmanager
-def plain_reference():
+def plain_reference(only=None):
     """Route CUDA tensors through the plain PyTorch versions (for comparing
-    kernels with their references on the card; launches are not counted)."""
+    kernels with their references on the card; launches are not counted):
+    every kernel's, or with `only` (kernel names, as registered) those
+    kernels' alone, the others launching as outside."""
+    if only is not None:
+        only = frozenset(only)
+        unknown = sorted(only - set(WRAPPERS))
+        if unknown:
+            raise ValueError(f"plain_reference: no kernel named {unknown}")
     prev = getattr(_state, "plain", False)
-    _state.plain = True
+    _state.plain = True if only is None else only
     try:
         yield
     finally:
         _state.plain = prev
+
+
+def takes_plain(name=None) -> bool:
+    """True when plain_reference() routes kernel `name` through its plain
+    version (name None: whether every kernel is routed so)."""
+    plain = getattr(_state, "plain", False)
+    return plain is True or (name is not None and plain is not False and name in plain)
 
 
 def to_f64(x):
@@ -134,13 +149,15 @@ def to_f64(x):
     return x
 
 
-def on_card(t: torch.Tensor) -> bool:
-    """True when `t` lives on a CUDA device and the kernel must launch."""
+def on_card(t: torch.Tensor, name=None) -> bool:
+    """True when `t` lives on a CUDA device and kernel `name` must launch
+    (a wrapper passes its registered name; None asks whether kernels run
+    at all, as the column records' builder does)."""
     if t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
-    return not getattr(_state, "plain", False)
+    return not takes_plain(name)
 
 
 def _sources():

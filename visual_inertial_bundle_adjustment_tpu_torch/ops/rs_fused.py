@@ -65,7 +65,7 @@ def _rs_plain(camera_kind, data, v, masks, with_jac, with_cal):
 def rs_linearize(camera_kind, data, v, masks, with_jac, with_cal):
     """K7 wrapper: (res (2,N), valid (N,)[, J_pt (2,3,N), J_r (2,12,N)[,
     J_cal (2,23,N)]]). `masks` is read only with the Jacobian."""
-    if not _kernels.on_card(v.points):
+    if not _kernels.on_card(v.points, "rs_linearize"):
         return _rs_plain(camera_kind, data, v, masks, with_jac, with_cal)
     ck = _kernels.check
     f32, i32 = torch.float32, torch.int32

@@ -45,7 +45,9 @@ batch's folded groups, in cal_groups order: [extr 6 | intr 17] (kc = 23),
 or extr or intr alone (kc = 6, 17).
 
 Kernels: csrc/assemble_rig.cu, csrc/precond_rig.cu, csrc/schur.cu,
-csrc/cal_segments.cu, csrc/table_segments.cu, csrc/tile_segments.cu, on the
+csrc/cal_assemble.cu, csrc/cal_pcg.cu, csrc/cal_pcg_cols.cuh (its units
+csrc/cal_pcg_cols.cu, csrc/cal_pcg_cols_k9.cu),
+csrc/table_segments.cu, csrc/tile_segments.cu, on the
 group-per-segment skeleton of csrc/tile_reduce.cuh, templated on rig_k (and
 on kc for the window kernels). They replace the Pallas kernels
 _assemble_rig_kernel (JAX ops/segments.py:840), _precond_rig_kernel (:1861),
@@ -380,7 +382,7 @@ def seg_assemble_rig(J_r, J_p, res, w, plan: SegPlan):
     in two launches (csrc/assemble_rig.cu viba_assemble_rig: a group per rig
     row beside each slot's sector stored at its point-sorted position, then
     a 16-lane group per landmark)."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "assemble_rig"):
         return _assemble_rig_plain(J_r, J_p, res, w, plan)
     n, k, _, jargs = _jac_args(J_r, J_p, w)
     R, L = plan.n_rows, plan.n_pts
@@ -418,7 +420,7 @@ def seg_precond_rig(J_r, J_p, w, hinv, plan: SegPlan):
     symmetric (CG needs a symmetric preconditioner; the kernel accumulates
     the upper triangle over each rig row's slot range: the pads there have
     w = 0). J float32, or bf16 (rcs.MATVEC_BF16)."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "precond_rig"):
         return _precond_rig_plain(J_r, J_p, w, hinv, plan)
     n, k, jt, jargs = _jac_args(J_r, J_p, w, mv=True)
     R, L = plan.n_rows, plan.n_pts
@@ -477,7 +479,7 @@ def seg_schur_down(J_r, J_p, w, x_table, plan: SegPlan, want_y=True):
     """(y (R, k) = seg-sum_rig J_r^T w J_r x, or None without want_y;
     t (L, 3) = seg-sum_pt J_p^T w J_r x = W^T x). J float32, or bf16
     (rcs.MATVEC_BF16)."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "schur_down"):
         return _schur_down_staged(J_r, J_p, w, x_table, plan, want_y)[:2]
     out = _launch_schur_down(J_r, J_p, w, x_table, plan, want_y)
     seg_schur_down.launches += 1
@@ -515,7 +517,7 @@ def seg_schur_up(J_r, J_p, w, z, plan: SegPlan, wu=None):
     wu = w J_r x of _schur_down_staged (plain version only; K4 replaced
     that composition on the card): seg-sum_rig J_r^T (wu - w J_p z[pt]).
     J float32, or bf16 (rcs.MATVEC_BF16)."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "schur_up"):
         return _schur_up_plain(J_r, J_p, w, z, plan, wu)
     if wu is not None:
         raise ValueError("seg_schur_up: the kernel takes no staged wu (seg_schur_pcg is the "
@@ -556,7 +558,7 @@ def seg_schur_pcg(J_r, J_p, w, x_table, hinv, plan: SegPlan):
     z = H_ll^-1 t -> K5's up with wu; on the card one entry of three
     launches around the plan's point-sorted positions. J float32, or bf16
     (rcs.MATVEC_BF16)."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "schur_pcg"):
         _, t, wu = _schur_down_staged(J_r, J_p, w, x_table, plan, False)
         return _schur_up_plain(J_r, J_p, w, (hinv * t[:, None, :]).sum(-1), plan, wu)
     y = _launch_schur_pcg(J_r, J_p, w, x_table, hinv, plan)
@@ -608,7 +610,7 @@ def seg_assemble_cal(J_r, J_c, J_p, res, w, plan: SegPlan, cplan: CalPlan):
     variables' block-Jacobi blocks per split of J_c ([(n_c, 6, 6), (n_c, 17,
     17)] at kc = 23; no Schur correction); g_l (L, 3); H_ll0 (L, 3, 3);
     w >= 0, as for seg_assemble_rig."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "assemble_cal"):
         return _assemble_cal_plain(J_r, J_c, J_p, res, w, plan, cplan)
     n, k, _, jargs = _jac_args(J_r, J_p, w)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
@@ -665,7 +667,7 @@ def _pair_ptrs(cplan, R, n_c, n_real):
 
 
 def _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y):
-    """K10's down pass in two launches (csrc/cal_segments.cu
+    """K10's down pass in two launches (csrc/cal_pcg.cu
     viba_schur_down_cal): p = J_p^T w u at each slot's point-sorted position
     (per slot; with y, a 128-thread group per rig row over its (rig, window
     row) pairs, y_r and one window partial a pair beside it), then the
@@ -699,7 +701,7 @@ def seg_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan: SegPlan, cplan: CalPlan
     J_c x_c[win]: (y_r (R, k) = seg-sum_rig J_r^T w u, y_c (n_c, kc) =
     seg-sum_win J_c^T w u (both None unless want_y), t (L, 3) = W^T x).
     J float32, or bf16 (rcs.MATVEC_BF16), J_r, J_c and J_p of one type."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "schur_down_cal"):
         return _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y)[:3]
     out = _launch_schur_down_cal(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, want_y)
     seg_schur_down_cal.launches += 1
@@ -717,7 +719,7 @@ def _schur_up_cal_plain(J_r, J_c, J_p, w, z, plan, cplan, wu):
 
 
 def _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan):
-    """K10's up pass in two launches (csrc/cal_segments.cu
+    """K10's up pass in two launches (csrc/cal_pcg.cu
     viba_schur_up_cal): a 128-thread group per rig row over its (rig, window
     row) pairs, w J_p z[point] in registers, y_r and one window partial a
     pair; then the window rows' sums of their partials."""
@@ -740,7 +742,7 @@ def seg_schur_up_cal(J_r, J_c, J_p, w, z, plan: SegPlan, cplan: CalPlan):
     """(y_r (R, k), y_c (n_c, kc)) = segment sums of (J_r, J_c)^T w J_p z[pt]
     (= W z over rig and window columns). J float32, or bf16 (rcs.
     MATVEC_BF16), J_r, J_c and J_p of one type."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "schur_up_cal"):
         return _schur_up_cal_plain(J_r, J_c, J_p, w, z, plan, cplan, None)
     out = _launch_schur_up_cal(J_r, J_c, J_p, w, z, plan, cplan)
     seg_schur_up_cal.launches += 1
@@ -749,7 +751,7 @@ def seg_schur_up_cal(J_r, J_c, J_p, w, z, plan: SegPlan, cplan: CalPlan):
 
 
 def _launch_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan):
-    """K9 in four launches (csrc/cal_segments.cu viba_schur_pcg_cal): p =
+    """K9 in four launches (csrc/cal_pcg.cu viba_schur_pcg_cal): p =
     J_p^T w u at each slot's point-sorted position, z = H_ll^-1 (landmark
     sums of p), then per rig row y_r and one J_c^T du partial per (rig,
     window row) pair, then the window rows' sums of their pair partials."""
@@ -781,7 +783,7 @@ def seg_schur_pcg_cal(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cplan: Ca
     -> z = H_ll^-1 t -> K10's up; on the card one entry of four launches
     around the plan's point-sorted positions and (rig, window row) pairs.
     J float32, or bf16 (rcs.MATVEC_BF16), J_r, J_c and J_p of one type."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "schur_pcg_cal"):
         _, _, t, wu = _schur_down_cal_plain(J_r, J_c, J_p, w, x_r, x_c, plan, cplan, False)
         return _schur_up_cal_plain(J_r, J_c, J_p, w, (hinv * t[:, None, :]).sum(-1), plan,
                                    cplan, wu)
@@ -935,7 +937,7 @@ def seg_schur_pcg_cols(J_r, J_p, w, x_table, hinv, plan: SegPlan, rec: PtRecords
     (point_sorted_records; made here when None): the landmark pass, then
     the rig rows, each record read once a tile of 32 columns. The CPU path
     ignores rec."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "schur_pcg_cols"):
         return _schur_pcg_cols_plain(J_r, None, J_p, w, x_table, None, hinv, plan, None)[0]
     _, k, _, _ = _jac_args(J_r, J_p, w, mv=True)
     R, L = plan.n_rows, plan.n_pts
@@ -957,12 +959,12 @@ def seg_schur_pcg_cal_cols(J_r, J_c, J_p, w, x_r, x_c, hinv, plan: SegPlan, cpla
                            rec: PtRecords | None = None):
     """K9 on C right-hand sides: (y_r (R, k, C), y_c (n_c, kc, C)), column c
     the result of seg_schur_pcg_cal on column c of x_r and x_c. On the card
-    one entry of three launches (csrc/cal_segments.cu
+    one entry of three launches (csrc/cal_pcg_cols.cu
     viba_schur_pcg_cal_cols) over the point-sorted records `rec`
     (point_sorted_records; made here when None): the landmark pass; the rig
     rows with one window partial per (rig, window row) pair; the window
     rows' sums. The CPU path ignores rec."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "schur_pcg_cal_cols"):
         return _schur_pcg_cols_plain(J_r, J_c, J_p, w, x_r, x_c, hinv, plan, cplan)
     _, k, _, _ = _jac_args(J_r, J_p, w, mv=True)
     R, L, n_c = plan.n_rows, plan.n_pts, cplan.n_rows
@@ -1036,7 +1038,7 @@ def _mv_fused_plain(J, w, x_table, rows):
 def seg_mv_fused_table(J, w, x_table, rows: RowPlan):
     """K12: (wu (2, N) = w (J x[row]), y (n_rows, k) = seg-sum J^T wu), the
     rig side of the general-path matvec with J read once."""
-    if not _kernels.on_card(w):
+    if not _kernels.on_card(w, "mv_fused_table"):
         return _mv_fused_plain(J, w, x_table, rows)
     n, k, jp = _table_jac(J, "seg_mv_fused_table")
     n_seg, n_rows, G, ptr, obs, row_chunk = _rows_args(rows, n)
@@ -1078,7 +1080,7 @@ def seg_mv_scatter_table(J, u, rows: RowPlan):
     """K13a: y (n_rows, k) = seg-sum over each row's slots of J^T u. A
     scattered family (the landmark rows) goes through a slot-major copy of
     J^T u; the others walk their lists."""
-    if not _kernels.on_card(u):
+    if not _kernels.on_card(u, "mv_scatter_table"):
         return _mv_scatter_plain(J, u, rows)
     if rows.scattered:
         y = _launch_mv_scatter_slot_major(J, u, rows)
@@ -1101,7 +1103,7 @@ def _mv_gather_plain(J, x_table, rows):
 @_kernels.register("mv_gather_table")
 def seg_mv_gather_table(J, x_table, rows: RowPlan):
     """K13b: u (2, N) = J x[row] per slot."""
-    if not _kernels.on_card(x_table):
+    if not _kernels.on_card(x_table, "mv_gather_table"):
         return _mv_gather_plain(J, x_table, rows)
     n, k, jp = _table_jac(J, "seg_mv_gather_table")
     ck = _kernels.check
@@ -1145,7 +1147,7 @@ def seg_reduce_table(contrib, rows: RowPlan):
     family's lists (the padded ones) must carry zeros. A scattered family
     (the landmark rows) reduces through a slot-major copy; the others walk
     their lists."""
-    if not _kernels.on_card(contrib):
+    if not _kernels.on_card(contrib, "reduce_table"):
         return _reduce_plain(contrib, rows)
     if rows.scattered:
         y = _launch_reduce_slot_major(contrib, rows)
@@ -1247,7 +1249,7 @@ def scatter_partials(part, rows, n_rows, rb, plan: RowPlan | None = None):
     atomics."""
     D = part.shape[-1]
     flat = part.reshape(-1, D)
-    if not _kernels.on_card(part):
+    if not _kernels.on_card(part, "reduce_table"):
         out = torch.zeros((n_rows + rb, D), dtype=part.dtype, device=part.device)
         return out.index_add_(0, rows.to(torch.int64), flat)[:n_rows]
     plan = partials_plan(rows, n_rows) if plan is None else plan
@@ -1306,7 +1308,7 @@ def seg_reduce_partials(contrib, local, nt, ts, rb, plan: TilePlan | None = None
     each row's slots summed in a fixed order (csrc/tile_segments.cu
     viba_tile_reduce: each tile's rows cut into pieces across its warps,
     contrib read in the piece walk)."""
-    if not _kernels.on_card(contrib):
+    if not _kernels.on_card(contrib, "reduce_partials"):
         return _reduce_partials_plain(contrib, local, nt, ts, rb)
     D, n = contrib.shape
     part = _empty((nt, rb, D), contrib)
@@ -1322,7 +1324,7 @@ def seg_gather_from_tiles(xt, local, nt, ts, rb):
     """K14b: xt (nt, rb, D) addressed tile rows -> per-slot rows (nt*ts, D)
     (csrc/tile_segments.cu viba_tile_gather: a flat stream of float4 over the
     output)."""
-    if not _kernels.on_card(xt):
+    if not _kernels.on_card(xt, "gather_from_tiles"):
         return _gather_tiles_plain(xt, local, nt, ts, rb)
     D = xt.shape[-1]
     out = _empty((nt * ts, D), xt)
@@ -1346,7 +1348,7 @@ def seg_mv_fused(J, w, xt, local, nt, ts, rb, plan: TilePlan | None = None):
     viba_tile_mv_fused: a CTA per tile staging w (J x) and J^T wu in shared
     memory, wu stored for every slot, each row's slots cut into pieces
     across its warps)."""
-    if not _kernels.on_card(J):
+    if not _kernels.on_card(J, "mv_fused"):
         return _mv_fused_tiles_plain(J, w, xt, local, nt, ts, rb)
     k, jp = _tile_jac(J, nt, ts)
     wu = _empty((2, nt * ts), J)
@@ -1363,7 +1365,7 @@ def seg_mv_fused(J, w, xt, local, nt, ts, rb, plan: TilePlan | None = None):
 @_kernels.register("mv_gather")
 def seg_mv_gather(J, xt, local, nt, ts, rb):
     """K14d: u (2, nt*ts) = J @ gathered tile rows (xt (nt, rb, k))."""
-    if not _kernels.on_card(J):
+    if not _kernels.on_card(J, "mv_gather"):
         return (J * _gather_tiles_plain(xt, local, nt, ts, rb).T[None]).sum(1)
     k, jp = _tile_jac(J, nt, ts)
     u = _empty((2, nt * ts), J)
@@ -1379,7 +1381,7 @@ def seg_mv_scatter(J, u, local, nt, ts, rb, plan: TilePlan | None = None):
     row's slots summed in a fixed order (csrc/tile_segments.cu
     viba_tile_mv_scatter: a CTA per tile staging J^T u in shared memory, each
     row's slots cut into pieces across its warps)."""
-    if not _kernels.on_card(J):
+    if not _kernels.on_card(J, "mv_scatter"):
         return _reduce_partials_plain((J * u[:, None, :]).sum(0), local, nt, ts, rb)
     k, jp = _tile_jac(J, nt, ts)
     part = _empty((nt, rb, k), J)

@@ -134,7 +134,7 @@ def _visual_plain(camera_kind, data, v, masks, with_jac, with_cal=False):
 @_kernels.register("visual_linearize")
 def visual_linearize(camera_kind, data, v, masks, with_jac):
     """K1 wrapper: (res (2,N), valid (N,)[, J_pt (2,3,N), J_r (2,12,N)])."""
-    if not _kernels.on_card(v.points):
+    if not _kernels.on_card(v.points, "visual_linearize"):
         return _visual_plain(camera_kind, data, v, masks, with_jac)
     out = _launch_visual(camera_kind, data, v, masks, with_jac)
     visual_linearize.launches += 1
@@ -186,7 +186,7 @@ def _launch_visual(camera_kind, data, v, masks, with_jac):
 def visual_cal_linearize(camera_kind, data, v, masks):
     """K11 wrapper: (res (2,N), valid (N,), J_pt (2,3,N), J_r (2,12,N),
     J_cal (2,23,N) = extr 6 | intr 17). `masks` None means no masking."""
-    if not _kernels.on_card(v.points):
+    if not _kernels.on_card(v.points, "visual_cal_linearize"):
         return _visual_plain(camera_kind, data, v, masks, True, with_cal=True)
     out = _launch_visual_cal(camera_kind, data, v, masks)
     visual_cal_linearize.launches += 1

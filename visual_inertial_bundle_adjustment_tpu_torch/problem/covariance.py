@@ -89,7 +89,11 @@ def prepare_system(problem, lam=1e-9):
     cfgs = engine.prune_cfgs(tuple(problem.cfgs), masks)
     lg = engine.linearize(cfgs, datas, v, masks)
     if any(c.block_info is not None for c in cfgs):
-        rs = rcs.with_damping(rcs.assemble(cfgs, datas, lg, v, masks), v, masks, lam)
+        # landmark blocks that the damping cannot make definite at working
+        # precision get the preconditioner's safeguard (engine._spd_safeguard):
+        # in float32 their inverses overflowed and turned every column NaN
+        rs = rcs.with_damping(rcs.assemble(cfgs, datas, lg, v, masks), v, masks, lam,
+                              spd_landmarks=True)
         return lg, rcs.with_column_records(rs)
     return lg, engine.build_reduced_system(lg, v, masks, lam)
 

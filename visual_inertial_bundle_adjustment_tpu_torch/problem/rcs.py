@@ -823,13 +823,17 @@ def _precond_finish(asm: RcsAsm, v, masks, lam, H_ll_inv, precond="gauss_seidel"
                    det_bias=inv[fct.DET_BIAS], gravity=inv[fct.GRAVITY][0])
 
 
-def with_damping(asm: RcsAsm, v, masks, lam, precond="gauss_seidel", axis=None) -> RcsSystem:
-    """Per-lambda completion: damped landmark inverses + preconditioner."""
+def with_damping(asm: RcsAsm, v, masks, lam, precond="gauss_seidel", axis=None,
+                 spd_landmarks=False) -> RcsSystem:
+    """Per-lambda completion: damped landmark inverses + preconditioner.
+    spd_landmarks: the landmark blocks through engine._spd_safeguard before
+    their inverse, as the preconditioner's (covariance.prepare_system, whose
+    damping float32 cannot resolve)."""
     lam = torch.as_tensor(lam, dtype=v.points.dtype, device=v.points.device)
     diag = torch.diagonal(asm.H_ll0, dim1=-2, dim2=-1)
     eye = torch.eye(3, dtype=asm.H_ll0.dtype, device=asm.H_ll0.device)
     H_ll = asm.H_ll0 + eye * (lam * diag + lam)[..., None, :] * eye
-    H_ll_inv = engine._inv3(H_ll)
+    H_ll_inv = engine._inv3(engine._spd_safeguard(H_ll) if spd_landmarks else H_ll)
     precond_inv = _precond_finish(asm, v, masks, lam, H_ll_inv, precond, axis)
     return RcsSystem(asm.vis, asm.rest, H_ll, H_ll_inv, asm.diag_r, lam, precond_inv,
                      asm.rest_stacks, asm.rest_pt)
